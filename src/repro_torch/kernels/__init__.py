@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels of the port (sources in ``csrc/``), their
+plain PyTorch versions, the public wrappers and the route planner.
+
+- K1, the square GEMM: ``sq_matmul.sq_matmul_k1`` on ``csrc/sq_matmul.cu``.
+- K4, paged decode attention: ``sq_paged_attn.sq_paged_attn_k4`` on
+  ``csrc/sq_paged_attn.cu``.
+"""

@@ -1,0 +1,149 @@
+"""Route planner for the ``square_pallas`` mode: the PyTorch port of
+``repro/kernels/routing.py`` (route rules and ``REPRO_ROUTE`` only).
+
+``matmul`` routes: ``kernel`` (K1), ``batched``/``fold`` (K2/K3, not in
+this port yet) and ``virtual`` (the square-form contract through the
+multiplier, below the kernel-overhead floor).  ``paged_attn`` routes:
+``kernel`` (K4, the block-table-streaming kernel) and ``gather`` (a dense
+gathered window plus two einsums).
+
+The thresholds are the JAX package's, which were set on its CPU interpret
+host; they are carried over as the same rules and are still to be measured
+again on the H100.
+
+``REPRO_ROUTE`` keeps its meaning: a bare route name applies to every kind
+it is valid for (``kernel`` pins matmul and paged_attn), ``kind=route``
+lists scope it, ``auto`` defers to the rules.  Each selector counts its
+decisions in its ``taken`` counter, so a run can show which routes it used.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os
+from typing import Optional
+
+import torch
+
+__all__ = ["Route", "select_matmul_route", "select_paged_attn_route",
+           "MATMUL_ROUTES", "PAGED_ATTN_ROUTES", "VIRTUAL_FLOOR_MULTS",
+           "FOLD_STEP_LANE_OPS", "FOLD_MIN_BATCH", "PAGED_KERNEL_MAX_S",
+           "PAGED_KERNEL_MIN_T"]
+
+MATMUL_ROUTES = ("kernel", "batched", "fold", "virtual")
+CONV2D_ROUTES = ("fused", "im2col")
+PAGED_ATTN_ROUTES = ("kernel", "gather")
+_ALL_ROUTES = frozenset(MATMUL_ROUTES + CONV2D_ROUTES + PAGED_ATTN_ROUTES)
+
+# Interpret-host values of the JAX package, to be re-measured on the H100.
+VIRTUAL_FLOOR_MULTS = 32768          # B*M*K*N below which -> virtual
+FOLD_STEP_LANE_OPS = 8 * 4096        # per-element PM lane-ops -> fold
+FOLD_MIN_BATCH = 4
+_KC_MNK_MAX = 32                     # repro.kernels.tuning.KC_MNK_MAX
+PAGED_KERNEL_MAX_S = 8               # query rows above which -> gather
+PAGED_KERNEL_MIN_T = 64              # pool length below which -> gather
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """A resolved route choice plus why it was chosen."""
+    name: str
+    reason: str
+
+    def __str__(self):
+        return self.name
+
+
+def _env_route(kind: str, valid) -> Optional[str]:
+    """Parse ``REPRO_ROUTE`` for ``kind`` (the JAX package's grammar)."""
+    v = os.environ.get("REPRO_ROUTE", "").strip()
+    if not v or v == "auto":
+        return None
+    if "=" in v:
+        for part in v.split(","):
+            key, _, val = part.partition("=")
+            if key.strip() == kind:
+                val = val.strip()
+                if val in ("", "auto"):
+                    return None
+                if val not in valid:
+                    raise ValueError(
+                        f"REPRO_ROUTE: unknown {kind} route {val!r}; "
+                        f"expected one of {tuple(valid)} or 'auto'")
+                return val
+        return None
+    if v in valid:
+        return v
+    if v in _ALL_ROUTES:
+        return None                 # valid for another kind only
+    raise ValueError(f"REPRO_ROUTE: unknown route {v!r}; expected one of "
+                     f"{tuple(sorted(_ALL_ROUTES))} or 'auto'")
+
+
+def _pm_tile_vpu_ops(m: int, n: int, k: int, kc: int) -> float:
+    """repro.core.cost_model.pm_tile_vpu_ops with 3 ops per PM term."""
+    return float(m) * n * k * (3 + 1.0 / max(1, kc))
+
+
+def _decide(fn, route: Route) -> Route:
+    fn.taken[route.name] += 1
+    return route
+
+
+def select_matmul_route(m: int, n: int, k: int, *, batch: int = 1,
+                        dtype: torch.dtype = torch.float32) -> Route:
+    """Resolve the ``square_pallas`` route of a (possibly batched) GEMM."""
+    fn = select_matmul_route
+    env = _env_route("matmul", MATMUL_ROUTES)
+    if env is not None:
+        return _decide(fn, Route(env, "REPRO_ROUTE override"))
+    mults = batch * m * n * k
+    if mults < VIRTUAL_FLOOR_MULTS:
+        return _decide(fn, Route("virtual", f"volume {mults} below "
+                                            f"kernel-overhead floor "
+                                            f"{VIRTUAL_FLOOR_MULTS}"))
+    if batch == 1:
+        return _decide(fn, Route("kernel", "unbatched GEMM"))
+    step_ops = _pm_tile_vpu_ops(m, n, k, kc=_KC_MNK_MAX)
+    if batch >= FOLD_MIN_BATCH and step_ops < FOLD_STEP_LANE_OPS:
+        return _decide(fn, Route("fold", f"per-element PM work "
+                                         f"{step_ops:.0f} lane-ops below "
+                                         f"the grid-step floor "
+                                         f"{FOLD_STEP_LANE_OPS}"))
+    return _decide(fn, Route("batched",
+                             "per-element work amortizes its grid step"))
+
+
+def select_paged_attn_route(s: int, t: int, *, batch: int = 1,
+                            kv_heads: int = 1, group: int = 1, hd: int = 64,
+                            dtype: torch.dtype = torch.float32) -> Route:
+    """Resolve the paged-KV attention read route of a decode/chunk step.
+
+    ``s`` is the query-tile length, ``t`` the pool length the block table
+    spans.  Integer dtypes always gather (K4's softmax is float-only)."""
+    fn = select_paged_attn_route
+    if not dtype.is_floating_point:
+        return _decide(fn, Route("gather", f"{dtype} operands: the fused "
+                                           f"softmax kernel is float-only"))
+    env = _env_route("paged_attn", PAGED_ATTN_ROUTES)
+    if env is not None:
+        return _decide(fn, Route(env, "REPRO_ROUTE override"))
+    gbytes = 2 * 2 * batch * t * kv_heads * hd * 4
+    if s > PAGED_KERNEL_MAX_S:
+        return _decide(fn, Route("gather", f"query tile {s} > "
+                                           f"{PAGED_KERNEL_MAX_S}: "
+                                           f"per-block rematerialization "
+                                           f"outweighs the {gbytes}B "
+                                           f"gather"))
+    if t < PAGED_KERNEL_MIN_T:
+        return _decide(fn, Route("gather", f"pool length {t} < "
+                                           f"{PAGED_KERNEL_MIN_T}: gathered "
+                                           f"window ({gbytes}B) too small "
+                                           f"to amortize the block walk"))
+    return _decide(fn, Route("kernel", f"long table walk (T={t}, S={s}) "
+                                       f"streams past the {gbytes}B dense "
+                                       f"gather"))
+
+
+select_matmul_route.taken = collections.Counter()
+select_paged_attn_route.taken = collections.Counter()

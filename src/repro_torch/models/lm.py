@@ -1,0 +1,169 @@
+"""The decoder LM: the PyTorch port of ``repro/models/lm.py`` (paged decode,
+logits, prepared weights).
+
+``LM`` is an ``nn.Module`` whose layers are a Python loop over a
+``ModuleList`` (the JAX package scans stacked layers; the port has no scan
+stack).  The functional entry points take a params tree, as in the JAX
+package: :meth:`LM.tree` is the module's own weights, and
+:meth:`LM.prepare_params` returns the same tree with every GEMM weight --
+of every layer -- replaced by a
+:class:`~repro_torch.core.prepared.PreparedOperand`.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Union
+
+import torch
+from torch import nn
+
+from repro_torch.core.einsum import fs_einsum
+from repro_torch.core.prepared import prepare_operand
+from repro_torch.device import resolve_device
+from repro_torch.layers import basic
+from repro_torch.layers.param import init_module, torch_dtype
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import blocks as blk
+
+__all__ = ["LM", "build_model"]
+
+
+def _check_supported(cfg) -> None:
+    if cfg.encoder_layers or cfg.prefix_tokens or cfg.n_experts \
+            or any(k != "attn" for k in cfg.layer_kinds):
+        raise NotImplementedError(
+            f"arch {cfg.name!r} (family {cfg.family!r}, blocks "
+            f"{sorted(set(cfg.layer_kinds))}) is not ported yet: this port "
+            f"builds plain dense attention LMs; MoE, recurrent, "
+            f"encoder-decoder and prefix-token archs come with ROADMAP Q1 "
+            f"slice 5")
+
+
+def _as_tree(m: nn.Module):
+    if isinstance(m, nn.ParameterDict):
+        return dict(m.items())
+    if isinstance(m, nn.ModuleDict):
+        return {k: _as_tree(v) for k, v in m.items()}
+    raise TypeError(f"unexpected module {type(m).__name__} in a param tree")
+
+
+class LM(nn.Module):
+    """Dense decoder LM with tied embeddings."""
+
+    def __init__(self, cfg, *, device: torch.device, seed: int = 0):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        gen = torch.Generator().manual_seed(seed)
+        dt = torch_dtype(cfg.dtype)
+        norm = (basic.layernorm_spec if cfg.norm == "layernorm"
+                else basic.rmsnorm_spec)
+        self.embed = init_module(
+            basic.embed_spec(cfg.padded_vocab, cfg.d_model, dt), gen, device)
+        self.final_norm = init_module(norm(cfg.d_model), gen, device)
+        self.layers = nn.ModuleList(
+            init_module(blk.block_spec(k, cfg), gen, device)
+            for k in cfg.layer_kinds)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["table"].device
+
+    # ------------------------------------------------------------ params
+    def tree(self) -> Dict[str, Any]:
+        """The module's weights as a params tree."""
+        return {"embed": _as_tree(self.embed),
+                "final_norm": _as_tree(self.final_norm),
+                "layers": [_as_tree(layer) for layer in self.layers]}
+
+    def prepare_params(self, params: Optional[Dict[str, Any]] = None
+                       ) -> Dict[str, Any]:
+        """Weight-stationary inference params (paper §4-§5): every
+        projection and FFN weight of every layer, and the transposed vocab
+        table (``logits_prep``), prepared once -- widened, ``Sb``
+        precomputed."""
+        params = params if params is not None else self.tree()
+        cfg = self.cfg
+        hd = cfg.resolved_head_dim
+        H, KV = cfg.n_heads, cfg.n_kv_heads
+
+        def prep_layer(p):
+            q = dict(p)
+            a = {k: dict(v) for k, v in p["attn"].items()}
+            for nm, nh in (("wq", H), ("wk", KV), ("wv", KV)):
+                w = a[nm]["w"]
+                a[nm]["w"] = prepare_operand(w.reshape(w.shape[0], nh * hd),
+                                             site="attn_qkv")
+            wo = a["wo"]["w"]
+            a["wo"]["w"] = prepare_operand(wo.reshape(H * hd, wo.shape[-1]),
+                                           site="attn_out")
+            q["attn"] = a
+            if "ffn" in p:
+                q["ffn"] = {k: dict(v, w=prepare_operand(v["w"], site="ffn"))
+                            for k, v in p["ffn"].items()}
+            return q
+
+        new = dict(params)
+        new["layers"] = [prep_layer(p) for p in params["layers"]]
+        new["logits_prep"] = prepare_operand(
+            params["embed"]["table"].float(), transpose=True, site="logits")
+        return new
+
+    # ------------------------------------------------------------- cache
+    def init_paged_cache(self, pool_slots: int) -> List[Dict[str, torch.Tensor]]:
+        """One ``(pool_slots, KV, hd)`` K/V pool per layer, shared by every
+        sequence through the engine's block tables."""
+        return [blk.block_init_paged_cache(k, self.cfg, pool_slots,
+                                           self.device)
+                for k in self.cfg.layer_kinds]
+
+    # ------------------------------------------------------ paged decode
+    def decode_paged(self, params, cache, tokens: torch.Tensor,
+                     positions: torch.Tensor, tables: torch.Tensor,
+                     pos_pool: torch.Tensor, *, block_size: int
+                     ) -> torch.Tensor:
+        """One multi-token step against the paged cache; returns the
+        final-normed hidden states (B, S, D).
+
+        ``tokens``/``positions``: (B, S) int32, ``-1`` positions mark
+        padding (written to the null block, never attended).  S = 1 is
+        batched decode, S > 1 a prefill chunk.  ``tables``: (B, nb) int32.
+        ``pos_pool`` (P,) and the per-layer pools in ``cache`` are updated
+        IN PLACE (the JAX version returns new ones).
+        """
+        cfg = self.cfg
+        phys = attn_mod.paged_slots(tables, positions, block_size)
+        pos_pool[phys.reshape(-1)] = torch.where(
+            positions >= 0, positions, attn_mod.EMPTY_POS).reshape(-1).to(
+                pos_pool.dtype)
+        x = basic.embed_apply(params["embed"], torch.clamp(tokens, min=0))
+        # the JAX package multiplies by sqrt(d) rounded to the table's dtype
+        scale = float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
+        x = (x * scale).to(torch_dtype(cfg.dtype))
+        ctx = {"cfg": cfg, "mode": cfg.matmul_mode,
+               "policy": cfg.contraction_policy, "pos": positions,
+               "paged": {"tables": tables, "pos_pool": pos_pool,
+                         "phys": phys, "block_size": block_size}}
+        for kind, p, c in zip(cfg.layer_kinds, params["layers"], cache):
+            x = blk.block_decode(kind, p, x, c, ctx)
+        norm = (basic.layernorm_apply if cfg.norm == "layernorm"
+                else basic.rmsnorm_apply)
+        return norm(params["final_norm"], x)
+
+    # ------------------------------------------------------------ logits
+    def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:
+        """Tied-embedding logits (B, S, V) in f32; a ``logits_prep`` entry
+        supplies the prepared vocab table."""
+        cfg = self.cfg
+        table = params.get("logits_prep")
+        if table is None:
+            table = params["embed"]["table"].float()
+        return fs_einsum("bsd,vd->bsv", hidden.float(), table,
+                         mode=cfg.matmul_mode, policy=cfg.contraction_policy,
+                         site="logits")
+
+
+def build_model(cfg, *, device: Optional[Union[str, torch.device]] = None,
+                seed: int = 0) -> LM:
+    """An LM with weights drawn from ``seed`` on ``device`` (default: CUDA,
+    which must be present)."""
+    return LM(cfg, device=resolve_device(device), seed=seed)

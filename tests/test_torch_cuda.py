@@ -1,0 +1,129 @@
+"""The hand-written CUDA kernels against their plain PyTorch versions on the
+card.  Every test here is marked ``cuda`` and skips without a GPU; the
+file imports neither JAX nor the JAX package, so it runs on a machine that
+has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: K1 f32 |err| <= k * 2^-23 * (max|a| + max|b|)^2 (the rounding
+of two different orders of square-form f32 sums), K1 int32 bit-exact; K4
+|err| <= 1e-4 (``tests/test_paged_attn_kernel.py``'s tolerance).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import squares as sq  # noqa: E402
+from repro_torch.kernels.sq_matmul import sq_matmul_k1, sq_matmul_plain  # noqa: E402
+from repro_torch.kernels.sq_paged_attn import (  # noqa: E402
+    sq_paged_attn_k4, sq_paged_attn_plain)
+from repro_torch.models.attention import EMPTY_POS  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card "
+                    "(run this file there, or python3 chip_smoke.py)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 768, 768), (32, 3072, 768),
+                                   (1, 768, 32000), (13, 77, 45),
+                                   (40, 1, 3)])
+def test_k1_matches_plain_on_card(cuda_device, m, k, n):
+    gen = torch.Generator().manual_seed(0)
+    aw = torch.randn(m, k, generator=gen).to(torch.bfloat16).float()
+    bw = (torch.randn(k, n, generator=gen) / k ** 0.5).to(
+        torch.bfloat16).float()
+    aw, bw = aw.to(cuda_device), bw.to(cuda_device)
+    sa, sb = sq.row_correction(aw), sq.col_correction(bw)
+    before = sq_matmul_k1.launches
+    before_shape = sq_matmul_k1.shapes[(m, k, n)]
+    out = sq_matmul_k1(aw, bw, sa, sb)
+    torch.cuda.synchronize()
+    assert sq_matmul_k1.launches == before + 1
+    assert sq_matmul_k1.shapes[(m, k, n)] == before_shape + 1
+    ref = sq_matmul_plain(aw, bw, sa, sb)
+    tol = k * 2.0 ** -23 * (aw.abs().max() + bw.abs().max()).item() ** 2
+    assert (out - ref).abs().max().item() <= tol
+
+    ai = torch.randint(-128, 128, (m, k), generator=gen,
+                       dtype=torch.int32).to(cuda_device)
+    bi = torch.randint(-128, 128, (k, n), generator=gen,
+                       dtype=torch.int32).to(cuda_device)
+    si, sj = sq.row_correction(ai), sq.col_correction(bi)
+    assert torch.equal(sq_matmul_k1(ai, bi, si, sj),
+                       sq_matmul_plain(ai, bi, si, sj))
+
+
+def _k4_inputs(dev, B=4, S=3, KV=2, G=3, hd=64, nb=8, bs=16, n_ctx=70):
+    rng = np.random.default_rng(0)
+    P = (1 + B * nb) * bs
+    pos_pool = np.full(P, EMPTY_POS, np.int32)
+    tables = np.zeros((B, nb), np.int32)
+    for b in range(B):
+        blocks = 1 + b * nb + np.arange(-(-n_ctx // bs))
+        tables[b, :len(blocks)] = blocks
+        for c, blk in enumerate(blocks):
+            for j in range(bs):
+                if c * bs + j < n_ctx:
+                    pos_pool[blk * bs + j] = c * bs + j
+    q_pos = np.tile(np.arange(n_ctx - S, n_ctx), (B, 1)).astype(np.int32)
+    q_pos[1, :] = -1                                   # a padded sequence
+    arrays = (rng.normal(size=(B, S, KV, G, hd)) * hd ** -0.5,
+              rng.normal(size=(P, KV, hd)), rng.normal(size=(P, KV, hd)))
+    q, kp, vp = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                 for a in arrays)
+    return q, kp, vp, *(torch.as_tensor(a, device=dev)
+                        for a in (tables, pos_pool, q_pos))
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(window=20),
+                                dict(softcap=2.0),
+                                dict(window=33, softcap=1.5)],
+                         ids=["full", "window", "softcap", "both"])
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_plain_on_card(cuda_device, kw, pool_dtype):
+    q, kp, vp, tables, pos_pool, q_pos = _k4_inputs(cuda_device)
+    kp, vp = kp.to(pool_dtype), vp.to(pool_dtype)
+    before = sq_paged_attn_k4.launches
+    out = sq_paged_attn_k4(q, kp, vp, tables, pos_pool, q_pos,
+                           block_size=16, **kw)
+    torch.cuda.synchronize()
+    assert sq_paged_attn_k4.launches == before + 1
+    ref = sq_paged_attn_plain(q, kp, vp, tables, pos_pool, q_pos,
+                              block_size=16, **kw)
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["standard", "square_virtual",
+                                  "square_pallas"])
+def test_int8_matmul_modes_exact_on_card(cuda_device, mode):
+    from repro_torch.core import matmul as tmm
+    gen = torch.Generator().manual_seed(1)
+    a = torch.randint(-128, 128, (9, 300), generator=gen).to(torch.int8)
+    b = torch.randint(-128, 128, (300, 70), generator=gen).to(torch.int8)
+    want = a.int() @ b.int()                          # CPU int32 matmul
+    got = tmm.matmul(a.to(cuda_device), b.to(cuda_device), mode=mode)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+def test_prepared_bit_identical_to_raw_on_card(cuda_device):
+    from repro_torch.core import matmul as tmm
+    from repro_torch.core.prepared import prepare_operand
+    gen = torch.Generator().manual_seed(2)
+    a = torch.randn(8, 768, generator=gen).to(torch.bfloat16).to(cuda_device)
+    w = (torch.randn(32000, 768, generator=gen) / 768 ** 0.5).to(
+        torch.bfloat16).to(cuda_device)
+    prep = prepare_operand(w.float(), transpose=True)
+    before = sq_matmul_k1.launches
+    out_prep = tmm.matmul(a, prep, mode="square_pallas")
+    out_raw = tmm.matmul(a, w.float().T, mode="square_pallas")
+    assert sq_matmul_k1.launches == before + 2
+    assert torch.equal(out_prep, out_raw)

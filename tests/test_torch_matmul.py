@@ -1,0 +1,130 @@
+"""Parity of the port's square algebra, matmul modes, prepared operands and
+K1 wrapper (plain version on the CPU) with the JAX package.
+
+Tolerances are those ``tests/test_kernels.py`` holds the Pallas kernels
+to: f32 at rtol 5e-3, atol 5e-3*k; bf16 at rtol 5e-2, atol 0.5; int8
+exact.  The JAX Pallas wrappers cannot run in this venv, so the references
+are ``repro.core.matmul`` (non-Pallas modes) and ``repro.kernels.ref``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import matmul as jmm  # noqa: E402
+from repro.core import squares as jsq  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.core import matmul as tmm  # noqa: E402
+from repro_torch.core import squares as tsq  # noqa: E402
+from repro_torch.core.prepared import prepare_operand  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.sq_matmul import sq_matmul_k1, sq_matmul_plain  # noqa: E402
+
+MM_SHAPES = [(1, 1, 1), (7, 13, 9), (64, 128, 32), (33, 200, 129)]
+JAX_MODES = ("standard", "square_virtual", "square_exact", "square_scan")
+
+
+def _operands(shape, dtype, seed=0):
+    m, k, n = shape
+    rng = np.random.default_rng(seed)
+    if dtype == "int8":
+        a = rng.integers(-128, 128, (m, k)).astype(np.int8)
+        b = rng.integers(-128, 128, (k, n)).astype(np.int8)
+        return a, b, torch.from_numpy(a), torch.from_numpy(b)
+    a = rng.normal(size=(m, k)).astype(np.float32)
+    b = rng.normal(size=(k, n)).astype(np.float32)
+    if dtype == "bfloat16":
+        ta = torch.from_numpy(a).to(torch.bfloat16)
+        tb = torch.from_numpy(b).to(torch.bfloat16)
+        return (jnp.asarray(a, jnp.bfloat16), jnp.asarray(b, jnp.bfloat16),
+                ta, tb)
+    return a, b, torch.from_numpy(a), torch.from_numpy(b)
+
+
+def _assert_close(out, ref, dtype, k):
+    out = np.asarray(out)
+    ref = np.asarray(ref)
+    if dtype == "int8":
+        assert out.dtype == np.int32
+        np.testing.assert_array_equal(out, ref)
+    elif dtype == "bfloat16":
+        np.testing.assert_allclose(out, ref, rtol=5e-2, atol=0.5)
+    else:
+        np.testing.assert_allclose(out, ref, rtol=5e-3, atol=5e-3 * k)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_squares_algebra_matches_jax(dtype):
+    ja, jb, ta, tb = _operands((7, 13, 9), dtype)
+    assert str(tsq.accum_dtype(ta.dtype)).split(".")[-1] == \
+        jsq.accum_dtype(jnp.asarray(ja).dtype).name
+    for t_fn, j_fn, dim in ((tsq.row_correction, jsq.row_correction, -1),
+                            (tsq.col_correction, jsq.col_correction, 0)):
+        x, jx = (ta, ja) if dim == -1 else (tb, jb)
+        _assert_close(t_fn(x, dim).float().numpy()
+                      if dtype != "int8" else t_fn(x, dim).numpy(),
+                      np.asarray(j_fn(jnp.asarray(jx), dim)), dtype, 13)
+    acc = torch.tensor([-7, 6, 9], dtype=torch.int32)
+    np.testing.assert_array_equal(
+        tsq.halve(acc).numpy(), np.asarray(jsq.halve(jnp.asarray(acc.numpy()))))
+
+
+@pytest.mark.parametrize("shape", MM_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("mode", JAX_MODES + ("square_pallas",))
+def test_matmul_modes_match_jax(mode, dtype, shape):
+    ja, jb, ta, tb = _operands(shape, dtype)
+    out = tmm.matmul(ta, tb, mode=mode)
+    if mode == "square_pallas":
+        # the JAX kernel mode's oracle: the exact square-form matmul
+        ref = jref.sq_matmul_ref(jnp.asarray(ja), jnp.asarray(jb))
+    else:
+        ref = jmm.matmul(jnp.asarray(ja), jnp.asarray(jb), mode=mode)
+    if dtype == "bfloat16" and mode == "standard":
+        out = out.float()
+    _assert_close(out.numpy(), np.asarray(ref, np.float32 if dtype != "int8"
+                                          else np.int32), dtype, shape[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("mode", ["square_pallas", "square_virtual",
+                                  "standard"])
+def test_prepared_bit_identical_to_raw(mode, dtype):
+    _, _, ta, tb = _operands((33, 200, 129), dtype, seed=1)
+    prep = prepare_operand(tb)
+    assert torch.equal(tmm.matmul(ta, prep, mode=mode),
+                       tmm.matmul(ta, tb, mode=mode))
+    prep_t = prepare_operand(tb.T.contiguous(), transpose=True)
+    assert torch.equal(tmm.matmul(ta, prep_t, mode=mode),
+                       tmm.matmul(ta, tb, mode=mode))
+
+
+def test_sq_matmul_entry_point_cpu():
+    _, _, ta, tb = _operands((5, 9, 4), "int8")
+    out = ops.sq_matmul(ta, tb, device="cpu")
+    np.testing.assert_array_equal(
+        out.numpy(), ta.numpy().astype(np.int32) @ tb.numpy().astype(np.int32))
+    a3 = torch.randn(3, 4, 32)
+    b = torch.randn(32, 8)
+    out3 = ops.sq_matmul(a3, b, device="cpu")
+    assert out3.shape == (3, 4, 8)
+    np.testing.assert_allclose(out3.numpy(), (a3 @ b).numpy(), rtol=2e-3,
+                               atol=1e-2)
+    with pytest.raises(NotImplementedError, match="K2/K3"):
+        ops.sq_matmul(a3, torch.randn(3, 32, 8), device="cpu")
+
+
+def test_k1_plain_on_cpu_counts_no_launch():
+    before = sq_matmul_k1.launches
+    aw = torch.randn(8, 40)
+    bw = torch.randn(40, 70)
+    sa, sb = tsq.row_correction(aw), tsq.col_correction(bw)
+    out = sq_matmul_k1(aw, bw, sa, sb)
+    assert sq_matmul_k1.launches == before
+    assert torch.equal(out, sq_matmul_plain(aw, bw, sa, sb))
+    np.testing.assert_allclose(out.numpy(), (aw @ bw).numpy(), rtol=5e-3,
+                               atol=5e-3 * 40)
+    with pytest.raises(TypeError):
+        sq_matmul_k1(aw.double(), bw.double(), sa.double(), sb.double())
