@@ -1,24 +1,35 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU: builds the hand-written
 CUDA kernels from the sources in this checkout, holds each against its
-plain PyTorch version at the serving shapes, then serves the full-width
-fairsquare-demo model (square_pallas, square_gemms policy, prepared
-weights, bf16) through the paged engine, checks that its GEMMs ran on K1
-(at shapes held to the plain version) and its decode attention on K4, and
-traces a few decode ticks with torch.profiler for the device-busy share.
+plain PyTorch version at every shape the serving paths below launch it
+at, then serves the full-width fairsquare-demo model (square_pallas,
+prepared weights, bf16) three ways and checks after each that it went
+through the kernels, at shapes held to their plain versions:
+
+- the paged engine with the square_gemms policy (attention softmax path on
+  the multiplier): K1 on every GEMM, K4 on decode attention; a few decode
+  ticks are traced with torch.profiler for the device-busy share;
+- the paged engine with no policy (every contraction square): K2 on the
+  attention einsums of each prefill chunk as well;
+- the dense reference Server (``--legacy``) with no policy: K2/K3 on
+  prefill attention, K3 on every decode step's attention, K1 elsewhere; a
+  few of its decode steps are traced too.
 
     python3 chip_smoke.py
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repo.  Its last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
-the line before it lists the kernels with their launches on the main path,
-their times, their plain versions' times, their bounds and a library
-call's time.  Times are CUDA-graph replays (no host gaps) with the
-weights cycled through enough copies to defeat the 50 MB L2, as the decode
-path finds them.
+the line before it is the card's name and power limit, and the one before
+that lists the kernels with their launches on each serving path, their
+times, their plain versions' times, their bounds and a library call's
+time.  Times are CUDA-graph replays (no host gaps); K1's weights are
+cycled through enough copies to defeat the 50 MB L2, as the decode path
+finds them, while K2/K3's operands are the activations their caller has
+just written and stay hot.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -36,7 +47,8 @@ from repro_torch.configs import get_config                      # noqa: E402
 from repro_torch.configs.base import SQUARE_GEMMS_POLICY        # noqa: E402
 from repro_torch.kernels import build, routing                  # noqa: E402
 from repro_torch.kernels.sq_matmul import (                     # noqa: E402
-    sq_matmul_k1, sq_matmul_plain)
+    sq_matmul_batched_plain, sq_matmul_k1, sq_matmul_k2, sq_matmul_k3,
+    sq_matmul_plain)
 from repro_torch.kernels.sq_paged_attn import (                 # noqa: E402
     sq_paged_attn_k4, sq_paged_attn_plain)
 from repro_torch.launch.serve import make_requests              # noqa: E402
@@ -44,6 +56,8 @@ from repro_torch.models.attention import EMPTY_POS              # noqa: E402
 from repro_torch.models.lm import LM, build_model               # noqa: E402
 from repro_torch.serve.engine import (                          # noqa: E402
     Engine, EngineConfig, RequestStatus)
+from repro_torch.serve.server import (                          # noqa: E402
+    ServeConfig, Server, write_slot)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and the CUDA-core FP32 rate
 # outside the tensor cores.  The squares run on the CUDA cores.
@@ -58,13 +72,50 @@ N_REQUESTS, MAX_NEW = 8, 16
 # (ff x d); plus the tied logits once per forward.
 GEMMS_PER_LAYER = 7
 
+# The dense reference Server of launch/serve.py --legacy.
+DENSE_BATCH, DENSE_CACHE = 4, 128
+HEADS, HEAD_DIM = 12, 64
+
 K1_SHAPES = [(768, 768), (768, 3072), (3072, 768), (768, 32000)]
-# (m, k, n) compared with the plain version: decode's 8 rows and a prefill
-# chunk's 32 at every (k, n), and the single row of a request's first-token
-# logits (ragged against the kernel's 8-row tile).  The engine phase checks
-# that it launched K1 at no other shape.
-K1_CASES = ([(8, k, n) for k, n in K1_SHAPES]
-            + [(32, k, n) for k, n in K1_SHAPES] + [(1, 768, 32000)])
+
+
+def k1_cases(prompt_lens):
+    """(m, k, n, timed) compared with the plain version: the engine's decode
+    rows (8) and prefill chunk (32) and the dense Server's decode rows (4)
+    at every (k, n), the single row of a request's first-token logits, and
+    each prompt length at the layer GEMMs (the dense Server's prefill;
+    checked, not timed).  The serving phases check that they launched K1
+    at no other shape."""
+    cases = [(m, k, n, True) for m in (8, 32, 4) for k, n in K1_SHAPES]
+    cases.append((1, 768, 32000, True))
+    cases += [(s, k, n, False) for s in sorted(set(prompt_lens) - {1, 4, 8, 32})
+              for k, n in K1_SHAPES[:3]]
+    return cases
+
+
+def dense_prefill_kernel(s: int):
+    """The kernel of a dense-Server prefill's two attention einsums at full
+    width, for a prompt of s tokens: K2 from 13 tokens, K3 for 7-12, none
+    (the virtual route) below."""
+    return "K2" if s >= 13 else "K3" if s >= 7 else None
+
+
+def batched_cases(prompt_lens):
+    """{"K2": [(B, m, k, n)], "K3": [...]}: every batched GEMM the serving
+    phases launch.  Paged prefill chunk: scores (12, 32, 64) @ (12, 64,
+    128), PV (12, 32, 128) @ (12, 128, 64); dense prefill of s tokens:
+    (12, s, 64) @ (12, 64, s) and (12, s, s) @ (12, s, 64); dense decode of
+    4 slots: (48, 1, 64) @ (48, 64, 128) and (48, 1, 128) @ (48, 128, 64)."""
+    T = BLOCKS_PER_SEQ * BLOCK
+    cases = {"K2": [(HEADS, CHUNK, HEAD_DIM, T), (HEADS, CHUNK, T, HEAD_DIM)],
+             "K3": [(DENSE_BATCH * HEADS, 1, HEAD_DIM, DENSE_CACHE),
+                    (DENSE_BATCH * HEADS, 1, DENSE_CACHE, HEAD_DIM)]}
+    for s in sorted(set(prompt_lens)):
+        kern = dense_prefill_kernel(s)
+        if kern:
+            cases[kern] += [(HEADS, s, HEAD_DIM, s), (HEADS, s, s, HEAD_DIM)]
+    return cases
+
 # multiplicity of each (k, n) in one decode step of fairsquare-demo
 K1_PER_STEP = {(768, 768): 48, (768, 3072): 24, (3072, 768): 12,
                (768, 32000): 1}
@@ -114,12 +165,12 @@ def copies_for(nbytes: int) -> int:
 
 
 # ------------------------------------------------------------------ K1
-def k1_phase(dev, gen):
+def k1_phase(dev, gen, cases):
     """K1 against its plain version at the main-path shapes."""
     print("K1 sq_matmul vs plain (f32 from bf16 inputs: |err| <= "
           "k * 2^-23 * (max|a| + max|b|)^2; int8: exact)", flush=True)
     rows = []
-    for m, k, n in K1_CASES:
+    for m, k, n, timed in cases:
         a = torch.randn(m, k, generator=gen).to(torch.bfloat16).to(dev)
         b = (torch.randn(k, n, generator=gen) / math.sqrt(k)).to(
             torch.bfloat16).to(dev)
@@ -145,6 +196,9 @@ def k1_phase(dev, gen):
         check(torch.equal(oi, sq_matmul_plain(ai, bi, sai, sbi))
               and torch.equal(oi, exact),
               f"int8 m={m} k={k} n={n}: bit-exact")
+        if not timed:
+            rows.append(dict(m=m, k=k, n=n, max_abs_err=err))
+            continue
 
         nc = copies_for(k * n * 4)
         bws = [bw.clone() for _ in range(nc)]
@@ -172,6 +226,85 @@ def k1_phase(dev, gen):
               f"{bound:.4f} ms ({row['bound_by']}) | "
               f"{bound / ms:.1%} of bound", flush=True)
         del bws, sbs
+    return rows
+
+
+# -------------------------------------------------------------- K2, K3
+BATCHED = {"K2": sq_matmul_k2, "K3": sq_matmul_k3}
+
+
+def batched_phase(dev, gen, name, cases):
+    """K2 or K3 against the batched plain version at every shape of the
+    serving phases (f32 from bf16 inputs and int8), bit for bit against K1
+    per element (K2) or against K2 (K3), and timed beside the plain version
+    and torch.bmm.  The operands are activations the caller has just
+    written, so they are not cycled past the L2."""
+    kern = BATCHED[name]
+    other = "K1 per element" if name == "K2" else "K2"
+    print(f"{name} {kern.__name__} vs plain (f32 |err| <= k * 2^-23 * "
+          f"(max|a| + max|b|)^2; int8 exact; {name} = {other} bit for bit)",
+          flush=True)
+    rows = []
+    for nb, m, k, n in cases:
+        a = torch.randn(nb, m, k, generator=gen).to(torch.bfloat16).to(dev)
+        b = torch.randn(nb, k, n, generator=gen).to(torch.bfloat16).to(dev)
+        aw, bw = a.float(), b.float()
+        sa, sb = -(aw * aw).sum(2), -(bw * bw).sum(1)
+        ai = torch.randint(-128, 128, (nb, m, k), generator=gen,
+                           dtype=torch.int32).to(dev)
+        bi = torch.randint(-128, 128, (nb, k, n), generator=gen,
+                           dtype=torch.int32).to(dev)
+        sai = -(ai * ai).sum(2, dtype=torch.int32)
+        sbi = -(bi * bi).sum(1, dtype=torch.int32)
+        out = kern(aw, bw, sa, sb)
+        ref = sq_matmul_batched_plain(aw, bw, sa, sb)
+        oi = kern(ai, bi, sai, sbi)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        tol = k * 2.0 ** -23 * (aw.abs().max().item()
+                                + bw.abs().max().item()) ** 2
+        check(bool(torch.isfinite(out).all()) and err <= tol,
+              f"f32 B={nb} m={m} k={k} n={n}: max|err| {err:.3e} <= "
+              f"{tol:.3e}")
+        exact = torch.matmul(ai.double(), bi.double()).to(torch.int32)
+        check(torch.equal(oi, sq_matmul_batched_plain(ai, bi, sai, sbi))
+              and torch.equal(oi, exact),
+              f"int8 B={nb} m={m} k={k} n={n}: bit-exact")
+        same = True
+        for x, y, sx, sy, o in ((aw, bw, sa, sb, out), (ai, bi, sai, sbi, oi)):
+            if name == "K2":
+                same &= all(torch.equal(o[e], sq_matmul_k1(x[e], y[e], sx[e],
+                                                           sy[e]))
+                            for e in range(nb))
+            else:
+                same &= torch.equal(o, sq_matmul_k2(x, y, sx, sy))
+        check(same, f"B={nb} m={m} k={k} n={n}: {name} = {other}, f32 and "
+                    f"int32, bit for bit")
+
+        ms = time_graph([lambda: kern(aw, bw, sa, sb)])
+        plain_ms = time_graph([lambda: sq_matmul_batched_plain(aw, bw, sa,
+                                                               sb)],
+                              reps=4, replays=2)
+        lib_ms = time_graph([lambda: torch.bmm(aw, bw)])
+        # K3's schedule against K2's on the same operands (the route choice)
+        k2_ms = time_graph([lambda: sq_matmul_k2(aw, bw, sa, sb)]) \
+            if name == "K3" else None
+        nbytes = 4 * nb * (m * k + k * n + m + n + m * n)
+        ops = 2 * nb * m * n * k
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, \
+            ops / FP32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        row = dict(shape=(nb, m, k, n), ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=bound, t_bytes=t_bytes,
+                   t_ops=t_ops,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   max_abs_err=err)
+        rows.append(row)
+        vs_k2 = f" | K2 {k2_ms:.4f} ms" if k2_ms is not None else ""
+        print(f"    B={nb:2d} m={m:2d} k={k:3d} n={n:3d}  {name} {ms:.4f} ms "
+              f"| plain {plain_ms:.4f} ms | torch.bmm {lib_ms:.4f} ms"
+              f"{vs_k2} | bound {bound:.5f} ms ({row['bound_by']}) | "
+              f"{bound / ms:.1%} of bound", flush=True)
     return rows
 
 
@@ -266,10 +399,10 @@ def k4_phase(dev, gen):
 
 
 # -------------------------------------------------------------- engine
-def serve_cfg():
+def serve_cfg(policy=SQUARE_GEMMS_POLICY):
     cfg = get_config("fairsquare-demo")
     return dataclasses.replace(cfg, matmul_mode="square_pallas",
-                               contraction_policy=SQUARE_GEMMS_POLICY)
+                               contraction_policy=policy)
 
 
 def engine_cfg(max_new=MAX_NEW):
@@ -279,11 +412,17 @@ def engine_cfg(max_new=MAX_NEW):
 
 
 def reset_counts():
-    sq_matmul_k1.launches = 0
-    sq_matmul_k1.shapes.clear()
+    for kern in (sq_matmul_k1, sq_matmul_k2, sq_matmul_k3):
+        kern.launches = 0
+        kern.shapes.clear()
     sq_paged_attn_k4.launches = 0
     routing.select_matmul_route.taken.clear()
     routing.select_paged_attn_route.taken.clear()
+
+
+def counts():
+    return (sq_matmul_k1.launches, sq_matmul_k2.launches,
+            sq_matmul_k3.launches, sq_paged_attn_k4.launches)
 
 
 def engine_phase(dev, compared):
@@ -341,9 +480,12 @@ def engine_phase(dev, compared):
           f"every tick: K1 +{per_step[0]} and K4 +{per_step[1]} per decode "
           f"step (K1 +{L * GEMMS_PER_LAYER} per prefill chunk, +1 per first "
           f"token); {len(decode_only)} decode-only ticks")
-    check(set(shapes) <= set(compared),
+    check(set(shapes) <= set(compared["K1"]),
           f"K1 ran only at shapes held to its plain version above: "
           f"{sorted(shapes.items())}")
+    check(sq_matmul_k2.launches == sq_matmul_k3.launches == 0,
+          "K2 and K3 not launched: the policy keeps attention's einsums on "
+          "the multiplier")
     check(taken.get("virtual", 0) == 0,
           f"no matmul took the virtual route (routes taken: {taken}; paged "
           f"attention: {attn_taken})")
@@ -429,93 +571,355 @@ def _union_us(spans) -> float:
     return busy
 
 
-def trace_phase(model: LM, dev, untraced_tick_s: float) -> None:
-    """torch.profiler trace of a few decode-only ticks of a fresh engine
-    (same requests): the device-busy share of the ticks' wall, and K1's,
-    K4's and the other device work's time inside the engine.  Profiling
-    slows the host, so the busy share it reads is a lower bound for the
-    untraced run."""
+# device kernels by name in a trace: K2 is K1's kernel on a batch grid axis
+TRACE_KERNELS = (("K1/K2", "sq_matmul_kernel"), ("K3", "sq_matmul_folded_kernel"),
+                 ("K4", "sq_paged_attn_kernel"))
+
+
+def trace_steps(step, what: str, untraced_s: float) -> None:
+    """torch.profiler trace of ``TRACE_TICKS`` calls of ``step``: the
+    device-busy share of their wall, and each kernel's and the other
+    device work's time per call.  Profiling slows the host, so the busy
+    share it reads is a lower bound for the untraced run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_TICKS):
+            with record_function("traced_step"):
+                step()
+        torch.cuda.synchronize()
+    evs = prof.events()
+    # record_function also leaves a device-side annotation of the same name
+    ticks = [e.time_range for e in evs
+             if e.name == "traced_step" and e.device_type == DeviceType.CPU]
+    device = [e for e in evs if e.device_type == DeviceType.CUDA
+              and e.name != "traced_step"]
+    wall_us = sum(t.end - t.start for t in ticks)
+    n = len(ticks)
+    print(f"  trace of {n} {what} (torch.profiler): "
+          f"{wall_us / n / 1e3:.2f} ms wall each traced, "
+          f"{untraced_s * 1e3:.2f} ms untraced", flush=True)
+    if not device:
+        print("  trace: no device events recorded; device-busy share not "
+              "measured", flush=True)
+        return
+
+    def kernel(name):
+        for label, sym in TRACE_KERNELS:
+            if sym in name:
+                return label
+        return None
+
+    busy_us = _union_us((e.time_range.start, e.time_range.end)
+                        for e in device)
+    parts = []
+    for label in [lb for lb, _ in TRACE_KERNELS] + [None]:
+        mine = [e for e in device if kernel(e.name) == label]
+        ms = sum(e.time_range.end - e.time_range.start
+                 for e in mine) / 1e3 / n
+        if label is None:
+            parts.append(f"other device work {ms:.3f} ms")
+        elif mine:
+            parts.append(f"{label} {len(mine) / n:.0f} launches {ms:.3f} ms")
+    print(f"  trace per step: {len(device) / n:.0f} device operations, "
+          f"device busy {busy_us / n / 1e3:.3f} ms = "
+          f"{busy_us / wall_us:.1%} of the traced wall; "
+          f"{', '.join(parts)}", flush=True)
+
+
+def trace_phase(model: LM, dev, untraced_tick_s: float) -> None:
+    """A trace of a few decode-only ticks of a fresh engine (same
+    requests)."""
     eng = Engine(model, engine_cfg(), device=dev)
     eng.submit(make_requests(model.cfg, N_REQUESTS, seed=0))
     while eng.metrics.first_tokens < N_REQUESTS:
         if not eng.step():
             raise SmokeFailure("trace engine ended before every request "
                                "had its first token")
+    trace_steps(eng.step, "decode-only ticks", untraced_tick_s)
+
+
+# ------------------------------------------------- every contraction square
+def shapes_ok(compared) -> None:
+    """K1, K2 and K3 ran only at shapes their phases held to the plain
+    version."""
+    for name, kern in (("K1", sq_matmul_k1), ("K2", sq_matmul_k2),
+                       ("K3", sq_matmul_k3)):
+        ran = dict(kern.shapes)
+        check(set(ran) <= set(compared[name]),
+              f"{name} ran only at shapes held to its plain version above: "
+              f"{sorted(ran.items())}")
+
+
+def engine_none_phase(model: LM, dev, compared):
+    """The paged engine with every contraction square (no policy): each
+    prefill chunk's two attention einsums per layer run on K2."""
+    cfg = model.cfg
+    L = cfg.n_layers
+    print(f"engine, no policy: {cfg.name} full width, square_pallas with "
+          f"every contraction square, prepared", flush=True)
+    eng = Engine(model, engine_cfg(), device=dev)
+    eng.submit(make_requests(cfg, N_REQUESTS, seed=0))
+    reset_counts()                      # counts of this path's run only
+    bad, t0, pending = [], time.perf_counter(), True
+    while pending:
+        m = eng.metrics
+        before = counts() + (m.decode_steps, m.prefill_chunks,
+                             m.first_tokens)
+        pending = eng.step()
+        d = [a - b for a, b in zip(counts() + (
+            m.decode_steps, m.prefill_chunks, m.first_tokens), before)]
+        k1, k2, k3, k4, steps, chunks, firsts = d
+        if (k1 != (L * GEMMS_PER_LAYER + 1) * steps
+                + L * GEMMS_PER_LAYER * chunks + firsts
+                or k4 != L * steps or k2 != 2 * L * chunks or k3):
+            bad.append(d)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACE_TICKS):
-            with record_function("decode_tick"):
-                eng.step()
-        torch.cuda.synchronize()
-    evs = prof.events()
-    # record_function also leaves a device-side annotation of the same name
-    ticks = [e.time_range for e in evs
-             if e.name == "decode_tick" and e.device_type == DeviceType.CPU]
-    device = [e for e in evs if e.device_type == DeviceType.CUDA
-              and e.name != "decode_tick"]
-    wall_us = sum(t.end - t.start for t in ticks)
-    print(f"  trace of {len(ticks)} decode-only ticks (torch.profiler): "
-          f"{wall_us / len(ticks) / 1e3:.2f} ms wall per tick traced, "
-          f"{untraced_tick_s * 1e3:.2f} ms untraced", flush=True)
-    if not device:
-        print("  trace: no device events recorded; device-busy share not "
-              "measured", flush=True)
-        return
+    wall = time.perf_counter() - t0
+    m, res = eng.metrics, eng.results
+    total = dict(zip(("K1", "K2", "K3", "K4"), counts()))
+    taken = dict(routing.select_matmul_route.taken)
+    check(len(res) == N_REQUESTS and all(
+        r.status is RequestStatus.COMPLETED and len(r.tokens) == MAX_NEW
+        for r in res.values()),
+        f"{N_REQUESTS} requests COMPLETED with {MAX_NEW} tokens each")
+    check(not bad and m.prefill_chunks > 0 and m.decode_steps > 0,
+          f"every tick: K2 +{2 * L} per prefill chunk, K1 +"
+          f"{L * GEMMS_PER_LAYER + 1} and K4 +{L} per decode step, no K3 "
+          f"({m.prefill_chunks} prefill chunks, {m.decode_steps} decode "
+          f"steps; faulty ticks {bad})")
+    check(taken.get("virtual", 0) == 0 and total["K2"] > 0,
+          f"no matmul took the virtual route (routes taken: {taken}); "
+          f"launches {total}")
+    shapes_ok(compared)
+    print(f"  served {len(res)} requests, {m.tokens_out} tokens in "
+          f"{wall:.3f} s ({m.tokens_out / wall:.1f} tokens/s)", flush=True)
+    return total
 
-    def dev_ms(pick):
-        return sum(e.time_range.end - e.time_range.start
-                   for e in device if pick(e.name)) / 1e3 / len(ticks)
 
-    def is_k1(name):
-        return "sq_matmul_kernel" in name
-
-    def is_k4(name):
-        return "sq_paged_attn_kernel" in name
-
-    busy_us = _union_us((e.time_range.start, e.time_range.end)
-                        for e in device)
-    n_k1 = sum(is_k1(e.name) for e in device) / len(ticks)
-    n_k4 = sum(is_k4(e.name) for e in device) / len(ticks)
-    print(f"  trace per tick: {len(device) / len(ticks):.0f} device "
-          f"operations, device busy {busy_us / len(ticks) / 1e3:.3f} ms = "
-          f"{busy_us / wall_us:.1%} of the traced wall; K1 {n_k1:.0f} "
-          f"launches {dev_ms(is_k1):.3f} ms, K4 {n_k4:.0f} launches "
-          f"{dev_ms(is_k4):.3f} ms, other device work "
-          f"{dev_ms(lambda n: not (is_k1(n) or is_k4(n))):.3f} ms",
+def server_phase(model: LM, dev, compared):
+    """The dense reference Server with every contraction square: prefill
+    attention on K2 or K3 by prompt length, every decode step's attention
+    on K3 (4 slots x 12 heads, m = 1), every other GEMM on K1."""
+    cfg = model.cfg
+    L = cfg.n_layers
+    print(f"dense Server (--legacy), no policy: {cfg.name} full width, "
+          f"prepared, max_batch {DENSE_BATCH}, cache_len {DENSE_CACHE}",
           flush=True)
+    with torch.no_grad():
+        params = model.prepare_params()
+    server = Server(model, params, ServeConfig(
+        max_batch=DENSE_BATCH, cache_len=DENSE_CACHE,
+        max_new_tokens=MAX_NEW), device=dev)
+    calls = []
+
+    def traced(kind, fn):
+        def call(*args):
+            before, shapes = counts(), collections.Counter(
+                sq_matmul_k1.shapes)
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t
+            delta = [a - b for a, b in zip(counts(), before)]
+            ms = {s[0] for s in sq_matmul_k1.shapes - shapes}
+            size = args[1]["tokens"].shape[1] if kind == "prefill" else None
+            calls.append((kind, size, delta, ms, t))
+            return out
+        return call
+
+    server._prefill = traced("prefill", server._prefill)
+    server._decode = traced("decode", server._decode)
+    reqs = make_requests(cfg, N_REQUESTS, seed=0)
+    reset_counts()                      # counts of this path's run only
+    t0 = time.perf_counter()
+    out = server.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = dict(zip(("K1", "K2", "K3", "K4"), counts()))
+    taken = dict(routing.select_matmul_route.taken)
+    check(sorted(out) == list(range(N_REQUESTS))
+          and all(len(t) == MAX_NEW for t in out.values()),
+          f"{N_REQUESTS} requests served with {MAX_NEW} tokens each")
+    decodes = [c for c in calls if c[0] == "decode"]
+    prefills = [c for c in calls if c[0] == "prefill"]
+    per_step = L * GEMMS_PER_LAYER + 1
+    check(decodes and all(c[2] == [per_step, 0, 2 * L, 0]
+                          and c[3] == {DENSE_BATCH} for c in decodes),
+          f"every decode step: K1 {per_step} at m={DENSE_BATCH} and K3 "
+          f"{2 * L}, no K2 or K4 ({len(decodes)} steps; seen "
+          f"{sorted({(tuple(c[2]), tuple(c[3])) for c in decodes})})")
+    want = {s: [L * GEMMS_PER_LAYER,
+                2 * L if dense_prefill_kernel(s) == "K2" else 0,
+                2 * L if dense_prefill_kernel(s) == "K3" else 0, 0]
+            for s in {c[1] for c in prefills}}
+    check(len(prefills) == N_REQUESTS
+          and all(c[2] == want[c[1]] for c in prefills),
+          f"every prefill: K1 {L * GEMMS_PER_LAYER}, and K2 {2 * L} from 13 "
+          f"tokens or K3 {2 * L} for 7-12: "
+          f"{[(c[1], c[2]) for c in prefills]}")
+    check(total["K1"] == per_step * len(decodes)
+          + (L * GEMMS_PER_LAYER + 1) * len(prefills)
+          and total["K3"] > 0 and total["K2"] > 0
+          and taken.get("virtual", 0) == 0,
+          f"main path: launches {total} over {len(decodes)} decode steps "
+          f"and {len(prefills)} prefills; routes {taken}")
+    shapes_ok(compared)
+    walls = sorted(c[4] for c in decodes)
+    tokens = sum(len(t) for t in out.values())
+    print(f"  served {len(out)} requests, {tokens} tokens in {wall:.3f} s "
+          f"({tokens / wall:.1f} tokens/s); decode step of {DENSE_BATCH} "
+          f"slots: median wall {walls[len(walls) // 2] * 1e3:.2f} ms (min "
+          f"{walls[0] * 1e3:.2f}, max {walls[-1] * 1e3:.2f}); prefill median "
+          f"{sorted(c[4] for c in prefills)[len(prefills) // 2] * 1e3:.2f} "
+          f"ms", flush=True)
+    dense_logits_phase(model, params, dev)
+    prompts = [np.asarray(r.tokens, np.int32) for r in reqs[:DENSE_BATCH]]
+    cache, pos = _dense_prefilled(model, params, prompts, dev)
+    toks = torch.zeros((DENSE_BATCH, 1), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        trace_steps(lambda: model.decode_step(params, cache, toks, pos),
+                    f"dense decode steps of {DENSE_BATCH} slots",
+                    walls[len(walls) // 2])
+    return total
+
+
+def _dense_prefilled(model: LM, params, prompts, dev):
+    """A dense cache with each prompt prefilled into its slot, and the
+    slots' next positions."""
+    cache = model.init_cache(len(prompts), DENSE_CACHE)
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            _, one = model.prefill(params, {"tokens": torch.as_tensor(
+                p[None], device=dev)}, DENSE_CACHE)
+            write_slot(cache, i, one)
+    return cache, torch.as_tensor([len(p) for p in prompts], device=dev)
+
+
+def _dense_decode_logits(model: LM, params, prompts, first, dev):
+    """One decode step of all slots of a freshly prefilled dense cache, fed
+    ``first``; that step's logits (B, V)."""
+    cache, pos = _dense_prefilled(model, params, prompts, dev)
+    with torch.no_grad():
+        logits, _ = model.decode_step(params, cache,
+                                      first.to(torch.int32)[:, None], pos)
+    return logits
+
+
+def dense_logits_phase(model: LM, params, dev) -> None:
+    """One dense decode step's logits (4 slots) against the same model in
+    standard mode, fed the same tokens."""
+    cfg_std = dataclasses.replace(model.cfg, matmul_mode="standard",
+                                  contraction_policy=None)
+    std = LM(cfg_std, device=dev, seed=1)
+    std.load_state_dict(model.state_dict())
+    prompts = [np.asarray(r.tokens, np.int32)
+               for r in make_requests(model.cfg, DENSE_BATCH, seed=0)]
+    with torch.no_grad():
+        first = torch.stack([torch.argmax(std.logits(std.tree(), std.forward(
+            std.tree(), {"tokens": torch.as_tensor(p[None], device=dev)})[0][
+                :, -1:])[0, 0]) for p in prompts])
+    sq_logits = _dense_decode_logits(model, params, prompts, first, dev)
+    std_logits = _dense_decode_logits(std, std.tree(), prompts, first, dev)
+    scale = std_logits.abs().max().item()
+    err = (sq_logits - std_logits).abs().max().item()
+    agree = (sq_logits.argmax(-1) == std_logits.argmax(-1)).float().mean()
+    check(bool(torch.isfinite(sq_logits).all()) and err <= 2e-2 * scale,
+          f"dense decode-step logits vs standard mode: max|diff| {err:.4e} "
+          f"<= 2e-2 * max|logits| ({2e-2 * scale:.4e})")
+    check(agree.item() == 1.0,
+          f"dense decode-step greedy tokens vs standard mode: argmax "
+          f"agreement {agree.item():.3f} over {len(prompts)} rows")
 
 
 # ---------------------------------------------------------------- main
-def kernel_line(k1_rows, k4_row, k1_total, k4_total):
-    decode = [r for r in k1_rows if r["m"] == 8]
+def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, launches):
+    """The kernels line.  ``launches``: {kernel: {path: count}} read after
+    each serving path's run.  K1's and K4's times are per decode step of
+    the paged engine, K2's per paged prefill chunk, K3's per dense decode
+    step; each sums its kernel's launches of that unit from the shape
+    tables above."""
+    decode = [r for r in k1_rows if r["m"] == 8 and "ms" in r]
 
-    def per_step(key):
-        return sum(K1_PER_STEP[(r["k"], r["n"])] * r[key] for r in decode)
+    def per_step(rows, mult, key):
+        return sum(mult(r) * r[key] for r in rows)
 
-    t_bytes, t_ops = per_step("t_bytes"), per_step("t_ops")
-    k1 = {"name": "sq_matmul (K1)", "route": "cuda",
-          "source": "src/repro_torch/csrc/sq_matmul.cu",
-          "replaces": "src/repro/kernels/sq_matmul.py:92",
-          "launches": k1_total,
-          "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
-          "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
-          "bound_ms": max(t_bytes, t_ops),
-          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-          "library_ms": per_step("library_ms"),
-          "per": "one decode step: 85 GEMMs at m=8"}
+    def entry(key, name, line, rows, mult, per):
+        t_bytes = per_step(rows, mult, "t_bytes")
+        t_ops = per_step(rows, mult, "t_ops")
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/csrc/sq_matmul.cu",
+                "replaces": f"src/repro/kernels/{line}",
+                "launches": sum(launches[key].values()),
+                "launches_by_path": launches[key],
+                # over every shape compared, not only the timed ones
+                "max_abs_err": max(r["max_abs_err"] for r in all_rows[key]),
+                "ms": per_step(rows, mult, "ms"),
+                "plain_ms": per_step(rows, mult, "plain_ms"),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": per_step(rows, mult, "library_ms"), "per": per}
+
+    all_rows = {"K1": k1_rows, "K2": k2_rows, "K3": k3_rows}
+    k1 = entry("K1", "sq_matmul (K1)", "sq_matmul.py:92", decode,
+               lambda r: K1_PER_STEP[(r["k"], r["n"])],
+               "one paged decode step: 85 GEMMs at m=8")
+    k2 = entry("K2", "sq_matmul_batched (K2)", "sq_matmul.py:117",
+               [r for r in k2_rows if r["shape"][1] == CHUNK],
+               lambda r: HEADS,
+               "one paged prefill chunk: 24 launches at B=12 m=32")
+    k3 = entry("K3", "sq_matmul_folded (K3)", "sq_matmul.py:179",
+               [r for r in k3_rows if r["shape"][0] == DENSE_BATCH * HEADS],
+               lambda r: HEADS,
+               "one dense decode step: 24 launches at B=48 m=1")
     k4 = {"name": "sq_paged_attn (K4)", "route": "cuda",
           "source": "src/repro_torch/csrc/sq_paged_attn.cu",
           "replaces": "src/repro/kernels/sq_paged_attn.py:62",
-          "launches": k4_total, "max_abs_err": k4_row["max_abs_err"],
+          "launches": sum(launches["K4"].values()),
+          "launches_by_path": launches["K4"],
+          "max_abs_err": k4_row["max_abs_err"],
           "ms": 12 * k4_row["ms"], "plain_ms": 12 * k4_row["plain_ms"],
           "bound_ms": 12 * k4_row["bound_ms"], "bound_by": k4_row["bound_by"],
           "library_ms": 12 * k4_row["library_ms"],
-          "per": "one decode step: 12 launches at B=8 T=128"}
-    return json.dumps({"kernels": [k1, k4]})
+          "per": "one paged decode step: 12 launches at B=8 T=128"}
+    return json.dumps({"kernels": [k1, k2, k3, k4]})
+
+
+def run(dev) -> str:
+    """Every phase after the build; returns the kernels line."""
+    gen = torch.Generator().manual_seed(0)
+    prompt_lens = [len(r.tokens) for r in make_requests(
+        serve_cfg(), N_REQUESTS, seed=0)]
+    print(f"launcher prompts (seed 0): {prompt_lens} tokens", flush=True)
+    cases = batched_cases(prompt_lens)
+    k1_rows = k1_phase(dev, gen, k1_cases(prompt_lens))
+    k2_rows = batched_phase(dev, gen, "K2", cases["K2"])
+    k3_rows = batched_phase(dev, gen, "K3", cases["K3"])
+    k4_row = k4_phase(dev, gen)
+    compared = {"K1": [(r["m"], r["k"], r["n"]) for r in k1_rows],
+                "K2": cases["K2"], "K3": cases["K3"]}
+    k1_total, k4_total, _ = engine_phase(dev, compared)
+    model = build_model(serve_cfg(policy=None), device=dev, seed=0)
+    none = engine_none_phase(model, dev, compared)
+    dense = server_phase(model, dev, compared)
+    launches = {"K1": {"engine_square_gemms": k1_total,
+                       "engine_no_policy": none["K1"],
+                       "server_no_policy": dense["K1"]},
+                "K2": {"engine_no_policy": none["K2"],
+                       "server_no_policy": dense["K2"]},
+                "K3": {"server_no_policy": dense["K3"]},
+                "K4": {"engine_square_gemms": k4_total,
+                       "engine_no_policy": none["K4"]}}
+    dense_k1 = sum(K1_PER_STEP[(r["k"], r["n"])] * r["ms"] for r in k1_rows
+                   if r["m"] == DENSE_BATCH and "ms" in r)
+    dense_k3 = sum(HEADS * r["ms"] for r in k3_rows if r["shape"][1] == 1)
+    print(f"dense decode step in graph replay: K1 85 launches at "
+          f"m={DENSE_BATCH} {dense_k1:.3f} ms, K3 24 launches "
+          f"{dense_k3:.3f} ms", flush=True)
+    return kernel_line(k1_rows, k2_rows, k3_rows, k4_row, launches)
 
 
 def main() -> int:
@@ -541,12 +945,7 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
 
-    gen = torch.Generator().manual_seed(0)
-    k1_rows = k1_phase(dev, gen)
-    k4_row = k4_phase(dev, gen)
-    k1_total, k4_total, _ = engine_phase(
-        dev, [(r["m"], r["k"], r["n"]) for r in k1_rows])
-    print(kernel_line(k1_rows, k4_row, k1_total, k4_total), flush=True)
+    print(run(dev), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

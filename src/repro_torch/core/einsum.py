@@ -128,7 +128,12 @@ def _to_canonical(t: torch.Tensor, dims: str, target: str,
 
 def _batched_matmul(a: torch.Tensor, b, mode: str,
                     preferred: Optional[torch.dtype]) -> torch.Tensor:
-    """Canonical (B, M, K) @ (B, K, N) under a fair-square mode."""
+    """Canonical (B, M, K) @ (B, K, N) under a fair-square mode.
+
+    ``square_pallas`` resolves its route with
+    :func:`repro_torch.kernels.routing.select_matmul_route`: K2
+    (``batched``), K3 (``fold``) or the ``virtual`` form below the
+    kernel-overhead floor."""
     if mode == "square_virtual":
         return fsmm.pm_matmul_virtual(a, unwrap(b), preferred)
     if mode == "square_exact":
@@ -136,17 +141,15 @@ def _batched_matmul(a: torch.Tensor, b, mode: str,
     if mode == "square_scan":
         return fsmm.pm_matmul_scan(a, unwrap(b))
     if mode == "square_pallas":
-        from repro_torch.kernels import routing   # lazy: import cycle
+        from repro_torch.kernels import ops as kops   # lazy: import cycle
+        from repro_torch.kernels import routing
         B, M, K = a.shape
         N = unwrap(b).shape[-1]
         route = routing.select_matmul_route(M, N, K, batch=B, dtype=a.dtype)
         if route.name == "virtual":
             return fsmm.pm_matmul_virtual(a, unwrap(b), preferred)
-        raise NotImplementedError(
-            f"square_pallas batched contraction ({B}, {M}, {K}) @ "
-            f"({B}, {K}, {N}) takes the {route.name!r} route, which runs on "
-            f"K2/K3 (sq_matmul_batched_kernel / sq_matmul_folded_kernel); "
-            f"this port does not have them yet (ROADMAP Q2, next slice)")
+        return kops.sq_matmul_local(a, unwrap(b),
+                                    fold=(route.name == "fold"))
     raise ValueError(f"unknown matmul mode {mode!r}; expected one of "
                      f"{fsmm.MODES}")
 

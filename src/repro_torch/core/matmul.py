@@ -10,8 +10,9 @@ Modes (the JAX package's names and meanings):
                     (``Sab = -Sa - Sb + 2 A@B``: x2 carry, then halving);
 ``square_exact``    every (i, k, j) square materialised -- the oracle;
 ``square_scan``     the same arithmetic streamed over K blocks;
-``square_pallas``   the hand-written kernel mode: K1 (``csrc/sq_matmul.cu``)
-                    on CUDA tensors, its plain version on CPU tensors, or
+``square_pallas``   the hand-written kernel mode: K1 (``csrc/sq_matmul.cu``;
+                    K2/K3 for the batched contractions of ``fs_einsum``)
+                    on CUDA tensors, the plain version on CPU tensors, or
                     the ``virtual`` form below the kernel-overhead floor
                     (:func:`repro_torch.kernels.routing.select_matmul_route`).
 

@@ -59,16 +59,16 @@ def prepare_operand(w, *, transpose: bool = False,
 
     ``w``: a 2D ``(K, N)`` weight (``(N, K)`` with ``transpose=True``).
     Idempotent on an already-prepared operand.  Batched ``(B, K, N)``
-    weights feed the batched kernels K2/K3, which this port does not have
-    yet.
+    weights (the MoE experts) are not prepared yet: attention's batched
+    operands are activations, prepared per call inside ``ops``.
     """
     if isinstance(w, PreparedOperand):
         return w
     if w.ndim != 2:
         raise NotImplementedError(
             f"prepare_operand takes a 2D (K, N) weight, got {tuple(w.shape)}; "
-            f"batched (B, K, N) preps feed the batched square kernels K2/K3 "
-            f"(ROADMAP Q2, next slice)")
+            f"the batched (B, K, N) prep of the MoE expert weights comes "
+            f"with the MoE slice (ROADMAP Q1, slice 5)")
     from repro_torch.kernels import ops as kops          # lazy: import cycle
     mat = w.T if transpose else w
     canon, corr = kops.prepare_matmul_rhs(mat)

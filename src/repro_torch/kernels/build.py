@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one CUDA C++ source under ``src/repro_torch/csrc/`` with a
+Each source under ``src/repro_torch/csrc/`` holds one kernel, or a family
+that shares its arithmetic (``sq_matmul.cu``: K1, K2 and K3), behind a
 plain C interface.  At first use it is compiled by ``nvcc`` for ``sm_90a``
 into a shared library under ``build/repro_torch_kernels/`` at the repo root
 and loaded with :mod:`ctypes`.  The library's name carries a hash of the
@@ -43,6 +44,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "sq_matmul": {
         "fs_sq_matmul": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+        "fs_sq_matmul_batched": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "fs_sq_matmul_folded": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "sq_paged_attn": {
         "fs_sq_paged_attn": [_I, _P, _P, _P, _P, _P, _P, _P,

@@ -1,8 +1,8 @@
 """Route planner for the ``square_pallas`` mode: the PyTorch port of
 ``repro/kernels/routing.py`` (route rules and ``REPRO_ROUTE`` only).
 
-``matmul`` routes: ``kernel`` (K1), ``batched``/``fold`` (K2/K3, not in
-this port yet) and ``virtual`` (the square-form contract through the
+``matmul`` routes: ``kernel`` (K1), ``batched`` (K2), ``fold`` (K3) and
+``virtual`` (the square-form contract through the
 multiplier, below the kernel-overhead floor).  ``paged_attn`` routes:
 ``kernel`` (K4, the block-table-streaming kernel) and ``gather`` (a dense
 gathered window plus two einsums).

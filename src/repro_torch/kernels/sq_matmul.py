@@ -1,15 +1,24 @@
-"""K1: the square-based GEMM kernel and its plain PyTorch version.
+"""K1, K2, K3: the square-based GEMM kernels and their plain PyTorch
+versions.
 
-Replaces ``src/repro/kernels/sq_matmul.py::sq_matmul_kernel`` (the Pallas
-TPU kernel behind ``sq_matmul_pallas``).  The CUDA source is
-``src/repro_torch/csrc/sq_matmul.cu``; its header states what bounds it on
-an H100 (the bytes of the widened weight at decode's 8 rows) and how its
-design meets that.
+- K1 (:func:`sq_matmul_k1`) replaces ``src/repro/kernels/sq_matmul.py::
+  sq_matmul_kernel`` (behind ``sq_matmul_pallas``): one (m, k) @ (k, n).
+- K2 (:func:`sq_matmul_k2`) replaces ``sq_matmul_batched_kernel`` (the
+  ``fb == 1`` schedule of ``sq_matmul_batched_pallas``): K1 on a batch grid
+  axis, bit-identical to K1 on every element.
+- K3 (:func:`sq_matmul_k3`) replaces ``sq_matmul_folded_kernel`` (the
+  ``fb > 1`` schedule): several batch elements per block for the
+  small-(m, n), large-B regime, bit-identical to K2.
 
-Both versions take pre-widened operands, as the Pallas kernel does:
-``aw`` (m, k) and ``bw`` (k, n) in f32 or int32, ``sa`` (m,) and ``sb`` (n,)
-the row/column corrections, and return ``1/2 (Sa_i + Sb_j + sum_k
-(a_ik + b_kj)^2)`` in the same dtype.
+All three live in ``src/repro_torch/csrc/sq_matmul.cu``, whose header
+states what bounds each on an H100 and how its design meets that.
+
+The kernels take pre-widened operands, as the Pallas kernels do: ``aw``
+(m, k) and ``bw`` (k, n) in f32 or int32, ``sa`` (m,) and ``sb`` (n,) the
+row/column corrections -- each with a leading batch axis for K2/K3 -- and
+return ``1/2 (Sa_i + Sb_j + sum_k (a_ik + b_kj)^2)`` in the same dtype.
+Folding is a schedule, not arithmetic, so K2 and K3 share one plain
+version, :func:`sq_matmul_batched_plain`.
 """
 from __future__ import annotations
 
@@ -20,11 +29,13 @@ import torch
 from repro_torch.core import squares as sq
 from repro_torch.kernels import build
 
-__all__ = ["sq_matmul_k1", "sq_matmul_plain"]
+__all__ = ["sq_matmul_k1", "sq_matmul_k2", "sq_matmul_k3",
+           "sq_matmul_plain", "sq_matmul_batched_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
 _INT_MAX = 2 ** 31 - 1
 _MAX_GRID_Y = 65535
+_MAX_GRID_Z = 65535           # K2's batch axis
 _BN = 32                      # output columns per block, as in the source
 
 
@@ -41,17 +52,49 @@ def sq_matmul_plain(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
     return sq.halve(acc)
 
 
-def _check(aw, bw, sa, sb) -> None:
+def sq_matmul_batched_plain(aw: torch.Tensor, bw: torch.Tensor,
+                            sa: torch.Tensor, sb: torch.Tensor,
+                            k_chunk: int = 16) -> torch.Tensor:
+    """K1's plain arithmetic on every batch element: ``aw`` (B, m, k),
+    ``bw`` (B, k, n), ``sa`` (B, m), ``sb`` (B, n).  Used for CPU tensors
+    and as the reference of K2 and K3 on the card."""
+    k = aw.shape[-1]
+    acc = sa[:, :, None] + sb[:, None, :]
+    for k0 in range(0, k, k_chunk):
+        s = aw[:, :, k0:k0 + k_chunk, None] + bw[:, None, k0:k0 + k_chunk, :]
+        acc = acc + torch.sum(s * s, dim=2, dtype=acc.dtype)
+    return sq.halve(acc)
+
+
+def _check_batched(aw, bw, sa, sb, what: str) -> None:
+    _check_dtypes(aw, bw, sa, sb, what)
+    if aw.ndim != 3 or bw.ndim != 3 or aw.shape[0] != bw.shape[0] \
+            or aw.shape[2] != bw.shape[1]:
+        raise ValueError(f"{what} needs a (B, m, k) @ (B, k, n), got "
+                         f"{tuple(aw.shape)} @ {tuple(bw.shape)}")
+    nb, m, _ = aw.shape
+    n = bw.shape[2]
+    if tuple(sa.shape) != (nb, m) or tuple(sb.shape) != (nb, n):
+        raise ValueError(f"{what} corrections must be ({nb}, {m}) and "
+                         f"({nb}, {n}), got {tuple(sa.shape)} and "
+                         f"{tuple(sb.shape)}")
+
+
+def _check_dtypes(aw, bw, sa, sb, what: str) -> None:
     if aw.dtype not in _DTYPE_CODES:
-        raise TypeError(f"K1 takes f32 or int32 (pre-widened) operands, got "
-                        f"{aw.dtype}")
+        raise TypeError(f"{what} takes f32 or int32 (pre-widened) operands, "
+                        f"got {aw.dtype}")
     for name, t in (("bw", bw), ("sa", sa), ("sb", sb)):
         if t.dtype != aw.dtype:
-            raise TypeError(f"K1 operand {name} is {t.dtype}, aw is "
+            raise TypeError(f"{what} operand {name} is {t.dtype}, aw is "
                             f"{aw.dtype}")
         if t.device != aw.device:
-            raise ValueError(f"K1 operand {name} is on {t.device}, aw on "
+            raise ValueError(f"{what} operand {name} is on {t.device}, aw on "
                              f"{aw.device}")
+
+
+def _check(aw, bw, sa, sb) -> None:
+    _check_dtypes(aw, bw, sa, sb, "K1")
     if aw.ndim != 2 or bw.ndim != 2 or aw.shape[1] != bw.shape[0]:
         raise ValueError(f"K1 needs a (m, k) @ (k, n), got {tuple(aw.shape)} "
                          f"@ {tuple(bw.shape)}")
@@ -99,3 +142,69 @@ def sq_matmul_k1(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
 
 sq_matmul_k1.launches = 0
 sq_matmul_k1.shapes = collections.Counter()
+
+
+def _batched(label: str, entry: str, counter, aw, bw, sa, sb,
+             max_batch: int = _INT_MAX) -> torch.Tensor:
+    """Check, then launch K2 or K3 (the C entry point ``entry``) on CUDA
+    tensors and count the launch on ``counter``, or run the plain version
+    on CPU tensors."""
+    _check_batched(aw, bw, sa, sb, label)
+    if aw.device.type == "cpu":
+        return sq_matmul_batched_plain(aw, bw, sa, sb)
+    if aw.device.type != "cuda":
+        raise ValueError(f"{label} runs on CUDA (or its plain version on "
+                         f"CPU), got a tensor on {aw.device}")
+    nb, m, k = aw.shape
+    n = bw.shape[2]
+    if max(m * k, k * n, m * n) > _INT_MAX or -(-n // _BN) > _MAX_GRID_Y \
+            or nb * -(-m // 4) * -(-n // _BN) > _INT_MAX or nb > max_batch:
+        raise ValueError(f"{label} shape ({nb}, {m}, {k}) @ ({nb}, {k}, "
+                         f"{n}) exceeds the kernel's 32-bit indexing or grid "
+                         f"limits")
+    out = torch.empty((nb, m, n), dtype=aw.dtype, device=aw.device)
+    if out.numel() == 0:
+        return out
+    aw, bw = aw.contiguous(), bw.contiguous()
+    sa, sb = sa.contiguous(), sb.contiguous()
+    lib = build.load("sq_matmul")
+    with torch.cuda.device(aw.device):
+        stream = torch.cuda.current_stream(aw.device).cuda_stream
+        rc = getattr(lib, entry)(_DTYPE_CODES[aw.dtype], aw.data_ptr(),
+                                 bw.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+                                 out.data_ptr(), nb, m, n, k, stream)
+    build.check(lib, rc, f"{label} launch")
+    counter.launches += 1
+    counter.shapes[(nb, m, k, n)] += 1
+    return out
+
+
+def sq_matmul_k2(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
+                 sb: torch.Tensor) -> torch.Tensor:
+    """Launch K2 (one K1 grid per batch element, the batch on the grid's z
+    axis) on CUDA tensors (the plain version on CPU tensors): ``aw``
+    (B, m, k), ``bw`` (B, k, n), ``sa`` (B, m), ``sb`` (B, n).
+
+    ``sq_matmul_k2.launches`` counts the launches of this process and
+    ``sq_matmul_k2.shapes`` counts them by ``(B, m, k, n)``; a CPU call
+    does not count.
+    """
+    return _batched("K2", "fs_sq_matmul_batched", sq_matmul_k2, aw, bw, sa,
+                    sb, max_batch=_MAX_GRID_Z)
+
+
+def sq_matmul_k3(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
+                 sb: torch.Tensor) -> torch.Tensor:
+    """Launch K3 (batch elements folded into each block) on CUDA tensors
+    (the plain version on CPU tensors); operands as :func:`sq_matmul_k2`.
+
+    ``sq_matmul_k3.launches`` and ``sq_matmul_k3.shapes`` count as K2's do.
+    """
+    return _batched("K3", "fs_sq_matmul_folded", sq_matmul_k3, aw, bw, sa,
+                    sb)
+
+
+sq_matmul_k2.launches = 0
+sq_matmul_k2.shapes = collections.Counter()
+sq_matmul_k3.launches = 0
+sq_matmul_k3.shapes = collections.Counter()

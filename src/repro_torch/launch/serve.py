@@ -1,28 +1,35 @@
-"""Serving launcher: the paged continuous-batching engine on the GPU.
+"""Serving launcher: the paged continuous-batching engine (default) or the
+dense reference Server (``--legacy``), on the GPU.
 
     python -m repro_torch.launch.serve --arch fairsquare-demo \\
-        --matmul-mode square_pallas --policy square_gemms --prepared
+        --matmul-mode square_pallas --prepared [--legacy --max-batch 4]
 
-runs the paper's model at full width (random weights from ``--seed``)
-through K1 (every projection, FFN and logits GEMM) and K4 (decode
-attention).  ``--reduced`` serves the small smoke configuration;
-``--device cpu`` runs the kernels' plain versions; ``--route`` pins the
-square_pallas route (``REPRO_ROUTE`` syntax).
+serves the paper's model at full width (random weights from ``--seed``)
+with every contraction square-form (``--policy none``, the default): K1
+runs every projection, FFN and logits GEMM, K4 the engine's decode
+attention, and K2/K3 the attention einsums of prefill (and, under
+``--legacy``, of every decode step).  ``--policy square_gemms`` keeps the
+attention softmax path on the multiplier.  ``--reduced`` serves the small
+smoke configuration; ``--device cpu`` runs the kernels' plain versions;
+``--route`` pins the square_pallas route (``REPRO_ROUTE`` syntax).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import os
+import time
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import SQUARE_GEMMS_POLICY
+from repro_torch.models.blocks import PAGEABLE_KINDS
 from repro_torch.models.lm import build_model
 from repro_torch.serve.engine import Engine, EngineConfig
-from repro_torch.serve.server import Request
+from repro_torch.serve.server import Request, ServeConfig, Server
 
 __all__ = ["make_requests", "main"]
 
@@ -63,6 +70,10 @@ def main(argv: Optional[List[str]] = None):
     ap.add_argument("--blocks", type=int, default=64)
     ap.add_argument("--blocks-per-seq", type=int, default=8)
     ap.add_argument("--prefill-chunk", type=int, default=32)
+    ap.add_argument("--legacy", action="store_true",
+                    help="serve through the dense reference Server")
+    ap.add_argument("--max-batch", type=int, default=4,
+                    help="decode slots of the dense Server (--legacy)")
     args = ap.parse_args(argv)
 
     if args.route:
@@ -74,14 +85,22 @@ def main(argv: Optional[List[str]] = None):
         cfg = dataclasses.replace(cfg, matmul_mode=args.matmul_mode)
     if args.policy == "square_gemms":
         cfg = dataclasses.replace(cfg, contraction_policy=SQUARE_GEMMS_POLICY)
+    if not args.legacy and any(k not in PAGEABLE_KINDS
+                               for k in cfg.layer_kinds):
+        raise ValueError(f"arch {cfg.name!r} has blocks the paged engine "
+                         f"cannot serve ({sorted(set(cfg.layer_kinds))}); "
+                         f"pass --legacy for the dense Server")
     model = build_model(cfg, device=args.device, seed=args.seed)
+    reqs = make_requests(cfg, args.requests, seed=args.seed)
+    if args.legacy:
+        return _serve_legacy(model, reqs, args)
     ecfg = EngineConfig(max_slots=args.slots, block_size=args.block_size,
                         num_blocks=args.blocks,
                         blocks_per_seq=args.blocks_per_seq,
                         prefill_chunk=args.prefill_chunk,
                         max_new_tokens=args.max_new, prepared=args.prepared)
     engine = Engine(model, ecfg, seed=args.seed, device=model.device)
-    results = engine.run(make_requests(cfg, args.requests, seed=args.seed))
+    results = engine.run(reqs)
     m = engine.metrics
     print(f"[engine] served {len(results)} requests, {m.tokens_out} tokens "
           f"in {m.wall_s:.2f}s ({m.tokens_per_s:.1f} tok/s, "
@@ -100,6 +119,32 @@ def main(argv: Optional[List[str]] = None):
         print(f"  req {rid}: {results[rid].tokens[:8]}...")
     if len(results) != args.requests:
         raise RuntimeError(f"{len(results)} results for {args.requests} "
+                           f"requests")
+    return results
+
+
+def _serve_legacy(model, reqs: List[Request], args):
+    """The dense reference Server with the JAX launcher's geometry
+    (``cache_len`` 128)."""
+    with torch.no_grad():
+        params = model.prepare_params() if args.prepared else model.tree()
+    server = Server(model, params,
+                    ServeConfig(max_batch=args.max_batch, cache_len=128,
+                                max_new_tokens=args.max_new),
+                    seed=args.seed, device=model.device)
+    t0 = time.perf_counter()
+    results = server.run(reqs)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+    dt = time.perf_counter() - t0
+    total = sum(len(v) for v in results.values())
+    print(f"[legacy] served {len(results)} requests, {total} tokens in "
+          f"{dt:.2f}s ({total / dt:.1f} tok/s, mode={model.cfg.matmul_mode}, "
+          f"prepared={args.prepared}, device={model.device})")
+    for rid in sorted(results)[:4]:
+        print(f"  req {rid}: {results[rid][:8]}...")
+    if len(results) != len(reqs):
+        raise RuntimeError(f"{len(results)} results for {len(reqs)} "
                            f"requests")
     return results
 

@@ -1,27 +1,38 @@
-"""Attention over the paged KV cache: the PyTorch port of the paged half of
-``repro/models/attention.py``.
+"""Attention: the PyTorch port of ``repro/models/attention.py`` (self
+attention; cross-attention comes with the encoder-decoder slice).
+
+- Full sequence (train / prefill): :func:`attn_forward` over
+  :func:`chunked_attention`, an online softmax over q chunks x kv chunks.
+- Dense decode: :func:`attn_decode` against a ``(B, T, KV, hd)`` cache
+  (a ring under a sliding window) with per-row ``(B,)`` positions.
+- Paged decode and chunked prefill (the engine): :func:`_attn_paged_step`
+  over ``(P, KV, hd)`` pools with P = num_blocks * block_size physical
+  token slots; its softmax read takes one of two routes
+  (:mod:`repro_torch.kernels.routing`): K4 (``kernel``) or a gathered
+  window plus two einsums (``gather``).
 
 Layouts: activations (B, S, D); q (B, S, KV, G, hd) with G = H // KV;
-pools (P, KV, hd) with P = num_blocks * block_size physical token slots.
-Projections route through ``fs_einsum`` at sites ``attn_qkv``/``attn_out``;
-the softmax read takes one of two routes (:mod:`repro_torch.kernels.routing`):
-K4 (``kernel``) or a gathered window plus the ``attn_scores``/``attn_pv``
-einsums (``gather``).
+k/v (B, T, KV, hd).  Every contraction routes through ``fs_einsum``: the
+projections at sites ``attn_qkv``/``attn_out``, the softmax path at
+``attn_scores``/``attn_pv`` (under ``square_pallas`` with no policy, K2 or
+K3 run those).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.einsum import fs_einsum, resolve_mode
 from repro_torch.core.prepared import PreparedOperand
 from repro_torch.layers import basic
 from repro_torch.layers.param import ParamSpec, torch_dtype
 
-__all__ = ["attn_spec", "init_paged_kv_cache", "paged_slots",
-           "paged_gather_indices", "EMPTY_POS",
-           "ATTEND_POS_LIMIT", "NEG_INF"]
+__all__ = ["attn_spec", "attn_forward", "attn_decode", "chunked_attention",
+           "init_kv_cache", "init_paged_kv_cache", "paged_slots",
+           "paged_gather_indices", "EMPTY_POS", "ATTEND_POS_LIMIT",
+           "NEG_INF"]
 
 # Sentinel position of an unwritten / freed / padded physical cache slot;
 # every mask tests ``pos < ATTEND_POS_LIMIT`` and every sentinel write uses
@@ -82,6 +93,158 @@ def _softcap(scores, cap: float):
     if cap and cap > 0.0:
         return torch.tanh(scores / cap) * cap
     return scores
+
+
+def _pad_seq(t: torch.Tensor, pad: int, value=0) -> torch.Tensor:
+    """Pad dim 1 (the sequence axis) of ``t`` at the end by ``pad``."""
+    if not pad:
+        return t
+    return F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad), value=value)
+
+
+def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
+                      window: Optional[int], chunk_q: int, chunk_kv: int,
+                      softcap: float = 0.0, mode: Optional[str] = None,
+                      policy=None) -> torch.Tensor:
+    """Online-softmax attention with O(chunk_q * chunk_kv) live scores.
+
+    q: (B, S, KV, G, hd); k, v: (B, T, KV, hd); ``q_pos`` (S,) and
+    ``kv_pos`` (T,) absolute positions.  Returns (B, S, KV, G, hd) in
+    q.dtype.  Padded q rows get position -1 and padded kv entries
+    :data:`EMPTY_POS`, so they never attend; a fully masked row ends as a
+    finite average (the normaliser is clamped at 1e-30).  Python loops
+    stand in for the JAX version's ``lax.map``/``lax.scan``; its
+    ``block_skip``, ``fold_q`` and ``p_bf16`` options are not ported.
+    """
+    B, S, KV, G, hd = q.shape
+    T = k.shape[1]
+    cq, ck = min(chunk_q, S), min(chunk_kv, T)
+    pad_q, pad_k = (-S) % cq, (-T) % ck
+    qp = _pad_seq(q, pad_q)
+    qpos = F.pad(q_pos, (0, pad_q), value=-1)
+    kp, vp = _pad_seq(k, pad_k), _pad_seq(v, pad_k)
+    kpos = F.pad(kv_pos, (0, pad_k), value=EMPTY_POS)
+    nq, nk = qp.shape[1] // cq, kp.shape[1] // ck
+    scale = hd ** -0.5
+    dev = q.device
+
+    outs = []
+    for qi in range(nq):
+        qf = qp[:, qi * cq:(qi + 1) * cq].float() * scale
+        qpc = qpos[qi * cq:(qi + 1) * cq]
+        m = torch.full((B, KV, G, cq), NEG_INF, device=dev)
+        l = torch.zeros((B, KV, G, cq), device=dev)
+        acc = torch.zeros((B, KV, G, cq, hd), device=dev)
+        for ki in range(nk):
+            sl = slice(ki * ck, (ki + 1) * ck)
+            kc, vc, kpc = kp[:, sl].float(), vp[:, sl].float(), kpos[sl]
+            s = fs_einsum("bqkgh,bckh->bkgqc", qf, kc, mode=mode,
+                          policy=policy, site="attn_scores")
+            s = _softcap(s, softcap)
+            mask = kpc[None, :] < ATTEND_POS_LIMIT   # padded kv never attend
+            if causal:
+                mask = mask & (kpc[None, :] <= qpc[:, None])
+            if window is not None:
+                mask = mask & ((qpc[:, None] - kpc[None, :]) < window)
+            s = s.masked_fill(~mask, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            pv = fs_einsum("bkgqc,bckh->bkgqh", p, vc, mode=mode,
+                           policy=policy, site="attn_pv")
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))              # (B,cq,KV,G,hd)
+    return torch.cat(outs, dim=1)[:, :S].to(q.dtype)
+
+
+def attn_forward(p, x, *, cfg, positions, causal: bool = True,
+                 window: Optional[int] = None, mode: Optional[str] = None,
+                 policy=None):
+    """Full-sequence self attention (train / prefill).  ``positions``:
+    (S,) absolute.  Returns ``(out, (k, v))``, the roped k and v in the
+    config's dtype, so callers can seed KV caches."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    dt = torch_dtype(cfg.dtype)
+    q = _proj_in(p["wq"], x, H, hd, mode, policy)
+    k = _proj_in(p["wk"], x, KV, hd, mode, policy).to(dt)
+    v = _proj_in(p["wv"], x, KV, hd, mode, policy).to(dt)
+    q = q.to(dt)
+    q = basic.rope(q, positions, cfg.rope_theta)
+    k = basic.rope(k, positions, cfg.rope_theta)
+    out = chunked_attention(q.reshape(B, S, KV, H // KV, hd), k, v,
+                            positions, positions, causal=causal,
+                            window=window, chunk_q=cfg.attn_chunk_q,
+                            chunk_kv=cfg.attn_chunk_kv,
+                            softcap=cfg.attn_logit_softcap, mode=mode,
+                            policy=policy)
+    out = out.reshape(B, S, H, hd)
+    return _proj_out(p["wo"], out, mode, x.dtype, policy=policy), (k, v)
+
+
+def attn_decode(p, x, cache, pos, *, cfg, window: Optional[int] = None,
+                mode: Optional[str] = None, policy=None):
+    """Single-token decode against a dense cache ``{"k", "v": (B, T, KV,
+    hd), "pos": (B, T) int32}`` (a ring buffer under ``window``).
+
+    ``pos`` (B,): each row's absolute position.  The new K/V and position
+    are written IN PLACE (the JAX version returns a new cache) at slot
+    ``pos % T`` under a window, else ``min(pos, T - 1)``; a row attends to
+    every cache entry whose position is at most its own (and inside the
+    window).  Returns ``(out (B, 1, D), cache)``.
+    """
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    G = H // KV
+    dt = torch_dtype(cfg.dtype)
+    pos = pos.long()
+
+    q = _proj_in(p["wq"], x, H, hd, mode, policy).to(dt)
+    k1 = _proj_in(p["wk"], x, KV, hd, mode, policy).to(dt)
+    v1 = _proj_in(p["wv"], x, KV, hd, mode, policy).to(dt)
+    qr = basic.rope(q, pos[:, None], cfg.rope_theta)
+    k1 = basic.rope(k1, pos[:, None], cfg.rope_theta)
+
+    T = cache["k"].shape[1]
+    slot = pos % T if window is not None else torch.clamp(pos, max=T - 1)
+    bidx = torch.arange(B, device=x.device)
+    cache["k"][bidx, slot] = k1[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v1[:, 0].to(cache["v"].dtype)
+    cache["pos"][bidx, slot] = pos.to(cache["pos"].dtype)
+    kv_abs = cache["pos"]
+    valid = kv_abs <= pos[:, None]
+    if window is not None:
+        valid &= (pos[:, None] - kv_abs) < window
+
+    qf = qr.reshape(B, 1, KV, G, hd).float() * hd ** -0.5
+    s = fs_einsum("bqkgh,btkh->bkgqt", qf, cache["k"].float(), mode=mode,
+                  policy=policy, site="attn_scores")
+    s = _softcap(s, cfg.attn_logit_softcap)
+    s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = fs_einsum("bkgqt,btkh->bqkgh", w, cache["v"].float(), mode=mode,
+                    policy=policy, site="attn_pv")
+    out = out.reshape(B, 1, H, hd).to(dt)
+    return _proj_out(p["wo"], out, mode, x.dtype, policy=policy), cache
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, device,
+                  window: Optional[int] = None) -> dict:
+    """Empty dense KV cache; a sliding-window arch allocates only its
+    window (a ring buffer).  Every ``pos`` entry starts at EMPTY_POS."""
+    T = min(max_len, window) if window is not None else max_len
+    hd = cfg.resolved_head_dim
+    dt = torch_dtype(cfg.dtype)
+    shape = (batch, T, cfg.n_kv_heads, hd)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "pos": torch.full((batch, T), EMPTY_POS, dtype=torch.int32,
+                              device=device)}
 
 
 def paged_slots(tables: torch.Tensor, positions: torch.Tensor,

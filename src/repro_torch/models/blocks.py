@@ -1,15 +1,18 @@
 """Decoder blocks: the PyTorch port of ``repro/models/blocks.py``, ``attn``
-kind only (pre-norm attention + FFN, paged decode)."""
+kind only (pre-norm attention + FFN): the full-sequence pass, dense and
+paged decode, and the empty caches."""
 from __future__ import annotations
 
 from typing import Any, Dict
+
+import torch
 
 from repro_torch.layers import basic
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 
-__all__ = ["block_spec", "block_decode", "block_init_paged_cache",
-           "PAGEABLE_KINDS"]
+__all__ = ["block_spec", "block_forward", "block_decode", "block_init_cache",
+           "block_init_paged_cache", "PAGEABLE_KINDS"]
 
 # Block kinds whose decode cache is a paged KV pool.  The JAX package also
 # pages ``moe`` and ``lattn``; this port builds ``attn`` only so far.
@@ -44,20 +47,56 @@ def block_spec(kind: str, cfg) -> Dict[str, Any]:
     return s
 
 
-def block_decode(kind: str, p, x, cache, ctx):
-    """One paged step of a block: x (B, S, D) -> (B, S, D); ``cache`` is
-    this layer's pool dict, updated in place."""
-    _check_kind(kind)
-    cfg, mode, policy = ctx["cfg"], ctx["mode"], ctx.get("policy")
-    h = _norm_apply(cfg, p["ln1"], x)
-    x = x + attn._attn_paged_step(p["attn"], h, cache, ctx["pos"], cfg=cfg,
-                                  window=cfg.window, mode=mode,
-                                  policy=policy, paged=ctx["paged"])
+def _ffn_residual(cfg, p, x, mode, policy):
     if cfg.d_ff:
         h2 = _norm_apply(cfg, p["ln2"], x)
         x = x + ffn_mod.ffn_apply(p["ffn"], h2, cfg=cfg, mode=mode,
                                   policy=policy)
     return x
+
+
+def block_forward(kind: str, p, x, ctx):
+    """Full-sequence block pass.  ``ctx``: dict(cfg, mode, policy,
+    positions (S,), causal).  Returns ``(x_out, cache_seed, aux_loss)``;
+    the seed is this layer's roped ``{"k", "v"}`` (B, S, KV, hd)."""
+    _check_kind(kind)
+    cfg, mode, policy = ctx["cfg"], ctx["mode"], ctx.get("policy")
+    h = _norm_apply(cfg, p["ln1"], x)
+    out, (k, v) = attn.attn_forward(p["attn"], h, cfg=cfg,
+                                    positions=ctx["positions"],
+                                    causal=ctx.get("causal", True),
+                                    window=cfg.window, mode=mode,
+                                    policy=policy)
+    x = _ffn_residual(cfg, p, x + out, mode, policy)
+    return x, {"k": k, "v": v}, torch.zeros((), device=x.device)
+
+
+def block_decode(kind: str, p, x, cache, ctx):
+    """One decode step of a block: x (B, S, D) -> (B, S, D); ``cache`` is
+    this layer's cache, updated in place.
+
+    With ``ctx["paged"]`` (the engine) the cache is the layer's pool dict,
+    S may be a prefill chunk and ``ctx["pos"]`` is (B, S); otherwise it is
+    the dense ``{"k", "v", "pos"}`` cache, S = 1 and ``ctx["pos"]`` is
+    (B,)."""
+    _check_kind(kind)
+    cfg, mode, policy = ctx["cfg"], ctx["mode"], ctx.get("policy")
+    h = _norm_apply(cfg, p["ln1"], x)
+    if ctx.get("paged") is not None:
+        out = attn._attn_paged_step(p["attn"], h, cache, ctx["pos"],
+                                    cfg=cfg, window=cfg.window, mode=mode,
+                                    policy=policy, paged=ctx["paged"])
+    else:
+        out, _ = attn.attn_decode(p["attn"], h, cache, ctx["pos"], cfg=cfg,
+                                  window=cfg.window, mode=mode,
+                                  policy=policy)
+    return _ffn_residual(cfg, p, x + out, mode, policy)
+
+
+def block_init_cache(kind: str, cfg, batch: int, cache_len: int, device):
+    """Empty dense KV cache for one layer (a ring under ``cfg.window``)."""
+    _check_kind(kind)
+    return attn.init_kv_cache(cfg, batch, cache_len, device, cfg.window)
 
 
 def block_init_paged_cache(kind: str, cfg, pool_slots: int, device):

@@ -1,5 +1,6 @@
-"""The decoder LM: the PyTorch port of ``repro/models/lm.py`` (paged decode,
-logits, prepared weights).
+"""The decoder LM: the PyTorch port of ``repro/models/lm.py`` (the
+full-sequence forward and prefill, dense and paged decode, logits,
+prepared weights).
 
 ``LM`` is an ``nn.Module`` whose layers are a Python loop over a
 ``ModuleList`` (the JAX package scans stacked layers; the port has no scan
@@ -108,7 +109,50 @@ class LM(nn.Module):
             params["embed"]["table"].float(), transpose=True, site="logits")
         return new
 
+    # ------------------------------------------------------- embedding
+    def _embed_in(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = basic.embed_apply(params["embed"], tokens)
+        # the JAX package multiplies by sqrt(d) rounded to the table's dtype
+        scale = float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
+        return (x * scale).to(torch_dtype(cfg.dtype))
+
+    def _final_norm(self, params, x: torch.Tensor) -> torch.Tensor:
+        norm = (basic.layernorm_apply if self.cfg.norm == "layernorm"
+                else basic.rmsnorm_apply)
+        return norm(params["final_norm"], x)
+
+    # ----------------------------------------------------- full forward
+    def forward(self, params, batch: Dict[str, torch.Tensor], *,
+                collect_cache: bool = False):
+        """Teacher-forced full-sequence pass over ``batch["tokens"]``
+        (B, S) -> ``(hidden (B, S, D), aux_loss, caches)``.  With
+        ``collect_cache`` (prefill), ``caches`` lists each layer's
+        ``{"k", "v"}`` seed; otherwise it is empty."""
+        cfg = self.cfg
+        x = self._embed_in(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+        ctx = {"cfg": cfg, "mode": cfg.matmul_mode,
+               "policy": cfg.contraction_policy, "positions": positions,
+               "causal": True}
+        aux_total = torch.zeros((), device=x.device)
+        caches = []
+        for kind, p in zip(cfg.layer_kinds, params["layers"]):
+            x, seed, aux = blk.block_forward(kind, p, x, ctx)
+            aux_total = aux_total + aux
+            if collect_cache:
+                caches.append(seed)
+        return self._final_norm(params, x), aux_total, caches
+
     # ------------------------------------------------------------- cache
+    def init_cache(self, batch_size: int, cache_len: int
+                   ) -> List[Dict[str, torch.Tensor]]:
+        """One dense ``{"k", "v", "pos"}`` cache per layer, ``cache_len``
+        long (the window under SWA), every position EMPTY_POS."""
+        return [blk.block_init_cache(k, self.cfg, batch_size, cache_len,
+                                     self.device)
+                for k in self.cfg.layer_kinds]
+
     def init_paged_cache(self, pool_slots: int) -> List[Dict[str, torch.Tensor]]:
         """One ``(pool_slots, KV, hd)`` K/V pool per layer, shared by every
         sequence through the engine's block tables."""
@@ -135,19 +179,54 @@ class LM(nn.Module):
         pos_pool[phys.reshape(-1)] = torch.where(
             positions >= 0, positions, attn_mod.EMPTY_POS).reshape(-1).to(
                 pos_pool.dtype)
-        x = basic.embed_apply(params["embed"], torch.clamp(tokens, min=0))
-        # the JAX package multiplies by sqrt(d) rounded to the table's dtype
-        scale = float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
-        x = (x * scale).to(torch_dtype(cfg.dtype))
+        x = self._embed_in(params, torch.clamp(tokens, min=0))
         ctx = {"cfg": cfg, "mode": cfg.matmul_mode,
                "policy": cfg.contraction_policy, "pos": positions,
                "paged": {"tables": tables, "pos_pool": pos_pool,
                          "phys": phys, "block_size": block_size}}
         for kind, p, c in zip(cfg.layer_kinds, params["layers"], cache):
             x = blk.block_decode(kind, p, x, c, ctx)
-        norm = (basic.layernorm_apply if cfg.norm == "layernorm"
-                else basic.rmsnorm_apply)
-        return norm(params["final_norm"], x)
+        return self._final_norm(params, x)
+
+    # ------------------------------------------------------ dense decode
+    def decode_step(self, params, cache, tokens: torch.Tensor,
+                    pos: torch.Tensor):
+        """One decode step against the dense cache.  ``tokens`` (B, 1),
+        ``pos`` (B,) absolute.  The cache is updated IN PLACE (the JAX
+        version returns a new one).  Returns ``(logits (B, V), cache)``."""
+        cfg = self.cfg
+        x = self._embed_in(params, tokens)
+        ctx = {"cfg": cfg, "mode": cfg.matmul_mode,
+               "policy": cfg.contraction_policy, "pos": pos}
+        for kind, p, c in zip(cfg.layer_kinds, params["layers"], cache):
+            x = blk.block_decode(kind, p, x, c, ctx)
+        x = self._final_norm(params, x)
+        return self.logits(params, x)[:, 0], cache
+
+    # ----------------------------------------------------------- prefill
+    def prefill(self, params, batch: Dict[str, torch.Tensor],
+                cache_len: int):
+        """Process a prompt; returns ``(hidden (B, S, D), cache)`` with the
+        cache ready for :meth:`decode_step`.  When the prompt fills the
+        cache (S >= T, a sliding-window ring), its last T entries roll in
+        at slot ``pos % T``."""
+        hidden, _, seeds = self.forward(params, batch, collect_cache=True)
+        cache = self.init_cache(hidden.shape[0], cache_len)
+        dev = hidden.device
+        for dst, seed in zip(cache, seeds):
+            S, T = seed["k"].shape[1], dst["k"].shape[1]
+            if S >= T:
+                ps = torch.arange(S - T, S, device=dev)
+                idx = ps % T
+                dst["k"][:, idx] = seed["k"][:, -T:]
+                dst["v"][:, idx] = seed["v"][:, -T:]
+                dst["pos"][:, idx] = ps.to(torch.int32)
+            else:
+                dst["k"][:, :S] = seed["k"]
+                dst["v"][:, :S] = seed["v"]
+                dst["pos"][:, :S] = torch.arange(S, dtype=torch.int32,
+                                                 device=dev)
+        return hidden, cache
 
     # ------------------------------------------------------------ logits
     def logits(self, params, hidden: torch.Tensor) -> torch.Tensor:

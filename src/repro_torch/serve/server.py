@@ -1,14 +1,38 @@
-"""The request record of the serving stack (``repro/serve/server.py``'s
-``Request``).  The dense reference ``Server`` is not ported: the paged
-engine is held to the JAX engine directly."""
+"""The dense reference serving loop: the PyTorch port of
+``repro/serve/server.py``.
+
+- a fixed decode batch of ``max_batch`` slots over one dense KV cache per
+  layer, with slot recycling (a finished sequence's slot is refilled from
+  the queue);
+- batch-of-one prefill (``LM.prefill``), whose cache is written into the
+  slot layer by layer;
+- slot-batched decode (``LM.decode_step``) at each slot's own position;
+- greedy or temperature sampling (from an explicit ``torch.Generator``);
+- per-request ``max_new_tokens`` / EOS termination.
+
+The paged :class:`~repro_torch.serve.engine.Engine` is the production
+path; this loop is the plain reference it is compared with.
+"""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
+import torch
 
-__all__ = ["Request"]
+from repro_torch.device import resolve_device
+
+__all__ = ["ServeConfig", "Request", "Server", "write_slot"]
+
+
+@dataclasses.dataclass
+class ServeConfig:
+    max_batch: int = 4
+    cache_len: int = 256
+    max_new_tokens: int = 32
+    eos_id: int = -1              # -1: never terminates early
+    temperature: float = 0.0      # 0 = greedy
 
 
 @dataclasses.dataclass
@@ -16,3 +40,105 @@ class Request:
     rid: int
     tokens: np.ndarray            # (prompt_len,) int32
     out: Optional[List[int]] = None
+
+
+def write_slot(cache, slot: int, one) -> None:
+    """Copy a batch-of-one cache ``one`` (``LM.prefill``'s) into row
+    ``slot`` of the batched cache ``cache``, every layer and every entry
+    (the prefill cache's unwritten positions are EMPTY_POS, so the slot's
+    previous occupant leaves nothing behind)."""
+    for dst, src in zip(cache, one):
+        for key in ("k", "v", "pos"):
+            dst[key][slot] = src[key][0].to(dst[key].dtype)
+
+
+class Server:
+    """Serve requests through ``model`` (an :class:`~repro_torch.models.lm.LM`)
+    with the params tree ``params`` (``model.tree()`` or
+    ``model.prepare_params()``), on ``device`` (default: CUDA, which must be
+    present; the model must already lie there)."""
+
+    def __init__(self, model, params, cfg: ServeConfig, seed: int = 0, *,
+                 device: Optional[Union[str, torch.device]] = None):
+        dev = resolve_device(device)
+        if model.device.type != dev.type or (
+                dev.index is not None and model.device != dev):
+            raise ValueError(f"the model lies on {model.device}, the server "
+                             f"was asked to run on {dev}")
+        self.model = model
+        self.params = params
+        self.cfg = cfg
+        self.device = model.device
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._decode = model.decode_step
+        self._prefill = model.prefill
+
+    def _sample(self, logits: torch.Tensor) -> np.ndarray:
+        if self.cfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1).cpu().numpy()
+        probs = torch.softmax(logits.float() / self.cfg.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self.generator)[:, 0] \
+            .cpu().numpy()
+
+    def run(self, requests: List[Request]) -> Dict[int, List[int]]:
+        """Serve all requests to completion; returns {rid: generated ids}."""
+        rids = [r.rid for r in requests]
+        if len(set(rids)) != len(rids):
+            dupes = sorted({r for r in rids if rids.count(r) > 1})
+            raise ValueError(
+                f"duplicate request ids {dupes}: results are keyed by rid, "
+                f"so duplicates would silently overwrite each other")
+        with torch.no_grad():
+            return self._run(list(requests))
+
+    def _run(self, queue: List[Request]) -> Dict[int, List[int]]:
+        cfg = self.cfg
+        dev = self.device
+        results: Dict[int, List[int]] = {}
+        active: List[Optional[Request]] = [None] * cfg.max_batch
+        pos = np.zeros(cfg.max_batch, np.int32)
+        last_tok = np.zeros(cfg.max_batch, np.int32)
+        remaining = np.zeros(cfg.max_batch, np.int32)
+        cache = self.model.init_cache(cfg.max_batch, cfg.cache_len)
+
+        def insert(slot: int, req: Request) -> None:
+            toks = torch.as_tensor(np.asarray(req.tokens, np.int32)[None, :],
+                                   device=dev)
+            hidden, pcache = self._prefill(self.params, {"tokens": toks},
+                                           cfg.cache_len)
+            logits = self.model.logits(self.params, hidden[:, -1:])[:, 0]
+            tok = int(self._sample(logits)[0])
+            req.out = [tok]
+            if tok == cfg.eos_id or cfg.max_new_tokens <= 1:
+                # the first token already ends it: never take a decode slot
+                results[req.rid] = req.out
+                return
+            write_slot(cache, slot, pcache)
+            active[slot] = req
+            pos[slot] = len(req.tokens)
+            last_tok[slot] = tok
+            remaining[slot] = cfg.max_new_tokens - 1
+
+        while queue or any(a is not None for a in active):
+            for slot in range(cfg.max_batch):
+                if active[slot] is None and queue:
+                    insert(slot, queue.pop(0))
+            live = [s for s in range(cfg.max_batch) if active[s] is not None]
+            if not live:
+                continue              # instantly-finished inserts: re-admit
+            logits, cache = self._decode(
+                self.params, cache,
+                torch.as_tensor(last_tok[:, None], device=dev),
+                torch.as_tensor(pos, device=dev))
+            nxt = self._sample(logits)
+            for slot in live:
+                req = active[slot]
+                tok = int(nxt[slot])
+                req.out.append(tok)
+                pos[slot] += 1
+                last_tok[slot] = tok
+                remaining[slot] -= 1
+                if tok == cfg.eos_id or remaining[slot] <= 0:
+                    results[req.rid] = req.out
+                    active[slot] = None
+        return results

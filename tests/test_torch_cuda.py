@@ -5,9 +5,11 @@ has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1 f32 |err| <= k * 2^-23 * (max|a| + max|b|)^2 (the rounding
-of two different orders of square-form f32 sums), K1 int32 bit-exact; K4
-|err| <= 1e-4 (``tests/test_paged_attn_kernel.py``'s tolerance).
+Tolerances: K1/K2/K3 f32 |err| <= k * 2^-23 * (max|a| + max|b|)^2 (the
+rounding of two different orders of square-form f32 sums), int32
+bit-exact; K2 equal to K1 on every element and K3 equal to K2, bit for
+bit (one summation order by construction); K4 |err| <= 1e-4
+(``tests/test_paged_attn_kernel.py``'s tolerance).
 """
 import numpy as np
 import pytest
@@ -15,7 +17,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import squares as sq  # noqa: E402
-from repro_torch.kernels.sq_matmul import sq_matmul_k1, sq_matmul_plain  # noqa: E402
+from repro_torch.kernels.sq_matmul import (  # noqa: E402
+    sq_matmul_batched_plain, sq_matmul_k1, sq_matmul_k2, sq_matmul_k3,
+    sq_matmul_plain)
 from repro_torch.kernels.sq_paged_attn import (  # noqa: E402
     sq_paged_attn_k4, sq_paged_attn_plain)
 from repro_torch.models.attention import EMPTY_POS  # noqa: E402
@@ -58,6 +62,63 @@ def test_k1_matches_plain_on_card(cuda_device, m, k, n):
     si, sj = sq.row_correction(ai), sq.col_correction(bi)
     assert torch.equal(sq_matmul_k1(ai, bi, si, sj),
                        sq_matmul_plain(ai, bi, si, sj))
+
+
+@pytest.mark.parametrize("nb,m,k,n", [
+    (12, 32, 64, 128), (12, 32, 128, 64),            # paged prefill chunk
+    (12, 23, 64, 23), (12, 12, 12, 64),              # dense prefill
+    (48, 1, 64, 128), (48, 1, 128, 64),              # dense decode
+    (5, 7, 70, 33), (3, 40, 1, 3), (1, 9, 200, 65)])  # ragged
+def test_k2_k3_match_plain_and_each_other_on_card(cuda_device, nb, m, k, n):
+    gen = torch.Generator().manual_seed(3)
+    aw = torch.randn(nb, m, k, generator=gen).to(torch.bfloat16).float()
+    bw = torch.randn(nb, k, n, generator=gen).to(torch.bfloat16).float()
+    ai = torch.randint(-128, 128, (nb, m, k), generator=gen,
+                       dtype=torch.int32)
+    bi = torch.randint(-128, 128, (nb, k, n), generator=gen,
+                       dtype=torch.int32)
+    for a, b in ((aw, bw), (ai, bi)):
+        a, b = a.to(cuda_device), b.to(cuda_device)
+        sa, sb = sq.row_correction(a), sq.col_correction(b, dim=-2)
+        before = (sq_matmul_k2.launches, sq_matmul_k3.launches,
+                  sq_matmul_k2.shapes[(nb, m, k, n)])
+        o2 = sq_matmul_k2(a, b, sa, sb)
+        o3 = sq_matmul_k3(a, b, sa, sb)
+        torch.cuda.synchronize()
+        assert (sq_matmul_k2.launches, sq_matmul_k3.launches,
+                sq_matmul_k2.shapes[(nb, m, k, n)]) == tuple(
+                    x + 1 for x in before)
+        ref = sq_matmul_batched_plain(a, b, sa, sb)
+        if a.dtype == torch.int32:
+            assert torch.equal(o2, ref)
+            assert torch.equal(o2.double(), torch.matmul(a.double(),
+                                                         b.double()))
+        else:
+            tol = k * 2.0 ** -23 * (a.abs().max() + b.abs().max()).item() ** 2
+            assert (o2 - ref).abs().max().item() <= tol
+        assert torch.equal(o3, o2)                     # K3 = K2, bit for bit
+        for e in range(nb):                            # K2 = K1 per element
+            assert torch.equal(o2[e], sq_matmul_k1(a[e], b[e], sa[e], sb[e]))
+
+
+def test_square_pallas_attention_runs_k2_k3_on_card(cuda_device):
+    """fs_einsum's batched contractions reach K2 and K3 on CUDA tensors."""
+    from repro_torch.core.einsum import fs_einsum
+    gen = torch.Generator().manual_seed(4)
+    q = torch.randn(4, 1, 12, 1, 64, generator=gen).to(cuda_device)
+    kc = torch.randn(4, 128, 12, 64, generator=gen).to(cuda_device)
+    qc = torch.randn(1, 32, 12, 1, 64, generator=gen).to(cuda_device)
+    before = (sq_matmul_k2.launches, sq_matmul_k3.launches)
+    fold = fs_einsum("bqkgh,btkh->bkgqt", q, kc, mode="square_pallas")
+    batched = fs_einsum("bqkgh,btkh->bkgqt", qc, kc[:1],
+                        mode="square_pallas")
+    torch.cuda.synchronize()
+    assert (sq_matmul_k2.launches, sq_matmul_k3.launches) == (
+        before[0] + 1, before[1] + 1)
+    for out, x, y in ((fold, q, kc), (batched, qc, kc[:1])):
+        want = torch.einsum("bqkgh,btkh->bkgqt", x, y)
+        assert (out - want).abs().max().item() <= 64 * 2.0 ** -23 * (
+            x.abs().max() + y.abs().max()).item() ** 2
 
 
 def _k4_inputs(dev, B=4, S=3, KV=2, G=3, hd=64, nb=8, bs=16, n_ctx=70):

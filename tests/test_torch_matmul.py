@@ -112,8 +112,14 @@ def test_sq_matmul_entry_point_cpu():
     assert out3.shape == (3, 4, 8)
     np.testing.assert_allclose(out3.numpy(), (a3 @ b).numpy(), rtol=2e-3,
                                atol=1e-2)
-    with pytest.raises(NotImplementedError, match="K2/K3"):
-        ops.sq_matmul(a3, torch.randn(3, 32, 8), device="cpu")
+    b3 = torch.randn(3, 32, 8)                    # batched: K2/K3
+    for fold in (False, True):
+        out_b = ops.sq_matmul(a3, b3, fold=fold, device="cpu")
+        assert out_b.shape == (3, 4, 8)
+        np.testing.assert_allclose(out_b.numpy(), (a3 @ b3).numpy(),
+                                   rtol=2e-3, atol=1e-2)
+    with pytest.raises(ValueError, match="batched contraction mismatch"):
+        ops.sq_matmul(a3, torch.randn(2, 32, 8), device="cpu")
 
 
 def test_k1_plain_on_cpu_counts_no_launch():

@@ -72,3 +72,26 @@ def test_route_decisions_are_counted():
     trt.select_matmul_route(8, 768, 768)
     trt.select_matmul_route(1, 4, 4)
     assert trt.select_matmul_route.taken == {"kernel": 1, "virtual": 1}
+
+
+def test_serving_route_table_of_fairsquare_demo():
+    """The routes of full-width fairsquare-demo's attention contractions
+    (12 heads of 64, G = 1) under ``--policy none``: paged prefill chunks
+    and dense prefills of 13+ tokens take K2 (``batched``), dense prefills
+    of 7-12 tokens and every dense decode step of 4 slots take K3
+    (``fold``), and prompts of 6 tokens or fewer stay ``virtual``."""
+    route = trt.select_matmul_route
+    # paged Engine, one prefill chunk of 32 against a 128-slot table
+    assert route(32, 128, 64, batch=12).name == "batched"       # scores
+    assert route(32, 64, 128, batch=12).name == "batched"       # PV
+    # dense Server prefill of S tokens: scores (S, 64) @ (64, S), PV
+    # (S, S) @ (S, 64); the launcher's seed-0 prompts are 12-23 tokens
+    for s in range(1, 40):
+        want = "virtual" if s <= 6 else "fold" if s <= 12 else "batched"
+        assert route(s, s, 64, batch=12).name == want, s
+        assert route(s, 64, s, batch=12).name == want, s
+        assert want == jrt.select_matmul_route(s, s, 64, batch=12,
+                                               dtype=jnp.float32).name
+    # dense Server decode step, 4 slots x 12 heads against cache_len 128
+    assert route(1, 128, 64, batch=48).name == "fold"
+    assert route(1, 64, 128, batch=48).name == "fold"
