@@ -14,18 +14,25 @@ through the kernels, at shapes held to their plain versions:
   prefill attention, K3 on every decode step's attention, K1 elsewhere; a
   few of its decode steps are traced too.
 
+It then holds the convolution kernels to their plain versions -- K7 at the
+six ResNet-50 layers it runs at batch 8 and a ragged/padded set, K8 on
+2^20-sample FIR streams -- and drives the two conv paths as a user would:
+``conv2d(mode="square_pallas")`` with prepared filters over those layers
+and the CIFAR ResNet stem (K7 six times, K1 once through im2col), and
+``ops.sq_conv`` over the three streams (K8 three times).
+
     python3 chip_smoke.py
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repo.  Its last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
 the line before it is the card's name and power limit, and the one before
-that lists the kernels with their launches on each serving path, their
-times, their plain versions' times, their bounds and a library call's
-time.  Times are CUDA-graph replays (no host gaps); K1's weights are
-cycled through enough copies to defeat the 50 MB L2, as the decode path
-finds them, while K2/K3's operands are the activations their caller has
-just written and stay hot.
+that lists the kernels with their launches on each path, their times,
+their plain versions' times, their bounds and a library call's time.
+Times are CUDA-graph replays (no host gaps); K1's weights are cycled
+through enough copies to defeat the 50 MB L2, as the decode path finds
+them, while the operands of K2/K3, K7 and K8 are the activations or
+samples their caller has just written and stay hot.
 """
 from __future__ import annotations
 
@@ -49,6 +56,13 @@ from repro_torch.kernels import build, routing                  # noqa: E402
 from repro_torch.kernels.sq_matmul import (                     # noqa: E402
     sq_matmul_batched_plain, sq_matmul_k1, sq_matmul_k2, sq_matmul_k3,
     sq_matmul_plain)
+from repro_torch.core import conv as conv_core                   # noqa: E402
+from repro_torch.core.prepared import prepare_operand           # noqa: E402
+from repro_torch.kernels import ops                             # noqa: E402
+from repro_torch.kernels.sq_conv import (                       # noqa: E402
+    sq_conv_k8, sq_conv_plain)
+from repro_torch.kernels.sq_conv2d import (                     # noqa: E402
+    conv2d_out_hw, k_splits, sq_conv2d_k7, sq_conv2d_plain)
 from repro_torch.kernels.sq_paged_attn import (                 # noqa: E402
     sq_paged_attn_k4, sq_paged_attn_plain)
 from repro_torch.launch.serve import make_requests              # noqa: E402
@@ -412,12 +426,14 @@ def engine_cfg(max_new=MAX_NEW):
 
 
 def reset_counts():
-    for kern in (sq_matmul_k1, sq_matmul_k2, sq_matmul_k3):
+    for kern in (sq_matmul_k1, sq_matmul_k2, sq_matmul_k3, sq_conv2d_k7,
+                 sq_conv_k8):
         kern.launches = 0
         kern.shapes.clear()
     sq_paged_attn_k4.launches = 0
     routing.select_matmul_route.taken.clear()
     routing.select_paged_attn_route.taken.clear()
+    routing.select_conv2d_route.taken.clear()
 
 
 def counts():
@@ -835,23 +851,336 @@ def dense_logits_phase(model: LM, params, dev) -> None:
           f"agreement {agree.item():.3f} over {len(prompts)} rows")
 
 
+# ------------------------------------------------------------ K7, K8
+# ResNet-50 (He et al. 2016, Table 1; stride on the 3x3 as in torchvision's
+# v1.5) at batch 8: (name, x shape, w shape, stride, padding), and the
+# CIFAR ResNet stem (the same paper, section 4.2), which the planner sends
+# to the im2col route.
+RESNET50_LAYERS = [
+    ("conv1", (8, 3, 224, 224), (64, 3, 7, 7), 2, 3),
+    ("conv2_x 1x1", (8, 256, 56, 56), (64, 256, 1, 1), 1, 0),
+    ("conv2_x 3x3", (8, 64, 56, 56), (64, 64, 3, 3), 1, 1),
+    ("conv3_1 3x3/2", (8, 128, 56, 56), (128, 128, 3, 3), 2, 1),
+    ("conv4_x 3x3", (8, 256, 14, 14), (256, 256, 3, 3), 1, 1),
+    ("conv5_x 3x3", (8, 512, 7, 7), (512, 512, 3, 3), 1, 1),
+]
+CIFAR_STEM = ("cifar stem", (8, 3, 32, 32), (16, 3, 3, 3), 1, 1)
+# ragged and padded: odd H/W, cin 3/5/7, SAME, explicit asymmetric pads,
+# stride 2 (B, cin, H, W), (cout, cin, kh, kw), stride, padding
+K7_RAGGED = [
+    ((2, 3, 17, 13), (5, 3, 3, 3), 1, "SAME"),
+    ((1, 5, 15, 18), (7, 5, 3, 3), 2, "SAME"),
+    ((2, 7, 10, 11), (3, 7, 3, 5), 1, ((2, 0), (0, 3))),
+    ((1, 3, 9, 23), (5, 3, 5, 3), (2, 1), "VALID"),
+    ((2, 5, 31, 29), (65, 5, 7, 7), 2, ((3, 2), (1, 3))),
+    ((3, 1, 8, 8), (1, 1, 8, 8), 1, "VALID"),
+]
+FIR_TAPS = (16, 127, 255)            # JAX benchmarks' count; below/above 128
+FIR_LEN = 1 << 20
+K8_RAGGED = [(5000, 127), (4097, 255), (300, 1), (1000, 300), (2049, 3)]
+
+
+def conv_operands(gen, xshape, wshape, dev, relu=True):
+    """f32 activations (post-ReLU unless ``relu`` is False: an image) and
+    He-normal filters."""
+    x = torch.randn(xshape, generator=gen)
+    if relu:
+        x = x.clamp_min(0)
+    fan_in = wshape[1] * wshape[2] * wshape[3]
+    w = torch.randn(wshape, generator=gen) * math.sqrt(2.0 / fan_in)
+    return x.to(dev), w.to(dev)
+
+
+def conv_geometry(xshape, wshape, stride, padding):
+    strides = conv_core.resolve_stride(stride)
+    pads = conv_core.resolve_padding(padding, xshape[2:], wshape[2:], strides)
+    return strides, pads
+
+
+def conv_tol(x, w, kvol):
+    """|err| bound of two square-form f32 sums of kvol terms per output."""
+    return kvol * 2.0 ** -23 * (x.abs().max().item()
+                                + w.abs().max().item()) ** 2
+
+
+def k7_call(x, w, stride, padding):
+    """(kernel call, plain call, im2col-route call) on one conv's operands,
+    the filters prepared once."""
+    strides, pads = conv_geometry(x.shape, w.shape, stride, padding)
+    wt, sw, _ = ops.prepare_conv2d_weights(w)
+    khw = tuple(w.shape[2:])
+    return (lambda: sq_conv2d_k7(x, wt, sw, khw=khw, stride=strides,
+                                 pads=pads),
+            lambda: sq_conv2d_plain(x, wt, sw, khw, strides, pads),
+            lambda: ops.sq_conv2d_im2col(x, w, stride=stride,
+                                         padding=padding))
+
+
+def k7_phase(dev, gen):
+    """K7 against its plain version at every ResNet-50 fused layer and a
+    ragged/padded set (f32 and int8), against the im2col route on the same
+    operands, and timed beside the plain version, F.conv2d and the bound.
+    Operands are activations their caller has just written, so they stay
+    hot, as for K2/K3."""
+    print("K7 sq_conv2d vs plain (f32 |err| <= K * 2^-23 * (max|x| + "
+          "max|w|)^2 with K = kh*kw*cin; int8 exact; fused = im2col route "
+          "within the same bound, int8 bit for bit)", flush=True)
+    rows = []
+    cases = [(name, xs, ws, st, pd, True) for name, xs, ws, st, pd
+             in RESNET50_LAYERS]
+    cases += [("ragged", xs, ws, st, pd, False) for xs, ws, st, pd
+              in K7_RAGGED]
+    for name, xshape, wshape, stride, padding, timed in cases:
+        x, w = conv_operands(gen, xshape, wshape, dev,
+                             relu=name not in ("conv1", "ragged"))
+        kvol = wshape[1] * wshape[2] * wshape[3]
+        kern, plain, im2col = k7_call(x, w, stride, padding)
+        out, ref, via = kern(), plain(), im2col()
+        torch.cuda.synchronize()
+        tol = conv_tol(x, w, kvol)
+        err = (out - ref).abs().max().item()
+        err_route = (out - via).abs().max().item()
+        label = f"{name} x{tuple(xshape)} w{tuple(wshape)} s={stride} " \
+                f"p={padding}"
+        check(bool(torch.isfinite(out).all()) and out.shape == ref.shape
+              and err <= tol,
+              f"f32 {label}: max|err| {err:.3e} <= {tol:.3e}")
+        check(err_route <= tol, f"f32 {label}: fused vs im2col route "
+                                f"max|diff| {err_route:.3e} <= {tol:.3e}")
+        if not timed or name in ("conv1", "conv3_1 3x3/2", "conv5_x 3x3"):
+            xi = torch.randint(-128, 128, xshape, generator=gen,
+                               dtype=torch.int32).to(dev)
+            wi = torch.randint(-128, 128, wshape, generator=gen,
+                               dtype=torch.int32).to(dev)
+            strides, pads = conv_geometry(xshape, wshape, stride, padding)
+            ki, pi, ii = k7_call(xi, wi, stride, padding)
+            oi = ki()
+            exact = conv_core.conv2d_nchw(xi, wi, strides, pads, torch.int32)
+            check(torch.equal(oi, pi()) and torch.equal(oi, exact)
+                  and torch.equal(oi, ii()),
+                  f"int8 {label}: bit-exact, = plain = im2col route")
+        if not timed:
+            rows.append(dict(name=name, max_abs_err=err))
+            continue
+        strides, pads = conv_geometry(xshape, wshape, stride, padding)
+        ms = time_graph([kern])
+        plain_ms = time_graph([plain], reps=2, replays=2)
+        lib_ms = time_graph([lambda: torch.nn.functional.conv2d(
+            x, w, stride=strides, padding=(pads[0][0], pads[1][0]))])
+        B, cout = xshape[0], wshape[0]
+        oh, ow = out.shape[2:]
+        terms = B * oh * ow * cout * kvol
+        nbytes = 4 * (x.numel() + w.numel() + cout + out.numel())
+        ops_n = 3 * terms                 # one add + one FMA per square term
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, \
+            ops_n / FP32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        row = dict(name=name, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound, t_bytes=t_bytes, t_ops=t_ops,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   max_abs_err=err, terms=terms)
+        rows.append(row)
+        splits = k_splits(out.shape[0] * oh * ow, cout, kvol,
+                          torch.cuda.get_device_properties(
+                              dev).multi_processor_count)
+        print(f"    {name:14s} {terms / 1e6:7.1f} M terms, K walk split "
+              f"{splits}x  K7 {ms:.4f} ms | "
+              f"plain {plain_ms:.4f} ms | F.conv2d (f32, no TF32) "
+              f"{lib_ms:.4f} ms | bound {bound:.4f} ms ({row['bound_by']}) "
+              f"| {bound / ms:.1%} of bound", flush=True)
+    return rows
+
+
+def k8_phase(dev, gen):
+    """K8 against its plain version on the FIR streams (L = 2^20 at 16, 127
+    and 255 taps) and a ragged set, f32 and int8, timed beside the plain
+    version, F.conv1d and the bound."""
+    print("K8 sq_conv vs plain (f32 |err| <= n * 2^-23 * (max|x| + "
+          "max|w|)^2; int8 exact)", flush=True)
+    rows = []
+    cases = [(FIR_LEN, n, True) for n in FIR_TAPS]
+    cases += [(L, n, False) for L, n in K8_RAGGED]
+    for L, n, timed in cases:
+        x = torch.randn(L, generator=gen).to(dev)
+        w = (torch.randn(n, generator=gen) / math.sqrt(n)).to(dev)
+        sw = -(w * w).sum().reshape(1)
+        out = sq_conv_k8(x, w, sw)
+        ref = sq_conv_plain(x, w, sw)
+        torch.cuda.synchronize()
+        tol = conv_tol(x, w, n)
+        err = (out - ref).abs().max().item()
+        check(bool(torch.isfinite(out).all()) and err <= tol,
+              f"f32 L={L} n={n}: max|err| {err:.3e} <= {tol:.3e}")
+        xi = torch.randint(-128, 128, (L,), generator=gen,
+                           dtype=torch.int32).to(dev)
+        wi = torch.randint(-128, 128, (n,), generator=gen,
+                           dtype=torch.int32).to(dev)
+        swi = -(wi * wi).sum(dtype=torch.int32).reshape(1)
+        oi = sq_conv_k8(xi, wi, swi)
+        exact = conv_core.correlate1d(xi, wi, mode="standard")
+        check(torch.equal(oi, sq_conv_plain(xi, wi, swi))
+              and torch.equal(oi, exact),
+              f"int8 L={L} n={n}: bit-exact")
+        if not timed:
+            rows.append(dict(L=L, n=n, max_abs_err=err))
+            continue
+        ms = time_graph([lambda: sq_conv_k8(x, w, sw)])
+        plain_ms = time_graph([lambda: sq_conv_plain(x, w, sw)], reps=2,
+                              replays=2)
+        lib_ms = time_graph([lambda: torch.nn.functional.conv1d(
+            x[None, None], w[None, None])])
+        k_out = L - n + 1
+        nbytes = 4 * (L + n + 1 + k_out)
+        ops_n = 3 * k_out * n
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, \
+            ops_n / FP32_OPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        row = dict(L=L, n=n, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=bound, t_bytes=t_bytes, t_ops=t_ops,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   max_abs_err=err)
+        rows.append(row)
+        print(f"    L=2^20 n={n:3d}  K8 {ms:.4f} ms | plain {plain_ms:.4f} ms "
+              f"| F.conv1d (f32, no TF32) {lib_ms:.4f} ms | bound "
+              f"{bound:.4f} ms ({row['bound_by']}) | {bound / ms:.1%} of "
+              f"bound", flush=True)
+    return rows
+
+
+def kernel_counts():
+    return {"K1": sq_matmul_k1.launches, "K2": sq_matmul_k2.launches,
+            "K3": sq_matmul_k3.launches, "K4": sq_paged_attn_k4.launches,
+            "K7": sq_conv2d_k7.launches, "K8": sq_conv_k8.launches}
+
+
+def conv_path_phase(dev, gen):
+    """The conv path as a user drives it: conv2d(mode="square_pallas") with
+    prepared filters over the six ResNet-50 layers and the CIFAR stem, the
+    route the planner's.  One K7 launch per fused layer, one K1 launch for
+    the stem, nothing else; each output within the bound of standard mode,
+    and the prepared result equal to the raw one bit for bit."""
+    layers = RESNET50_LAYERS + [CIFAR_STEM]
+    print(f"conv path: conv2d square_pallas, prepared filters, "
+          f"{len(layers)} layers at batch 8", flush=True)
+    data = []
+    for name, xshape, wshape, stride, padding in layers:
+        x, w = conv_operands(gen, xshape, wshape, dev,
+                             relu=name not in ("conv1", "cifar stem"))
+        data.append((name, x, w, prepare_operand(w, for_="conv2d"), stride,
+                     padding))
+    # the stem's K1 GEMM is held to K1's plain version at its shape
+    _, x, w, _, stride, padding = data[-1]
+    strides, pads = conv_geometry(x.shape, w.shape, stride, padding)
+    pm = ops._im2col_patches(x, tuple(w.shape[2:]), strides, pads,
+                             conv2d_out_hw(x.shape[2:], w.shape[2:], strides,
+                                           pads))
+    _, sw, wmat = ops.prepare_conv2d_weights(w)
+    sa = -(pm * pm).sum(1)
+    err = (sq_matmul_k1(pm, wmat, sa, sw)
+           - sq_matmul_plain(pm, wmat, sa, sw)).abs().max().item()
+    tol = pm.shape[1] * 2.0 ** -23 * (pm.abs().max().item()
+                                      + wmat.abs().max().item()) ** 2
+    check(err <= tol, f"K1 at the stem's im2col GEMM {tuple(pm.shape)} @ "
+                      f"{tuple(wmat.shape)}: max|err| {err:.3e} <= "
+                      f"{tol:.3e}")
+    for _, x, _, prep, stride, padding in data:          # warm-up
+        conv_core.conv2d(x, prep, stride=stride, padding=padding,
+                         mode="square_pallas")
+    torch.cuda.synchronize()
+
+    reset_counts()                      # counts of this path's run only
+    per_layer, outs = [], []
+    t0 = time.perf_counter()
+    for _, x, _, prep, stride, padding in data:
+        before = kernel_counts()
+        outs.append(conv_core.conv2d(x, prep, stride=stride, padding=padding,
+                                     mode="square_pallas"))
+        after = kernel_counts()
+        per_layer.append({k: after[k] - before[k] for k in after})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = kernel_counts()
+    taken = dict(routing.select_conv2d_route.taken)
+    k1_shapes = dict(sq_matmul_k1.shapes)
+
+    want = [{"K7": 1} if name != "cifar stem" else {"K1": 1}
+            for name, *_ in layers]
+    check(all(d == {k: w.get(k, 0) for k in d}
+              for d, w in zip(per_layer, want)),
+          f"one K7 launch per fused layer, one K1 for the stem, no other "
+          f"kernel: {per_layer}")
+    check(total["K7"] == 6 and total["K1"] == 1 and taken == {"fused": 6,
+                                                              "im2col": 1},
+          f"main path: launches {total}, routes {taken}")
+    check(set(k1_shapes) == {tuple(pm.shape) + (wmat.shape[1],)},
+          f"K1 ran only at the stem's GEMM held to its plain version above: "
+          f"{k1_shapes}")
+    for (name, x, w, _, stride, padding), out in zip(data, outs):
+        std = conv_core.conv2d(x, w, stride=stride, padding=padding,
+                               mode="standard")
+        raw = conv_core.conv2d(x, w, stride=stride, padding=padding,
+                               mode="square_pallas")
+        tol = conv_tol(x, w, w.shape[1] * w.shape[2] * w.shape[3])
+        err = (out - std).abs().max().item()
+        check(bool(torch.isfinite(out).all()) and out.shape == std.shape
+              and err <= tol and torch.equal(out, raw),
+              f"{name}: out {tuple(out.shape)} vs standard mode max|diff| "
+              f"{err:.3e} <= {tol:.3e}; prepared = raw bit for bit")
+    print(f"  7 layers in {wall * 1e3:.2f} ms of host wall (eager, one "
+          f"pass after a warm-up)", flush=True)
+    return total
+
+
+def fir_path_phase(dev):
+    """The FIR path as a user drives it: ops.sq_conv on numpy streams of
+    2^20 samples from seed 0 (they go to the GPU by default), at 16, 127
+    and 255 taps.  One K8 launch per stream, nothing else; each output
+    within the bound of the standard correlation."""
+    print("FIR path: ops.sq_conv on L = 2^20 numpy streams (seed 0)",
+          flush=True)
+    rng = np.random.default_rng(0)
+    streams = [(rng.standard_normal(FIR_LEN).astype(np.float32),
+                (rng.standard_normal(n) / math.sqrt(n)).astype(np.float32))
+               for n in FIR_TAPS]
+    reset_counts()                      # counts of this path's run only
+    outs = [ops.sq_conv(x, w) for x, w in streams]
+    torch.cuda.synchronize()
+    total = kernel_counts()
+    check(total["K8"] == len(FIR_TAPS)
+          and sum(total.values()) == len(FIR_TAPS)
+          and dict(sq_conv_k8.shapes) == {(FIR_LEN, n): 1 for n in FIR_TAPS},
+          f"main path: one K8 launch per stream, no other kernel: {total}")
+    for (x, w), out in zip(streams, outs):
+        xt, wt = torch.as_tensor(x, device=dev), torch.as_tensor(w, device=dev)
+        std = conv_core.correlate1d(xt, wt, mode="standard")
+        tol = conv_tol(xt, wt, len(w))
+        err = (out - std).abs().max().item()
+        check(out.device.type == "cuda" and out.shape == std.shape
+              and bool(torch.isfinite(out).all()) and err <= tol,
+              f"n={len(w)}: out {tuple(out.shape)} on {out.device} vs the "
+              f"standard correlation max|diff| {err:.3e} <= {tol:.3e}")
+    return total
+
+
 # ---------------------------------------------------------------- main
-def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, launches):
+def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
+                launches):
     """The kernels line.  ``launches``: {kernel: {path: count}} read after
-    each serving path's run.  K1's and K4's times are per decode step of
-    the paged engine, K2's per paged prefill chunk, K3's per dense decode
-    step; each sums its kernel's launches of that unit from the shape
-    tables above."""
+    each path's run.  K1's and K4's times are per decode step of the paged
+    engine, K2's per paged prefill chunk, K3's per dense decode step, K7's
+    per pass over the six fused ResNet-50 layers and K8's per pass over
+    the three FIR streams; each sums its kernel's launches of that unit
+    from the shape tables above."""
     decode = [r for r in k1_rows if r["m"] == 8 and "ms" in r]
 
     def per_step(rows, mult, key):
         return sum(mult(r) * r[key] for r in rows)
 
-    def entry(key, name, line, rows, mult, per):
+    def entry(key, name, line, rows, mult, per,
+              source="src/repro_torch/csrc/sq_matmul.cu"):
         t_bytes = per_step(rows, mult, "t_bytes")
         t_ops = per_step(rows, mult, "t_ops")
-        return {"name": name, "route": "cuda",
-                "source": "src/repro_torch/csrc/sq_matmul.cu",
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": f"src/repro/kernels/{line}",
                 "launches": sum(launches[key].values()),
                 "launches_by_path": launches[key],
@@ -863,7 +1192,8 @@ def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, launches):
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": per_step(rows, mult, "library_ms"), "per": per}
 
-    all_rows = {"K1": k1_rows, "K2": k2_rows, "K3": k3_rows}
+    all_rows = {"K1": k1_rows, "K2": k2_rows, "K3": k3_rows,
+                "K7": k7_rows, "K8": k8_rows}
     k1 = entry("K1", "sq_matmul (K1)", "sq_matmul.py:92", decode,
                lambda r: K1_PER_STEP[(r["k"], r["n"])],
                "one paged decode step: 85 GEMMs at m=8")
@@ -885,7 +1215,15 @@ def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, launches):
           "bound_ms": 12 * k4_row["bound_ms"], "bound_by": k4_row["bound_by"],
           "library_ms": 12 * k4_row["library_ms"],
           "per": "one paged decode step: 12 launches at B=8 T=128"}
-    return json.dumps({"kernels": [k1, k2, k3, k4]})
+    k7 = entry("K7", "sq_conv2d (K7)", "sq_conv2d.py:68",
+               [r for r in k7_rows if "ms" in r], lambda r: 1,
+               "one pass over the six fused ResNet-50 layers at batch 8",
+               source="src/repro_torch/csrc/sq_conv2d.cu")
+    k8 = entry("K8", "sq_conv (K8)", "sq_conv.py:50",
+               [r for r in k8_rows if "ms" in r], lambda r: 1,
+               "one pass over the three FIR streams: L=2^20 at 16, 127 "
+               "and 255 taps", source="src/repro_torch/csrc/sq_conv.cu")
+    return json.dumps({"kernels": [k1, k2, k3, k4, k7, k8]})
 
 
 def run(dev) -> str:
@@ -899,27 +1237,35 @@ def run(dev) -> str:
     k2_rows = batched_phase(dev, gen, "K2", cases["K2"])
     k3_rows = batched_phase(dev, gen, "K3", cases["K3"])
     k4_row = k4_phase(dev, gen)
+    k7_rows = k7_phase(dev, gen)
+    k8_rows = k8_phase(dev, gen)
     compared = {"K1": [(r["m"], r["k"], r["n"]) for r in k1_rows],
                 "K2": cases["K2"], "K3": cases["K3"]}
     k1_total, k4_total, _ = engine_phase(dev, compared)
     model = build_model(serve_cfg(policy=None), device=dev, seed=0)
     none = engine_none_phase(model, dev, compared)
     dense = server_phase(model, dev, compared)
+    conv = conv_path_phase(dev, gen)
+    fir = fir_path_phase(dev)
     launches = {"K1": {"engine_square_gemms": k1_total,
                        "engine_no_policy": none["K1"],
-                       "server_no_policy": dense["K1"]},
+                       "server_no_policy": dense["K1"],
+                       "conv_path": conv["K1"]},
                 "K2": {"engine_no_policy": none["K2"],
                        "server_no_policy": dense["K2"]},
                 "K3": {"server_no_policy": dense["K3"]},
                 "K4": {"engine_square_gemms": k4_total,
-                       "engine_no_policy": none["K4"]}}
+                       "engine_no_policy": none["K4"]},
+                "K7": {"conv_path": conv["K7"]},
+                "K8": {"fir_path": fir["K8"]}}
     dense_k1 = sum(K1_PER_STEP[(r["k"], r["n"])] * r["ms"] for r in k1_rows
                    if r["m"] == DENSE_BATCH and "ms" in r)
     dense_k3 = sum(HEADS * r["ms"] for r in k3_rows if r["shape"][1] == 1)
     print(f"dense decode step in graph replay: K1 85 launches at "
           f"m={DENSE_BATCH} {dense_k1:.3f} ms, K3 24 launches "
           f"{dense_k3:.3f} ms", flush=True)
-    return kernel_line(k1_rows, k2_rows, k3_rows, k4_row, launches)
+    return kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
+                       launches)
 
 
 def main() -> int:

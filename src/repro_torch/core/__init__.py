@@ -1,2 +1,2 @@
-"""Square-form algebra, prepared operands, the matmul modes and the
-contraction dispatch (``fs_einsum``)."""
+"""Square-form algebra, prepared operands, the matmul modes, the square
+convolutions and the contraction dispatch (``fs_einsum``)."""

@@ -101,6 +101,8 @@ def matmul(a: torch.Tensor, b, *, mode: Optional[str] = None,
     ``square_pallas`` reuses its widened weight and ``Sb``.
     """
     prep = b if isinstance(b, PreparedOperand) else None
+    if prep is not None and prep.kind != "matmul":
+        raise ValueError(f"matmul got a {prep.kind!r} PreparedOperand")
     b_shape = prep.kn_shape if prep is not None else tuple(b.shape)
     if len(b_shape) != 2:
         raise ValueError(f"rhs must be 2D (K, N), got {tuple(b_shape)}")

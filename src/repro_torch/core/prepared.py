@@ -1,5 +1,5 @@
 """Weight-stationary prepared operands (paper §4-§5): the PyTorch port of
-``repro/core/prepared.py``, matmul half.
+``repro/core/prepared.py``.
 
 A weight used by many calls has its constant half of the kernel prep done
 once: the widened weight in the canonical ``(K, N)`` layout and its column
@@ -10,6 +10,13 @@ prepared and raw results are bit-identical by construction.
 There is no tile padding: K1 masks ragged edges itself.  ``transposed``
 records that the call site contracts the weight's last axis (the tied
 vocab GEMM ``bsd,vd->bsv``); the transpose is materialised once, here.
+
+A conv2d prepare (``for_="conv2d"``) holds what both conv routes stream
+(:func:`repro_torch.kernels.ops.prepare_conv2d_weights`): in ``canon`` the
+widened filters as K7's ``(kh*kw*cin, cout)`` tap matrix, K ordered
+(kh, kw, cin); in ``im2col`` the same filters as the im2col route's
+``(cin*kh*kw, cout)`` K1 operand; and in ``corr`` the per-filter correction
+``Sw_f = -sum_{c,i,j} w^2``, which is also that matrix's column correction.
 """
 from __future__ import annotations
 
@@ -23,12 +30,15 @@ __all__ = ["PreparedOperand", "prepare_operand", "unwrap"]
 
 @dataclasses.dataclass
 class PreparedOperand:
-    """A constant matmul operand with its kernel prep precomputed."""
+    """A constant matmul or conv2d operand with its kernel prep
+    precomputed."""
     source: torch.Tensor            # original weight, caller layout
     canon: torch.Tensor             # widened (K, N), contiguous
-    corr: torch.Tensor              # Sb, (N,)
+    corr: torch.Tensor              # Sb (matmul) or Sw (conv2d), (N,)
     transposed: bool                # canon built from source.T
     site: Optional[str] = None
+    kind: str = "matmul"            # "matmul" | "conv2d"
+    im2col: Optional[torch.Tensor] = None   # conv2d: (cin*kh*kw, cout)
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -53,17 +63,30 @@ def unwrap(x):
     return x.source if isinstance(x, PreparedOperand) else x
 
 
-def prepare_operand(w, *, transpose: bool = False,
+def prepare_operand(w, *, for_: str = "matmul", transpose: bool = False,
                     site: Optional[str] = None) -> PreparedOperand:
-    """Precompute the constant-operand half of the K1 prep.
+    """Precompute the constant-operand half of the K1 or conv prep.
 
-    ``w``: a 2D ``(K, N)`` weight (``(N, K)`` with ``transpose=True``).
-    Idempotent on an already-prepared operand.  Batched ``(B, K, N)``
-    weights (the MoE experts) are not prepared yet: attention's batched
-    operands are activations, prepared per call inside ``ops``.
+    ``for_="matmul"``: ``w`` is a 2D ``(K, N)`` weight (``(N, K)`` with
+    ``transpose=True``).  Batched ``(B, K, N)`` weights (the MoE experts)
+    are not prepared yet: attention's batched operands are activations,
+    prepared per call inside ``ops``.  ``for_="conv2d"``: ``w`` is a
+    ``(cout, cin, kh, kw)`` filter bank, or a rank shorthand of
+    :func:`repro_torch.core.conv.normalize_conv2d`.  Idempotent on an
+    already-prepared operand.
     """
     if isinstance(w, PreparedOperand):
         return w
+    if for_ == "conv2d":
+        from repro_torch.core.conv import filters4
+        from repro_torch.kernels import ops as kops      # lazy: import cycle
+        w4 = filters4(w)
+        canon, corr, im2col = kops.prepare_conv2d_weights(w4)
+        return PreparedOperand(w, canon, corr, False, site, kind="conv2d",
+                               im2col=im2col)
+    if for_ != "matmul":
+        raise ValueError(f"unknown prepare target {for_!r}; expected "
+                         f"'matmul' or 'conv2d'")
     if w.ndim != 2:
         raise NotImplementedError(
             f"prepare_operand takes a 2D (K, N) weight, got {tuple(w.shape)}; "

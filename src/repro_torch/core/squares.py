@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["accum_dtype", "widen_for_sum", "square", "row_correction",
+__all__ = ["accum_dtype", "widen_for_sum", "square", "pm", "row_correction",
            "col_correction", "halve"]
 
 _INT_NARROW = (torch.int8, torch.uint8, torch.int16)
@@ -38,6 +38,12 @@ def square(x: torch.Tensor) -> torch.Tensor:
     """The squaring primitive, in the accumulator dtype."""
     w = widen_for_sum(x)
     return w * w
+
+
+def pm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Real partial multiplication (paper Fig.1b): ``(a+b)^2``, in the
+    accumulator dtype."""
+    return square(widen_for_sum(a) + widen_for_sum(b))
 
 
 def _sum(t: torch.Tensor, dim: int) -> torch.Tensor:

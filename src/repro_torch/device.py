@@ -10,11 +10,12 @@ from typing import Optional, Union
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "operand_device", "Device"]
+
+Device = Optional[Union[str, torch.device]]
 
 
-def resolve_device(device: Optional[Union[str, torch.device]] = None
-                   ) -> torch.device:
+def resolve_device(device: Device = None) -> torch.device:
     """``device`` as a :class:`torch.device`; ``None`` means CUDA, which must
     be present."""
     if device is not None:
@@ -25,3 +26,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             "the caller passes device='cpu' (which runs every kernel's plain "
             "PyTorch version)")
     return torch.device("cuda")
+
+
+def operand_device(x, device: Device = None) -> torch.device:
+    """The device a call on operand ``x`` runs on: ``device`` if given,
+    else the device of ``x`` if it is a tensor, else CUDA (which must be
+    present).  So tensors stay where they are and arrays go to the GPU
+    unless the caller names another device."""
+    if device is None and isinstance(x, torch.Tensor):
+        return x.device
+    return resolve_device(device)

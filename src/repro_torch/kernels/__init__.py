@@ -6,4 +6,8 @@ plain PyTorch versions, the public wrappers and the route planner.
   ``sq_matmul.sq_matmul_k2`` / ``sq_matmul_k3``, in the same source.
 - K4, paged decode attention: ``sq_paged_attn.sq_paged_attn_k4`` on
   ``csrc/sq_paged_attn.cu``.
+- K7, the fused 2D square convolution: ``sq_conv2d.sq_conv2d_k7`` on
+  ``csrc/sq_conv2d.cu``.
+- K8, the square 1D correlation: ``sq_conv.sq_conv_k8`` on
+  ``csrc/sq_conv.cu``.
 """

@@ -1,26 +1,41 @@
 """Public wrappers around the square kernels: the PyTorch port of
-``repro/kernels/ops.py``, matmul half.
+``repro/kernels/ops.py`` (all but the complex matmuls).
 
-The matmul prep is split into the paper's weight-stationary halves:
-:func:`prepare_matmul_rhs` widens the column operand and computes ``Sb``
-(the work a :class:`~repro_torch.core.prepared.PreparedOperand` keeps), and
-:func:`_sq_matmul_exec` / :func:`_sq_matmul_batched_exec` widen the
-activation, compute ``Sa`` and launch K1 / K2 or K3.  Raw and prepared
-calls share these functions, so they are bit-identical.
+The prep is split into the paper's weight-stationary halves:
+:func:`prepare_matmul_rhs` widens the column operand and computes ``Sb``,
+and :func:`prepare_conv2d_weights` lays out the widened filters and
+computes ``Sw`` (the work a
+:class:`~repro_torch.core.prepared.PreparedOperand` keeps).  The execute
+halves widen the activation and launch the kernel: K1, or K2/K3 for a
+batched GEMM; K7 for the fused conv, or im2col patches through K1.  Raw and
+prepared calls share these functions, so they are bit-identical.
+
+The JAX package's tile plans (``tuning.plan_conv2d``, ``plan_conv``,
+``_pick_fb``) are Pallas tiling with no counterpart here: each CUDA kernel
+picks its own tiles and masks its ragged edges, so nothing is padded on
+the host.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.core import conv as conv_core
 from repro_torch.core import squares as sq
 from repro_torch.core.prepared import PreparedOperand
-from repro_torch.device import resolve_device
+from repro_torch.device import Device, operand_device, resolve_device
+from repro_torch.kernels import routing
+from repro_torch.kernels.sq_conv import sq_conv_k8
+from repro_torch.kernels.sq_conv2d import conv2d_out_hw, sq_conv2d_k7
 from repro_torch.kernels.sq_matmul import (sq_matmul_k1, sq_matmul_k2,
                                            sq_matmul_k3)
 
-__all__ = ["sq_matmul", "sq_matmul_local", "prepare_matmul_rhs"]
+__all__ = ["sq_matmul", "sq_matmul_local", "prepare_matmul_rhs", "sq_conv",
+           "sq_conv2d", "sq_conv2d_im2col", "sq_conv2d_routed",
+           "prepare_conv2d_weights"]
+
 
 
 def prepare_matmul_rhs(b: torch.Tensor, acc: Optional[torch.dtype] = None
@@ -66,6 +81,8 @@ def sq_matmul_local(a: torch.Tensor,
     floats, int32 for small ints).
     """
     if isinstance(b, PreparedOperand):
+        if b.kind != "matmul":
+            raise ValueError(f"sq_matmul got a {b.kind!r} PreparedOperand")
         k, n = b.kn_shape
     elif b.ndim == 3:
         if a.ndim != 3 or a.shape[0] != b.shape[0] \
@@ -126,3 +143,171 @@ def sq_matmul(a, b, *, fold: bool = False,
     else:
         b = torch.as_tensor(b).to(dev)
     return sq_matmul_local(a, b, fold=fold)
+
+
+# --------------------------------------------------------------------------
+# Square-based convolutions
+# --------------------------------------------------------------------------
+
+def sq_conv(x, w, *, device: Device = None) -> torch.Tensor:
+    """Square-based valid 1D correlation ``y_k = sum_i w_i x_{i+k}`` through
+    K8.  ``x`` (L,) samples, ``w`` (n,) taps, 1 <= n <= L; returns (L-n+1,)
+    in the accumulator dtype (int8 operands give an exact int32 result).
+
+    >>> x = torch.arange(8.0)
+    >>> sq_conv(x, torch.tensor([1.0, -1.0]), device="cpu")
+    tensor([-1., -1., -1., -1., -1., -1., -1.])
+    """
+    dev = operand_device(x, device)
+    x, w = torch.as_tensor(x).to(dev), torch.as_tensor(w).to(dev)
+    if x.ndim != 1 or w.ndim != 1:
+        raise ValueError(f"sq_conv takes 1D samples and taps, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    acc = sq.accum_dtype(x.dtype)
+    xw, ww = x.to(acc).contiguous(), w.to(acc).contiguous()
+    sw = sq.col_correction(ww, dim=0).reshape(1)              # -sum w^2
+    return sq_conv_k8(xw, ww, sw)
+
+
+def prepare_conv2d_weights(w4: torch.Tensor,
+                           acc: Optional[torch.dtype] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The filter half of the conv2d prep.
+
+    ``w4`` (cout, cin, kh, kw) widened to ``acc`` (default: its own
+    accumulator dtype).  Returns ``(wt, sw, wmat)``: K7's tap matrix
+    ``(kh*kw*cin, cout)`` (K ordered (kh, kw, cin), the Pallas kernel's
+    ``(kh, kw, Cp, Np)`` tap block), the per-filter correction ``Sw``
+    (cout,), and the im2col route's ``(cin*kh*kw, cout)`` filter matrix,
+    whose column correction is that same ``Sw``.
+    """
+    ww = w4.to(acc or sq.accum_dtype(w4.dtype))
+    cout = ww.shape[0]
+    wmat = ww.reshape(cout, -1).T.contiguous()               # (K, cout)
+    sw = sq.col_correction(wmat, dim=0)                      # (cout,)
+    wt = ww.permute(2, 3, 1, 0).reshape(-1, cout).contiguous()
+    return wt, sw, wmat
+
+
+def _conv2d_geometry(x4_shape, w4_shape, stride, padding):
+    """Resolve stride/padding and the output extents for rank-4 operands."""
+    strides = conv_core.resolve_stride(stride)
+    pads = conv_core.resolve_padding(padding, x4_shape[2:], w4_shape[2:],
+                                     strides)
+    oh, ow = conv2d_out_hw(x4_shape[2:], w4_shape[2:], strides, pads)
+    if oh <= 0 or ow <= 0:
+        raise ValueError(f"kernel {tuple(w4_shape[2:])} larger than padded "
+                         f"input {tuple(x4_shape[2:])} under pads {pads}")
+    return strides, pads, (oh, ow)
+
+
+def _normalize_conv_operands(x, w, device: Device):
+    """Place the operands on the call's device and normalize them to rank 4:
+    returns ``(x4, w4, prep, kind)``, ``prep`` the conv2d PreparedOperand
+    or None.  A prepared operand must already lie on the call's device."""
+    dev = operand_device(x, device)
+    x = torch.as_tensor(x).to(dev)
+    prep = w if isinstance(w, PreparedOperand) else None
+    if prep is not None:
+        if prep.kind != "conv2d":
+            raise ValueError(f"conv2d got a {prep.kind!r} PreparedOperand; "
+                             f"expected a conv2d one")
+        if prep.device != dev:
+            raise ValueError(f"prepared operand lies on {prep.device}, the "
+                             f"call runs on {dev}")
+        w = prep.source
+    else:
+        w = torch.as_tensor(w).to(dev)
+    x4, w4, kind = conv_core.normalize_conv2d(x, w)
+    return x4, w4, prep, kind
+
+
+def _conv2d_weights(w4, prep, acc):
+    """The prepared filter half, or the same prep run now on raw filters
+    (also when the prepared dtype is not the call's accumulator dtype)."""
+    if prep is not None and prep.canon.dtype == acc:
+        return prep.canon, prep.corr, prep.im2col
+    return prepare_conv2d_weights(w4, acc)
+
+
+def sq_conv2d(x, w, *, stride=1, padding="VALID",
+              device: Device = None) -> torch.Tensor:
+    """Square-based 2D correlation through the FUSED kernel K7 (no im2col
+    patch tensor, no padded copy of the input).
+
+    x: (B, cin, H, W) -- or (cin, H, W), or (H, W) with rank-2/3 filters
+    (:func:`repro_torch.core.conv.normalize_conv2d`); w: (cout, cin, kh,
+    kw), or a conv2d PreparedOperand.  ``stride`` is an int or (sh, sv);
+    ``padding`` is "VALID", "SAME", an int, or explicit (lo, hi) pairs.
+    Returns the accumulator dtype (f32 for floats, int32 for small ints).
+
+    >>> x = torch.arange(36.0).reshape(6, 6)
+    >>> out = sq_conv2d(x, torch.ones(3, 3), device="cpu")
+    >>> tuple(out.shape), bool(out[0, 0] == x[:3, :3].sum())
+    ((4, 4), True)
+    """
+    x4, w4, prep, kind = _normalize_conv_operands(x, w, device)
+    strides, pads, _ = _conv2d_geometry(x4.shape, w4.shape, stride,
+                                        padding)
+    acc = sq.accum_dtype(x4.dtype)
+    wt, sw, _ = _conv2d_weights(w4, prep, acc)
+    out = sq_conv2d_k7(x4.to(acc).contiguous(), wt, sw,
+                       khw=tuple(w4.shape[2:]), stride=strides, pads=pads)
+    return conv_core.denormalize_conv2d(out, kind)
+
+
+def _im2col_patches(xw: torch.Tensor, khw, strides, pads, ohw):
+    """(B, cin, H, W) -> the (B*oh*ow, cin*kh*kw) patch matrix of the padded
+    input, K ordered (cin, kh, kw) to match the im2col filter matrix."""
+    kh, kw = khw
+    sh, sv = strides
+    oh, ow = ohw
+    (ph0, ph1), (pw0, pw1) = pads
+    xp = F.pad(xw, (pw0, pw1, ph0, ph1))
+    taps = [xp[:, :, i:i + (oh - 1) * sh + 1:sh, j:j + (ow - 1) * sv + 1:sv]
+            for i in range(kh) for j in range(kw)]
+    patches = torch.stack(taps, dim=-1)          # (B, cin, oh, ow, kh*kw)
+    B, C = xw.shape[:2]
+    return patches.permute(0, 2, 3, 1, 4).reshape(B * oh * ow, C * kh * kw)
+
+
+def sq_conv2d_im2col(x, w, *, stride=1, padding="VALID",
+                     device: Device = None) -> torch.Tensor:
+    """Square-based 2D correlation through im2col + K1 (conv2d mode
+    ``square_exact``, and the planner's route at tiny K volumes).
+
+    The windows are materialised as a (B*oh*ow, cin*kh*kw) patch matrix
+    (each input pixel copied once per covering tap) that streams through
+    K1 against the prepared (cin*kh*kw, cout) filter matrix.  Accepts the
+    operands, stride and padding of :func:`sq_conv2d`.
+    """
+    x4, w4, prep, kind = _normalize_conv_operands(x, w, device)
+    strides, pads, ohw = _conv2d_geometry(x4.shape, w4.shape, stride,
+                                          padding)
+    acc = sq.accum_dtype(x4.dtype)
+    _, sw, wmat = _conv2d_weights(w4, prep, acc)
+    pmat = _im2col_patches(x4.to(acc), tuple(w4.shape[2:]), strides, pads,
+                           ohw)
+    out = _sq_matmul_exec(pmat, wmat, sw)          # (B*oh*ow, cout)
+    B, cout = x4.shape[0], wmat.shape[1]
+    out = out.reshape(B, *ohw, cout).permute(0, 3, 1, 2).contiguous()
+    return conv_core.denormalize_conv2d(out, kind)
+
+
+def sq_conv2d_routed(x, w, *, stride=1, padding="VALID",
+                     device: Device = None) -> torch.Tensor:
+    """The planner-routed conv (conv2d mode ``square_pallas``): resolves the
+    geometry once, asks :func:`repro_torch.kernels.routing.
+    select_conv2d_route` for the route and runs :func:`sq_conv2d` (fused,
+    K7) or :func:`sq_conv2d_im2col`.  ``w`` may be a conv2d
+    PreparedOperand."""
+    dev = operand_device(x, device)
+    x = torch.as_tensor(x).to(dev)
+    x4, w4, _, _ = _normalize_conv_operands(x, w, dev)
+    _, _, (oh, ow) = _conv2d_geometry(x4.shape, w4.shape, stride, padding)
+    cout, cin, kh, kw = w4.shape
+    route = routing.select_conv2d_route(oh, ow, kh, kw, cin, cout,
+                                        batch=x4.shape[0], dtype=x4.dtype)
+    f = sq_conv2d if route.name == "fused" else sq_conv2d_im2col
+    return f(x, w, stride=stride, padding=padding, device=dev)

@@ -3,7 +3,9 @@
 
 ``matmul`` routes: ``kernel`` (K1), ``batched`` (K2), ``fold`` (K3) and
 ``virtual`` (the square-form contract through the
-multiplier, below the kernel-overhead floor).  ``paged_attn`` routes:
+multiplier, below the kernel-overhead floor).  ``conv2d`` routes: ``fused``
+(K7, the implicit-GEMM conv kernel: no patch tensor) and ``im2col``
+(materialised patches through K1).  ``paged_attn`` routes:
 ``kernel`` (K4, the block-table-streaming kernel) and ``gather`` (a dense
 gathered window plus two einsums).
 
@@ -25,10 +27,13 @@ from typing import Optional
 
 import torch
 
-__all__ = ["Route", "select_matmul_route", "select_paged_attn_route",
-           "MATMUL_ROUTES", "PAGED_ATTN_ROUTES", "VIRTUAL_FLOOR_MULTS",
-           "FOLD_STEP_LANE_OPS", "FOLD_MIN_BATCH", "PAGED_KERNEL_MAX_S",
-           "PAGED_KERNEL_MIN_T"]
+from repro_torch.core import squares as sq
+
+__all__ = ["Route", "select_matmul_route", "select_conv2d_route",
+           "select_paged_attn_route", "conv2d_patch_bytes", "MATMUL_ROUTES",
+           "CONV2D_ROUTES", "PAGED_ATTN_ROUTES", "VIRTUAL_FLOOR_MULTS",
+           "FOLD_STEP_LANE_OPS", "FOLD_MIN_BATCH", "IM2COL_PATCH_BYTES_MAX",
+           "IM2COL_K_MAX", "PAGED_KERNEL_MAX_S", "PAGED_KERNEL_MIN_T"]
 
 MATMUL_ROUTES = ("kernel", "batched", "fold", "virtual")
 CONV2D_ROUTES = ("fused", "im2col")
@@ -40,6 +45,8 @@ VIRTUAL_FLOOR_MULTS = 32768          # B*M*K*N below which -> virtual
 FOLD_STEP_LANE_OPS = 8 * 4096        # per-element PM lane-ops -> fold
 FOLD_MIN_BATCH = 4
 _KC_MNK_MAX = 32                     # repro.kernels.tuning.KC_MNK_MAX
+IM2COL_PATCH_BYTES_MAX = 2 * 1024 * 1024   # tuning.CACHE_BUDGET
+IM2COL_K_MAX = 128                   # tuning.LANE: K volume -> im2col
 PAGED_KERNEL_MAX_S = 8               # query rows above which -> gather
 PAGED_KERNEL_MIN_T = 64              # pool length below which -> gather
 
@@ -85,6 +92,15 @@ def _pm_tile_vpu_ops(m: int, n: int, k: int, kc: int) -> float:
     return float(m) * n * k * (3 + 1.0 / max(1, kc))
 
 
+def conv2d_patch_bytes(oh: int, ow: int, kh: int, kw: int, cin: int,
+                       batch: int = 1, itemsize: int = 4) -> int:
+    """Bytes of the materialised im2col patch matrix ``(B*oh*ow,
+    cin*kh*kw)`` (``repro.core.cost_model.conv2d_patch_bytes``): the
+    planner keys the fused-vs-im2col choice on whether it stays
+    cache-resident."""
+    return batch * oh * ow * cin * kh * kw * itemsize
+
+
 def _decide(fn, route: Route) -> Route:
     fn.taken[route.name] += 1
     return route
@@ -112,6 +128,28 @@ def select_matmul_route(m: int, n: int, k: int, *, batch: int = 1,
                                          f"{FOLD_STEP_LANE_OPS}"))
     return _decide(fn, Route("batched",
                              "per-element work amortizes its grid step"))
+
+
+def select_conv2d_route(oh: int, ow: int, kh: int, kw: int, cin: int,
+                        cout: int, *, batch: int = 1,
+                        dtype: torch.dtype = torch.float32) -> Route:
+    """Resolve the ``square_pallas`` route of a 2D convolution: ``im2col``
+    when the patch matrix is at most :data:`IM2COL_PATCH_BYTES_MAX` and the
+    K volume at most :data:`IM2COL_K_MAX`, else ``fused``."""
+    fn = select_conv2d_route
+    env = _env_route("conv2d", CONV2D_ROUTES)
+    if env is not None:
+        return _decide(fn, Route(env, "REPRO_ROUTE override"))
+    kvol = cin * kh * kw
+    patch = conv2d_patch_bytes(oh, ow, kh, kw, cin, batch=batch,
+                               itemsize=sq.accum_dtype(dtype).itemsize)
+    if patch <= IM2COL_PATCH_BYTES_MAX and kvol <= IM2COL_K_MAX:
+        return _decide(fn, Route("im2col", f"patch matrix {patch}B "
+                                           f"cache-resident and K volume "
+                                           f"{kvol} below one lane group"))
+    return _decide(fn, Route("fused", f"patch matrix {patch}B / K volume "
+                                      f"{kvol} in the window-streaming "
+                                      f"regime"))
 
 
 def select_paged_attn_route(s: int, t: int, *, batch: int = 1,
@@ -146,4 +184,5 @@ def select_paged_attn_route(s: int, t: int, *, batch: int = 1,
 
 
 select_matmul_route.taken = collections.Counter()
+select_conv2d_route.taken = collections.Counter()
 select_paged_attn_route.taken = collections.Counter()

@@ -96,6 +96,27 @@ def test_entry_points_without_a_device_raise(no_cuda):
         tserve.main(["--reduced", "--requests", "1", "--max-new", "2"])
 
 
+def test_conv_entry_points_without_a_device_raise(no_cuda):
+    """Numpy operands go to CUDA unless the caller names a device: with no
+    GPU the conv entry points raise; with device="cpu" they run."""
+    import numpy as np
+    from repro_torch.core import conv as tconv
+    x = np.ones((1, 2, 6, 6), np.float32)
+    w = np.ones((3, 2, 3, 3), np.float32)
+    for mode in tconv.CONV2D_MODES:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tconv.conv2d(x, w, mode=mode)
+        assert tconv.conv2d(x, w, mode=mode, device="cpu").shape == \
+            (1, 3, 4, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ops.sq_conv(np.ones(10, np.float32), np.ones(3, np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tconv.correlate1d(np.ones(10, np.float32), np.ones(3, np.float32),
+                          mode="square")
+    assert ops.sq_conv(np.ones(10, np.float32), np.ones(3, np.float32),
+                       device="cpu").shape == (8,)
+
+
 def test_engine_refuses_a_model_on_another_device(no_cuda):
     model = build_model(get_config("fairsquare-demo").reduced(),
                         device="cpu")

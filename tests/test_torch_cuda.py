@@ -9,7 +9,9 @@ Tolerances: K1/K2/K3 f32 |err| <= k * 2^-23 * (max|a| + max|b|)^2 (the
 rounding of two different orders of square-form f32 sums), int32
 bit-exact; K2 equal to K1 on every element and K3 equal to K2, bit for
 bit (one summation order by construction); K4 |err| <= 1e-4
-(``tests/test_paged_attn_kernel.py``'s tolerance).
+(``tests/test_paged_attn_kernel.py``'s tolerance); K7 and K8 f32
+|err| <= K * 2^-23 * (max|x| + max|w|)^2 over their K = kh*kw*cin or n
+terms per output (the same rounding argument as K1), int32 bit-exact.
 """
 import numpy as np
 import pytest
@@ -17,6 +19,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import squares as sq  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import sq_conv as k8mod  # noqa: E402
+from repro_torch.kernels import sq_conv2d as k7mod  # noqa: E402
+from repro_torch.kernels.sq_conv import sq_conv_k8, sq_conv_plain  # noqa: E402
+from repro_torch.kernels.sq_conv2d import (  # noqa: E402
+    sq_conv2d_k7, sq_conv2d_plain)
 from repro_torch.kernels.sq_matmul import (  # noqa: E402
     sq_matmul_batched_plain, sq_matmul_k1, sq_matmul_k2, sq_matmul_k3,
     sq_matmul_plain)
@@ -188,3 +196,113 @@ def test_prepared_bit_identical_to_raw_on_card(cuda_device):
     out_raw = tmm.matmul(a, w.float().T, mode="square_pallas")
     assert sq_matmul_k1.launches == before + 2
     assert torch.equal(out_prep, out_raw)
+
+
+# (B, cin, H, W, cout, kh, kw, stride, padding): odd sizes, SAME, explicit
+# asymmetric pads, stride 2, ragged cin/cout, and small ResNet-like layers
+K7_CASES = [
+    (2, 3, 17, 13, 5, 3, 3, 1, "SAME"),
+    (1, 5, 15, 18, 7, 3, 3, 2, "SAME"),
+    (2, 7, 10, 11, 3, 3, 5, 1, ((2, 0), (0, 3))),
+    (1, 3, 9, 23, 5, 5, 3, (2, 1), "VALID"),
+    (2, 3, 29, 29, 64, 7, 7, 2, 3),
+    (2, 64, 14, 14, 70, 3, 3, 1, 1),
+    (1, 130, 7, 7, 129, 1, 1, 1, 0),
+    (3, 1, 8, 8, 1, 8, 8, 1, "VALID"),
+    (1, 256, 9, 9, 96, 3, 3, 1, 1),                  # K walk split 16 ways
+    (2, 37, 11, 9, 33, 3, 3, 1, "SAME"),             # 2 splits, ragged last
+]
+
+
+def _conv_ref_int(x, w, stride, pads):
+    from repro_torch.core.conv import conv2d_nchw
+    return conv2d_nchw(x, w, stride, pads, torch.int32)
+
+
+@pytest.mark.parametrize("case", K7_CASES, ids=lambda c: "x".join(
+    str(v) for v in c[:7]) + f"-s{c[7]}-p{c[8]}")
+def test_k7_matches_plain_on_card(cuda_device, case):
+    from repro_torch.core import conv as cc
+    B, C, H, W, N, kh, kw, stride, padding = case
+    strides = cc.resolve_stride(stride)
+    pads = cc.resolve_padding(padding, (H, W), (kh, kw), strides)
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor(rng.normal(size=(B, C, H, W)), dtype=torch.float32)
+    w = torch.as_tensor(rng.normal(size=(N, C, kh, kw)) / (C * kh * kw) ** .5,
+                        dtype=torch.float32)
+    xi = torch.as_tensor(rng.integers(-128, 128, (B, C, H, W)),
+                         dtype=torch.int32)
+    wi = torch.as_tensor(rng.integers(-128, 128, (N, C, kh, kw)),
+                         dtype=torch.int32)
+    for xs, ws in ((x, w), (xi, wi)):
+        xs, ws = xs.to(cuda_device), ws.to(cuda_device)
+        wt, sw, _ = ops.prepare_conv2d_weights(ws)
+        before = sq_conv2d_k7.launches
+        out = sq_conv2d_k7(xs, wt, sw, khw=(kh, kw), stride=strides,
+                           pads=pads)
+        torch.cuda.synchronize()
+        assert sq_conv2d_k7.launches == before + 1
+        ref = sq_conv2d_plain(xs, wt, sw, (kh, kw), strides, pads)
+        assert out.shape == ref.shape
+        if xs.dtype == torch.int32:
+            assert torch.equal(out, ref)
+            assert torch.equal(out, _conv_ref_int(xs, ws, strides, pads))
+        else:
+            tol = C * kh * kw * 2.0 ** -23 * (
+                xs.abs().max() + ws.abs().max()).item() ** 2
+            assert torch.isfinite(out).all()
+            assert (out - ref).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("L,n", [(1 << 20, 16), (5000, 127), (4097, 255),
+                                 (300, 1), (64, 64), (1000, 300),
+                                 (2049, 3)])
+def test_k8_matches_plain_on_card(cuda_device, L, n):
+    rng = np.random.default_rng(8)
+    x = torch.as_tensor(rng.normal(size=L), dtype=torch.float32)
+    w = torch.as_tensor(rng.normal(size=n), dtype=torch.float32)
+    xi = torch.as_tensor(rng.integers(-128, 128, L), dtype=torch.int32)
+    wi = torch.as_tensor(rng.integers(-128, 128, n), dtype=torch.int32)
+    for xs, ws in ((x, w), (xi, wi)):
+        xs, ws = xs.to(cuda_device), ws.to(cuda_device)
+        sw = sq.col_correction(ws, dim=0).reshape(1)
+        before = sq_conv_k8.launches
+        out = sq_conv_k8(xs, ws, sw)
+        torch.cuda.synchronize()
+        assert sq_conv_k8.launches == before + 1
+        ref = sq_conv_plain(xs, ws, sw)
+        assert out.shape == (L - n + 1,)
+        if xs.dtype == torch.int32:
+            assert torch.equal(out, ref)
+            exact = np.correlate(xi.numpy().astype(np.int64),
+                                 wi.numpy().astype(np.int64), "valid")
+            assert np.array_equal(out.cpu().numpy(), exact)
+        else:
+            tol = n * 2.0 ** -23 * (xs.abs().max()
+                                    + ws.abs().max()).item() ** 2
+            assert (out - ref).abs().max().item() <= tol
+
+
+def test_conv_kernels_never_reach_plain_on_card(cuda_device, monkeypatch):
+    """A CUDA tensor launches K7/K8 through every entry point: with the
+    plain versions made to raise, the conv path still runs."""
+    from repro_torch.core.conv import conv2d
+    from repro_torch.core.prepared import prepare_operand
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached with CUDA tensors")
+
+    monkeypatch.setattr(k7mod, "sq_conv2d_plain", boom)
+    monkeypatch.setattr(k8mod, "sq_conv_plain", boom)
+    x = torch.randn(2, 16, 12, 12, device=cuda_device)
+    w = torch.randn(24, 16, 3, 3, device=cuda_device)
+    before = (sq_conv2d_k7.launches, sq_conv_k8.launches)
+    raw = conv2d(x, w, padding="SAME", mode="square_pallas")
+    prep = conv2d(x, prepare_operand(w, for_="conv2d"), padding="SAME",
+                  mode="square_pallas")
+    ops.sq_conv(torch.randn(100, device=cuda_device),
+                torch.randn(9, device=cuda_device))
+    torch.cuda.synchronize()
+    assert (sq_conv2d_k7.launches, sq_conv_k8.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert torch.equal(raw, prep)
