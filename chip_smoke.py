@@ -21,6 +21,13 @@ six ResNet-50 layers it runs at batch 8 and a ragged/padded set, K8 on
 and the CIFAR ResNet stem (K7 six times, K1 once through im2col), and
 ``ops.sq_conv`` over the three streams (K8 three times).
 
+Last, the complex square matmuls: K5 (CPM3) and K6 (CPM4) are held to their
+plain versions at the batched-DFT shape (4096 x 1024 x 1024) and at 64^3,
+beside torch.matmul on complex64, and the DFT path is driven as a user
+would: ``ops.cpm3_matmul`` and ``ops.cpm4_matmul`` of 4096 numpy signals of
+1024 samples (seed 0) by ``transforms.dft_matrix(1024)`` -- one K5 and one
+K6 launch -- each result held to ``torch.fft.fft``.
+
     python3 chip_smoke.py
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -57,8 +64,13 @@ from repro_torch.kernels.sq_matmul import (                     # noqa: E402
     sq_matmul_batched_plain, sq_matmul_k1, sq_matmul_k2, sq_matmul_k3,
     sq_matmul_plain)
 from repro_torch.core import conv as conv_core                   # noqa: E402
+from repro_torch.core import transforms                          # noqa: E402
 from repro_torch.core.prepared import prepare_operand           # noqa: E402
 from repro_torch.kernels import ops                             # noqa: E402
+from repro_torch.kernels.cpm3_matmul import (                   # noqa: E402
+    cpm3_matmul_k5, cpm3_matmul_plain)
+from repro_torch.kernels.cpm4_matmul import (                   # noqa: E402
+    cpm4_matmul_k6, cpm4_matmul_plain)
 from repro_torch.kernels.sq_conv import (                       # noqa: E402
     sq_conv_k8, sq_conv_plain)
 from repro_torch.kernels.sq_conv2d import (                     # noqa: E402
@@ -427,7 +439,7 @@ def engine_cfg(max_new=MAX_NEW):
 
 def reset_counts():
     for kern in (sq_matmul_k1, sq_matmul_k2, sq_matmul_k3, sq_conv2d_k7,
-                 sq_conv_k8):
+                 sq_conv_k8, cpm3_matmul_k5, cpm4_matmul_k6):
         kern.launches = 0
         kern.shapes.clear()
     sq_paged_attn_k4.launches = 0
@@ -589,7 +601,8 @@ def _union_us(spans) -> float:
 
 # device kernels by name in a trace: K2 is K1's kernel on a batch grid axis
 TRACE_KERNELS = (("K1/K2", "sq_matmul_kernel"), ("K3", "sq_matmul_folded_kernel"),
-                 ("K4", "sq_paged_attn_kernel"))
+                 ("K4", "sq_paged_attn_kernel"), ("K5", "cpm3_matmul_kernel"),
+                 ("K6", "cpm4_matmul_kernel"))
 
 
 def trace_steps(step, what: str, untraced_s: float) -> None:
@@ -644,6 +657,13 @@ def trace_steps(step, what: str, untraced_s: float) -> None:
           f"device busy {busy_us / n / 1e3:.3f} ms = "
           f"{busy_us / wall_us:.1%} of the traced wall; "
           f"{', '.join(parts)}", flush=True)
+    other = collections.Counter()
+    for e in device:
+        if kernel(e.name) is None:
+            other[e.name[:48]] += e.time_range.end - e.time_range.start
+    print("  largest other device work per step: " + "; ".join(
+        f"{name} {us / n / 1e3:.3f} ms" for name, us in other.most_common(3)),
+        flush=True)
 
 
 def trace_phase(model: LM, dev, untraced_tick_s: float) -> None:
@@ -1050,6 +1070,7 @@ def k8_phase(dev, gen):
 def kernel_counts():
     return {"K1": sq_matmul_k1.launches, "K2": sq_matmul_k2.launches,
             "K3": sq_matmul_k3.launches, "K4": sq_paged_attn_k4.launches,
+            "K5": cpm3_matmul_k5.launches, "K6": cpm4_matmul_k6.launches,
             "K7": sq_conv2d_k7.launches, "K8": sq_conv_k8.launches}
 
 
@@ -1162,15 +1183,172 @@ def fir_path_phase(dev):
     return total
 
 
+# ------------------------------------------------------------ K5, K6
+# The batched DFT: 4096 complex64 signals of 1024 samples, one per row of Z,
+# times the 1024-point DFT matrix W (symmetric, so each row of Z @ W is that
+# signal's DFT); and 64^3, the shape of the JAX pallas_cpm3_matmul rows of
+# BENCH_kernels.json.
+DFT_SIGNALS, DFT_POINTS = 4096, 1024
+CPM = {"K5": (cpm3_matmul_k5, cpm3_matmul_plain, 11, "cpm3_matmul"),
+       "K6": (cpm4_matmul_k6, cpm4_matmul_plain, 12, "cpm4_matmul")}
+
+
+def dft_signals() -> np.ndarray:
+    """Z: the DFT path's 4096 complex64 signals (normal real and imaginary
+    planes, numpy seed 0)."""
+    rng = np.random.default_rng(0)
+    shape = (DFT_SIGNALS, DFT_POINTS)
+    return (rng.standard_normal(shape)
+            + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def cpm_operands(x, y):
+    """The contiguous f32 planes (a, b, c, s) of ``x @ y`` and the
+    corrections of K5 (eqs 33/35) and K6 (eq 18), as ops computes them."""
+    a, b, c, s = (t.float().contiguous() for t in (x.real, x.imag, y.real,
+                                                   y.imag))
+    k5 = ((-(a + b) ** 2 + b ** 2).sum(1), (-(a + b) ** 2 - a ** 2).sum(1),
+          (-c ** 2 + (c + s) ** 2).sum(0), (-c ** 2 - (s - c) ** 2).sum(0))
+    k6 = (-(a ** 2 + b ** 2).sum(1), -(c ** 2 + s ** 2).sum(0))
+    return (a, b, c, s), {"K5": k5, "K6": k6}
+
+
+def cpm_tol(planes, k: int) -> float:
+    """|err| bound of two square-form f32 sums of k complex terms: each
+    plane accumulates two squares of sums of up to three planes."""
+    return 2 * k * 2.0 ** -23 * sum(t.abs().max().item()
+                                    for t in planes) ** 2
+
+
+def cpm_phase(dev, gen, z, w):
+    """K5 and K6 against their plain versions at the batched-DFT shape (the
+    DFT path's own operands) and at 64^3, K5 against K6, each timed beside
+    the plain version, torch.matmul on complex64 (no TF32) and the bound.
+    The operands are the planes the wrapper has just written (40 MB at the
+    DFT shape), so they are not cycled past the L2."""
+    print("K5 cpm3_matmul and K6 cpm4_matmul vs plain (f32 |err| <= 2 * k * "
+          "2^-23 * (max|a| + max|b| + max|c| + max|s|)^2; K5 vs K6 within "
+          "twice that)", flush=True)
+    small = [torch.complex(torch.randn(m, k, generator=gen),
+                           torch.randn(m, k, generator=gen)).to(dev)
+             for m, k in ((64, 64), (64, 64))]
+    cases = [("batched DFT", torch.as_tensor(z, device=dev), w),
+             ("64^3", *small)]
+    rows = {"K5": [], "K6": []}
+    for label, x, y in cases:
+        planes, corrs = cpm_operands(x, y)
+        m, k = planes[0].shape
+        n = planes[2].shape[1]
+        tol = cpm_tol(planes, k)
+        outs = {}
+        lib_ms = time_graph([lambda: torch.matmul(x, y)])
+        for name, (kern, plain, flop, _) in CPM.items():
+            out = kern(*planes, *corrs[name])
+            ref = plain(*planes, *corrs[name])
+            torch.cuda.synchronize()
+            err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+            check(all(bool(torch.isfinite(o).all()) for o in out)
+                  and err <= tol,
+                  f"{name} f32 {label} m={m} k={k} n={n}: max|err| "
+                  f"{err:.3e} <= {tol:.3e}")
+            outs[name] = out
+            ms = time_graph([lambda: kern(*planes, *corrs[name])])
+            plain_ms = time_graph([lambda: plain(*planes, *corrs[name])],
+                                  reps=2, replays=2)
+            nbytes = 4 * (2 * m * k + 2 * k * n + 2 * m * n
+                          + sum(t.numel() for t in corrs[name]))
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flop * m * n * k / FP32_OPS_PER_S * 1e3
+            bound = max(t_bytes, t_ops)
+            row = dict(shape=(m, k, n), ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound, t_bytes=t_bytes,
+                       t_ops=t_ops,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       max_abs_err=err)
+            rows[name].append(row)
+            print(f"    {name} {label:11s} m={m:4d} k={k:4d} n={n:4d}  "
+                  f"{ms:.4f} ms | plain {plain_ms:.4f} ms | torch.matmul "
+                  f"complex64 (no TF32) {lib_ms:.4f} ms | bound {bound:.4f} "
+                  f"ms ({row['bound_by']}) | {bound / ms:.1%} of bound",
+                  flush=True)
+        diff = max((p - q).abs().max().item()
+                   for p, q in zip(outs["K5"], outs["K6"]))
+        check(diff <= 2 * tol, f"{label}: K5 vs K6 max|diff| {diff:.3e} <= "
+                               f"{2 * tol:.3e}")
+    return rows
+
+
+def dft_path_phase(dev, z, w):
+    """The batched-DFT path as a user drives it: ops.cpm3_matmul and
+    ops.cpm4_matmul of the numpy signals Z by W = dft_matrix(1024) on the
+    card.  One K5 and one K6 launch, nothing else; both spectra within the
+    f32 bound of torch.fft.fft; ComplexSquareTransform's S_k = -N on the
+    card, and one signal through it against the FFT; then a trace of a few
+    calls for where the time goes."""
+    print(f"DFT path: ops.cpm3_matmul / ops.cpm4_matmul of {DFT_SIGNALS} "
+          f"numpy signals (seed 0) x dft_matrix({DFT_POINTS}) on "
+          f"{w.device}", flush=True)
+    for f in (ops.cpm3_matmul, ops.cpm4_matmul):          # warm-up
+        f(z[:64], w)
+    torch.cuda.synchronize()
+    reset_counts()                      # counts of this path's run only
+    outs, walls, steps = {}, {}, []
+    for name in CPM:
+        f = getattr(ops, CPM[name][3])
+        t0 = time.perf_counter()
+        outs[name] = f(z, w)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        steps.append(kernel_counts())
+    total = kernel_counts()
+    check(steps[0] == {**{k: 0 for k in total}, "K5": 1}
+          and total == {**{k: 0 for k in total}, "K5": 1, "K6": 1}
+          and dict(cpm3_matmul_k5.shapes) == dict(cpm4_matmul_k6.shapes)
+          == {(DFT_SIGNALS, DFT_POINTS, DFT_POINTS): 1},
+          f"main path: one K5 launch for ops.cpm3_matmul, one K6 for "
+          f"ops.cpm4_matmul, no other kernel: {steps}")
+    zt = torch.as_tensor(z, device=dev)
+    ref = torch.fft.fft(zt, dim=-1)
+    tol = cpm_tol((zt.real, zt.imag, w.real, w.imag), DFT_POINTS)
+    for name, (re, im) in outs.items():
+        err = max((re - ref.real).abs().max().item(),
+                  (im - ref.imag).abs().max().item())
+        check(re.device == im.device == zt.device
+              and re.shape == im.shape == ref.shape
+              and bool(torch.isfinite(re).all() & torch.isfinite(im).all())
+              and err <= tol,
+              f"{CPM[name][3]}: spectra {tuple(re.shape)} on {re.device} vs "
+              f"torch.fft.fft max|diff| {err:.3e} <= {tol:.3e}; one eager "
+              f"call {walls[name] * 1e3:.2f} ms of host wall")
+    eng = transforms.ComplexSquareTransform(w, mode="cpm4")
+    check(eng.sk.device == w.device and torch.allclose(
+        eng.sk, torch.full_like(eng.sk, -DFT_POINTS), rtol=1e-4, atol=0),
+        f"ComplexSquareTransform(dft_matrix({DFT_POINTS}), cpm4).sk == "
+        f"-{DFT_POINTS} at rtol 1e-4 on {eng.sk.device}: max|sk + N| "
+        f"{(eng.sk + DFT_POINTS).abs().max().item():.3e}")
+    tol1 = cpm_tol((zt[0].real, zt[0].imag, w.real, w.imag), DFT_POINTS)
+    for mode in ("cpm4", "cpm3"):
+        eng = transforms.ComplexSquareTransform(w, mode=mode)
+        out = eng(zt[0])
+        err = (out - ref[0]).abs().max().item()
+        check(out.device == w.device and err <= tol1,
+              f"one signal through ComplexSquareTransform({mode}) on "
+              f"{out.device}: vs torch.fft.fft max|diff| {err:.3e} <= "
+              f"{tol1:.3e}")
+    trace_steps(lambda: ops.cpm3_matmul(z, w),
+                "batched-DFT calls (ops.cpm3_matmul, numpy Z)", walls["K5"])
+    return total
+
+
 # ---------------------------------------------------------------- main
 def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
-                launches):
+                cpm_rows, launches):
     """The kernels line.  ``launches``: {kernel: {path: count}} read after
     each path's run.  K1's and K4's times are per decode step of the paged
     engine, K2's per paged prefill chunk, K3's per dense decode step, K7's
-    per pass over the six fused ResNet-50 layers and K8's per pass over
-    the three FIR streams; each sums its kernel's launches of that unit
-    from the shape tables above."""
+    per pass over the six fused ResNet-50 layers, K8's per pass over the
+    three FIR streams, and K5's and K6's per batched DFT; each sums its
+    kernel's launches of that unit from the shape tables above."""
     decode = [r for r in k1_rows if r["m"] == 8 and "ms" in r]
 
     def per_step(rows, mult, key):
@@ -1193,7 +1371,7 @@ def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
                 "library_ms": per_step(rows, mult, "library_ms"), "per": per}
 
     all_rows = {"K1": k1_rows, "K2": k2_rows, "K3": k3_rows,
-                "K7": k7_rows, "K8": k8_rows}
+                "K7": k7_rows, "K8": k8_rows, **cpm_rows}
     k1 = entry("K1", "sq_matmul (K1)", "sq_matmul.py:92", decode,
                lambda r: K1_PER_STEP[(r["k"], r["n"])],
                "one paged decode step: 85 GEMMs at m=8")
@@ -1223,7 +1401,14 @@ def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
                [r for r in k8_rows if "ms" in r], lambda r: 1,
                "one pass over the three FIR streams: L=2^20 at 16, 127 "
                "and 255 taps", source="src/repro_torch/csrc/sq_conv.cu")
-    return json.dumps({"kernels": [k1, k2, k3, k4, k7, k8]})
+    dft = (DFT_SIGNALS, DFT_POINTS, DFT_POINTS)
+    k5, k6 = (entry(key, f"{CPM[key][3]} ({key})", f"{CPM[key][3]}.py:{line}",
+                    [r for r in cpm_rows[key] if r["shape"] == dft],
+                    lambda r: 1, f"one batched DFT: {DFT_SIGNALS} signals "
+                    f"of {DFT_POINTS} points, one launch",
+                    source=f"src/repro_torch/csrc/{CPM[key][3]}.cu")
+              for key, line in (("K5", 66), ("K6", 55)))
+    return json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8]})
 
 
 def run(dev) -> str:
@@ -1239,6 +1424,8 @@ def run(dev) -> str:
     k4_row = k4_phase(dev, gen)
     k7_rows = k7_phase(dev, gen)
     k8_rows = k8_phase(dev, gen)
+    z, w = dft_signals(), transforms.dft_matrix(DFT_POINTS, device=dev)
+    cpm_rows = cpm_phase(dev, gen, z, w)
     compared = {"K1": [(r["m"], r["k"], r["n"]) for r in k1_rows],
                 "K2": cases["K2"], "K3": cases["K3"]}
     k1_total, k4_total, _ = engine_phase(dev, compared)
@@ -1247,6 +1434,7 @@ def run(dev) -> str:
     dense = server_phase(model, dev, compared)
     conv = conv_path_phase(dev, gen)
     fir = fir_path_phase(dev)
+    dft = dft_path_phase(dev, z, w)
     launches = {"K1": {"engine_square_gemms": k1_total,
                        "engine_no_policy": none["K1"],
                        "server_no_policy": dense["K1"],
@@ -1257,6 +1445,8 @@ def run(dev) -> str:
                 "K4": {"engine_square_gemms": k4_total,
                        "engine_no_policy": none["K4"]},
                 "K7": {"conv_path": conv["K7"]},
+                "K5": {"dft_path": dft["K5"]},
+                "K6": {"dft_path": dft["K6"]},
                 "K8": {"fir_path": fir["K8"]}}
     dense_k1 = sum(K1_PER_STEP[(r["k"], r["n"])] * r["ms"] for r in k1_rows
                    if r["m"] == DENSE_BATCH and "ms" in r)
@@ -1265,7 +1455,7 @@ def run(dev) -> str:
           f"m={DENSE_BATCH} {dense_k1:.3f} ms, K3 24 launches "
           f"{dense_k3:.3f} ms", flush=True)
     return kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
-                       launches)
+                       cpm_rows, launches)
 
 
 def main() -> int:

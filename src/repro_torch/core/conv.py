@@ -1,5 +1,5 @@
-"""Square-based convolutions and correlations (paper §5, §5.1): the PyTorch
-port of ``repro/core/conv.py``, real half.
+"""Square-based convolutions and correlations (paper §5, §5.1, §8, §11):
+the PyTorch port of ``repro/core/conv.py``.
 
 Real 1D correlation (paper eq 10/11):
 
@@ -25,7 +25,10 @@ accumulate in int32 in the square modes, so those are exact.  Every public
 function takes ``device``: tensors stay on their own device unless one is
 named, and arrays go to CUDA unless the caller names another device.
 
-``complex_correlate1d`` and ``iir_filter`` come with the complex slice.
+:func:`complex_correlate1d` is the complex 1D correlation in the CPM4
+(paper §8) and CPM3 (paper §11) forms, and :func:`iir_filter` an IIR filter
+whose feedback products are squares (paper §5).  Both compute in broadcast
+form, at test scale, and launch no kernel, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -36,10 +39,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import squares as sq
+from repro_torch.core.complexmm import join_planes, split_planes
 from repro_torch.device import Device, operand_device
 
 __all__ = ["correlate1d", "convolve1d", "correlate2d", "conv2d",
-           "sliding_sum_squares", "filters4", "normalize_conv2d",
+           "complex_correlate1d", "iir_filter", "sliding_sum_squares",
+           "filters4", "normalize_conv2d",
            "denormalize_conv2d", "resolve_stride", "resolve_padding",
            "CONV2D_MODES"]
 
@@ -301,3 +306,90 @@ def conv2d(x, w, *, stride=1, padding="VALID", mode: str = "standard",
     else:
         out = conv2d_nchw(x4, w4, strides, pads, dt)
     return denormalize_conv2d(out, kind)
+
+
+# --------------------------------------------------------------------------
+# Complex correlation (paper §8, §11) and the IIR filter (paper §5).
+# --------------------------------------------------------------------------
+
+def complex_correlate1d(x, w, *, mode: str = "standard",
+                        device: Device = None) -> torch.Tensor:
+    """Complex valid 1D correlation, CPM4 (paper §8) or CPM3 (paper §11).
+
+    x: complex samples (L,); w: complex kernel (n,).  The kernel slides
+    over the samples: z_k = sum_i w_i x_{i+k} with w = c + js, x = x + jy.
+    """
+    dev = operand_device(x, device)
+    xr, xi = split_planes(x, device=dev)
+    c, s = split_planes(w, device=dev)
+    if mode == "standard":
+        re = correlate1d(xr, c) - correlate1d(xi, s)
+        im = correlate1d(xi, c) + correlate1d(xr, s)
+        return join_planes(re, im)
+    n = c.shape[-1]
+    acc = sq.accum_dtype(xr.dtype)
+    xr, xi, c, s = (t.to(acc) for t in (xr, xi, c, s))
+    wr_x = xr.unfold(-1, n, 1)                                # (K, n)
+    wi_x = xi.unfold(-1, n, 1)
+    if mode == "cpm4":
+        # eq 28 / 29 with shared -x^2-y^2 and precomputed Sw (eq 30)
+        re2 = _sum(sq.pm(c, wr_x) + sq.pm_neg(s, wi_x), -1)
+        im2 = _sum(sq.pm(s, wr_x) + sq.pm(c, wi_x), -1)
+        sxy = -(sliding_sum_squares(xr, n) + sliding_sum_squares(xi, n))
+        sw = -_sum(sq.square(c) + sq.square(s), -1)
+        return join_planes(sq.halve(re2 + sxy + sw),
+                           sq.halve(im2 + sxy + sw))
+    if mode == "cpm3":
+        # eqs 45 / 46 with complex correction Sw (eq 47)
+        shared = sq.cpm3_shared(wr_x, wi_x, c)                # (c+x+y)^2
+        re2 = _sum(sq.cpm3_real(wr_x, wi_x, c, s, shared=shared), -1)
+        im2 = _sum(sq.cpm3_imag(wr_x, wi_x, c, s, shared=shared), -1)
+        # data-side common terms: (-(x+y)^2 + y^2) + j(-(x+y)^2 - x^2)
+        sxy_re = -sliding_sum_squares(xr + xi, n) \
+            + sliding_sum_squares(xi, n)
+        sxy_im = -sliding_sum_squares(xr + xi, n) \
+            - sliding_sum_squares(xr, n)
+        sw_re = _sum(-sq.square(c) + sq.square(c + s), -1)
+        sw_im = _sum(-sq.square(c) - sq.square(s - c), -1)
+        return join_planes(sq.halve(re2 + sxy_re + sw_re),
+                           sq.halve(im2 + sxy_im + sw_im))
+    raise ValueError(f"unknown complex conv mode {mode!r}")
+
+
+def iir_filter(x, b, a, *, mode: str = "standard",
+               device: Device = None) -> torch.Tensor:
+    """IIR filter (paper §5: "For IIR filters we can apply the same
+    principles").
+
+    y_t = sum_i b_i x_{t-i} + sum_j a_j y_{t-j-1}
+
+    The feed-forward taps use the square-based correlation; the feedback
+    taps apply the PM substitution per step inside the recurrence: each
+    product a_j * y is ((a_j + y)^2 - a_j^2 - y^2) / 2 with the sum of
+    squares Sa of the constant coefficients precomputed.  The recurrence is
+    a loop over samples that carries the last ``len(a)`` outputs, newest
+    first (the JAX package's ``lax.scan``).
+    """
+    x, b = _place(x, b, device)
+    a = torch.as_tensor(a).to(x.device)
+    nb, na = b.shape[-1], a.shape[-1]
+    acc = sq.accum_dtype(x.dtype)
+    xw = F.pad(x.to(acc), (nb - 1, 0))
+    ff = correlate1d(xw, b.flip(-1),
+                     mode="square" if mode == "square" else "standard")
+
+    aw = a.to(acc)
+    sa = _sum(sq.square(aw), -1)                     # precomputed (constants)
+    hist = torch.zeros((na,), dtype=acc, device=x.device)
+    ys = []
+    for f_t in ff:
+        if mode == "square":
+            pm = _sum(sq.pm(aw, hist), -1)           # sum (a_j + y)^2
+            sy = _sum(sq.square(hist), -1)           # y^2 terms (recomputed)
+            fb = sq.halve(pm - sa - sy)
+        else:
+            fb = _sum(aw * hist, -1)
+        y_t = f_t + fb
+        hist = torch.cat([y_t[None], hist[:-1]])
+        ys.append(y_t)
+    return torch.stack(ys) if ys else ff

@@ -1,5 +1,5 @@
 """Fair-and-Square primitive algebra (paper §2, §6.1): the PyTorch port of
-``repro/core/squares.py``, real half.
+``repro/core/squares.py`` (all but ``square_approx``).
 
 Accumulating PM terms ``(a+b)^2`` plus the row/column corrections yields
 ``2 * (true result)``; callers apply :func:`halve` at the end (the paper's
@@ -10,8 +10,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["accum_dtype", "widen_for_sum", "square", "pm", "row_correction",
-           "col_correction", "halve"]
+__all__ = ["accum_dtype", "widen_for_sum", "square", "acc_sum", "pm",
+           "pm_neg", "cpm4_real", "cpm4_imag", "cpm3_shared", "cpm3_real",
+           "cpm3_imag", "row_correction", "col_correction", "halve"]
 
 _INT_NARROW = (torch.int8, torch.uint8, torch.int16)
 
@@ -46,22 +47,62 @@ def pm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return square(widen_for_sum(a) + widen_for_sum(b))
 
 
-def _sum(t: torch.Tensor, dim: int) -> torch.Tensor:
-    # torch.sum promotes integers to int64; the square datapath stays in
-    # its int32 accumulator (as the JAX package does with x64 off)
-    if t.dtype.is_floating_point:
-        return torch.sum(t, dim=dim)
+def pm_neg(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Negative-product partial multiplication (paper eq 2): ``(a-b)^2``;
+    ``sum_k pm_neg(a_k, b_k) + Sa + Sb == -2 * sum_k a_k b_k``."""
+    return square(widen_for_sum(a) - widen_for_sum(b))
+
+
+# Complex partial multiplications.  Operands are passed as separate real and
+# imaginary planes (a + jb) and (c + js): the four wires entering the
+# paper's CPM blocks.
+
+def cpm4_real(a, b, c, s) -> torch.Tensor:
+    """CPM (4 squares) real part, paper eq (21): ``(a+c)^2 + (b-s)^2``."""
+    return pm(a, c) + pm_neg(b, s)
+
+
+def cpm4_imag(a, b, c, s) -> torch.Tensor:
+    """CPM (4 squares) imag part, paper eq (22): ``(b+c)^2 + (a+s)^2``."""
+    return pm(b, c) + pm(a, s)
+
+
+def cpm3_shared(a, b, c) -> torch.Tensor:
+    """The square shared by CPM3 real and imaginary parts: ``(c+a+b)^2``."""
+    return square(widen_for_sum(a) + widen_for_sum(b) + widen_for_sum(c))
+
+
+def cpm3_real(a, b, c, s, shared=None) -> torch.Tensor:
+    """CPM3 real part, paper eq (37): ``(c+a+b)^2 - (b+c+s)^2``."""
+    if shared is None:
+        shared = cpm3_shared(a, b, c)
+    return shared - square(widen_for_sum(b) + widen_for_sum(c)
+                           + widen_for_sum(s))
+
+
+def cpm3_imag(a, b, c, s, shared=None) -> torch.Tensor:
+    """CPM3 imag part, paper eq (38): ``(c+a+b)^2 + (a+s-c)^2``."""
+    if shared is None:
+        shared = cpm3_shared(a, b, c)
+    return shared + square(widen_for_sum(a) + widen_for_sum(s)
+                           - widen_for_sum(c))
+
+
+def acc_sum(t: torch.Tensor, dim) -> torch.Tensor:
+    """``t`` summed over ``dim`` in its own dtype: torch.sum promotes
+    integers to int64, the square datapath stays in its int32 accumulator
+    (as the JAX package does with x64 off)."""
     return torch.sum(t, dim=dim, dtype=t.dtype)
 
 
 def row_correction(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """``Sa_i = -sum_k a_ik^2`` along the contraction axis (paper eq 5)."""
-    return -_sum(square(a), dim)
+    return -acc_sum(square(a), dim)
 
 
 def col_correction(b: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """``Sb_j = -sum_k b_kj^2`` along the contraction axis (paper eq 5)."""
-    return -_sum(square(b), dim)
+    return -acc_sum(square(b), dim)
 
 
 def halve(x: torch.Tensor) -> torch.Tensor:

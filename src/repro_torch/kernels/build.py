@@ -2,8 +2,9 @@
 
 Each source under ``src/repro_torch/csrc/`` holds one kernel, or a family
 that shares its arithmetic (``sq_matmul.cu``: K1, K2 and K3), behind a
-plain C interface: ``sq_paged_attn.cu`` (K4), ``sq_conv2d.cu`` (K7) and
-``sq_conv.cu`` (K8) each hold one.  At first use it is compiled by ``nvcc`` for ``sm_90a``
+plain C interface: ``sq_paged_attn.cu`` (K4), ``cpm3_matmul.cu`` (K5),
+``cpm4_matmul.cu`` (K6), ``sq_conv2d.cu`` (K7) and ``sq_conv.cu`` (K8) each
+hold one.  At first use it is compiled by ``nvcc`` for ``sm_90a``
 into a shared library under ``build/repro_torch_kernels/`` at the repo root
 and loaded with :mod:`ctypes`.  The library's name carries a hash of the
 source and the flags, so an edited source is rebuilt, never reused stale.
@@ -26,7 +27,8 @@ from typing import Dict, Iterable, Optional
 __all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "BUILD_DIR", "build", "load",
            "check"]
 
-KERNEL_SOURCES = ("sq_matmul", "sq_paged_attn", "sq_conv2d", "sq_conv")
+KERNEL_SOURCES = ("sq_matmul", "sq_paged_attn", "cpm3_matmul", "cpm4_matmul",
+                  "sq_conv2d", "sq_conv")
 
 # No --use_fast_math: expf/tanhf stay the accurate versions.  -fmad is left at
 # nvcc's default (on); each source states how its accumulation rounds.
@@ -52,6 +54,12 @@ _SIGNATURES = {
         "fs_sq_paged_attn": [_I, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              ctypes.c_float, _I, _I, _P],
+    },
+    "cpm3_matmul": {
+        "fs_cpm3_matmul": [_P] * 10 + [_I, _I, _I, _P],
+    },
+    "cpm4_matmul": {
+        "fs_cpm4_matmul": [_P] * 8 + [_I, _I, _I, _P],
     },
     "sq_conv2d": {
         "fs_sq_conv2d": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -1,5 +1,5 @@
 """Public wrappers around the square kernels: the PyTorch port of
-``repro/kernels/ops.py`` (all but the complex matmuls).
+``repro/kernels/ops.py``.
 
 The prep is split into the paper's weight-stationary halves:
 :func:`prepare_matmul_rhs` widens the column operand and computes ``Sb``,
@@ -7,13 +7,15 @@ and :func:`prepare_conv2d_weights` lays out the widened filters and
 computes ``Sw`` (the work a
 :class:`~repro_torch.core.prepared.PreparedOperand` keeps).  The execute
 halves widen the activation and launch the kernel: K1, or K2/K3 for a
-batched GEMM; K7 for the fused conv, or im2col patches through K1.  Raw and
-prepared calls share these functions, so they are bit-identical.
+batched GEMM; K7 for the fused conv, or im2col patches through K1.  Raw
+and prepared calls share these functions, so they are bit-identical.  The
+complex matmuls split their operands into planes, compute the paper's
+corrections and launch K5 (CPM3) or K6 (CPM4).
 
 The JAX package's tile plans (``tuning.plan_conv2d``, ``plan_conv``,
-``_pick_fb``) are Pallas tiling with no counterpart here: each CUDA kernel
-picks its own tiles and masks its ragged edges, so nothing is padded on
-the host.
+``_pick_fb``, ``_resolve_plan``) and its ``_pad_operands`` are Pallas
+tiling with no counterpart here: each CUDA kernel picks its own tiles and
+masks its ragged edges, so nothing is padded on the host.
 """
 from __future__ import annotations
 
@@ -27,15 +29,16 @@ from repro_torch.core import squares as sq
 from repro_torch.core.prepared import PreparedOperand
 from repro_torch.device import Device, operand_device, resolve_device
 from repro_torch.kernels import routing
+from repro_torch.kernels.cpm3_matmul import cpm3_matmul_k5
+from repro_torch.kernels.cpm4_matmul import cpm4_matmul_k6
 from repro_torch.kernels.sq_conv import sq_conv_k8
 from repro_torch.kernels.sq_conv2d import conv2d_out_hw, sq_conv2d_k7
 from repro_torch.kernels.sq_matmul import (sq_matmul_k1, sq_matmul_k2,
                                            sq_matmul_k3)
 
-__all__ = ["sq_matmul", "sq_matmul_local", "prepare_matmul_rhs", "sq_conv",
-           "sq_conv2d", "sq_conv2d_im2col", "sq_conv2d_routed",
-           "prepare_conv2d_weights"]
-
+__all__ = ["sq_matmul", "sq_matmul_local", "prepare_matmul_rhs",
+           "cpm3_matmul", "cpm4_matmul", "sq_conv", "sq_conv2d",
+           "sq_conv2d_im2col", "sq_conv2d_routed", "prepare_conv2d_weights"]
 
 
 def prepare_matmul_rhs(b: torch.Tensor, acc: Optional[torch.dtype] = None
@@ -143,6 +146,78 @@ def sq_matmul(a, b, *, fold: bool = False,
     else:
         b = torch.as_tensor(b).to(dev)
     return sq_matmul_local(a, b, fold=fold)
+
+
+# --------------------------------------------------------------------------
+# Complex square-based matmuls (CPM3 / CPM4)
+# --------------------------------------------------------------------------
+
+def _operand_planes(x, dev: torch.device) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """The (re, im) planes of a 2D operand on ``dev``; a real operand's
+    imaginary plane is zeros (as ``jnp.imag`` gives).  complex128 and
+    float64 come down to complex64 and float32, as ``jnp.asarray`` brings
+    them with x64 off."""
+    t = torch.as_tensor(x).to(dev)
+    if t.dtype == torch.complex128:
+        t = t.to(torch.complex64)
+    elif t.dtype == torch.float64:
+        t = t.to(torch.float32)
+    if t.ndim != 2:
+        raise ValueError(f"complex matmul operands are 2D, got "
+                         f"{tuple(t.shape)}")
+    if t.is_complex():
+        return t.real, t.imag
+    return t, torch.zeros_like(t)
+
+
+def _complex_operands(x, y, device: Device):
+    """Both operands as four contiguous planes (a, b, c, s) in the
+    accumulator dtype: ``torch.Tensor.real``/``.imag`` are strided views,
+    and the kernels take contiguous planes."""
+    dev = operand_device(x, device)
+    a, b = _operand_planes(x, dev)
+    c, s = _operand_planes(y, dev)
+    if a.shape[1] != c.shape[0]:
+        raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ "
+                         f"{tuple(c.shape)}")
+    acc = sq.accum_dtype(a.dtype)
+    return tuple(t.to(acc).contiguous() for t in (a, b, c, s))
+
+
+def cpm3_matmul(x, y, *, device: Device = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Complex matmul with 3 squares per multiply through K5.
+
+    ``x`` (m, k) @ ``y`` (k, n), complex tensors or arrays (a real operand
+    has an imaginary plane of zeros); returns the (re, im) f32 planes.
+    Integer operands raise ``TypeError``, as the Pallas kernel cannot take
+    them: the exact integer path is :mod:`repro_torch.core.complexmm`.
+
+    >>> x = torch.tensor([[1 + 2j, 3 - 1j]])
+    >>> y = torch.tensor([[2 - 1j], [1j]])
+    >>> re, im = cpm3_matmul(x, y, device="cpu")
+    >>> complex(re[0, 0], im[0, 0]) == complex((x @ y)[0, 0])
+    True
+    """
+    a, b, c, s = _complex_operands(x, y, device)
+    # corrections, paper eqs 33 / 35
+    sre = sq.acc_sum(-sq.square(a + b) + sq.square(b), -1)
+    sim = sq.acc_sum(-sq.square(a + b) - sq.square(a), -1)
+    scs = sq.acc_sum(-sq.square(c) + sq.square(c + s), 0)
+    ssc = sq.acc_sum(-sq.square(c) - sq.square(s - c), 0)
+    return cpm3_matmul_k5(a, b, c, s, sre, sim, scs, ssc)
+
+
+def cpm4_matmul(x, y, *, device: Device = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Complex matmul with 4 squares per multiply through K6; operands and
+    result as :func:`cpm3_matmul`."""
+    a, b, c, s = _complex_operands(x, y, device)
+    # shared corrections, paper eq 18
+    sx = -sq.acc_sum(sq.square(a) + sq.square(b), -1)
+    sy = -sq.acc_sum(sq.square(c) + sq.square(s), 0)
+    return cpm4_matmul_k6(a, b, c, s, sx, sy)
 
 
 # --------------------------------------------------------------------------

@@ -117,6 +117,28 @@ def test_conv_entry_points_without_a_device_raise(no_cuda):
                        device="cpu").shape == (8,)
 
 
+def test_complex_entry_points_without_a_device_raise(no_cuda):
+    """Numpy operands of the complex matmuls and transforms go to CUDA
+    unless the caller names a device: with no GPU they raise; with
+    device="cpu" they run."""
+    import numpy as np
+    from repro_torch.core import complexmm, transforms
+    x = np.ones((2, 3), np.complex64)
+    y = np.ones((3, 4), np.complex64)
+    for f in (ops.cpm3_matmul, ops.cpm4_matmul):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            f(x, y)
+        re, im = f(x, y, device="cpu")
+        assert re.shape == im.shape == (2, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        complexmm.cpm3_matmul(x, y)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transforms.dft_matrix(8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transforms.ComplexSquareTransform(np.ones((4, 4), np.complex64))
+    assert transforms.dft_matrix(8, device="cpu").shape == (8, 8)
+
+
 def test_engine_refuses_a_model_on_another_device(no_cuda):
     model = build_model(get_config("fairsquare-demo").reduced(),
                         device="cpu")

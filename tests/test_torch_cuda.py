@@ -11,7 +11,11 @@ bit-exact; K2 equal to K1 on every element and K3 equal to K2, bit for
 bit (one summation order by construction); K4 |err| <= 1e-4
 (``tests/test_paged_attn_kernel.py``'s tolerance); K7 and K8 f32
 |err| <= K * 2^-23 * (max|x| + max|w|)^2 over their K = kh*kw*cin or n
-terms per output (the same rounding argument as K1), int32 bit-exact.
+terms per output (the same rounding argument as K1), int32 bit-exact; K5
+and K6 f32 |err| <= 2 * k * 2^-23 * (max|a| + max|b| + max|c| + max|s|)^2
+(a complex term squares sums of up to three planes, and each plane
+accumulates two squares), and K5 against K6 within the sum of their two
+bounds.
 """
 import numpy as np
 import pytest
@@ -20,6 +24,10 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import squares as sq  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.cpm3_matmul import (  # noqa: E402
+    cpm3_matmul_k5, cpm3_matmul_plain)
+from repro_torch.kernels.cpm4_matmul import (  # noqa: E402
+    cpm4_matmul_k6, cpm4_matmul_plain)
 from repro_torch.kernels import sq_conv as k8mod  # noqa: E402
 from repro_torch.kernels import sq_conv2d as k7mod  # noqa: E402
 from repro_torch.kernels.sq_conv import sq_conv_k8, sq_conv_plain  # noqa: E402
@@ -306,3 +314,90 @@ def test_conv_kernels_never_reach_plain_on_card(cuda_device, monkeypatch):
     assert (sq_conv2d_k7.launches, sq_conv_k8.launches) == (
         before[0] + 2, before[1] + 1)
     assert torch.equal(raw, prep)
+
+
+def _cpm_planes(dev, m, k, n, seed=0):
+    """Four non-zero planes, each at its own scale, and both kernels'
+    corrections (paper eqs 33/35 and 18)."""
+    rng = np.random.default_rng(seed)
+    a, b, c, s = (torch.as_tensor(rng.normal(size=shape) * sc,
+                                  dtype=torch.float32).to(dev)
+                  for shape, sc in (((m, k), 1.0), ((m, k), 0.5),
+                                    ((k, n), 2.0), ((k, n), 0.25)))
+    k5 = ((-(a + b) ** 2 + b ** 2).sum(1), (-(a + b) ** 2 - a ** 2).sum(1),
+          (-c ** 2 + (c + s) ** 2).sum(0), (-c ** 2 - (s - c) ** 2).sum(0))
+    k6 = (-(a ** 2 + b ** 2).sum(1), -(c ** 2 + s ** 2).sum(0))
+    tol = 2 * k * 2.0 ** -23 * sum(t.abs().max().item()
+                                   for t in (a, b, c, s)) ** 2
+    return (a, b, c, s), k5, k6, tol
+
+
+@pytest.mark.parametrize("m,k,n", [(4096, 1024, 1024), (64, 64, 64),
+                                   (1, 100, 33), (37, 1, 5), (19, 130, 1),
+                                   (128, 257, 96), (17, 65, 31)])
+def test_k5_k6_match_plain_on_card(cuda_device, m, k, n):
+    planes, k5, k6, tol = _cpm_planes(cuda_device, m, k, n)
+    outs = {}
+    for name, kern, plain, corr in (("K5", cpm3_matmul_k5, cpm3_matmul_plain,
+                                     k5),
+                                    ("K6", cpm4_matmul_k6, cpm4_matmul_plain,
+                                     k6)):
+        before, before_shape = kern.launches, kern.shapes[(m, k, n)]
+        re, im = kern(*planes, *corr)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        assert kern.shapes[(m, k, n)] == before_shape + 1
+        pre, pim = plain(*planes, *corr)
+        assert re.shape == im.shape == (m, n)
+        assert torch.isfinite(re).all() and torch.isfinite(im).all()
+        assert (re - pre).abs().max().item() <= tol, name
+        assert (im - pim).abs().max().item() <= tol, name
+        outs[name] = (re, im)
+    for p in (0, 1):
+        assert (outs["K5"][p] - outs["K6"][p]).abs().max().item() <= 2 * tol
+
+
+def test_k5_k6_refuse_int_planes_on_card(cuda_device):
+    planes = [torch.ones(3, 4, dtype=torch.int32, device=cuda_device)] * 2 \
+        + [torch.ones(4, 2, dtype=torch.int32, device=cuda_device)] * 2
+    rows = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    cols = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    before = (cpm3_matmul_k5.launches, cpm4_matmul_k6.launches)
+    with pytest.raises(TypeError, match="f32"):
+        cpm3_matmul_k5(*planes, rows, rows, cols, cols)
+    with pytest.raises(TypeError, match="f32"):
+        cpm4_matmul_k6(*planes, rows, cols)
+    with pytest.raises(TypeError, match="f32"):
+        ops.cpm3_matmul(np.ones((3, 4), np.int8), np.ones((4, 2), np.int8))
+    assert (cpm3_matmul_k5.launches, cpm4_matmul_k6.launches) == before
+
+
+def test_complex_ops_launch_k5_k6_on_card(cuda_device, monkeypatch):
+    """ops.cpm3_matmul / cpm4_matmul on numpy operands run on the card
+    through one K5 / K6 launch, never the plain versions, and match
+    ``x @ y``."""
+    from repro_torch.kernels import cpm3_matmul as k5mod
+    from repro_torch.kernels import cpm4_matmul as k6mod
+
+    def boom(*a, **k):
+        raise AssertionError("plain version reached with CUDA tensors")
+
+    monkeypatch.setattr(k5mod, "cpm3_matmul_plain", boom)
+    monkeypatch.setattr(k6mod, "cpm4_matmul_plain", boom)
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=(70, 300)) + 1j * rng.normal(size=(70, 300))
+         ).astype(np.complex64)
+    y = (rng.normal(size=(300, 45)) + 1j * rng.normal(size=(300, 45))
+         ).astype(np.complex64)
+    z = x.astype(np.complex128) @ y
+    for f, kern in ((ops.cpm3_matmul, cpm3_matmul_k5),
+                    (ops.cpm4_matmul, cpm4_matmul_k6)):
+        before = kern.launches
+        re, im = f(x, y)
+        torch.cuda.synchronize()
+        assert kern.launches == before + 1
+        assert re.device.type == "cuda"
+        np.testing.assert_allclose(re.cpu().numpy(), z.real, rtol=1e-3,
+                                   atol=1e-3 * 300)
+        np.testing.assert_allclose(im.cpu().numpy(), z.imag, rtol=1e-3,
+                                   atol=1e-3 * 300)
