@@ -14,6 +14,12 @@ through the kernels, at shapes held to their plain versions:
   prefill attention, K3 on every decode step's attention, K1 elsewhere; a
   few of its decode steps are traced too.
 
+K1 is also held bit for bit to its bring-up schedule (K2 at nb = 1) and to
+K3 at every shape, and timed beside it; K4 is also checked and timed at
+1024-token tables (against a float64 reference there, since the plain
+version's own f32 rounding reaches the tolerance at that length).  Each
+phase prints the split and cluster shape its kernel launched with.
+
 It then holds the convolution kernels to their plain versions -- K7 at the
 six ResNet-50 layers it runs at batch 8 and a ragged/padded set, K8 on
 2^20-sample FIR streams -- and drives the two conv paths as a user would:
@@ -61,8 +67,8 @@ from repro_torch.configs import get_config                      # noqa: E402
 from repro_torch.configs.base import SQUARE_GEMMS_POLICY        # noqa: E402
 from repro_torch.kernels import build, routing                  # noqa: E402
 from repro_torch.kernels.sq_matmul import (                     # noqa: E402
-    sq_matmul_batched_plain, sq_matmul_k1, sq_matmul_k2, sq_matmul_k3,
-    sq_matmul_plain)
+    k1_launch_shape, sq_matmul_batched_plain, sq_matmul_k1, sq_matmul_k2,
+    sq_matmul_k3, sq_matmul_plain)
 from repro_torch.core import conv as conv_core                   # noqa: E402
 from repro_torch.core import transforms                          # noqa: E402
 from repro_torch.core.prepared import prepare_operand           # noqa: E402
@@ -76,7 +82,7 @@ from repro_torch.kernels.sq_conv import (                       # noqa: E402
 from repro_torch.kernels.sq_conv2d import (                     # noqa: E402
     conv2d_out_hw, k_splits, sq_conv2d_k7, sq_conv2d_plain)
 from repro_torch.kernels.sq_paged_attn import (                 # noqa: E402
-    sq_paged_attn_k4, sq_paged_attn_plain)
+    k4_splits, sq_paged_attn_k4, sq_paged_attn_plain)
 from repro_torch.launch.serve import make_requests              # noqa: E402
 from repro_torch.models.attention import EMPTY_POS              # noqa: E402
 from repro_torch.models.lm import LM, build_model               # noqa: E402
@@ -192,9 +198,12 @@ def copies_for(nbytes: int) -> int:
 
 # ------------------------------------------------------------------ K1
 def k1_phase(dev, gen, cases):
-    """K1 against its plain version at the main-path shapes."""
+    """K1 against its plain version at the main-path shapes, and bit for
+    bit against the bring-up schedule (K2 at nb = 1) and K3 on the same
+    operands; each timed row also times the bring-up schedule."""
     print("K1 sq_matmul vs plain (f32 from bf16 inputs: |err| <= "
-          "k * 2^-23 * (max|a| + max|b|)^2; int8: exact)", flush=True)
+          "k * 2^-23 * (max|a| + max|b|)^2; int8: exact; K1 = bring-up "
+          "schedule (K2 at nb=1) = K3, bit for bit)", flush=True)
     rows = []
     for m, k, n, timed in cases:
         a = torch.randn(m, k, generator=gen).to(torch.bfloat16).to(dev)
@@ -222,6 +231,13 @@ def k1_phase(dev, gen, cases):
         check(torch.equal(oi, sq_matmul_plain(ai, bi, sai, sbi))
               and torch.equal(oi, exact),
               f"int8 m={m} k={k} n={n}: bit-exact")
+        same = all(
+            torch.equal(o, kern(x[None], y[None], sx[None], sy[None])[0])
+            for o, x, y, sx, sy in ((out, aw, bw, sa, sb),
+                                    (oi, ai, bi, sai, sbi))
+            for kern in (sq_matmul_k2, sq_matmul_k3))
+        check(same, f"m={m} k={k} n={n}: K1 = bring-up schedule (K2 at "
+                    f"nb=1) = K3, f32 and int32, bit for bit")
         if not timed:
             rows.append(dict(m=m, k=k, n=n, max_abs_err=err))
             continue
@@ -231,6 +247,9 @@ def k1_phase(dev, gen, cases):
         sbs = [sb.clone() for _ in range(nc)]
         ms = time_graph([lambda i=i: sq_matmul_k1(aw, bws[i], sa, sbs[i])
                          for i in range(nc)])
+        old_ms = time_graph([lambda i=i: sq_matmul_k2(
+            aw[None], bws[i][None], sa[None], sbs[i][None])
+            for i in range(nc)])
         plain_ms = time_graph(
             [lambda i=i: sq_matmul_plain(aw, bws[i], sa, sbs[i])
              for i in range(nc)], reps=4, replays=2)
@@ -241,17 +260,30 @@ def k1_phase(dev, gen, cases):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, \
             ops / FP32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
-        row = dict(m=m, k=k, n=n, ms=ms, plain_ms=plain_ms,
+        row = dict(m=m, k=k, n=n, ms=ms, old_ms=old_ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound, t_bytes=t_bytes,
                    t_ops=t_ops,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    max_abs_err=err)
         rows.append(row)
-        print(f"    m={m:2d} k={k:4d} n={n:5d}  K1 {ms:.4f} ms | plain "
+        shape = k1_launch_shape(m, n)
+        print(f"    m={m:2d} k={k:4d} n={n:5d}  K1 {ms:.4f} ms | bring-up "
+              f"schedule {old_ms:.4f} ms ({old_ms / ms:.1f}x) | plain "
               f"{plain_ms:.4f} ms | torch.matmul {lib_ms:.4f} ms | bound "
               f"{bound:.4f} ms ({row['bound_by']}) | "
-              f"{bound / ms:.1%} of bound", flush=True)
+              f"{bound / ms:.1%} of bound | grid {shape['grid']} in "
+              f"clusters of {shape['cluster']}, {shape['rows']}x"
+              f"{shape['cols']} tiles, {shape['warps']} warps a block",
+              flush=True)
         del bws, sbs
+    for m in (8, DENSE_BATCH):
+        step = {key: sum(K1_PER_STEP[(r["k"], r["n"])] * r[key]
+                         for r in rows if r["m"] == m and "ms" in r)
+                for key in ("ms", "old_ms", "library_ms")}
+        print(f"  per decode step at m={m} (85 GEMMs, graph replay): K1 "
+              f"{step['ms']:.4f} ms | bring-up schedule "
+              f"{step['old_ms']:.4f} ms ({step['old_ms'] / step['ms']:.1f}x)"
+              f" | torch.matmul {step['library_ms']:.4f} ms", flush=True)
     return rows
 
 
@@ -364,9 +396,79 @@ def k4_inputs(dev, gen, *, B=8, S=1, KV=12, G=1, hd=64, nb=BLOCKS_PER_SEQ,
             torch.as_tensor(pos_pool).to(dev), torch.as_tensor(q_pos).to(dev))
 
 
+def attn_f64(q, kp, vp, tables, pos_pool, q_pos, *, window=None,
+             softcap=0.0):
+    """K4's function in float64 with the multiplier: the reference for
+    long tables, where the plain version's own f32 sums of (p + v)^2 over
+    the whole window reach the tolerance."""
+    idx = (tables.long()[:, :, None] * BLOCK
+           + torch.arange(BLOCK, device=tables.device)).reshape(
+               tables.shape[0], -1)
+    k = kp[idx].double().permute(0, 2, 1, 3)[:, :, None]   # (B,KV,1,T,hd)
+    v = vp[idx].double().permute(0, 2, 1, 3)[:, :, None]
+    s = q.double().permute(0, 2, 3, 1, 4) @ k.transpose(-1, -2)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    kv_pos, qp = pos_pool[idx][:, None, :], q_pos[:, :, None]
+    valid = (kv_pos <= qp) & (kv_pos < 2 ** 29)
+    if window is not None:
+        valid &= (qp - kv_pos) < window
+    s = s.masked_fill(~valid[:, None, None], -1e30)
+    return (torch.softmax(s, dim=-1) @ v).permute(0, 3, 1, 2, 4)
+
+
+def k4_time(dev, gen, nb: int, pools: int):
+    """K4 over full tables of ``nb`` blocks at the decode shape (B 8, KV 12,
+    S 1, G 1, hd 64, bf16 pools), ``pools`` pool copies cycled past the L2
+    (one per layer at the serving table), timed beside the plain version
+    and SDPA on the gathered window."""
+    B, KV, G, hd, S = 8, 12, 1, 64, 1
+    q, kps, vps, tables, pos_pool, q_pos = k4_inputs(dev, gen, nb=nb,
+                                                     pools=pools)
+    n = len(kps)
+    ms = time_graph([lambda i=i: sq_paged_attn_k4(
+        q, kps[i], vps[i], tables, pos_pool, q_pos, block_size=BLOCK)
+        for i in range(n)])
+    plain_ms = time_graph([lambda i=i: sq_paged_attn_plain(
+        q, kps[i], vps[i], tables, pos_pool, q_pos, block_size=BLOCK)
+        for i in range(n)], reps=4, replays=2)
+    idx = (tables.long()[:, :, None] * BLOCK
+           + torch.arange(BLOCK, device=dev)).reshape(B, -1)
+    T = idx.shape[1]
+    kg = [kp[idx].permute(0, 2, 1, 3).contiguous() for kp in kps]
+    vg = [vp[idx].permute(0, 2, 1, 3).contiguous() for vp in vps]
+    qs = q.reshape(B, S, KV * G, hd).permute(0, 2, 1, 3).to(torch.bfloat16)
+    mask = (pos_pool[idx][:, None, None, :] <= q_pos[:, None, :, None])
+    lib_ms = time_graph([lambda i=i: torch.nn.functional.
+                         scaled_dot_product_attention(
+                             qs, kg[i], vg[i], attn_mask=mask, scale=1.0)
+                         for i in range(n)])
+    t_live = int((tables != 0).sum().item()) * BLOCK
+    nbytes = (2 * t_live * KV * hd * 2 + t_live * 4 + 2 * B * S * KV * G * hd * 4
+              + tables.numel() * 4 + q_pos.numel() * 4)
+    ops = 2 * 2 * t_live * S * KV * G * hd
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, \
+        ops / FP32_OPS_PER_S * 1e3
+    splits = k4_splits(B, KV, nb, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               T=T, splits=splits)
+    print(f"    decode B={B} KV={KV} T={T}: K4 {ms:.4f} ms | plain "
+          f"{plain_ms:.4f} ms | SDPA on the gathered window {lib_ms:.4f} ms "
+          f"| bound {row['bound_ms']:.5f} ms ({row['bound_by']}) | "
+          f"{row['bound_ms'] / ms:.1%} of bound | {splits} splits of "
+          f"{nb // splits} table blocks: grid ({KV}, {B}, {splits}) = "
+          f"{KV * B * splits} blocks of {32 * min(4, S * G)} threads in "
+          f"clusters of (1, 1, {splits})", flush=True)
+    return row
+
+
 def k4_phase(dev, gen):
     print("K4 sq_paged_attn vs plain (B=8 S=1 KV=12 G=1 hd=64 bs=16 nb=8, "
-          "bf16 pools; |err| <= 1e-4)", flush=True)
+          "bf16 pools; |err| <= 1e-4; at nb=64, T=1024, |err| <= 1e-4 "
+          "against a float64 reference)", flush=True)
     live = [128, 128, 100, 64, 37, 16, 5, 1]      # partial tables, null blocks
     worst = 0.0
     for window, softcap, pad_row in ((None, 0.0, 6), (40, 0.0, None),
@@ -386,41 +488,37 @@ def k4_phase(dev, gen):
               f"window={window} softcap={softcap} padded_row={pad_row}: "
               f"max|err| {err:.3e}")
 
-    # timing at the decode shape: full tables, 12 pool copies (one per layer)
-    B, KV, G, hd, S = 8, 12, 1, 64, 1
-    q, kps, vps, tables, pos_pool, q_pos = k4_inputs(dev, gen, pools=12)
-    n = len(kps)
-    ms = time_graph([lambda i=i: sq_paged_attn_k4(
-        q, kps[i], vps[i], tables, pos_pool, q_pos, block_size=BLOCK)
-        for i in range(n)])
-    plain_ms = time_graph([lambda i=i: sq_paged_attn_plain(
-        q, kps[i], vps[i], tables, pos_pool, q_pos, block_size=BLOCK)
-        for i in range(n)], reps=4, replays=2)
-    idx = (tables.long()[:, :, None] * BLOCK
-           + torch.arange(BLOCK, device=dev)).reshape(B, -1)
-    T = idx.shape[1]
-    kg = [kp[idx].permute(0, 2, 1, 3).contiguous() for kp in kps]
-    vg = [vp[idx].permute(0, 2, 1, 3).contiguous() for vp in vps]
-    qs = q.reshape(B, S, KV * G, hd).permute(0, 2, 1, 3).to(torch.bfloat16)
-    mask = (pos_pool[idx][:, None, None, :] <= q_pos[:, None, :, None])
-    lib_ms = time_graph([lambda i=i: torch.nn.functional.
-                         scaled_dot_product_attention(
-                             qs, kg[i], vg[i], attn_mask=mask, scale=1.0)
-                         for i in range(n)])
-    live_blocks = int((tables != 0).sum().item())
-    t_live = live_blocks * BLOCK
-    nbytes = (2 * t_live * KV * hd * 2 + t_live * 4 + 2 * B * S * KV * G * hd * 4
-              + tables.numel() * 4 + q_pos.numel() * 4)
-    ops = 2 * 2 * t_live * S * KV * G * hd
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, \
-        ops / FP32_OPS_PER_S * 1e3
-    row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               max_abs_err=worst, T=T)
-    print(f"    decode B=8 T={T}: K4 {ms:.4f} ms | plain {plain_ms:.4f} ms | "
-          f"SDPA on the gathered window {lib_ms:.4f} ms | bound "
-          f"{row['bound_ms']:.5f} ms ({row['bound_by']})", flush=True)
+    # 1024-token tables (8 table blocks a split): partial tables, a padded
+    # row, a window that masks whole splits, a softcap
+    live_long = [1024, 1000, 700, 513, 129, 64, 16, 1]
+    worst_long = 0.0
+    for window, softcap, pad_row in ((None, 0.0, 6), (40, 0.0, None),
+                                     (None, 30.0, 7)):
+        q, kps, vps, tables, pos_pool, q_pos = k4_inputs(
+            dev, gen, nb=64, live=live_long, pad_row=pad_row)
+        kw = dict(window=window, softcap=softcap)
+        out = sq_paged_attn_k4(q, kps[0], vps[0], tables, pos_pool, q_pos,
+                               block_size=BLOCK, **kw)
+        ref = sq_paged_attn_plain(q, kps[0], vps[0], tables, pos_pool, q_pos,
+                                  block_size=BLOCK, **kw)
+        exact = attn_f64(q, kps[0], vps[0], tables, pos_pool, q_pos, **kw)
+        torch.cuda.synchronize()
+        err = (out.double() - exact).abs().max().item()
+        worst_long = max(worst_long, err)
+        check(bool(torch.isfinite(out).all()) and err <= 1e-4,
+              f"T=1024 window={window} softcap={softcap} padded_row="
+              f"{pad_row}: max|K4 - float64| {err:.3e} (K4 vs plain "
+              f"{(out - ref).abs().max().item():.3e}, plain vs float64 "
+              f"{(ref.double() - exact).abs().max().item():.3e})")
+
+    row = k4_time(dev, gen, BLOCKS_PER_SEQ, pools=12)
+    print(f"    per paged decode step (12 launches): K4 {12 * row['ms']:.4f}"
+          f" ms | SDPA on the gathered window {12 * row['library_ms']:.4f} ms"
+          f" | bring-up schedule 0.536 ms as recorded in PERF.md's bring_up "
+          f"table (NVIDIA H100 80GB HBM3, 700 W)", flush=True)
+    row["long"] = k4_time(dev, gen, 64, pools=4)
+    row["long"]["max_abs_err_vs_float64"] = worst_long
+    row["max_abs_err"] = worst
     return row
 
 
@@ -599,8 +697,9 @@ def _union_us(spans) -> float:
     return busy
 
 
-# device kernels by name in a trace: K2 is K1's kernel on a batch grid axis
-TRACE_KERNELS = (("K1/K2", "sq_matmul_kernel"), ("K3", "sq_matmul_folded_kernel"),
+# device kernels by name in a trace
+TRACE_KERNELS = (("K1", "sq_matmul_cluster_kernel"), ("K2", "sq_matmul_kernel"),
+                 ("K3", "sq_matmul_folded_kernel"),
                  ("K4", "sq_paged_attn_kernel"), ("K5", "cpm3_matmul_kernel"),
                  ("K6", "cpm4_matmul_kernel"))
 
@@ -1375,6 +1474,8 @@ def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
     k1 = entry("K1", "sq_matmul (K1)", "sq_matmul.py:92", decode,
                lambda r: K1_PER_STEP[(r["k"], r["n"])],
                "one paged decode step: 85 GEMMs at m=8")
+    k1["bring_up_ms"] = per_step(decode, lambda r: K1_PER_STEP[
+        (r["k"], r["n"])], "old_ms")
     k2 = entry("K2", "sq_matmul_batched (K2)", "sq_matmul.py:117",
                [r for r in k2_rows if r["shape"][1] == CHUNK],
                lambda r: HEADS,
@@ -1392,7 +1493,8 @@ def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
           "ms": 12 * k4_row["ms"], "plain_ms": 12 * k4_row["plain_ms"],
           "bound_ms": 12 * k4_row["bound_ms"], "bound_by": k4_row["bound_by"],
           "library_ms": 12 * k4_row["library_ms"],
-          "per": "one paged decode step: 12 launches at B=8 T=128"}
+          "per": "one paged decode step: 12 launches at B=8 T=128",
+          "splits": k4_row["splits"], "long_table": k4_row["long"]}
     k7 = entry("K7", "sq_conv2d (K7)", "sq_conv2d.py:68",
                [r for r in k7_rows if "ms" in r], lambda r: 1,
                "one pass over the six fused ResNet-50 layers at batch 8",

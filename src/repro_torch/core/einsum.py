@@ -5,8 +5,10 @@
 as batch / M / K / N, canonicalises the operands to ``(B, M, K) @ (B, K, N)``
 and runs the contraction under a fair-square mode
 (:mod:`repro_torch.core.matmul`).  ``standard`` calls ``torch.einsum``
-verbatim.  Mode resolution: ``policy.lookup(site)`` > ``mode`` > the
-default.
+verbatim, except for integer operands on CUDA, which has no integer
+einsum: there :func:`_standard` runs it in float64 and wraps to the dtype
+``jnp.einsum`` returns.  Mode resolution: ``policy.lookup(site)`` >
+``mode`` > the default.
 
 Supported specs: two operands, explicit ``->``, an optional ellipsis, no
 repeated index within one operand.  Indices in one operand only and not in
@@ -154,14 +156,28 @@ def _batched_matmul(a: torch.Tensor, b, mode: str,
                      f"{fsmm.MODES}")
 
 
+def _standard(spec: str, x: torch.Tensor, y: torch.Tensor,
+              preferred: Optional[torch.dtype]) -> torch.Tensor:
+    """``jnp.einsum(spec, x, y, preferred_element_type=preferred)``: the
+    operands' promoted dtype, or ``preferred``.  CUDA has no integer
+    einsum, so integer operands there take ``core/matmul.py``'s exact path:
+    a float64 product (exact while every partial sum stays below 2**53),
+    then a wrap to the result dtype, as the CPU's integer einsum wraps."""
+    if preferred is not None:
+        x, y = x.to(preferred), y.to(preferred)
+    dt = torch.promote_types(x.dtype, y.dtype)
+    if x.device.type != "cuda" or dt.is_floating_point or dt.is_complex:
+        return torch.einsum(spec, x, y)
+    out = torch.einsum(spec, x.double(), y.double())
+    return out.to(torch.int64).to(dt)
+
+
 def _dispatch(spec: str, x: torch.Tensor, y, mode: str,
               site: Optional[str], preferred: Optional[torch.dtype]):
     """Execute one contraction under a resolved mode."""
     plan = plan_contraction(spec, tuple(x.shape), tuple(y.shape))
     if mode == "standard":
-        if preferred is None:
-            return torch.einsum(spec, x, unwrap(y))
-        return torch.einsum(spec, x.to(preferred), unwrap(y).to(preferred))
+        return _standard(spec, x, unwrap(y), preferred)
 
     sizes = _sizes(plan, x.shape, y.shape)
     prod = lambda dims: math.prod(sizes[d] for d in dims)   # noqa: E731

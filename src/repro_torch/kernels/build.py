@@ -53,7 +53,7 @@ _SIGNATURES = {
     "sq_paged_attn": {
         "fs_sq_paged_attn": [_I, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             ctypes.c_float, _I, _I, _P],
+                             ctypes.c_float, _I, _I, _I, _P],
     },
     "cpm3_matmul": {
         "fs_cpm3_matmul": [_P] * 10 + [_I, _I, _I, _P],

@@ -2,10 +2,13 @@
 versions.
 
 - K1 (:func:`sq_matmul_k1`) replaces ``src/repro/kernels/sq_matmul.py::
-  sq_matmul_kernel`` (behind ``sq_matmul_pallas``): one (m, k) @ (k, n).
+  sq_matmul_kernel`` (behind ``sq_matmul_pallas``): one (m, k) @ (k, n), a
+  cluster of 8 blocks per output tile, one partial sum each
+  (:func:`k1_launch_shape`); the cluster launch needs Hopper (``sm_90``).
 - K2 (:func:`sq_matmul_k2`) replaces ``sq_matmul_batched_kernel`` (the
-  ``fb == 1`` schedule of ``sq_matmul_batched_pallas``): K1 on a batch grid
-  axis, bit-identical to K1 on every element.
+  ``fb == 1`` schedule of ``sq_matmul_batched_pallas``): the bring-up
+  schedule of K1 on a batch grid axis, bit-identical to K1 on every
+  element.
 - K3 (:func:`sq_matmul_k3`) replaces ``sq_matmul_folded_kernel`` (the
   ``fb > 1`` schedule): several batch elements per block for the
   small-(m, n), large-B regime, bit-identical to K2.
@@ -30,13 +33,25 @@ from repro_torch.core import squares as sq
 from repro_torch.kernels import build
 
 __all__ = ["sq_matmul_k1", "sq_matmul_k2", "sq_matmul_k3",
-           "sq_matmul_plain", "sq_matmul_batched_plain"]
+           "sq_matmul_plain", "sq_matmul_batched_plain", "k1_launch_shape"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
 _INT_MAX = 2 ** 31 - 1
 _MAX_GRID_Y = 65535
 _MAX_GRID_Z = 65535           # K2's batch axis
-_BN = 32                      # output columns per block, as in the source
+_BN = 32                      # K2's columns per block (K3's per warp), as in the source
+_KS = 8                       # partial sums per output: K1's cluster size
+
+
+def k1_launch_shape(m: int, n: int) -> dict:
+    """K1's launch for an (m, k) @ (k, n), as the CUDA source makes it: one
+    cluster of 8 blocks (partials 0..7) per output tile of 8 rows x 64
+    columns (4 warps a block) for m <= 8, else 32 rows x 128 columns (16
+    warps)."""
+    rows, cols, warps = (8, 64, 4) if m <= 8 else (32, 128, 16)
+    return {"rows": rows, "cols": cols, "warps": warps,
+            "grid": (_KS * -(-n // cols), -(-m // rows)),
+            "cluster": (_KS, 1, 1)}
 
 
 def sq_matmul_plain(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
@@ -120,7 +135,9 @@ def sq_matmul_k1(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
                          f"got a tensor on {aw.device}")
     m, k = aw.shape
     n = bw.shape[1]
-    if max(m * k, k * n, m * n) > _INT_MAX or -(-n // _BN) > _MAX_GRID_Y:
+    gx, gy = k1_launch_shape(m, n)["grid"]
+    if max(m * k, k * n, m * n) > _INT_MAX or gx > _INT_MAX \
+            or gy > _MAX_GRID_Y:
         raise ValueError(f"K1 shape ({m}, {k}) @ ({k}, {n}) exceeds the "
                          f"kernel's 32-bit indexing or grid limits")
     out = torch.empty((m, n), dtype=aw.dtype, device=aw.device)

@@ -4,8 +4,13 @@ plain PyTorch version.
 Replaces ``src/repro/kernels/sq_paged_attn.py::sq_paged_attn_kernel`` (the
 Pallas TPU kernel behind ``sq_paged_attn``).  The CUDA source is
 ``src/repro_torch/csrc/sq_paged_attn.cu``; its header states what bounds it
-on an H100 (the bytes of the K/V blocks and positions the table walk reads)
-and how its design meets that.
+on an H100 (the bytes of the K/V blocks and positions the table walk reads,
+and at decode sizes the latency of one walk) and how its design meets that:
+each table is split into up to 8 ranges walked by the blocks of one
+thread-block cluster, combined in split order through distributed shared
+memory (:func:`k4_splits` picks the count); a block is min(4, S*G) warps,
+each owning query rows.  The cluster launch needs Hopper (``sm_90`` or
+later).
 
 Both versions compute, per sequence and kv-head over the block table:
 scores ``1/2 (-sum q^2 - sum k^2 + sum (q + k)^2)``, an optional tanh
@@ -16,6 +21,7 @@ softcap, the absolute-position mask (``kv_pos <= q_pos``,
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -24,11 +30,14 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 
 __all__ = ["sq_paged_attn", "sq_paged_attn_k4", "sq_paged_attn_plain",
-           "smem_bytes"]
+           "smem_bytes", "k4_splits"]
 
 NEG_INF = -1e30
 _POOL_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _SMEM_MAX = 232448            # bytes of shared memory one H100 block may use
+MAX_SPLITS = 8                # the portable cluster size, as in the source
+_STAGES = 3                   # K/V copy stages, as in the source
+_BLOCKS_PER_SM = 8            # blocks of min(4, rows) warps each
 
 
 def _gather_index(tables: torch.Tensor, block_size: int) -> torch.Tensor:
@@ -69,11 +78,32 @@ def sq_paged_attn_plain(q, k_pool, v_pool, tables, pos_pool, q_pos, *,
     return out.permute(0, 3, 1, 2, 4).contiguous()
 
 
-def smem_bytes(rows: int, block_size: int, hd: int) -> int:
-    """Dynamic shared memory K4 needs (the layout in the CUDA source)."""
-    floats = 2 * rows * hd + 2 * block_size * hd + rows * block_size \
-        + 5 * rows + block_size + hd
-    return 4 * (floats + block_size + rows)
+def smem_bytes(rows: int, block_size: int, hd: int, itemsize: int,
+               cols: int) -> int:
+    """Dynamic shared memory K4 needs (the layout in the CUDA source):
+    ``_STAGES`` stages of a K block (rows padded by 32 bytes) and a V block
+    in the pools' dtype of ``itemsize`` bytes, then f32 queries,
+    accumulator, scores and per-row state, then int32 positions and the
+    ``cols`` table entries of one split."""
+    pools = _STAGES * block_size * (2 * hd * itemsize + 32)
+    floats = 2 * rows * hd + rows * block_size + (4 + MAX_SPLITS) * rows
+    return pools + 4 * (floats + rows + _STAGES * block_size + cols)
+
+
+def k4_splits(batch: int, kv_heads: int, nb: int, sms: int) -> int:
+    """How many ranges of table columns K4 walks each (sequence, kv-head)
+    table in, one block and one cluster rank each: enough for about
+    ``_BLOCKS_PER_SM`` blocks per SM, at most ``MAX_SPLITS`` and at most
+    ``nb``.  Each split is a short, latency-bound walk, so more splits mean
+    a shorter launch: the serving decode shape (8 sequences x 12 kv-heads,
+    nb 8) on 132 SMs gets 8, one table block each."""
+    want = -(-_BLOCKS_PER_SM * sms // max(1, batch * kv_heads))
+    return max(1, min(MAX_SPLITS, nb, want))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(q, k_pool, v_pool, tables, pos_pool, q_pos, block_size) -> None:
@@ -135,12 +165,20 @@ def sq_paged_attn_k4(q, k_pool, v_pool, tables, pos_pool, q_pos, *,
                          f"got a tensor on {q.device}")
     B, S, KV, G, hd = q.shape
     nb = tables.shape[1]
-    smem = smem_bytes(S * G, block_size, hd)
+    if hd % 8:
+        raise ValueError(f"K4 copies K/V rows in 16-byte pieces of 8 "
+                         f"elements: head_dim {hd} is not a multiple of 8")
+    splits = k4_splits(B, KV, nb, _sm_count(q.device.index))
+    smem = smem_bytes(S * G, block_size, hd, k_pool.element_size(),
+                      -(-nb // splits))
     if smem > _SMEM_MAX:
         raise ValueError(f"K4 needs {smem} bytes of shared memory for "
-                         f"S*G={S * G}, block_size={block_size}, hd={hd}; "
-                         f"one block may use {_SMEM_MAX}")
+                         f"S*G={S * G}, block_size={block_size}, hd={hd}, "
+                         f"{nb} table columns; one block may use "
+                         f"{_SMEM_MAX}")
     q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), v_pool.contiguous()
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("K4 pools must start on a 16-byte boundary")
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
@@ -155,7 +193,7 @@ def sq_paged_attn_k4(q, k_pool, v_pool, tables, pos_pool, q_pos, *,
             q_pos.data_ptr(), out.data_ptr(), B, S, KV, G, hd, nb,
             block_size, k_pool.shape[0] // block_size,
             0 if window is None else int(window), float(softcap or 0.0),
-            int(attend_limit), smem, stream)
+            int(attend_limit), splits, smem, stream)
     build.check(lib, rc, "K4 sq_paged_attn launch")
     sq_paged_attn_k4.launches += 1
     return out

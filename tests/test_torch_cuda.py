@@ -8,7 +8,9 @@ has only PyTorch:
 Tolerances: K1/K2/K3 f32 |err| <= k * 2^-23 * (max|a| + max|b|)^2 (the
 rounding of two different orders of square-form f32 sums), int32
 bit-exact; K2 equal to K1 on every element and K3 equal to K2, bit for
-bit (one summation order by construction); K4 |err| <= 1e-4
+bit (one summation order by construction), and K1's cluster schedule
+equal to the bring-up schedule (K2 at nb = 1) and to K3, bit for bit;
+K4 |err| <= 1e-4
 (``tests/test_paged_attn_kernel.py``'s tolerance); K7 and K8 f32
 |err| <= K * 2^-23 * (max|x| + max|w|)^2 over their K = kh*kw*cin or n
 terms per output (the same rounding argument as K1), int32 bit-exact; K5
@@ -37,7 +39,7 @@ from repro_torch.kernels.sq_matmul import (  # noqa: E402
     sq_matmul_batched_plain, sq_matmul_k1, sq_matmul_k2, sq_matmul_k3,
     sq_matmul_plain)
 from repro_torch.kernels.sq_paged_attn import (  # noqa: E402
-    sq_paged_attn_k4, sq_paged_attn_plain)
+    k4_splits, sq_paged_attn_k4, sq_paged_attn_plain)
 from repro_torch.models.attention import EMPTY_POS  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -78,6 +80,43 @@ def test_k1_matches_plain_on_card(cuda_device, m, k, n):
     si, sj = sq.row_correction(ai), sq.col_correction(bi)
     assert torch.equal(sq_matmul_k1(ai, bi, si, sj),
                        sq_matmul_plain(ai, bi, si, sj))
+
+
+def _k1_three_ways(dev, m, k, n, seed):
+    """K1, K2 at nb = 1 (the bring-up schedule) and K3 on the same f32 and
+    int8 operands; each pair of results must be bit-identical."""
+    gen = torch.Generator().manual_seed(seed)
+    aw = torch.randn(m, k, generator=gen).to(torch.bfloat16).float()
+    bw = (torch.randn(k, n, generator=gen) / k ** 0.5).to(
+        torch.bfloat16).float()
+    ai = torch.randint(-128, 128, (m, k), generator=gen, dtype=torch.int32)
+    bi = torch.randint(-128, 128, (k, n), generator=gen, dtype=torch.int32)
+    for a, b in ((aw, bw), (ai, bi)):
+        a, b = a.to(dev), b.to(dev)
+        sa, sb = sq.row_correction(a), sq.col_correction(b)
+        o1 = sq_matmul_k1(a, b, sa, sb)
+        o2 = sq_matmul_k2(a[None], b[None], sa[None], sb[None])[0]
+        o3 = sq_matmul_k3(a[None], b[None], sa[None], sb[None])[0]
+        torch.cuda.synchronize()
+        assert torch.equal(o1, o2), (m, k, n, a.dtype)
+        assert torch.equal(o1, o3), (m, k, n, a.dtype)
+        if a.dtype == torch.int32:
+            assert torch.equal(o1.double(), torch.matmul(a.double(),
+                                                         b.double()))
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 32])
+@pytest.mark.parametrize("k,n", [(768, 768), (768, 3072), (3072, 768),
+                                 (768, 32000)])
+def test_k1_cluster_equals_bring_up_at_serving_shapes(cuda_device, m, k, n):
+    _k1_three_ways(cuda_device, m, k, n, seed=5)
+
+
+@pytest.mark.parametrize("m", [1, 3, 9, 33])
+@pytest.mark.parametrize("n", [1, 31, 33, 769])
+def test_k1_cluster_equals_bring_up_ragged(cuda_device, m, n):
+    for k in (1, 7, 65, 3071):
+        _k1_three_ways(cuda_device, m, k, n, seed=6)
 
 
 @pytest.mark.parametrize("nb,m,k,n", [
@@ -178,6 +217,75 @@ def test_k4_matches_plain_on_card(cuda_device, kw, pool_dtype):
     assert (out - ref).abs().max().item() <= 1e-4
 
 
+# (table columns, live tokens, S, G, hd, block size, options): every split
+# shape K4 takes -- more columns than splits, a ragged split of columns, fewer
+# columns than 8, a window that masks whole splits, 32 query rows (S = 8,
+# G = 4), head_dim 120 and 16, 4-token blocks -- each with a padded sequence
+K4_SPLIT_CASES = {
+    "nb64": (64, 1000, 1, 1, 64, 16, {}),
+    "nb13": (13, 200, 2, 2, 64, 16, {}),
+    "nb3": (3, 40, 1, 1, 128, 16, {}),
+    "nb64-window": (64, 1000, 1, 1, 64, 16, dict(window=40)),
+    "S8G4": (16, 250, 8, 4, 64, 16, {}),
+    "S8G4-window-softcap": (16, 250, 8, 4, 120, 16,
+                            dict(window=70, softcap=30.0)),
+    "bs4-hd16": (11, 41, 2, 2, 16, 4, dict(softcap=5.0)),
+    # ragged splits of 2 or 3 columns; 2 query rows over 5 columns a split
+    "nb21": (21, 330, 1, 1, 64, 16, {}),
+    "nb40-rows2": (40, 600, 1, 2, 64, 16, dict(window=100)),
+}
+
+
+def _attn_f64(q, kp, vp, tables, pos_pool, q_pos, *, block_size,
+              window=None, softcap=0.0):
+    """K4's function in float64 with the multiplier: the reference where
+    the plain version's own f32 rounding reaches the tolerance."""
+    idx = (tables.long()[:, :, None] * block_size
+           + torch.arange(block_size, device=tables.device)).reshape(
+               tables.shape[0], -1)
+    k = kp[idx].double().permute(0, 2, 1, 3)[:, :, None]   # (B,KV,1,T,hd)
+    v = vp[idx].double().permute(0, 2, 1, 3)[:, :, None]
+    s = q.double().permute(0, 2, 3, 1, 4) @ k.transpose(-1, -2)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    kv_pos, qp = pos_pool[idx][:, None, :], q_pos[:, :, None]
+    valid = (kv_pos <= qp) & (kv_pos < 2 ** 29)
+    if window is not None:
+        valid &= (qp - kv_pos) < window
+    s = s.masked_fill(~valid[:, None, None], -1e30)
+    return (torch.softmax(s, dim=-1) @ v).permute(0, 3, 1, 2, 4)
+
+
+@pytest.mark.parametrize("case", sorted(K4_SPLIT_CASES))
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+def test_k4_split_schedule_matches_plain_on_card(cuda_device, case,
+                                                 pool_dtype):
+    """Within 1e-4 of a float64 reference in every case, and of the plain
+    version up to 256-token tables.  The plain version's PV sums
+    (p + v)^2 over the whole window in f32, where the squares of unit
+    values add up to ~T: at T = 1000 its own rounding reaches the
+    tolerance on these inputs, so there the float64 reference decides."""
+    nb, n_ctx, S, G, hd, bs, kw = K4_SPLIT_CASES[case]
+    q, kp, vp, tables, pos_pool, q_pos = _k4_inputs(
+        cuda_device, S=S, G=G, hd=hd, nb=nb, bs=bs, n_ctx=n_ctx)
+    kp, vp = kp.to(pool_dtype), vp.to(pool_dtype)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert k4_splits(4, 2, nb, sms) == min(8, nb)
+    before = sq_paged_attn_k4.launches
+    out = sq_paged_attn_k4(q, kp, vp, tables, pos_pool, q_pos,
+                           block_size=bs, **kw)
+    torch.cuda.synchronize()
+    assert sq_paged_attn_k4.launches == before + 1
+    exact = _attn_f64(q, kp, vp, tables, pos_pool, q_pos, block_size=bs,
+                      **kw)
+    assert torch.isfinite(out).all()
+    assert (out.double() - exact).abs().max().item() <= 1e-4
+    if nb * bs <= 256:
+        ref = sq_paged_attn_plain(q, kp, vp, tables, pos_pool, q_pos,
+                                  block_size=bs, **kw)
+        assert (out - ref).abs().max().item() <= 1e-4
+
+
 @pytest.mark.parametrize("mode", ["standard", "square_virtual",
                                   "square_pallas"])
 def test_int8_matmul_modes_exact_on_card(cuda_device, mode):
@@ -188,6 +296,26 @@ def test_int8_matmul_modes_exact_on_card(cuda_device, mode):
     want = a.int() @ b.int()                          # CPU int32 matmul
     got = tmm.matmul(a.to(cuda_device), b.to(cuda_device), mode=mode)
     assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+
+
+
+@pytest.mark.parametrize("spec,xs,ys", [
+    ("mk,kn->mn", (9, 300), (300, 70)),
+    ("bmk,bkn->bmn", (3, 9, 300), (3, 300, 70))])
+@pytest.mark.parametrize("preferred", [None, torch.int32])
+def test_standard_einsum_int8_on_card(cuda_device, spec, xs, ys, preferred):
+    """CUDA has no integer einsum: fs_einsum's standard mode must still
+    return the CPU's (and jnp.einsum's) dtype and values, bit for bit."""
+    from repro_torch.core.einsum import fs_einsum
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randint(-128, 128, xs, generator=gen).to(torch.int8)
+    y = torch.randint(-128, 128, ys, generator=gen).to(torch.int8)
+    want = fs_einsum(spec, x, y, mode="standard", preferred=preferred)
+    got = fs_einsum(spec, x.to(cuda_device), y.to(cuda_device),
+                    mode="standard", preferred=preferred)
+    assert got.device.type == "cuda"
+    assert got.dtype == want.dtype == (preferred or torch.int8)
     assert torch.equal(got.cpu(), want)
 
 

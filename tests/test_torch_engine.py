@@ -141,3 +141,37 @@ def test_engine_temperature_sampling_is_seeded():
         trequests(tc, 3, seed=1)) for _ in range(2)]
     assert {r: v.tokens for r, v in runs[0].items()} == \
         {r: v.tokens for r, v in runs[1].items()}
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "starcoder2-3b"])
+@pytest.mark.parametrize("mode", ["square_virtual", "square_pallas"])
+def test_engine_sliding_window_archs_match_jax(arch, mode):
+    """Greedy tokens of two sliding-window archs (``.reduced()``: a 64-token
+    window) past the window: prompts of 40-70 tokens plus 30 new tokens over
+    a 128-token table, so decode attention -- K4's plain version under
+    ``square_pallas`` -- masks by the window on every late step."""
+    jc = dataclasses.replace(jget(arch).reduced(), matmul_mode=mode)
+    tc = dataclasses.replace(tget(arch).reduced(), matmul_mode=mode)
+    assert jc.window == tc.window == 64
+    jm = jbuild(jc)
+    params = jm.init(jax.random.PRNGKey(1))
+    tm = LM(tc, device=torch.device("cpu"))
+    tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
+    geo = dict(max_slots=4, block_size=16, num_blocks=40, blocks_per_seq=8,
+               prefill_chunk=16, max_new_tokens=30)
+    jreqs = jrequests(jc, 4, seed=5, lo=40, hi=70)
+    treqs = trequests(tc, 4, seed=5, lo=40, hi=70)
+    with _route("matmul=virtual,paged_attn=gather"
+                if mode == "square_pallas" else None):
+        je = _synchronous(jeng.Engine(jm, params,
+                                      jeng.EngineConfig(prepared=True, **geo)))
+        jres = je.run(jreqs)
+    with _route(None):
+        te = teng.Engine(tm, teng.EngineConfig(prepared=True, **geo),
+                         device="cpu")
+        tres = te.run(treqs)
+    assert max(len(r.tokens) for r in treqs) + 30 > 64
+    for rid in range(4):
+        assert tres[rid].ok and jres[rid].ok
+        assert tres[rid].tokens == jres[rid].tokens, rid
+    assert te.metrics.decode_steps == je.metrics.decode_steps

@@ -134,3 +134,45 @@ def test_k1_plain_on_cpu_counts_no_launch():
                                atol=5e-3 * 40)
     with pytest.raises(TypeError):
         sq_matmul_k1(aw.double(), bw.double(), sa.double(), sb.double())
+
+
+INT_EINSUM_SPECS = {"mk,kn->mn": ((9, 300), (300, 70)),
+                    "bmk,bkn->bmn": ((3, 9, 300), (3, 300, 70))}
+
+
+@pytest.mark.parametrize("spec", sorted(INT_EINSUM_SPECS))
+@pytest.mark.parametrize("dtype", ["int8", "int16"])
+@pytest.mark.parametrize("preferred", [None, "int32"])
+def test_standard_einsum_int_matches_jax(spec, dtype, preferred):
+    """``fs_einsum(mode="standard")`` on integer operands returns what
+    ``jnp.einsum`` returns: the operands' dtype (wrapping) or ``preferred``,
+    bit for bit."""
+    from repro.core.einsum import fs_einsum as jeinsum
+    from repro_torch.core.einsum import fs_einsum as teinsum
+    info = np.iinfo(dtype)
+    rng = np.random.default_rng(11)
+    xs, ys = INT_EINSUM_SPECS[spec]
+    x = rng.integers(info.min, info.max, xs, endpoint=True).astype(dtype)
+    y = rng.integers(info.min, info.max, ys, endpoint=True).astype(dtype)
+    want = np.asarray(jeinsum(spec, jnp.asarray(x), jnp.asarray(y),
+                              mode="standard",
+                              preferred=preferred and jnp.dtype(preferred)))
+    got = teinsum(spec, torch.from_numpy(x), torch.from_numpy(y),
+                  mode="standard",
+                  preferred=preferred and getattr(torch, preferred))
+    assert str(got.dtype) == f"torch.{want.dtype}"
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("m,n,grid", [
+    (8, 768, (96, 1)), (8, 3072, (384, 1)), (4, 32000, (4000, 1)),
+    (1, 1, (8, 1)), (9, 769, (56, 1)), (32, 768, (48, 1)),
+    (33, 33, (8, 2))])
+def test_k1_launch_shape(m, n, grid):
+    """K1's grid: a cluster of 8 blocks (one partial each) per 8 x 64 tile
+    at m <= 8, per 32 x 128 tile above."""
+    from repro_torch.kernels.sq_matmul import k1_launch_shape
+    shape = k1_launch_shape(m, n)
+    assert shape["grid"] == grid and shape["cluster"] == (8, 1, 1)
+    assert (shape["rows"], shape["cols"], shape["warps"]) == (
+        (8, 64, 4) if m <= 8 else (32, 128, 16))

@@ -154,3 +154,29 @@ def test_block_bookkeeping_matches_jax():
         assert ja.free_blocks == ta.free_blocks
     np.testing.assert_array_equal(jpaged.empty_pos_pool(5, 4),
                                   tpaged.empty_pos_pool(5, 4))
+
+
+@pytest.mark.parametrize("batch,kv,nb,sms,want", [
+    (8, 12, 8, 132, 8),      # the serving decode shape: one table block a split
+    (8, 12, 64, 132, 8),     # 1024-token tables: 8 table blocks a split
+    (4, 2, 3, 132, 3),       # fewer columns than the cluster size
+    (64, 12, 8, 132, 2),     # a large batch fills the card with 2 splits
+    (512, 32, 8, 132, 1),
+    (8, 12, 0, 132, 1)])     # an empty table still launches one split
+def test_k4_splits(batch, kv, nb, sms, want):
+    from repro_torch.kernels.sq_paged_attn import k4_splits
+    assert k4_splits(batch, kv, nb, sms) == want
+
+
+def test_k4_smem_layout_matches_source():
+    """The wrapper's shared-memory size: 3 stages of a K block (rows padded
+    by 32 bytes) and a V block, f32 queries/accumulator/scores/row state,
+    int32 positions and one split's table entries."""
+    from repro_torch.kernels.sq_paged_attn import smem_bytes
+    rows, bs, hd, cols = 1, 16, 64, 1
+    pools = 3 * bs * (2 * hd * 2 + 32)
+    floats = 2 * rows * hd + rows * bs + 12 * rows
+    assert smem_bytes(rows, bs, hd, 2, cols) == pools + 4 * (
+        floats + rows + 3 * bs + cols)
+    assert smem_bytes(32, 16, 120, 4, 2) > smem_bytes(32, 16, 120, 2, 2)
+
