@@ -14,8 +14,10 @@ through the kernels, at shapes held to their plain versions:
   prefill attention, K3 on every decode step's attention, K1 elsewhere; a
   few of its decode steps are traced too.
 
-K1 is also held bit for bit to its bring-up schedule (K2 at nb = 1) and to
-K3 at every shape, and timed beside it; K4 is also checked and timed at
+K1 is also held bit for bit to K2 at nb = 1 and to K3 at every shape, and
+timed beside K2 at nb = 1; K3 is timed beside K2 on its own operands, and
+K2's and K3's per-unit sums are printed beside torch.bmm's and the bound's;
+K4 is also checked and timed at
 1024-token tables (against a float64 reference there, since the plain
 version's own f32 rounding reaches the tolerance at that length).  Each
 phase prints the split and cluster shape its kernel launched with.
@@ -67,8 +69,9 @@ from repro_torch.configs import get_config                      # noqa: E402
 from repro_torch.configs.base import SQUARE_GEMMS_POLICY        # noqa: E402
 from repro_torch.kernels import build, routing                  # noqa: E402
 from repro_torch.kernels.sq_matmul import (                     # noqa: E402
-    k1_launch_shape, sq_matmul_batched_plain, sq_matmul_k1, sq_matmul_k2,
-    sq_matmul_k3, sq_matmul_plain)
+    k1_launch_shape, k2_launch_shape, k3_launch_shape,
+    sq_matmul_batched_plain, sq_matmul_k1, sq_matmul_k2, sq_matmul_k3,
+    sq_matmul_plain)
 from repro_torch.core import conv as conv_core                   # noqa: E402
 from repro_torch.core import transforms                          # noqa: E402
 from repro_torch.core.prepared import prepare_operand           # noqa: E402
@@ -107,6 +110,7 @@ GEMMS_PER_LAYER = 7
 # The dense reference Server of launch/serve.py --legacy.
 DENSE_BATCH, DENSE_CACHE = 4, 128
 HEADS, HEAD_DIM = 12, 64
+LAYERS = 12                     # fairsquare-demo's: launches of a shape per unit
 
 K1_SHAPES = [(768, 768), (768, 3072), (3072, 768), (768, 32000)]
 
@@ -125,6 +129,16 @@ def k1_cases(prompt_lens):
     return cases
 
 
+# the batched GEMMs of one unit, each launched once a layer: K2's paged
+# prefill chunk (scores, PV) and K3's dense decode step of 4 slots
+UNIT_SHAPES = {
+    "K2": [(HEADS, CHUNK, HEAD_DIM, BLOCKS_PER_SEQ * BLOCK),
+           (HEADS, CHUNK, BLOCKS_PER_SEQ * BLOCK, HEAD_DIM)],
+    "K3": [(DENSE_BATCH * HEADS, 1, HEAD_DIM, DENSE_CACHE),
+           (DENSE_BATCH * HEADS, 1, DENSE_CACHE, HEAD_DIM)]}
+UNIT_NAMES = {"K2": "paged prefill chunk", "K3": "dense decode step"}
+
+
 def dense_prefill_kernel(s: int):
     """The kernel of a dense-Server prefill's two attention einsums at full
     width, for a prompt of s tokens: K2 from 13 tokens, K3 for 7-12, none
@@ -138,10 +152,7 @@ def batched_cases(prompt_lens):
     128), PV (12, 32, 128) @ (12, 128, 64); dense prefill of s tokens:
     (12, s, 64) @ (12, 64, s) and (12, s, s) @ (12, s, 64); dense decode of
     4 slots: (48, 1, 64) @ (48, 64, 128) and (48, 1, 128) @ (48, 128, 64)."""
-    T = BLOCKS_PER_SEQ * BLOCK
-    cases = {"K2": [(HEADS, CHUNK, HEAD_DIM, T), (HEADS, CHUNK, T, HEAD_DIM)],
-             "K3": [(DENSE_BATCH * HEADS, 1, HEAD_DIM, DENSE_CACHE),
-                    (DENSE_BATCH * HEADS, 1, DENSE_CACHE, HEAD_DIM)]}
+    cases = {name: list(shapes) for name, shapes in UNIT_SHAPES.items()}
     for s in sorted(set(prompt_lens)):
         kern = dense_prefill_kernel(s)
         if kern:
@@ -199,11 +210,11 @@ def copies_for(nbytes: int) -> int:
 # ------------------------------------------------------------------ K1
 def k1_phase(dev, gen, cases):
     """K1 against its plain version at the main-path shapes, and bit for
-    bit against the bring-up schedule (K2 at nb = 1) and K3 on the same
-    operands; each timed row also times the bring-up schedule."""
+    bit against K2 at nb = 1 and K3 on the same operands; each timed row
+    also times K2 at nb = 1."""
     print("K1 sq_matmul vs plain (f32 from bf16 inputs: |err| <= "
-          "k * 2^-23 * (max|a| + max|b|)^2; int8: exact; K1 = bring-up "
-          "schedule (K2 at nb=1) = K3, bit for bit)", flush=True)
+          "k * 2^-23 * (max|a| + max|b|)^2; int8: exact; K1 = K2 at nb=1 "
+          "= K3, bit for bit)", flush=True)
     rows = []
     for m, k, n, timed in cases:
         a = torch.randn(m, k, generator=gen).to(torch.bfloat16).to(dev)
@@ -236,8 +247,8 @@ def k1_phase(dev, gen, cases):
             for o, x, y, sx, sy in ((out, aw, bw, sa, sb),
                                     (oi, ai, bi, sai, sbi))
             for kern in (sq_matmul_k2, sq_matmul_k3))
-        check(same, f"m={m} k={k} n={n}: K1 = bring-up schedule (K2 at "
-                    f"nb=1) = K3, f32 and int32, bit for bit")
+        check(same, f"m={m} k={k} n={n}: K1 = K2 at nb=1 = K3, f32 and "
+                    f"int32, bit for bit")
         if not timed:
             rows.append(dict(m=m, k=k, n=n, max_abs_err=err))
             continue
@@ -247,7 +258,7 @@ def k1_phase(dev, gen, cases):
         sbs = [sb.clone() for _ in range(nc)]
         ms = time_graph([lambda i=i: sq_matmul_k1(aw, bws[i], sa, sbs[i])
                          for i in range(nc)])
-        old_ms = time_graph([lambda i=i: sq_matmul_k2(
+        k2_ms = time_graph([lambda i=i: sq_matmul_k2(
             aw[None], bws[i][None], sa[None], sbs[i][None])
             for i in range(nc)])
         plain_ms = time_graph(
@@ -260,15 +271,15 @@ def k1_phase(dev, gen, cases):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, \
             ops / FP32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
-        row = dict(m=m, k=k, n=n, ms=ms, old_ms=old_ms, plain_ms=plain_ms,
+        row = dict(m=m, k=k, n=n, ms=ms, k2_ms=k2_ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound, t_bytes=t_bytes,
                    t_ops=t_ops,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    max_abs_err=err)
         rows.append(row)
         shape = k1_launch_shape(m, n)
-        print(f"    m={m:2d} k={k:4d} n={n:5d}  K1 {ms:.4f} ms | bring-up "
-              f"schedule {old_ms:.4f} ms ({old_ms / ms:.1f}x) | plain "
+        print(f"    m={m:2d} k={k:4d} n={n:5d}  K1 {ms:.4f} ms | K2 at nb=1 "
+              f"{k2_ms:.4f} ms ({k2_ms / ms:.1f}x) | plain "
               f"{plain_ms:.4f} ms | torch.matmul {lib_ms:.4f} ms | bound "
               f"{bound:.4f} ms ({row['bound_by']}) | "
               f"{bound / ms:.1%} of bound | grid {shape['grid']} in "
@@ -279,25 +290,28 @@ def k1_phase(dev, gen, cases):
     for m in (8, DENSE_BATCH):
         step = {key: sum(K1_PER_STEP[(r["k"], r["n"])] * r[key]
                          for r in rows if r["m"] == m and "ms" in r)
-                for key in ("ms", "old_ms", "library_ms")}
+                for key in ("ms", "k2_ms", "library_ms")}
         print(f"  per decode step at m={m} (85 GEMMs, graph replay): K1 "
-              f"{step['ms']:.4f} ms | bring-up schedule "
-              f"{step['old_ms']:.4f} ms ({step['old_ms'] / step['ms']:.1f}x)"
+              f"{step['ms']:.4f} ms | K2 at nb=1 "
+              f"{step['k2_ms']:.4f} ms ({step['k2_ms'] / step['ms']:.1f}x)"
               f" | torch.matmul {step['library_ms']:.4f} ms", flush=True)
     return rows
 
 
 # -------------------------------------------------------------- K2, K3
-BATCHED = {"K2": sq_matmul_k2, "K3": sq_matmul_k3}
+BATCHED = {"K2": (sq_matmul_k2, k2_launch_shape),
+           "K3": (sq_matmul_k3, k3_launch_shape)}
 
 
 def batched_phase(dev, gen, name, cases):
     """K2 or K3 against the batched plain version at every shape of the
     serving phases (f32 from bf16 inputs and int8), bit for bit against K1
     per element (K2) or against K2 (K3), and timed beside the plain version
-    and torch.bmm.  The operands are activations the caller has just
-    written, so they are not cycled past the L2."""
-    kern = BATCHED[name]
+    and torch.bmm (K3 also beside K2), each row with its grid; then the
+    per-unit sums: K2 per paged prefill chunk, K3 per dense decode step.
+    The operands are activations the caller has just written, so they are
+    not cycled past the L2."""
+    kern, launch_shape = BATCHED[name]
     other = "K1 per element" if name == "K2" else "K2"
     print(f"{name} {kern.__name__} vs plain (f32 |err| <= k * 2^-23 * "
           f"(max|a| + max|b|)^2; int8 exact; {name} = {other} bit for bit)",
@@ -352,17 +366,31 @@ def batched_phase(dev, gen, name, cases):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, \
             ops / FP32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
+        shape = launch_shape(nb, m, n)
         row = dict(shape=(nb, m, k, n), ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound, t_bytes=t_bytes,
-                   t_ops=t_ops,
+                   t_ops=t_ops, k2_ms=k2_ms, grid=shape["grid"],
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    max_abs_err=err)
         rows.append(row)
-        vs_k2 = f" | K2 {k2_ms:.4f} ms" if k2_ms is not None else ""
-        print(f"    B={nb:2d} m={m:2d} k={k:3d} n={n:3d}  {name} {ms:.4f} ms "
-              f"| plain {plain_ms:.4f} ms | torch.bmm {lib_ms:.4f} ms"
+        vs_k2 = f" | K2 {k2_ms:.5f} ms" if k2_ms is not None else ""
+        print(f"    B={nb:2d} m={m:2d} k={k:3d} n={n:3d}  {name} {ms:.5f} ms "
+              f"| plain {plain_ms:.4f} ms | torch.bmm {lib_ms:.5f} ms"
               f"{vs_k2} | bound {bound:.5f} ms ({row['bound_by']}) | "
-              f"{bound / ms:.1%} of bound", flush=True)
+              f"{bound / ms:.1%} of bound | grid {shape['grid']} of "
+              f"{shape['rows']}x{shape['cols']} tiles, {shape['warps']} "
+              f"warps a block", flush=True)
+    unit = [r for r in rows if r["shape"] in UNIT_SHAPES[name]]
+    sums = {key: sum(LAYERS * r[key] for r in unit)
+            for key in ("ms", "library_ms", "bound_ms")}
+    vs_k2 = (f" | K2 on the same operands "
+             f"{sum(LAYERS * r['k2_ms'] for r in unit):.4f} ms"
+             if name == "K3" else "")
+    print(f"  per {UNIT_NAMES[name]} ({LAYERS * len(unit)} launches, graph "
+          f"replay): {name} {sums['ms']:.4f} ms | torch.bmm "
+          f"{sums['library_ms']:.4f} ms ({sums['ms'] / sums['library_ms']:.2f}"
+          f"x){vs_k2} | bound {sums['bound_ms']:.4f} ms "
+          f"({sums['bound_ms'] / sums['ms']:.1%} of bound)", flush=True)
     return rows
 
 
@@ -698,7 +726,8 @@ def _union_us(spans) -> float:
 
 
 # device kernels by name in a trace
-TRACE_KERNELS = (("K1", "sq_matmul_cluster_kernel"), ("K2", "sq_matmul_kernel"),
+TRACE_KERNELS = (("K1", "sq_matmul_cluster_kernel"),
+                 ("K2", "sq_matmul_batched_kernel"),
                  ("K3", "sq_matmul_folded_kernel"),
                  ("K4", "sq_paged_attn_kernel"), ("K5", "cpm3_matmul_kernel"),
                  ("K6", "cpm4_matmul_kernel"))
@@ -1474,16 +1503,19 @@ def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
     k1 = entry("K1", "sq_matmul (K1)", "sq_matmul.py:92", decode,
                lambda r: K1_PER_STEP[(r["k"], r["n"])],
                "one paged decode step: 85 GEMMs at m=8")
-    k1["bring_up_ms"] = per_step(decode, lambda r: K1_PER_STEP[
-        (r["k"], r["n"])], "old_ms")
+    k1["k2_nb1_ms"] = per_step(decode, lambda r: K1_PER_STEP[
+        (r["k"], r["n"])], "k2_ms")
     k2 = entry("K2", "sq_matmul_batched (K2)", "sq_matmul.py:117",
-               [r for r in k2_rows if r["shape"][1] == CHUNK],
-               lambda r: HEADS,
+               [r for r in k2_rows if r["shape"] in UNIT_SHAPES["K2"]],
+               lambda r: LAYERS,
                "one paged prefill chunk: 24 launches at B=12 m=32")
-    k3 = entry("K3", "sq_matmul_folded (K3)", "sq_matmul.py:179",
-               [r for r in k3_rows if r["shape"][0] == DENSE_BATCH * HEADS],
-               lambda r: HEADS,
+    k3_unit = [r for r in k3_rows if r["shape"] in UNIT_SHAPES["K3"]]
+    k3 = entry("K3", "sq_matmul_folded (K3)", "sq_matmul.py:179", k3_unit,
+               lambda r: LAYERS,
                "one dense decode step: 24 launches at B=48 m=1")
+    k3["k2_ms"] = per_step(k3_unit, lambda r: LAYERS, "k2_ms")
+    for kern, rows in ((k2, k2_rows), (k3, k3_rows)):
+        kern["grids"] = {str(r["shape"]): r["grid"] for r in rows}
     k4 = {"name": "sq_paged_attn (K4)", "route": "cuda",
           "source": "src/repro_torch/csrc/sq_paged_attn.cu",
           "replaces": "src/repro/kernels/sq_paged_attn.py:62",
@@ -1552,7 +1584,7 @@ def run(dev) -> str:
                 "K8": {"fir_path": fir["K8"]}}
     dense_k1 = sum(K1_PER_STEP[(r["k"], r["n"])] * r["ms"] for r in k1_rows
                    if r["m"] == DENSE_BATCH and "ms" in r)
-    dense_k3 = sum(HEADS * r["ms"] for r in k3_rows if r["shape"][1] == 1)
+    dense_k3 = sum(LAYERS * r["ms"] for r in k3_rows if r["shape"][1] == 1)
     print(f"dense decode step in graph replay: K1 85 launches at "
           f"m={DENSE_BATCH} {dense_k1:.3f} ms, K3 24 launches "
           f"{dense_k3:.3f} ms", flush=True)

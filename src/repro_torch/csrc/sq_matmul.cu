@@ -50,29 +50,41 @@
 //   b's rows go by 16-byte copies where n % 4 == 0 and b is 16-byte aligned,
 //   by 4-byte copies otherwise.
 //
-// K2 (sq_matmul_kernel; replaces sq_matmul.py::sq_matmul_batched_kernel, the
-// fb == 1 schedule of sq_matmul_batched_pallas) is the bring-up schedule of
-// K1 on a batch grid axis: one 256-thread block per BM x 32 output tile, whose
-// 8 warps split each 64-deep K tile (warp p = partial p), the BM rows of the
-// K tile in shared memory and read as broadcasts, the partials summed in warp
-// order.  blockIdx.z picks the batch element and offsets every operand by its
-// batch stride, so each element runs the order above and K2's output is
-// bit-identical to K1's on a[e] @ b[e].  At nb = 1 it computes K1's function,
-// which lets chip_smoke.py time the two schedules side by side.
-//
-// K3 (replaces sq_matmul.py::sq_matmul_folded_kernel, the fb > 1 schedule)
-// is for the small-(m, n), large-B regime: attention at decode has m = 1
-// row per element, where a K2 block leaves 7 of its 8 tile rows idle.  Here
-// one warp owns one (element, row tile of R rows, 32-column tile) unit and
-// walks all of K itself; a block holds FOLD_WARPS units, so it folds
-// several batch elements.  What bounds it on an H100: its inputs are
-// activations a few hundred KB in all, so its byte bound is under a
-// microsecond and it is bound by latency -- one warp's K walk, with a
-// broadcast load of a and a coalesced 128-byte load of b per k.  The walk
-// is unrolled one BK tile at a time, so a tile's loads are in flight
-// together.  Every row keeps the 8 partials of the order above in
-// registers, so K3 is bit-identical to K2 on the same operands: the fold
-// route never changes a bit.  A ragged batch, m, n and k are masked.
+// K2 (sq_matmul_batched_kernel) replaces sq_matmul.py:117
+// sq_matmul_batched_kernel, the fb == 1 schedule of sq_matmul_batched_pallas;
+// K3 (sq_matmul_folded_kernel) replaces sq_matmul.py:179
+// sq_matmul_folded_kernel, its fb > 1 schedule (both behind the pallas_call
+// at sq_matmul.py:234).  On an H100 one schedule serves both, so the two
+// kernels share one body (partial_warps_tile) and one launch rule and differ
+// only in name: the batched route launches K2, the fold route K3, and a trace
+// tells them apart.  Their serving shapes are attention's batched GEMMs: the
+// paged prefill chunk's (12, 32, 64) @ (12, 64, 128) and (12, 32, 128) @
+// (12, 128, 64) and the dense prefill's (12, s, 64) @ (12, 64, s) and
+// (12, s, s) @ (12, s, 64) on K2; dense decode's (48, 1, 64) @ (48, 64, 128)
+// and (48, 1, 128) @ (48, 128, 64), and the dense prefill of 7-12 tokens, on
+// K3.  What bounds them there: latency.  The operands are activations a few
+// hundred KB in all, hot in L2, so the byte bound is 0.2-0.5 us a launch and
+// the operation bound less; a launch is one chain of dependent latencies
+// (load, square, meet the other partials, write).  The design keeps that
+// chain to one round trip to L2 and two barriers:
+// - One block of KS = 8 warps per (element blockIdx.x, column tile
+//   blockIdx.y, row tile blockIdx.z).  Warp p is partial p, so no partial's
+//   chain is split, and lane l owns V adjacent columns of an R x 32V tile.
+// - A partial's rows of b for a TILE_J = 16-step chunk (128 values of k) are
+//   issued at once into registers, 8 bytes a lane where V = 2, n is even and
+//   b is 8-byte aligned, 4 bytes otherwise.  At the serving shapes (k <= 128)
+//   that is a warp's whole share of b, loaded before the first square.
+// - The chunk's R rows of a are copied once a block by cp.async into shared
+//   memory, in the order of their destination (partial, row, step) so the
+//   stores hit distinct banks, and read as 16-byte broadcasts.
+// - The partials meet in shared memory after one __syncthreads and are summed
+//   0..7: K2 = K3 = K1 per element, bit for bit.
+// - The tile is picked per launch: R = 1 row at m = 1, 4 up to 32 rows, 8
+//   above; V = 2 where n > 32 and the grid keeps TILE_MIN_BLOCKS blocks, else
+//   1.  At the serving shapes that is 96-192 blocks of 256 threads: one wave,
+//   at most two blocks an SM.
+// Larger k walks more chunks, each one round trip and two barriers.  Ragged
+// batch, m, n and k are masked in the kernel; nothing is padded on the host.
 //
 // Numerics: nvcc's default -fmad=true is left on.  The accumulation is written
 // as an explicit fmaf(s, s, acc), one rounding per PM term whatever that flag
@@ -88,10 +100,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BN = 32;             // output columns per block (one per lane)
-constexpr int KS = 8;              // partials per output: K2's warps, K1's cluster ranks
+constexpr int BN = 32;             // lanes of a warp: K1 columns, K2/K3 column groups
+constexpr int KS = 8;              // partials per output: K1's cluster ranks, K2/K3's warps
 constexpr int BK = 64;             // K walked in whole 64-deep tiles
-constexpr int THREADS = BN * KS;   // K2's block
+constexpr int THREADS = BN * KS;   // K2's and K3's block
 
 __device__ __forceinline__ float pm_accum(float acc, float a, float b) {
   const float s = a + b;
@@ -105,74 +117,6 @@ __device__ __forceinline__ int pm_accum(int acc, int a, int b) {
 
 __device__ __forceinline__ float halve(float x) { return x * 0.5f; }
 __device__ __forceinline__ int halve(int x) { return x >> 1; }  // arithmetic
-
-// K2.  The second bound (at least 4 resident blocks per SM) caps registers at
-// 64.  Without it ptxas squeezed the 8-row instance into 32 registers and
-// spilled to local memory, which made it markedly slower on an H100.
-template <typename T, int BM>
-__global__ void __launch_bounds__(THREADS, 4)
-sq_matmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                 const T* __restrict__ sa, const T* __restrict__ sb,
-                 T* __restrict__ out, int m, int n, int k) {
-  // A tile stored k-major; the +1 keeps the transposing store conflict-free.
-  __shared__ T as[BK][BM + 1];
-  __shared__ T red[KS][BM][BN];
-
-  // blockIdx.z is the batch element; the operands of one element are
-  // contiguous, so its batch strides follow from m, n and k.
-  const size_t z = blockIdx.z;
-  a += z * m * k;
-  b += z * k * n;
-  sa += z * m;
-  sb += z * n;
-  out += z * m * n;
-
-  const int lane = threadIdx.x % BN;
-  const int ks = threadIdx.x / BN;
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  const int col = col0 + lane;
-  const bool col_ok = col < n;
-
-  T acc[BM];
-#pragma unroll
-  for (int i = 0; i < BM; ++i) {
-    const int r = row0 + i;
-    acc[i] = (ks == 0 && r < m && col_ok) ? sa[r] + sb[col] : T(0);
-  }
-
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
-      const int i = e / BK, kk = e % BK;
-      const int r = row0 + i, kc = k0 + kk;
-      as[kk][i] = (r < m && kc < k) ? a[(size_t)r * k + kc] : T(0);
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int t = 0; t < BK / KS; ++t) {
-      const int kk = t * KS + ks;
-      const int kc = k0 + kk;
-      const T bv = (col_ok && kc < k) ? b[(size_t)kc * n + col] : T(0);
-#pragma unroll
-      for (int i = 0; i < BM; ++i) acc[i] = pm_accum(acc[i], as[kk][i], bv);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < BM; ++i) red[ks][i][lane] = acc[i];
-  __syncthreads();
-  for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
-    const int i = e / BN, c = e % BN;
-    const int r = row0 + i, cc = col0 + c;
-    if (r < m && cc < n) {
-      T v = red[0][i][c];
-#pragma unroll
-      for (int s = 1; s < KS; ++s) v += red[s][i][c];
-      out[(size_t)r * n + cc] = halve(v);
-    }
-  }
-}
 
 // ---------------------------------------------------------------- K1
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
@@ -199,6 +143,9 @@ __device__ __forceinline__ void cp_async_wait() {
 template <typename T> struct Vec4;
 template <> struct Vec4<float> { using type = float4; };
 template <> struct Vec4<int> { using type = int4; };
+template <typename T> struct Vec2;
+template <> struct Vec2<float> { using type = float2; };
+template <> struct Vec2<int> { using type = int2; };
 
 constexpr int RS = 32;             // k steps (rows of b) per ring stage
 
@@ -316,73 +263,137 @@ sq_matmul_cluster_kernel(const T* __restrict__ a, const T* __restrict__ b,
   cluster.sync();                   // no rank leaves while another reads it
 }
 
-// K3: one warp per (element, R-row tile, 32-column tile) unit.  Lane j owns
-// column j of the tile; acc[i][p] is row i's partial p (k = p mod 8).
-constexpr int FOLD_WARPS = 4;
+// ------------------------------------------------------------- K2, K3
+// One block of KS = 8 warps per (element blockIdx.x, column tile blockIdx.y,
+// row tile blockIdx.z); warp p computes partial p of an R x (32 * V) tile and
+// lane l owns columns V * l .. V * l + V - 1 of it, acc[row][column] in
+// registers.
+constexpr int TILE_J = 16;            // k steps of a partial per chunk (128 k)
+constexpr int TILE_MIN_BLOCKS = 96;   // blocks a 2-column-a-lane grid must keep
+constexpr int TILE_TALL_M = 32;       // m above which a tile is 8 rows, not 4
 
-template <typename T, int R>
-__global__ void __launch_bounds__(FOLD_WARPS * BN)
-sq_matmul_folded_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                        const T* __restrict__ sa, const T* __restrict__ sb,
-                        T* __restrict__ out, int nb, int m, int n, int k) {
-  const int lane = threadIdx.x % BN;
-  const int row_tiles = (m + R - 1) / R;
-  const int col_tiles = (n + BN - 1) / BN;
-  const long long unit =
-      static_cast<long long>(blockIdx.x) * FOLD_WARPS + threadIdx.x / BN;
-  if (unit >= static_cast<long long>(nb) * row_tiles * col_tiles) return;
-  const int ct = static_cast<int>(unit % col_tiles);
-  const int rt = static_cast<int>((unit / col_tiles) % row_tiles);
-  const size_t e = static_cast<size_t>(unit / col_tiles / row_tiles);
+template <typename T, int R, int V>
+__device__ __forceinline__ void partial_warps_tile(const T* __restrict__ a,
+                                                   const T* __restrict__ b,
+                                                   const T* __restrict__ sa,
+                                                   const T* __restrict__ sb,
+                                                   T* __restrict__ out, int m, int n,
+                                                   int k, int vec_b) {
+  constexpr int CW = BN * V;                    // columns per block
+  static_assert(TILE_J % 4 == 0 && (V == 1 || V == 2), "tile shape");
+  __shared__ __align__(16) T as[KS][R][TILE_J];  // a[row0 + i, k0 + p + KS * j]
+  __shared__ __align__(16) T red[KS][R][CW];     // partial p of the tile
+
+  // the operands of one element are contiguous, so its batch strides follow
+  // from m, n and k
+  const size_t e = blockIdx.x;
   a += e * m * k;
   b += e * k * n;
   sa += e * m;
   sb += e * n;
   out += e * m * n;
 
-  const int row0 = rt * R;
-  const int col = ct * BN + lane;
-  const bool col_ok = col < n;
+  const int lane = threadIdx.x % 32, p = threadIdx.x / 32;
+  const int row0 = blockIdx.z * R;
+  const int c0 = blockIdx.y * CW + V * lane;    // this lane's first column
+  const int kpad = (k + BK - 1) / BK * BK;       // zero steps up to it, as K1
 
-  T acc[R][KS];
+  T acc[R][V];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int r = row0 + i;
 #pragma unroll
-    for (int p = 0; p < KS; ++p)
-      acc[i][p] = (p == 0 && r < m && col_ok) ? sa[r] + sb[col] : T(0);
+    for (int v = 0; v < V; ++v)
+      acc[i][v] = (p == 0 && r < m && c0 + v < n) ? sa[r] + sb[c0 + v] : T(0);
   }
 
-  // K1 walks k up to the next multiple of BK, loading zeros past k; so
-  // does this loop, so a partial that is exactly -0 ends as K1's does.
-  // One BK tile per iteration, fully unrolled: its BK loads of b (and R*BK
-  // of a) are independent of the accumulators, so they can all be in
-  // flight at once -- a warp's serial K walk is bound by load latency.
-  for (int k0 = 0; k0 < k; k0 += BK) {
+  for (int k0 = 0; k0 < kpad; k0 += KS * TILE_J) {
+    if (k0 > 0) __syncthreads();    // every warp is done with the last chunk's a
+    // The chunk's a, copied once a block into shared memory in the order of
+    // its destination (partial, row, step), so the copies' stores hit distinct
+    // banks and each partial's values lie contiguous for 16-byte reads.
+    for (int t = threadIdx.x; t < KS * R * TILE_J; t += THREADS) {
+      const int j = t % TILE_J, i = t / TILE_J % R, q = t / (TILE_J * R);
+      const int r = row0 + i, kc = k0 + q + KS * j;
+      const bool ok = r < m && kc < k;
+      cp_async4(&as[q][i][j], ok ? a + (size_t)r * k + kc : a, ok ? 4 : 0);
+    }
+    cp_async_commit();
+    // b: this partial's rows of the chunk for the lane's V columns, V-wide
+    // where n % V == 0 and b is aligned (then all V columns are in or none)
+    T bv[TILE_J][V];
 #pragma unroll
-    for (int q = 0; q < BK; ++q) {
-      const int p = q % KS;
-      const int kc = k0 + q;
-      const T bv = (col_ok && kc < k) ? b[(size_t)kc * n + col] : T(0);
+    for (int j = 0; j < TILE_J; ++j) {
+      const int kc = k0 + p + KS * j;
+      const T* src = b + (size_t)kc * n + c0;
+      if (vec_b) {
+        const bool ok = kc < k && c0 < n;
+        if constexpr (V == 2) {
+          typename Vec2<T>::type x{};
+          if (ok) x = *reinterpret_cast<const typename Vec2<T>::type*>(src);
+          bv[j][0] = x.x; bv[j][1] = x.y;
+        } else {
+          bv[j][0] = ok ? *src : T(0);
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          bv[j][v] = (kc < k && c0 + v < n) ? src[v] : T(0);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();                // the chunk's a is in shared memory
+#pragma unroll
+    for (int j4 = 0; j4 < TILE_J; j4 += 4) {
 #pragma unroll
       for (int i = 0; i < R; ++i) {
-        const int r = row0 + i;
-        const T av = (r < m && kc < k) ? a[(size_t)r * k + kc] : T(0);
-        acc[i][p] = pm_accum(acc[i][p], av, bv);
+        const typename Vec4<T>::type av =
+            *reinterpret_cast<const typename Vec4<T>::type*>(&as[p][i][j4]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int j = j4 + jj;
+          if (k0 + p + KS * j < kpad) {         // warp-uniform
+            const T x = jj == 0 ? av.x : jj == 1 ? av.y : jj == 2 ? av.z : av.w;
+#pragma unroll
+            for (int v = 0; v < V; ++v) acc[i][v] = pm_accum(acc[i][v], x, bv[j][v]);
+          }
+        }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int r = row0 + i;
-    if (r < m && col_ok) {
-      T v = acc[i][0];
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int p = 1; p < KS; ++p) v += acc[i][p];
-      out[(size_t)r * n + col] = halve(v);
+    for (int v = 0; v < V; ++v) red[p][i][V * lane + v] = acc[i][v];
+  __syncthreads();
+  // the 8 partials summed in warp order
+  for (int t = threadIdx.x; t < R * CW; t += THREADS) {
+    const int i = t / CW, c = t % CW;
+    const int r = row0 + i, cc = blockIdx.y * CW + c;
+    if (r < m && cc < n) {
+      T v = red[0][i][c];
+#pragma unroll
+      for (int q = 1; q < KS; ++q) v += red[q][i][c];
+      out[(size_t)r * n + cc] = halve(v);
     }
   }
+}
+
+template <typename T, int R, int V>
+__global__ void __launch_bounds__(THREADS)
+sq_matmul_batched_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                         const T* __restrict__ sa, const T* __restrict__ sb,
+                         T* __restrict__ out, int m, int n, int k, int vec_b) {
+  partial_warps_tile<T, R, V>(a, b, sa, sb, out, m, n, k, vec_b);
+}
+
+template <typename T, int R, int V>
+__global__ void __launch_bounds__(THREADS)
+sq_matmul_folded_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                        const T* __restrict__ sa, const T* __restrict__ sb,
+                        T* __restrict__ out, int m, int n, int k, int vec_b) {
+  partial_warps_tile<T, R, V>(a, b, sa, sb, out, m, n, k, vec_b);
 }
 
 template <typename T, int BM, int RW, int CT, int STAGES>
@@ -430,44 +441,52 @@ int launch_k1(const void* a, const void* b, const void* sa, const void* sb, void
   return launch_cluster<T, 32, 4, 4, 4>(pa, pb, psa, psb, po, m, n, k, stream);
 }
 
-template <typename T>
-int launch(const void* a, const void* b, const void* sa, const void* sb,
-           void* out, int nb, int m, int n, int k, cudaStream_t stream) {
-  const dim3 block(THREADS);
-  const T* pa = static_cast<const T*>(a);
-  const T* pb = static_cast<const T*>(b);
-  const T* psa = static_cast<const T*>(sa);
-  const T* psb = static_cast<const T*>(sb);
-  T* po = static_cast<T*>(out);
-  if (m <= 8) {
-    const dim3 grid((m + 7) / 8, (n + BN - 1) / BN, nb);
-    sq_matmul_kernel<T, 8><<<grid, block, 0, stream>>>(pa, pb, psa, psb, po, m, n, k);
-  } else {
-    const dim3 grid((m + 31) / 32, (n + BN - 1) / BN, nb);
-    sq_matmul_kernel<T, 32><<<grid, block, 0, stream>>>(pa, pb, psa, psb, po, m, n, k);
-  }
+// K2's and K3's tile: R = 1 row at m = 1, 4 up to m = TILE_TALL_M, else 8;
+// V = 2 columns a lane where n > 32 and the grid keeps TILE_MIN_BLOCKS blocks
+// at that width, else 1.
+int tile_rows(int m) { return m == 1 ? 1 : m <= TILE_TALL_M ? 4 : 8; }
+
+int tile_vec(int nb, int m, int n) {
+  const long long blocks = static_cast<long long>(nb) * ((m + tile_rows(m) - 1) / tile_rows(m))
+                           * ((n + 2 * BN - 1) / (2 * BN));
+  return n > BN && blocks >= TILE_MIN_BLOCKS ? 2 : 1;
+}
+
+template <typename T, int R, int V, bool FOLDED>
+int launch_tile(const T* a, const T* b, const T* sa, const T* sb, T* out, int nb, int m,
+                int n, int k, cudaStream_t stream) {
+  const int vec_b = n % V == 0 && reinterpret_cast<uintptr_t>(b) % (V * sizeof(T)) == 0;
+  const dim3 grid(nb, (n + BN * V - 1) / (BN * V), (m + R - 1) / R);
+  if constexpr (FOLDED)
+    sq_matmul_folded_kernel<T, R, V><<<grid, THREADS, 0, stream>>>(a, b, sa, sb, out, m,
+                                                                    n, k, vec_b);
+  else
+    sq_matmul_batched_kernel<T, R, V><<<grid, THREADS, 0, stream>>>(a, b, sa, sb, out, m,
+                                                                     n, k, vec_b);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_folded(const void* a, const void* b, const void* sa,
-                  const void* sb, void* out, int nb, int m, int n, int k,
-                  cudaStream_t stream) {
+template <typename T, int R, bool FOLDED>
+int launch_rows(int v, const T* a, const T* b, const T* sa, const T* sb, T* out, int nb,
+                int m, int n, int k, cudaStream_t stream) {
+  if (v == 2) return launch_tile<T, R, 2, FOLDED>(a, b, sa, sb, out, nb, m, n, k, stream);
+  return launch_tile<T, R, 1, FOLDED>(a, b, sa, sb, out, nb, m, n, k, stream);
+}
+
+template <typename T, bool FOLDED>
+int launch_batched(const void* a, const void* b, const void* sa, const void* sb,
+                   void* out, int nb, int m, int n, int k, cudaStream_t stream) {
   const T* pa = static_cast<const T*>(a);
   const T* pb = static_cast<const T*>(b);
   const T* psa = static_cast<const T*>(sa);
   const T* psb = static_cast<const T*>(sb);
   T* po = static_cast<T*>(out);
-  const int rows = m == 1 ? 1 : 4;
-  const long long units = static_cast<long long>(nb) * ((m + rows - 1) / rows)
-                          * ((n + BN - 1) / BN);
-  const dim3 grid(static_cast<unsigned>((units + FOLD_WARPS - 1) / FOLD_WARPS));
-  const dim3 block(FOLD_WARPS * BN);
-  if (rows == 1)
-    sq_matmul_folded_kernel<T, 1><<<grid, block, 0, stream>>>(pa, pb, psa, psb, po, nb, m, n, k);
-  else
-    sq_matmul_folded_kernel<T, 4><<<grid, block, 0, stream>>>(pa, pb, psa, psb, po, nb, m, n, k);
-  return static_cast<int>(cudaGetLastError());
+  const int v = tile_vec(nb, m, n);
+  switch (tile_rows(m)) {
+    case 1: return launch_rows<T, 1, FOLDED>(v, pa, pb, psa, psb, po, nb, m, n, k, stream);
+    case 4: return launch_rows<T, 4, FOLDED>(v, pa, pb, psa, psb, po, nb, m, n, k, stream);
+    default: return launch_rows<T, 8, FOLDED>(v, pa, pb, psa, psb, po, nb, m, n, k, stream);
+  }
 }
 
 }  // namespace
@@ -475,10 +494,11 @@ int launch_folded(const void* a, const void* b, const void* sa,
 // dtype: 0 = float32, 1 = int32.  K1: a (m, k), b (k, n), out (m, n)
 // row-major and contiguous; sa (m,), sb (n,); the grid is (8 * ceil(n / W),
 // ceil(m / BM)) in clusters of 8 along x (launch_k1 gives BM and W).  K2
-// (fs_sq_matmul_batched) and
-// K3 (fs_sq_matmul_folded): the same with a leading batch axis of nb
-// elements on every operand, each element contiguous.  Each returns the
-// cudaError_t of its launch.
+// (fs_sq_matmul_batched) and K3 (fs_sq_matmul_folded): the same with a
+// leading batch axis of nb elements on every operand, each element
+// contiguous; the grid is (nb, ceil(n / 32V), ceil(m / R)) of 256-thread
+// blocks (tile_rows and tile_vec give R and V).  Each returns the cudaError_t
+// of its launch.
 extern "C" int fs_sq_matmul(int dtype, const void* a, const void* b,
                             const void* sa, const void* sb, void* out,
                             int m, int n, int k, void* stream) {
@@ -492,8 +512,8 @@ extern "C" int fs_sq_matmul_batched(int dtype, const void* a, const void* b,
                                     const void* sa, const void* sb, void* out,
                                     int nb, int m, int n, int k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, b, sa, sb, out, nb, m, n, k, s);
-  if (dtype == 1) return launch<int>(a, b, sa, sb, out, nb, m, n, k, s);
+  if (dtype == 0) return launch_batched<float, false>(a, b, sa, sb, out, nb, m, n, k, s);
+  if (dtype == 1) return launch_batched<int, false>(a, b, sa, sb, out, nb, m, n, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -501,8 +521,8 @@ extern "C" int fs_sq_matmul_folded(int dtype, const void* a, const void* b,
                                    const void* sa, const void* sb, void* out,
                                    int nb, int m, int n, int k, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_folded<float>(a, b, sa, sb, out, nb, m, n, k, s);
-  if (dtype == 1) return launch_folded<int>(a, b, sa, sb, out, nb, m, n, k, s);
+  if (dtype == 0) return launch_batched<float, true>(a, b, sa, sb, out, nb, m, n, k, s);
+  if (dtype == 1) return launch_batched<int, true>(a, b, sa, sb, out, nb, m, n, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -6,12 +6,13 @@ versions.
   cluster of 8 blocks per output tile, one partial sum each
   (:func:`k1_launch_shape`); the cluster launch needs Hopper (``sm_90``).
 - K2 (:func:`sq_matmul_k2`) replaces ``sq_matmul_batched_kernel`` (the
-  ``fb == 1`` schedule of ``sq_matmul_batched_pallas``): the bring-up
-  schedule of K1 on a batch grid axis, bit-identical to K1 on every
-  element.
-- K3 (:func:`sq_matmul_k3`) replaces ``sq_matmul_folded_kernel`` (the
-  ``fb > 1`` schedule): several batch elements per block for the
-  small-(m, n), large-B regime, bit-identical to K2.
+  ``fb == 1`` schedule of ``sq_matmul_batched_pallas``) and K3
+  (:func:`sq_matmul_k3`) ``sq_matmul_folded_kernel`` (the ``fb > 1``
+  schedule): one block of 8 warps per (element, row tile, column tile),
+  warp p computing partial p (:func:`k2_launch_shape`,
+  :func:`k3_launch_shape`).  On an H100 one schedule serves both regimes,
+  so the two kernels share their body and launch rule and differ in name
+  only; each is bit-identical to K1 on every element.
 
 All three live in ``src/repro_torch/csrc/sq_matmul.cu``, whose header
 states what bounds each on an H100 and how its design meets that.
@@ -33,14 +34,16 @@ from repro_torch.core import squares as sq
 from repro_torch.kernels import build
 
 __all__ = ["sq_matmul_k1", "sq_matmul_k2", "sq_matmul_k3",
-           "sq_matmul_plain", "sq_matmul_batched_plain", "k1_launch_shape"]
+           "sq_matmul_plain", "sq_matmul_batched_plain", "k1_launch_shape",
+           "k2_launch_shape", "k3_launch_shape"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
 _INT_MAX = 2 ** 31 - 1
-_MAX_GRID_Y = 65535
-_MAX_GRID_Z = 65535           # K2's batch axis
-_BN = 32                      # K2's columns per block (K3's per warp), as in the source
-_KS = 8                       # partial sums per output: K1's cluster size
+_MAX_GRID_Y = _MAX_GRID_Z = 65535
+_KS = 8                       # partial sums per output: K1's cluster, K2/K3's warps
+# K2's and K3's tile rule, as in the source: TILE_MIN_BLOCKS, TILE_TALL_M
+_TILE_MIN_BLOCKS = 96
+_TILE_TALL_M = 32
 
 
 def k1_launch_shape(m: int, n: int) -> dict:
@@ -52,6 +55,26 @@ def k1_launch_shape(m: int, n: int) -> dict:
     return {"rows": rows, "cols": cols, "warps": warps,
             "grid": (_KS * -(-n // cols), -(-m // rows)),
             "cluster": (_KS, 1, 1)}
+
+
+def k2_launch_shape(nb: int, m: int, n: int) -> dict:
+    """K2's launch for a (nb, m, k) @ (nb, k, n), as the CUDA source makes
+    it: one block of 8 warps (partials 0..7) per (element, row tile, column
+    tile), grid (nb, column tiles, row tiles).  A tile is 1 row at m = 1, 4
+    rows up to m = 32, else 8; 64 columns (2 a lane) where n > 32 and that
+    grid keeps 96 blocks, else 32."""
+    rows = 1 if m == 1 else 4 if m <= _TILE_TALL_M else 8
+    row_tiles = -(-m // rows)
+    wide = n > 32 and nb * row_tiles * -(-n // 64) >= _TILE_MIN_BLOCKS
+    cols = 64 if wide else 32
+    return {"rows": rows, "cols": cols, "warps": _KS,
+            "grid": (nb, -(-n // cols), row_tiles)}
+
+
+def k3_launch_shape(nb: int, m: int, n: int) -> dict:
+    """K3's launch: K2's rule (:func:`k2_launch_shape`), which on an H100
+    also serves the fold route's small-(m, n), large-B regime."""
+    return k2_launch_shape(nb, m, n)
 
 
 def sq_matmul_plain(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
@@ -161,11 +184,11 @@ sq_matmul_k1.launches = 0
 sq_matmul_k1.shapes = collections.Counter()
 
 
-def _batched(label: str, entry: str, counter, aw, bw, sa, sb,
-             max_batch: int = _INT_MAX) -> torch.Tensor:
-    """Check, then launch K2 or K3 (the C entry point ``entry``) on CUDA
-    tensors and count the launch on ``counter``, or run the plain version
-    on CPU tensors."""
+def _batched(label: str, entry: str, counter, launch_shape, aw, bw, sa,
+             sb) -> torch.Tensor:
+    """Check, then launch K2 or K3 (the C entry point ``entry``, whose grid
+    ``launch_shape`` mirrors) on CUDA tensors and count the launch on
+    ``counter``, or run the plain version on CPU tensors."""
     _check_batched(aw, bw, sa, sb, label)
     if aw.device.type == "cpu":
         return sq_matmul_batched_plain(aw, bw, sa, sb)
@@ -174,8 +197,9 @@ def _batched(label: str, entry: str, counter, aw, bw, sa, sb,
                          f"CPU), got a tensor on {aw.device}")
     nb, m, k = aw.shape
     n = bw.shape[2]
-    if max(m * k, k * n, m * n) > _INT_MAX or -(-n // _BN) > _MAX_GRID_Y \
-            or nb * -(-m // 4) * -(-n // _BN) > _INT_MAX or nb > max_batch:
+    gx, gy, gz = launch_shape(nb, m, n)["grid"]
+    if max(m * k, k * n, m * n) > _INT_MAX or gx > _INT_MAX \
+            or gy > _MAX_GRID_Y or gz > _MAX_GRID_Z:
         raise ValueError(f"{label} shape ({nb}, {m}, {k}) @ ({nb}, {k}, "
                          f"{n}) exceeds the kernel's 32-bit indexing or grid "
                          f"limits")
@@ -198,27 +222,28 @@ def _batched(label: str, entry: str, counter, aw, bw, sa, sb,
 
 def sq_matmul_k2(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
                  sb: torch.Tensor) -> torch.Tensor:
-    """Launch K2 (one K1 grid per batch element, the batch on the grid's z
-    axis) on CUDA tensors (the plain version on CPU tensors): ``aw``
-    (B, m, k), ``bw`` (B, k, n), ``sa`` (B, m), ``sb`` (B, n).
+    """Launch K2 (the batched route: one 8-warp block per element, row
+    tile and column tile, :func:`k2_launch_shape`) on CUDA tensors (the
+    plain version on CPU tensors): ``aw`` (B, m, k), ``bw`` (B, k, n),
+    ``sa`` (B, m), ``sb`` (B, n).
 
     ``sq_matmul_k2.launches`` counts the launches of this process and
     ``sq_matmul_k2.shapes`` counts them by ``(B, m, k, n)``; a CPU call
     does not count.
     """
-    return _batched("K2", "fs_sq_matmul_batched", sq_matmul_k2, aw, bw, sa,
-                    sb, max_batch=_MAX_GRID_Z)
+    return _batched("K2", "fs_sq_matmul_batched", sq_matmul_k2,
+                    k2_launch_shape, aw, bw, sa, sb)
 
 
 def sq_matmul_k3(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
                  sb: torch.Tensor) -> torch.Tensor:
-    """Launch K3 (batch elements folded into each block) on CUDA tensors
+    """Launch K3 (the fold route, :func:`k3_launch_shape`) on CUDA tensors
     (the plain version on CPU tensors); operands as :func:`sq_matmul_k2`.
 
     ``sq_matmul_k3.launches`` and ``sq_matmul_k3.shapes`` count as K2's do.
     """
-    return _batched("K3", "fs_sq_matmul_folded", sq_matmul_k3, aw, bw, sa,
-                    sb)
+    return _batched("K3", "fs_sq_matmul_folded", sq_matmul_k3,
+                    k3_launch_shape, aw, bw, sa, sb)
 
 
 sq_matmul_k2.launches = 0

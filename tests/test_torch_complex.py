@@ -6,7 +6,7 @@ The same numpy inputs (from seeds) go through ``repro`` and
 ``iir_filter`` of ``core/conv.py``, and ``kernels.ops.cpm3_matmul`` /
 ``cpm4_matmul`` -- on the CPU the plain versions of K5 and K6 -- against
 the JAX Pallas wrappers in interpret mode (``TPUCompilerParams``, renamed
-``CompilerParams`` in JAX 0.9.0, aliased for those tests only), against
+``CompilerParams`` in JAX 0.9.0, aliased below), against
 ``kernels/ref.py::cpm3_matmul_ref`` and against ``x @ y``.
 
 Tolerances are the JAX tests': ``tests/test_kernels.py`` (the Pallas
@@ -22,6 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
 from repro.core import complexmm as jcm  # noqa: E402
 from repro.core import conv as jconv  # noqa: E402
@@ -40,6 +41,14 @@ from repro_torch.kernels.cpm4_matmul import (  # noqa: E402
     cpm4_matmul_k6, cpm4_matmul_plain)
 
 CPU = "cpu"
+
+# The JAX package's Pallas wrappers pass ``pltpu.TPUCompilerParams``, which
+# JAX 0.9.0 renamed ``CompilerParams``.  The alias is made once, when this
+# file is collected, and so holds for the whole test process: a jitted
+# wrapper traced under a per-test alias would otherwise be served from the
+# jit cache to later tests at the same shape and fail at every other.
+if not hasattr(pltpu, "TPUCompilerParams"):
+    pltpu.TPUCompilerParams = pltpu.CompilerParams
 
 
 @pytest.fixture(autouse=True)
@@ -173,12 +182,8 @@ def test_split_planes_accepts_pairs_and_rejects_malformed():
 # ---------------------------------------------------------------------------
 
 @pytest.fixture
-def jax_pallas(monkeypatch):
-    from jax.experimental.pallas import tpu as pltpu
+def jax_pallas():
     from repro.kernels import ops as jops
-    if not hasattr(pltpu, "TPUCompilerParams"):
-        monkeypatch.setattr(pltpu, "TPUCompilerParams",
-                            pltpu.CompilerParams, raising=False)
     return jops
 
 

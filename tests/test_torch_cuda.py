@@ -9,7 +9,7 @@ Tolerances: K1/K2/K3 f32 |err| <= k * 2^-23 * (max|a| + max|b|)^2 (the
 rounding of two different orders of square-form f32 sums), int32
 bit-exact; K2 equal to K1 on every element and K3 equal to K2, bit for
 bit (one summation order by construction), and K1's cluster schedule
-equal to the bring-up schedule (K2 at nb = 1) and to K3, bit for bit;
+equal to K2 at nb = 1 and to K3, bit for bit;
 K4 |err| <= 1e-4
 (``tests/test_paged_attn_kernel.py``'s tolerance); K7 and K8 f32
 |err| <= K * 2^-23 * (max|x| + max|w|)^2 over their K = kh*kw*cin or n
@@ -83,8 +83,9 @@ def test_k1_matches_plain_on_card(cuda_device, m, k, n):
 
 
 def _k1_three_ways(dev, m, k, n, seed):
-    """K1, K2 at nb = 1 (the bring-up schedule) and K3 on the same f32 and
-    int8 operands; each pair of results must be bit-identical."""
+    """K1, K2 at nb = 1 and K3 (one 8-warp block per tile, warp p = partial
+    p) on the same f32 and int8 operands; each pair of results must be
+    bit-identical."""
     gen = torch.Generator().manual_seed(seed)
     aw = torch.randn(m, k, generator=gen).to(torch.bfloat16).float()
     bw = (torch.randn(k, n, generator=gen) / k ** 0.5).to(
@@ -154,6 +155,73 @@ def test_k2_k3_match_plain_and_each_other_on_card(cuda_device, nb, m, k, n):
         assert torch.equal(o3, o2)                     # K3 = K2, bit for bit
         for e in range(nb):                            # K2 = K1 per element
             assert torch.equal(o2[e], sq_matmul_k1(a[e], b[e], sa[e], sb[e]))
+
+
+def _k2_k3_against_k1(dev, nb, m, k, n, seed, b_offset=0):
+    """K2 and K3 on the same f32 (from bf16) and int8 operands: K2 equal to
+    K1 on every element and K3 equal to K2, bit for bit; f32 within
+    k * 2^-23 * (max|a| + max|b|)^2 of the plain version, int8 exact; one
+    launch counted on each.  ``b_offset`` elements shift b's storage, so an
+    offset of 1 refuses the 8-byte loads of b."""
+    gen = torch.Generator().manual_seed(seed)
+    aw = torch.randn(nb, m, k, generator=gen).to(torch.bfloat16).float()
+    bw = torch.randn(nb, k, n, generator=gen).to(torch.bfloat16).float()
+    ai = torch.randint(-128, 128, (nb, m, k), generator=gen,
+                       dtype=torch.int32)
+    bi = torch.randint(-128, 128, (nb, k, n), generator=gen,
+                       dtype=torch.int32)
+    for a, b in ((aw, bw), (ai, bi)):
+        a = a.to(dev)
+        store = torch.empty(b_offset + b.numel(), dtype=b.dtype, device=dev)
+        b = store[b_offset:].view(nb, k, n).copy_(b)
+        assert b.is_contiguous() and b.data_ptr() % 8 == 4 * (b_offset % 2)
+        sa, sb = sq.row_correction(a), sq.col_correction(b, dim=-2)
+        key = (nb, m, k, n)
+        before = (sq_matmul_k2.launches, sq_matmul_k3.launches,
+                  sq_matmul_k2.shapes[key], sq_matmul_k3.shapes[key])
+        o2 = sq_matmul_k2(a, b, sa, sb)
+        o3 = sq_matmul_k3(a, b, sa, sb)
+        torch.cuda.synchronize()
+        assert (sq_matmul_k2.launches, sq_matmul_k3.launches,
+                sq_matmul_k2.shapes[key], sq_matmul_k3.shapes[key]) == tuple(
+                    x + 1 for x in before)
+        assert torch.equal(o3, o2), (key, a.dtype)       # K3 = K2
+        for e in range(nb):                              # K2 = K1 per element
+            assert torch.equal(o2[e], sq_matmul_k1(a[e], b[e], sa[e], sb[e])), \
+                (key, e, a.dtype)
+        ref = sq_matmul_batched_plain(a, b, sa, sb)
+        if a.dtype == torch.int32:
+            assert torch.equal(o2, ref)
+            assert torch.equal(o2.double(), torch.matmul(a.double(),
+                                                         b.double()))
+        else:
+            tol = k * 2.0 ** -23 * (a.abs().max() + b.abs().max()).item() ** 2
+            assert (o2 - ref).abs().max().item() <= tol, key
+
+
+@pytest.mark.parametrize("m", [1, 5, 12, 33])
+@pytest.mark.parametrize("k", [1, 7, 65, 200, 3071])
+def test_k2_k3_ragged_k_and_rows_on_card(cuda_device, m, k):
+    """Partials with no real term (k < 8), a 64-deep K tile cut short, and
+    multi-chunk walks (k > 128), at 1-row, 4-row and 8-row tiles."""
+    _k2_k3_against_k1(cuda_device, 4, m, k, 33, seed=7)
+
+
+@pytest.mark.parametrize("nb", [1, 4, 48])
+@pytest.mark.parametrize("n", [1, 3, 33, 127, 129])
+def test_k2_k3_ragged_columns_on_card(cuda_device, nb, n):
+    """Odd n takes the 4-byte loads of b; n = 33 and 129 leave one column in
+    the last tile; nb = 48 widens the tile to 64 columns where n > 32."""
+    _k2_k3_against_k1(cuda_device, nb, 5, 65, n, seed=8)
+    _k2_k3_against_k1(cuda_device, nb, 1, 65, n, seed=9)
+
+
+@pytest.mark.parametrize("nb,m,k,n", [(12, 32, 64, 128), (12, 32, 128, 64),
+                                      (48, 1, 64, 128), (48, 1, 128, 64)])
+def test_k2_k3_unaligned_b_on_card(cuda_device, nb, m, k, n):
+    """b one element past an 8-byte boundary: the serving shapes through
+    the 4-byte loads of b."""
+    _k2_k3_against_k1(cuda_device, nb, m, k, n, seed=10, b_offset=1)
 
 
 def test_square_pallas_attention_runs_k2_k3_on_card(cuda_device):

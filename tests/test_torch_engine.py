@@ -71,14 +71,9 @@ GEOMETRY = {
 }
 
 
-@pytest.mark.parametrize("mode,geometry", [
-    ("square_virtual", "roomy"), ("square_pallas", "roomy"),
-    ("standard", "tight"), ("square_pallas", "tight")])
-def test_engine_greedy_tokens_match_jax(mode, geometry):
-    jc = dataclasses.replace(jget("fairsquare-demo").reduced(),
-                             matmul_mode=mode)
-    tc = dataclasses.replace(tget("fairsquare-demo").reduced(),
-                             matmul_mode=mode)
+def _engine_greedy_tokens_match_jax(arch, mode, geometry):
+    jc = dataclasses.replace(jget(arch).reduced(), matmul_mode=mode)
+    tc = dataclasses.replace(tget(arch).reduced(), matmul_mode=mode)
     if mode == "square_pallas":
         jc = dataclasses.replace(jc, contraction_policy=J_SQG)
         tc = dataclasses.replace(tc, contraction_policy=T_SQG)
@@ -114,6 +109,21 @@ def test_engine_greedy_tokens_match_jax(mode, geometry):
     assert te.allocator.used_blocks == 0
     if geometry == "tight":
         assert te.metrics.preemptions > 0
+
+
+@pytest.mark.parametrize("mode,geometry", [
+    ("square_virtual", "roomy"), ("square_pallas", "roomy"),
+    ("standard", "tight"), ("square_pallas", "tight")])
+def test_engine_greedy_tokens_match_jax(mode, geometry):
+    _engine_greedy_tokens_match_jax("fairsquare-demo", mode, geometry)
+
+
+@pytest.mark.parametrize("mode", ["square_virtual", "square_pallas"])
+def test_engine_deepseek_greedy_tokens_match_jax(mode):
+    """``deepseek-7b`` (no window; ``.reduced()``: 4 heads over 2 KV heads)
+    through the paged engine: 8 ragged requests, greedy tokens identical to
+    the JAX engine's."""
+    _engine_greedy_tokens_match_jax("deepseek-7b", mode, "roomy")
 
 
 def test_engine_rejects_like_jax():

@@ -2,10 +2,11 @@
 LM with the same weights (``params_from_jax``), on ``.reduced()`` (f32)
 configurations:
 
-- ``fairsquare-demo`` and ``deepseek-7b`` (G = 2 after reduction), and
-  ``h2o-danube-3-4b`` for a sliding window of 64: its prefill of a
-  70-token prompt rolls the last 64 entries into the ring cache, and its
-  decode writes at ``pos % 64``;
+- ``fairsquare-demo``, ``deepseek-7b`` and ``command-r-35b`` (G = 2 after
+  reduction), and ``h2o-danube-3-4b`` and ``starcoder2-3b`` (layernorm,
+  gelu, attention and ffn biases) for a sliding window of 64: their prefill
+  of a 70-token prompt rolls the last 64 entries into the ring cache, and
+  their decode writes at ``pos % 64``;
 - modes ``standard``, ``square_virtual`` and ``square_pallas`` with no
   contraction policy, where the port's attention einsums run K2/K3's plain
   version (CPU tensors) while the JAX side, whose Pallas wrappers cannot
@@ -40,7 +41,8 @@ from repro_torch.models.lm import LM  # noqa: E402
 
 ATOL = RTOL = 1e-4
 CACHE_LEN = 128
-ARCHS = ("fairsquare-demo", "deepseek-7b", "h2o-danube-3-4b")
+ARCHS = ("fairsquare-demo", "deepseek-7b", "h2o-danube-3-4b", "starcoder2-3b",
+         "command-r-35b")
 MODES = ("standard", "square_virtual", "square_pallas")
 
 

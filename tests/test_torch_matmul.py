@@ -176,3 +176,74 @@ def test_k1_launch_shape(m, n, grid):
     assert shape["grid"] == grid and shape["cluster"] == (8, 1, 1)
     assert (shape["rows"], shape["cols"], shape["warps"]) == (
         (8, 64, 4) if m <= 8 else (32, 128, 16))
+
+
+@pytest.mark.parametrize("nb,m,n,grid", [
+    (12, 32, 128, (12, 2, 8)), (12, 32, 64, (12, 1, 8)),      # paged prefill
+    (12, 13, 13, (12, 1, 4)), (12, 23, 64, (12, 2, 6)),       # dense prefill
+    (12, 128, 128, (12, 2, 16)), (1, 1, 1, (1, 1, 1)),
+    (3, 40, 3, (3, 1, 5)), (1, 9, 65, (1, 3, 3))])
+def test_k2_launch_shape(nb, m, n, grid):
+    """K2's grid (elements, column tiles, row tiles): one 8-warp block per
+    tile of 1 row at m = 1, 4 rows up to m = 32, else 8, and 64 columns
+    where n > 32 and the grid keeps 96 blocks, else 32."""
+    from repro_torch.kernels.sq_matmul import k2_launch_shape
+    shape = k2_launch_shape(nb, m, n)
+    assert shape["grid"] == grid and shape["warps"] == 8
+    assert shape["rows"] == (1 if m == 1 else 4 if m <= 32 else 8)
+    assert shape["cols"] * grid[1] >= n > shape["cols"] * (grid[1] - 1)
+
+
+@pytest.mark.parametrize("nb,m,n,grid", [
+    (48, 1, 128, (48, 2, 1)), (48, 1, 64, (48, 2, 1)),        # dense decode
+    (12, 12, 12, (12, 1, 3)), (12, 12, 64, (12, 2, 3)),       # dense prefill
+    (96, 1, 33, (96, 1, 1)), (5, 7, 33, (5, 2, 2)),
+    (4096, 1, 16, (4096, 1, 1)), (2, 1, 1, (2, 1, 1))])
+def test_k3_launch_shape(nb, m, n, grid):
+    """K3's grid follows K2's rule: at the dense-decode shapes 96 blocks of
+    64 columns for n = 128 and 96 blocks of 32 columns for n = 64."""
+    from repro_torch.kernels.sq_matmul import k2_launch_shape, k3_launch_shape
+    shape = k3_launch_shape(nb, m, n)
+    assert shape["grid"] == grid and shape == k2_launch_shape(nb, m, n)
+    assert shape["grid"][0] * shape["grid"][1] * shape["grid"][2] == \
+        nb * -(-n // shape["cols"]) * -(-m // shape["rows"])
+
+
+def test_sq_matmul_launch_constants_match_source():
+    """The Python launch-shape mirrors read the tile rules the CUDA source
+    launches with: K1's two cluster instances, and K2's and K3's shared
+    8-warp tile (its rows, column widths and block floor)."""
+    import re
+    from pathlib import Path
+
+    import repro_torch
+    from repro_torch.kernels import sq_matmul as mod
+    src = (Path(repro_torch.__file__).parent / "csrc" /
+           "sq_matmul.cu").read_text()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    assert consts["KS"] == mod._KS == 8 and consts["BN"] == 32
+    assert consts["TILE_MIN_BLOCKS"] == mod._TILE_MIN_BLOCKS
+    assert consts["TILE_TALL_M"] == mod._TILE_TALL_M
+    assert "constexpr int THREADS = BN * KS;" in src
+    # K1: launch_cluster<T, BM, RW, CT, STAGES> for m <= 8, then above
+    k1 = re.findall(r"launch_cluster<T, (\d+), (\d+), (\d+), (\d+)>", src)
+    assert len(k1) == 2
+    for (bm, rw, ct, _), m in zip(k1, (8, 9)):
+        shape = mod.k1_launch_shape(m, 1)
+        assert (shape["rows"], shape["cols"], shape["warps"]) == (
+            int(bm), 32 * int(ct), int(rw) * int(ct))
+    # K2/K3: rows by m, the instantiated rows and column widths
+    rows = re.search(r"return m == 1 \? (\d+) : m <= TILE_TALL_M \? (\d+) : "
+                     r"(\d+);", src).groups()
+    assert [mod.k2_launch_shape(1, m, 1)["rows"]
+            for m in (1, 2, mod._TILE_TALL_M + 1)] == [int(r) for r in rows]
+    assert sorted(int(r) for r in re.findall(
+        r"launch_rows<T, (\d+), FOLDED>", src)) == sorted(map(int, rows))
+    vecs = sorted(int(v) for v in re.findall(
+        r"launch_tile<T, R, (\d+), FOLDED>", src))
+    assert vecs == [1, 2]
+    assert "return n > BN && blocks >= TILE_MIN_BLOCKS ? 2 : 1;" in src
+    widths = {mod.k3_launch_shape(nb, 1, n)["cols"]
+              for nb in (1, 95, 96) for n in (32, 33, 64)}
+    assert widths == {32 * v for v in vecs}
