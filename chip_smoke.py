@@ -29,10 +29,12 @@ six ResNet-50 layers it runs at batch 8 and a ragged/padded set, K8 on
 and the CIFAR ResNet stem (K7 six times, K1 once through im2col), and
 ``ops.sq_conv`` over the three streams (K8 three times).
 
-Last, the complex square matmuls: K5 (CPM3) and K6 (CPM4) are held to their
-plain versions at the batched-DFT shape (4096 x 1024 x 1024) and at 64^3,
-beside torch.matmul on complex64, and the DFT path is driven as a user
-would: ``ops.cpm3_matmul`` and ``ops.cpm4_matmul`` of 4096 numpy signals of
+Last, the complex square matmuls: K5 (CPM3) and K6 (CPM4), each template
+instance free of spills in the compiler's report, are held to their plain
+versions at the batched-DFT shape (4096 x 1024 x 1024) and at 64^3, each
+launch's grid checked against its mirror and timed beside torch.matmul on
+complex64, the FLOP bound and the FP32 slot floor (the card's clock and
+power sampled alongside), and the DFT path is driven as a user would: ``ops.cpm3_matmul`` and ``ops.cpm4_matmul`` of 4096 numpy signals of
 1024 samples (seed 0) by ``transforms.dft_matrix(1024)`` -- one K5 and one
 K6 launch -- each result held to ``torch.fft.fft``.
 
@@ -55,6 +57,7 @@ import collections
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -77,9 +80,9 @@ from repro_torch.core import transforms                          # noqa: E402
 from repro_torch.core.prepared import prepare_operand           # noqa: E402
 from repro_torch.kernels import ops                             # noqa: E402
 from repro_torch.kernels.cpm3_matmul import (                   # noqa: E402
-    cpm3_matmul_k5, cpm3_matmul_plain)
+    cpm3_matmul_k5, cpm3_matmul_plain, k5_launch_shape)
 from repro_torch.kernels.cpm4_matmul import (                   # noqa: E402
-    cpm4_matmul_k6, cpm4_matmul_plain)
+    cpm4_matmul_k6, cpm4_matmul_plain, k6_launch_shape)
 from repro_torch.kernels.sq_conv import (                       # noqa: E402
     sq_conv_k8, sq_conv_plain)
 from repro_torch.kernels.sq_conv2d import (                     # noqa: E402
@@ -98,6 +101,9 @@ from repro_torch.serve.server import (                          # noqa: E402
 # outside the tensor cores.  The squares run on the CUDA cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# An FP32 add takes an issue slot as an fma does: the slot rate is half the
+# FLOP rate, and it is what bounds a square kernel's instruction mix.
+FP32_SLOTS_PER_S = FP32_OPS_PER_S / 2
 L2_DEFEAT_BYTES = 200 * 2 ** 20
 
 # The serving geometry of launch/serve.py.
@@ -729,8 +735,8 @@ def _union_us(spans) -> float:
 TRACE_KERNELS = (("K1", "sq_matmul_cluster_kernel"),
                  ("K2", "sq_matmul_batched_kernel"),
                  ("K3", "sq_matmul_folded_kernel"),
-                 ("K4", "sq_paged_attn_kernel"), ("K5", "cpm3_matmul_kernel"),
-                 ("K6", "cpm4_matmul_kernel"))
+                 ("K4", "sq_paged_attn_kernel"), ("K5", "Cpm3"),
+                 ("K6", "Cpm4"))
 
 
 def trace_steps(step, what: str, untraced_s: float) -> None:
@@ -1317,8 +1323,14 @@ def fir_path_phase(dev):
 # signal's DFT); and 64^3, the shape of the JAX pallas_cpm3_matmul rows of
 # BENCH_kernels.json.
 DFT_SIGNALS, DFT_POINTS = 4096, 1024
-CPM = {"K5": (cpm3_matmul_k5, cpm3_matmul_plain, 11, "cpm3_matmul"),
-       "K6": (cpm4_matmul_k6, cpm4_matmul_plain, 12, "cpm4_matmul")}
+# (kernel, plain version, FLOP a complex term, source, FP32 slots a term,
+# launch-shape mirror).  The FLOP are the algorithm's work: K5's three
+# squares and three adds (9, an fma counted as 2), K6's four and four (12);
+# the slots count each add and each square once.
+CPM = {"K5": (cpm3_matmul_k5, cpm3_matmul_plain, 9, "cpm3_matmul", 6,
+              k5_launch_shape),
+       "K6": (cpm4_matmul_k6, cpm4_matmul_plain, 12, "cpm4_matmul", 8,
+              k6_launch_shape)}
 
 
 def dft_signals() -> np.ndarray:
@@ -1348,15 +1360,64 @@ def cpm_tol(planes, k: int) -> float:
                                     for t in planes) ** 2
 
 
+class SmiSamples:
+    """``nvidia-smi`` sampling the SM clock and power draw every 20 ms while
+    the block runs (an FP32-bound kernel follows the clock, which the power
+    limit sets); ``str()`` gives min / median / max of each."""
+
+    QUERY = ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit",
+             "--format=csv,noheader,nounits", "-lms", "20"]
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(self.QUERY, stdout=subprocess.PIPE,
+                                     stderr=subprocess.DEVNULL, text=True)
+        self.proc.stdout.readline()          # the sampler is running
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        self.rows = [[float(x) for x in line.split(",")]
+                     for line in out.splitlines() if line.count(",") == 2]
+        return False
+
+    def __str__(self):
+        if not self.rows:
+            return "nvidia-smi gave no samples"
+        clk, pwr = (sorted(r[i] for r in self.rows) for i in (0, 1))
+        return (f"{len(clk)} nvidia-smi samples: SM clock {clk[0]:.0f} / "
+                f"{clk[len(clk) // 2]:.0f} / {clk[-1]:.0f} MHz, power "
+                f"{pwr[0]:.0f} / {pwr[len(pwr) // 2]:.0f} / {pwr[-1]:.0f} W "
+                f"of {self.rows[0][2]:.0f} W (min / median / max)")
+
+
+def cpm_build_report():
+    """K5's and K6's compiler report: each instance's registers and spill
+    bytes, which must be 0."""
+    for name, (*_, source, _, _) in CPM.items():
+        for row in build.ptxas_usage(build.report(source)):
+            inst = re.search(r"Li(\d+)ELi(\d+)ELi(\d+)ELb([01])E",
+                             row["entry"])
+            tile = (f"{inst[1]} x {inst[2]} thread tile, {inst[3]}-deep K "
+                    f"tile, {'16-byte' if inst[4] == '1' else 'scalar'} "
+                    f"copies" if inst else row["entry"])
+            spill = row["spill_stores"] + row["spill_loads"]
+            check(spill == 0, f"{name} {tile}: {row['registers']} registers, "
+                              f"{spill} bytes spilled")
+
+
 def cpm_phase(dev, gen, z, w):
     """K5 and K6 against their plain versions at the batched-DFT shape (the
-    DFT path's own operands) and at 64^3, K5 against K6, each timed beside
-    the plain version, torch.matmul on complex64 (no TF32) and the bound.
-    The operands are the planes the wrapper has just written (40 MB at the
-    DFT shape), so they are not cycled past the L2."""
+    DFT path's own operands) and at 64^3, K5 against K6, each with its grid
+    and tile, timed beside the plain version, torch.matmul on complex64 (no
+    TF32), the FLOP bound and the FP32 slot floor, with the card's clock
+    and power sampled beside the DFT-shape timings.  The operands are the
+    planes the wrapper has just written (40 MB at the DFT shape), so they
+    are not cycled past the L2."""
     print("K5 cpm3_matmul and K6 cpm4_matmul vs plain (f32 |err| <= 2 * k * "
           "2^-23 * (max|a| + max|b| + max|c| + max|s|)^2; K5 vs K6 within "
           "twice that)", flush=True)
+    cpm_build_report()
     small = [torch.complex(torch.randn(m, k, generator=gen),
                            torch.randn(m, k, generator=gen)).to(dev)
              for m, k in ((64, 64), (64, 64))]
@@ -1370,7 +1431,7 @@ def cpm_phase(dev, gen, z, w):
         tol = cpm_tol(planes, k)
         outs = {}
         lib_ms = time_graph([lambda: torch.matmul(x, y)])
-        for name, (kern, plain, flop, _) in CPM.items():
+        for name, (kern, plain, flop, _, slots, launch_shape) in CPM.items():
             out = kern(*planes, *corrs[name])
             ref = plain(*planes, *corrs[name])
             torch.cuda.synchronize()
@@ -1379,8 +1440,18 @@ def cpm_phase(dev, gen, z, w):
                   and err <= tol,
                   f"{name} f32 {label} m={m} k={k} n={n}: max|err| "
                   f"{err:.3e} <= {tol:.3e}")
+            shape = kern.last_shape
+            check(shape == launch_shape(m, n),
+                  f"{name} {label}: grid {shape['grid']} of {shape['rows']} "
+                  f"x {shape['cols']} tiles, {shape['thread_tile'][0]} x "
+                  f"{shape['thread_tile'][1]} a thread, as the mirror says")
             outs[name] = out
-            ms = time_graph([lambda: kern(*planes, *corrs[name])])
+            if label == "batched DFT":
+                with SmiSamples() as smi:
+                    ms = time_graph([lambda: kern(*planes, *corrs[name])],
+                                    replays=20)
+            else:
+                ms = time_graph([lambda: kern(*planes, *corrs[name])])
             plain_ms = time_graph([lambda: plain(*planes, *corrs[name])],
                                   reps=2, replays=2)
             nbytes = 4 * (2 * m * k + 2 * k * n + 2 * m * n
@@ -1388,17 +1459,23 @@ def cpm_phase(dev, gen, z, w):
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = flop * m * n * k / FP32_OPS_PER_S * 1e3
             bound = max(t_bytes, t_ops)
+            floor = slots * m * n * k / FP32_SLOTS_PER_S * 1e3
             row = dict(shape=(m, k, n), ms=ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=bound, t_bytes=t_bytes,
-                       t_ops=t_ops,
+                       t_ops=t_ops, slot_floor_ms=floor,
                        bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       max_abs_err=err)
+                       max_abs_err=err, grid=shape["grid"],
+                       tile=(shape["rows"], shape["cols"]))
             rows[name].append(row)
             print(f"    {name} {label:11s} m={m:4d} k={k:4d} n={n:4d}  "
                   f"{ms:.4f} ms | plain {plain_ms:.4f} ms | torch.matmul "
                   f"complex64 (no TF32) {lib_ms:.4f} ms | bound {bound:.4f} "
-                  f"ms ({row['bound_by']}) | {bound / ms:.1%} of bound",
+                  f"ms ({row['bound_by']}, {flop} FLOP a term) | "
+                  f"{bound / ms:.1%} of bound | slot floor {floor:.4f} ms "
+                  f"({slots} slots a term) | {floor / ms:.1%} of floor",
                   flush=True)
+            if label == "batched DFT":
+                print(f"      {smi}", flush=True)
         diff = max((p - q).abs().max().item()
                    for p, q in zip(outs["K5"], outs["K6"]))
         check(diff <= 2 * tol, f"{label}: K5 vs K6 max|diff| {diff:.3e} <= "
@@ -1542,6 +1619,9 @@ def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
                     f"of {DFT_POINTS} points, one launch",
                     source=f"src/repro_torch/csrc/{CPM[key][3]}.cu")
               for key, line in (("K5", 66), ("K6", 55)))
+    for kern, key in ((k5, "K5"), (k6, "K6")):
+        row = next(r for r in cpm_rows[key] if r["shape"] == dft)
+        kern.update(grid=row["grid"], tile=row["tile"])
     return json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8]})
 
 

@@ -11,149 +11,93 @@
 // ops._cpm4_impl).  The squares run as scalar FP32 instructions on the CUDA
 // cores, never as a tensor-core MMA.
 //
-// What bounds it on an H100: every complex term is 4 adds and 4 fma (12
-// FLOP counting an fma as 2), with the row and column planes reused across
-// a whole tile, so at the batched-DFT shape (4096 x 1024 x 1024) it is bound
-// by operations on the FP32 cores, ~100x above its byte bound.
+// What bounds it on an H100: a complex term is 4 adds and 4 squares (12
+// FLOP counting an fma as 2, 8 FP32 issue slots), with the row and column
+// planes reused across a whole tile, so at the batched-DFT shape (4096 x
+// 1024 x 1024) it is bound by FP32 issue on the CUDA cores.
 //
-// Design against that bound -- K5's schedule (csrc/cpm3_matmul.cu), which is
-// K1's with two accumulator planes:
-// - One block owns a BM x 32 output tile; lane j owns column j (coalesced
-//   128-byte reads of c and s); the 8 warps split each 64-deep K tile.
-// - The row planes (a, b) are staged in shared memory k-major, read as
-//   broadcast float4s (four rows a load); the column planes (c, s, -s) are
-//   formed in registers at load, the negation hoisted as the Pallas kernel
-//   hoists it, so every square is one add and one fmaf.  Unlike CPM3 no
-//   square is shared between the planes.
-// - Each thread holds re and im for its BM = 16 rows.  Warp 0's both start
-//   at the one row correction Sx_h (the Pallas accumulator init: CPM4's two
-//   planes share one correction pair); the other warps' at 0.
-// - Epilogue: the 8 partials are summed in warp order (deterministic), both
-//   planes are halved, and 1/2 Sy_k is added to both after the halving, as
-//   the JAX wrapper does after its pallas_call.
-// - Ragged m, n and k are masked in the kernel: k past the edge stages zeros
-//   in all four planes, whose term (0+0)^2 + (0-0)^2 adds exactly 0.
+// Design: the register-tiled schedule of cpm_tile.cuh (shared with K5),
+// with the raw planes staged -- a, b by rows and c, s by columns.  b - s is
+// one add with a negated operand, so no -s plane is staged (the Pallas
+// kernel hoists one; on the TPU the negation is a vector op, here it is
+// free).  Two accumulator planes, both starting at the one row correction
+// Sx_h (CPM4's two planes share one correction pair).  A 4 x 4 thread tile:
+// 32 accumulators under the 128 registers of two blocks an SM (at 8 x 4,
+// 64 accumulators, ptxas spilled under that cap).
 //
 // Numerics: each operand add rounds on its own, then re = fmaf(t2, t2,
-// fmaf(t1, t1, re)) and likewise im: one rounding per square.  The halving
-// is exact and the column term rounds once.  f32 only: integer planes are
-// the exact path of core/complexmm.py.
+// fmaf(t1, t1, re)) and likewise im: one rounding per square, running sums
+// over the whole k walk.  The halving is exact and the column term rounds
+// once.  f32 only: integer planes are the exact path of core/complexmm.py.
 
-#include <cuda_runtime.h>
+#include "cpm_tile.cuh"
 
 namespace {
 
-constexpr int BM = 16;             // output rows per block
-constexpr int BN = 32;             // output columns per block (one per lane)
-constexpr int KS = 8;              // warps per block, each a slice of every K tile
-constexpr int BK = 64;             // K tile staged in shared memory
-constexpr int RP = BM + 4;         // padded stride of a staged row plane
-constexpr int THREADS = BN * KS;
+struct Cpm4 {
+  static constexpr int ROW_PLANES = 2;   // a, b
+  static constexpr int COL_PLANES = 2;   // c, s
+  static constexpr int ACC_PLANES = 2;   // re, im
+  static constexpr int TILE_M = 4, TILE_N = 4;  // thread tile
+  static constexpr int MIN_BLOCKS = 2;   // blocks an SM
 
-__device__ __forceinline__ void cpm4_term(float& re, float& im, float a,
-                                          float b, float c, float s,
-                                          float ns) {
-  const float t1 = a + c;
-  const float t2 = b + ns;         // b - s through the hoisted -s plane
-  const float t3 = b + c;
-  const float t4 = a + s;
-  re = fmaf(t2, t2, fmaf(t1, t1, re));
-  im = fmaf(t4, t4, fmaf(t3, t3, im));
-}
-
-__global__ void __launch_bounds__(THREADS, 2)
-cpm4_matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                   const float* __restrict__ c, const float* __restrict__ s,
-                   const float* __restrict__ sx, const float* __restrict__ sy,
-                   float* __restrict__ re_out, float* __restrict__ im_out,
-                   int m, int n, int k) {
-  __shared__ __align__(16) float rows[2][BK][RP];   // (a, b), k-major
-  __shared__ float red[2][KS][BM][BN];
-
-  const int lane = threadIdx.x % BN;
-  const int ks = threadIdx.x / BN;
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  const int col = col0 + lane;
-  const bool col_ok = col < n;
-
-  float re[BM], im[BM];
-#pragma unroll
-  for (int i = 0; i < BM; ++i) {
-    const int r = row0 + i;
-    re[i] = (ks == 0 && r < m) ? sx[r] : 0.f;
-    im[i] = re[i];
+  __device__ static void rows(float a, float b, float (&v)[ROW_PLANES]) {
+    v[0] = a;
+    v[1] = b;
   }
-
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
-      const int i = e / BK, kk = e % BK;
-      const int r = row0 + i, kc = k0 + kk;
-      const bool ok = r < m && kc < k;
-      rows[0][kk][i] = ok ? a[(size_t)r * k + kc] : 0.f;
-      rows[1][kk][i] = ok ? b[(size_t)r * k + kc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int t = 0; t < BK / KS; ++t) {
-      const int kk = t * KS + ks;
-      const int kc = k0 + kk;
-      const bool ok = col_ok && kc < k;
-      const float cv = ok ? c[(size_t)kc * n + col] : 0.f;
-      const float sv = ok ? s[(size_t)kc * n + col] : 0.f;
-      const float nsv = -sv;
-      const float4* pa = reinterpret_cast<const float4*>(rows[0][kk]);
-      const float4* pb = reinterpret_cast<const float4*>(rows[1][kk]);
-#pragma unroll
-      for (int q = 0; q < BM / 4; ++q) {
-        const float4 va = pa[q], vb = pb[q];
-        cpm4_term(re[4 * q + 0], im[4 * q + 0], va.x, vb.x, cv, sv, nsv);
-        cpm4_term(re[4 * q + 1], im[4 * q + 1], va.y, vb.y, cv, sv, nsv);
-        cpm4_term(re[4 * q + 2], im[4 * q + 2], va.z, vb.z, cv, sv, nsv);
-        cpm4_term(re[4 * q + 3], im[4 * q + 3], va.w, vb.w, cv, sv, nsv);
-      }
-    }
-    __syncthreads();
+  __device__ static void cols(float c, float s, float (&v)[COL_PLANES]) {
+    v[0] = c;
+    v[1] = s;
   }
-
-#pragma unroll
-  for (int i = 0; i < BM; ++i) {
-    red[0][ks][i][lane] = re[i];
-    red[1][ks][i][lane] = im[i];
+  template <int TM, int TN>
+  __device__ static void init(float (&acc)[ACC_PLANES][TM][TN], int i, int j,
+                              float row_re, float row_im) {
+    acc[0][i][j] = row_re;
+    acc[1][i][j] = row_im;
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
-    const int i = e / BN, cc = e % BN;
-    const int r = row0 + i, cx = col0 + cc;
-    if (r < m && cx < n) {
-      float vr = red[0][0][i][cc], vi = red[1][0][i][cc];
-#pragma unroll
-      for (int p = 1; p < KS; ++p) {
-        vr += red[0][p][i][cc];
-        vi += red[1][p][i][cc];
-      }
-      const float half_sy = 0.5f * sy[cx];
-      re_out[(size_t)r * n + cx] = vr * 0.5f + half_sy;
-      im_out[(size_t)r * n + cx] = vi * 0.5f + half_sy;
-    }
+  template <int TM, int TN>
+  __device__ static void term(float (&acc)[ACC_PLANES][TM][TN], int i, int j,
+                              const float (&r)[ROW_PLANES][TM],
+                              const float (&c)[COL_PLANES][TN]) {
+    const float a = r[0][i], b = r[1][i], cv = c[0][j], s = c[1][j];
+    const float t1 = a + cv;
+    const float t2 = b - s;
+    const float t3 = b + cv;
+    const float t4 = a + s;
+    acc[0][i][j] = fmaf(t2, t2, fmaf(t1, t1, acc[0][i][j]));
+    acc[1][i][j] = fmaf(t4, t4, fmaf(t3, t3, acc[1][i][j]));
   }
-}
+  template <int TM, int TN>
+  __device__ static void end_tile(float (&)[ACC_PLANES][TM][TN]) {}
+  template <int TM, int TN>
+  __device__ static float re(const float (&acc)[ACC_PLANES][TM][TN], int i,
+                             int j) {
+    return acc[0][i][j];
+  }
+  template <int TM, int TN>
+  __device__ static float im(const float (&acc)[ACC_PLANES][TM][TN], int i,
+                             int j) {
+    return acc[1][i][j];
+  }
+};
 
 }  // namespace
 
 // a, b (m, k); c, s (k, n); re, im (m, n): f32, row-major and contiguous.
-// sx = Sx (m,), sy = Sy (n,).  Returns the cudaError_t of the launch.
+// sx = Sx (m,), sy = Sy (n,).  shape (4 ints, host memory) receives the
+// launch's grid (x = row tiles, y = column tiles) and thread tile (TM, TN).
+// Returns the cudaError_t of the launch.
 extern "C" int fs_cpm4_matmul(const void* a, const void* b, const void* c,
                               const void* s, const void* sx, const void* sy,
                               void* re, void* im, int m, int n, int k,
-                              void* stream) {
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
-  cpm4_matmul_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<const float*>(c), static_cast<const float*>(s),
-      static_cast<const float*>(sx), static_cast<const float*>(sy),
-      static_cast<float*>(re), static_cast<float*>(im), m, n, k);
-  return static_cast<int>(cudaGetLastError());
+                              void* stream, int* shape) {
+  const float* x = static_cast<const float*>(sx);
+  const float* y = static_cast<const float*>(sy);
+  const cpm::Args p{static_cast<const float*>(a), static_cast<const float*>(b),
+                    static_cast<const float*>(c), static_cast<const float*>(s),
+                    x, x, y, y, static_cast<float*>(re),
+                    static_cast<float*>(im), m, n, k};
+  return cpm::launch<Cpm4>(p, static_cast<cudaStream_t>(stream), shape);
 }
 
 extern "C" const char* fs_error_string(int code) {

@@ -4,10 +4,14 @@ Each source under ``src/repro_torch/csrc/`` holds one kernel, or a family
 that shares its arithmetic (``sq_matmul.cu``: K1, K2 and K3), behind a
 plain C interface: ``sq_paged_attn.cu`` (K4), ``cpm3_matmul.cu`` (K5),
 ``cpm4_matmul.cu`` (K6), ``sq_conv2d.cu`` (K7) and ``sq_conv.cu`` (K8) each
-hold one.  At first use it is compiled by ``nvcc`` for ``sm_90a``
-into a shared library under ``build/repro_torch_kernels/`` at the repo root
-and loaded with :mod:`ctypes`.  The library's name carries a hash of the
-source and the flags, so an edited source is rebuilt, never reused stale.
+hold one; ``cpm_tile.cuh`` is the schedule K5 and K6 share.  At first use a
+source is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
+``build/repro_torch_kernels/`` at the repo root and loaded with
+:mod:`ctypes`.  The library's name carries a hash of the source, every
+header under ``csrc/`` and the flags, so an edited source or header is
+rebuilt, never reused stale.  The compiler's report (``-Xptxas=-v``:
+registers, spills and shared memory per kernel) is kept beside the library
+(:func:`report`, parsed by :func:`ptxas_usage`).
 
 :func:`build` starts one ``nvcc`` per source at once and waits for all of
 them, so a caller that needs every kernel (``chip_smoke.py``) pays for the
@@ -18,14 +22,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 __all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "BUILD_DIR", "build", "load",
-           "check"]
+           "check", "report", "ptxas_usage"]
 
 KERNEL_SOURCES = ("sq_matmul", "sq_paged_attn", "cpm3_matmul", "cpm4_matmul",
                   "sq_conv2d", "sq_conv")
@@ -56,10 +61,10 @@ _SIGNATURES = {
                              ctypes.c_float, _I, _I, _I, _P],
     },
     "cpm3_matmul": {
-        "fs_cpm3_matmul": [_P] * 10 + [_I, _I, _I, _P],
+        "fs_cpm3_matmul": [_P] * 10 + [_I, _I, _I, _P, _P],
     },
     "cpm4_matmul": {
-        "fs_cpm4_matmul": [_P] * 8 + [_I, _I, _I, _P],
+        "fs_cpm4_matmul": [_P] * 8 + [_I, _I, _I, _P, _P],
     },
     "sq_conv2d": {
         "fs_sq_conv2d": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
@@ -83,10 +88,11 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
@@ -121,6 +127,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
                 if proc.returncode != 0:
                     raise RuntimeError(f"nvcc failed for {name}.cu "
                                        f"(exit {proc.returncode}):\n{out}")
+                lib.with_suffix(".ptxas.txt").write_text(out)
                 os.replace(tmp, lib)
                 reports[name] = out
         finally:
@@ -159,3 +166,30 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         msg: Optional[bytes] = lib.fs_error_string(code)
         raise RuntimeError(f"{what}: CUDA error {code} "
                            f"({(msg or b'?').decode()})")
+
+
+def report(name: str) -> str:
+    """The compiler's report of one source's build (built first if needed),
+    whether this process or an earlier one built it."""
+    build([name])
+    return _library_path(name).with_suffix(".ptxas.txt").read_text()
+
+
+def ptxas_usage(text: str) -> List[dict]:
+    """``[{"entry", "registers", "spill_stores", "spill_loads"}]``, one per
+    kernel entry of an ``-Xptxas=-v`` report, in the report's order."""
+    rows: List[dict] = []
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            rows.append({"entry": entry.group(1)})
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if rows and spill:
+            rows[-1]["spill_stores"] = int(spill.group(1))
+            rows[-1]["spill_loads"] = int(spill.group(2))
+        if rows and regs:
+            rows[-1]["registers"] = int(regs.group(1))
+    return rows

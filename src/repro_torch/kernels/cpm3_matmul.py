@@ -4,7 +4,10 @@ paper's CPM3, §9) and its plain PyTorch version.
 :func:`cpm3_matmul_k5` replaces ``src/repro/kernels/cpm3_matmul.py::
 cpm3_matmul_kernel`` (behind ``cpm3_matmul_pallas``).  The kernel lives in
 ``src/repro_torch/csrc/cpm3_matmul.cu``, whose header states what bounds it
-on an H100 and how its design meets that.
+on an H100; its schedule, shared with K6, is ``csrc/cpm_tile.cuh``: one
+block of 16 x 16 threads per output tile, each thread a register tile of
+every accumulator plane, the tile picked per launch by the rule that
+:func:`cpm_launch_shape` mirrors (:func:`k5_launch_shape`).
 
 It takes the four pre-widened f32 planes -- ``a``, ``b`` (m, k), the real
 and imaginary planes of X, and ``c``, ``s`` (k, n), those of Y -- with the
@@ -23,17 +26,49 @@ raise a ``TypeError``: the Pallas kernel cannot compute them either (its
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["cpm3_matmul_k5", "cpm3_matmul_plain"]
+__all__ = ["cpm3_matmul_k5", "cpm3_matmul_plain", "cpm_launch_shape",
+           "k5_launch_shape"]
 
 _INT_MAX = 2 ** 31 - 1
 _MAX_GRID_Y = 65535
-_BN = 32                      # output columns per block, as in the sources
 _PLAIN_CHUNK_ELEMS = 1 << 24  # bound on the plain version's live term tensors
+# The tile rule of csrc/cpm_tile.cuh: a block is 16 x 16 threads, each a
+# thread tile (rows, columns) of the outputs -- the kernel's own tile where
+# its grid reaches _TILE_MIN_BLOCKS blocks, else _SMALL_TILE.
+_BLOCK_THREADS = 16
+_TILE_MIN_BLOCKS = 128
+_SMALL_TILE = (1, 1)
+K5_TILE = (8, 4)              # csrc/cpm3_matmul.cu: Cpm3::TILE_M, TILE_N
+
+
+def _grid(m: int, n: int, tile) -> tuple:
+    return (-(-m // (_BLOCK_THREADS * tile[0])),
+            -(-n // (_BLOCK_THREADS * tile[1])))
+
+
+def cpm_launch_shape(m: int, n: int, tile) -> dict:
+    """The launch of K5 or K6 (own thread tile ``tile``) for an (m, k) @
+    (k, n), as ``csrc/cpm_tile.cuh`` makes it.  ``rows`` x ``cols`` is a
+    block's output tile, ``thread_tile`` a thread's, and ``grid`` is (row
+    tiles, column tiles)."""
+    tm, tn = tuple(tile)
+    grid = _grid(m, n, (tm, tn))
+    if grid[0] * grid[1] < _TILE_MIN_BLOCKS:
+        (tm, tn), grid = _SMALL_TILE, _grid(m, n, _SMALL_TILE)
+    return {"rows": _BLOCK_THREADS * tm, "cols": _BLOCK_THREADS * tn,
+            "thread_tile": (tm, tn), "grid": grid}
+
+
+def k5_launch_shape(m: int, n: int) -> dict:
+    """K5's launch: 8 x 4 outputs a thread (128 x 64 a block) where that
+    grid has 128 blocks (:func:`cpm_launch_shape`)."""
+    return cpm_launch_shape(m, n, K5_TILE)
 
 
 def plain_k_chunk(m: int, n: int) -> int:
@@ -97,17 +132,20 @@ def check_planes(label: str, planes, row_corrs, col_corrs) -> None:
                          f"{[tuple(t.shape) for t in col_corrs]}")
 
 
-def launch_planes(label: str, source: str, counter, planes, corrs):
-    """Launch the complex kernel of ``source`` (entry ``fs_<source>``) on
-    checked CUDA planes and count the launch on ``counter``; returns the
-    (re, im) planes."""
+def launch_planes(label: str, source: str, counter, tile, planes, corrs):
+    """Launch the complex kernel of ``source`` (entry ``fs_<source>``, own
+    thread tile ``tile``) on checked CUDA planes and count the launch on
+    ``counter``, whose ``last_shape`` then holds the launch's tile and grid
+    as the kernel reports them (in :func:`cpm_launch_shape`'s form);
+    returns the (re, im) planes."""
     a, _, c, _ = planes
     if a.device.type != "cuda":
         raise ValueError(f"{label} runs on CUDA (or its plain version on "
                          f"CPU), got a tensor on {a.device}")
     m, k = a.shape
     n = c.shape[1]
-    if max(m, n, k) > _INT_MAX or -(-n // _BN) > _MAX_GRID_Y:
+    if max(m, n, k) > _INT_MAX \
+            or cpm_launch_shape(m, n, tile)["grid"][1] > _MAX_GRID_Y:
         raise ValueError(f"{label} shape ({m}, {k}) @ ({k}, {n}) exceeds "
                          f"the kernel's grid limits")
     re = torch.empty((m, n), dtype=a.dtype, device=a.device)
@@ -116,14 +154,19 @@ def launch_planes(label: str, source: str, counter, planes, corrs):
         return re, im
     args = [t.contiguous() for t in (*planes, *corrs)]
     lib = build.load(source)
+    shape = (ctypes.c_int * 4)()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = getattr(lib, f"fs_{source}")(
             *(t.data_ptr() for t in args), re.data_ptr(), im.data_ptr(),
-            m, n, k, stream)
+            m, n, k, stream, ctypes.addressof(shape))
     build.check(lib, rc, f"{label} {source} launch")
     counter.launches += 1
     counter.shapes[(m, k, n)] += 1
+    gx, gy, tm, tn = shape
+    counter.last_shape = {"rows": _BLOCK_THREADS * tm,
+                          "cols": _BLOCK_THREADS * tn, "thread_tile": (tm, tn),
+                          "grid": (gx, gy)}
     return re, im
 
 
@@ -133,15 +176,17 @@ def cpm3_matmul_k5(a, b, c, s, sre, sim, scs, ssc):
 
     ``cpm3_matmul_k5.launches`` counts the kernel launches made by this
     process, and ``cpm3_matmul_k5.shapes`` counts them by ``(m, k, n)``; a
-    CPU call does not count.
+    CPU call does not count.  ``cpm3_matmul_k5.last_shape`` is the last
+    launch's tile and grid (:func:`k5_launch_shape`'s form), None before one.
     """
     planes = (a, b, c, s)
     check_planes("K5", planes, (sre, sim), (scs, ssc))
     if a.device.type == "cpu":
         return cpm3_matmul_plain(a, b, c, s, sre, sim, scs, ssc)
-    return launch_planes("K5", "cpm3_matmul", cpm3_matmul_k5, planes,
-                         (sre, sim, scs, ssc))
+    return launch_planes("K5", "cpm3_matmul", cpm3_matmul_k5, K5_TILE,
+                         planes, (sre, sim, scs, ssc))
 
 
 cpm3_matmul_k5.launches = 0
 cpm3_matmul_k5.shapes = collections.Counter()
+cpm3_matmul_k5.last_shape = None

@@ -4,7 +4,8 @@ paper's CPM4, §6) and its plain PyTorch version.
 :func:`cpm4_matmul_k6` replaces ``src/repro/kernels/cpm4_matmul.py::
 cpm4_matmul_kernel`` (behind ``cpm4_matmul_pallas``).  The kernel lives in
 ``src/repro_torch/csrc/cpm4_matmul.cu``, whose header states what bounds it
-on an H100 and how its design meets that.
+on an H100; its schedule is K5's, ``csrc/cpm_tile.cuh``
+(:func:`k6_launch_shape`).
 
 It takes the four pre-widened f32 planes ``a``, ``b`` (m, k) and ``c``,
 ``s`` (k, n), the shared row correction ``sx = Sx`` (m,) and the shared
@@ -23,10 +24,19 @@ import collections
 
 import torch
 
-from repro_torch.kernels.cpm3_matmul import (check_planes, launch_planes,
-                                             plain_k_chunk)
+from repro_torch.kernels.cpm3_matmul import (check_planes, cpm_launch_shape,
+                                             launch_planes, plain_k_chunk)
 
-__all__ = ["cpm4_matmul_k6", "cpm4_matmul_plain"]
+__all__ = ["cpm4_matmul_k6", "cpm4_matmul_plain", "k6_launch_shape"]
+
+
+K6_TILE = (4, 4)              # csrc/cpm4_matmul.cu: Cpm4::TILE_M, TILE_N
+
+
+def k6_launch_shape(m: int, n: int) -> dict:
+    """K6's launch: 4 x 4 outputs a thread (64 x 64 a block, two blocks an
+    SM) where that grid has 128 blocks (:func:`cpm_launch_shape`)."""
+    return cpm_launch_shape(m, n, K6_TILE)
 
 
 def cpm4_matmul_plain(a, b, c, s, sx, sy, k_chunk=None):
@@ -57,15 +67,17 @@ def cpm4_matmul_k6(a, b, c, s, sx, sy):
 
     ``cpm4_matmul_k6.launches`` and ``cpm4_matmul_k6.shapes`` (by
     ``(m, k, n)``) count the launches of this process; a CPU call does not
-    count.
+    count.  ``cpm4_matmul_k6.last_shape`` is the last launch's tile and grid
+    (:func:`k6_launch_shape`'s form), None before one.
     """
     planes = (a, b, c, s)
     check_planes("K6", planes, (sx,), (sy,))
     if a.device.type == "cpu":
         return cpm4_matmul_plain(a, b, c, s, sx, sy)
-    return launch_planes("K6", "cpm4_matmul", cpm4_matmul_k6, planes,
-                         (sx, sy))
+    return launch_planes("K6", "cpm4_matmul", cpm4_matmul_k6, K6_TILE,
+                         planes, (sx, sy))
 
 
 cpm4_matmul_k6.launches = 0
 cpm4_matmul_k6.shapes = collections.Counter()
+cpm4_matmul_k6.last_shape = None

@@ -27,9 +27,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import squares as sq  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.cpm3_matmul import (  # noqa: E402
-    cpm3_matmul_k5, cpm3_matmul_plain)
+    cpm3_matmul_k5, cpm3_matmul_plain, k5_launch_shape)
 from repro_torch.kernels.cpm4_matmul import (  # noqa: E402
-    cpm4_matmul_k6, cpm4_matmul_plain)
+    cpm4_matmul_k6, cpm4_matmul_plain, k6_launch_shape)
 from repro_torch.kernels import sq_conv as k8mod  # noqa: E402
 from repro_torch.kernels import sq_conv2d as k7mod  # noqa: E402
 from repro_torch.kernels.sq_conv import sq_conv_k8, sq_conv_plain  # noqa: E402
@@ -530,19 +530,25 @@ def _cpm_planes(dev, m, k, n, seed=0):
 
 @pytest.mark.parametrize("m,k,n", [(4096, 1024, 1024), (64, 64, 64),
                                    (1, 100, 33), (37, 1, 5), (19, 130, 1),
-                                   (128, 257, 96), (17, 65, 31)])
+                                   (128, 257, 96), (17, 65, 31),
+                                   # across the tile edges, unaligned rows
+                                   (129, 1024, 65), (128, 1023, 64),
+                                   (1, 1, 1),
+                                   # own and 1 x 1 thread tiles, ragged
+                                   (1100, 33, 1030), (1030, 36, 1100),
+                                   (500, 21, 510), (520, 36, 260)])
 def test_k5_k6_match_plain_on_card(cuda_device, m, k, n):
     planes, k5, k6, tol = _cpm_planes(cuda_device, m, k, n)
     outs = {}
-    for name, kern, plain, corr in (("K5", cpm3_matmul_k5, cpm3_matmul_plain,
-                                     k5),
-                                    ("K6", cpm4_matmul_k6, cpm4_matmul_plain,
-                                     k6)):
+    for name, kern, plain, corr, launch_shape in (
+            ("K5", cpm3_matmul_k5, cpm3_matmul_plain, k5, k5_launch_shape),
+            ("K6", cpm4_matmul_k6, cpm4_matmul_plain, k6, k6_launch_shape)):
         before, before_shape = kern.launches, kern.shapes[(m, k, n)]
         re, im = kern(*planes, *corr)
         torch.cuda.synchronize()
         assert kern.launches == before + 1
         assert kern.shapes[(m, k, n)] == before_shape + 1
+        assert kern.last_shape == launch_shape(m, n), name
         pre, pim = plain(*planes, *corr)
         assert re.shape == im.shape == (m, n)
         assert torch.isfinite(re).all() and torch.isfinite(im).all()
@@ -551,6 +557,50 @@ def test_k5_k6_match_plain_on_card(cuda_device, m, k, n):
         outs[name] = (re, im)
     for p in (0, 1):
         assert (outs["K5"][p] - outs["K6"][p]).abs().max().item() <= 2 * tol
+
+
+def test_k5_k6_unaligned_planes_on_card(cuda_device):
+    """Planes that start 4 bytes past a 16-byte boundary (contiguous views)
+    take the kernels' scalar copies at their own thread tiles and still
+    match the plain versions."""
+    m, k, n = 1030, 36, 1100
+    planes, k5, k6, tol = _cpm_planes(cuda_device, m, k, n)
+    shifted = []
+    for p in planes:
+        view = torch.empty(p.numel() + 1, device=cuda_device)[1:].view(
+            p.shape)
+        view.copy_(p)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        shifted.append(view)
+    for name, kern, plain, corr, launch_shape in (
+            ("K5", cpm3_matmul_k5, cpm3_matmul_plain, k5, k5_launch_shape),
+            ("K6", cpm4_matmul_k6, cpm4_matmul_plain, k6, k6_launch_shape)):
+        re, im = kern(*shifted, *corr)
+        torch.cuda.synchronize()
+        assert kern.last_shape == launch_shape(m, n)
+        assert kern.last_shape["thread_tile"] == (
+            (8, 4) if name == "K5" else (4, 4))
+        pre, pim = plain(*planes, *corr)
+        assert (re - pre).abs().max().item() <= tol, name
+        assert (im - pim).abs().max().item() <= tol, name
+
+
+def test_k5_k6_wide_rows_on_card(cuda_device):
+    """A row of 1.5M columns: more than 65535 column tiles of the 1 x 1
+    thread tile, within the grid limit at each kernel's own tile, which the
+    rule takes there."""
+    m, k, n = 1, 2, 1_500_000
+    planes, k5, k6, tol = _cpm_planes(cuda_device, m, k, n)
+    for name, kern, plain, corr, launch_shape in (
+            ("K5", cpm3_matmul_k5, cpm3_matmul_plain, k5, k5_launch_shape),
+            ("K6", cpm4_matmul_k6, cpm4_matmul_plain, k6, k6_launch_shape)):
+        re, im = kern(*planes, *corr)
+        torch.cuda.synchronize()
+        assert kern.last_shape == launch_shape(m, n)
+        assert kern.last_shape["grid"][1] == -(-n // 64), name
+        pre, pim = plain(*planes, *corr)
+        assert (re - pre).abs().max().item() <= tol, name
+        assert (im - pim).abs().max().item() <= tol, name
 
 
 def test_k5_k6_refuse_int_planes_on_card(cuda_device):
