@@ -24,7 +24,11 @@ phase prints the split and cluster shape its kernel launched with.
 
 It then holds the convolution kernels to their plain versions -- K7 at the
 six ResNet-50 layers it runs at batch 8 and a ragged/padded set, K8 on
-2^20-sample FIR streams -- and drives the two conv paths as a user would:
+2^20-sample FIR streams and a ragged set, every template instance of both
+free of spills in the compiler's report and every launch's grid and tile
+checked against its Python mirror, each timed row beside the bound and
+the FP32 slot floor, with per-pass sums beside F.conv2d and F.conv1d --
+and drives the two conv paths as a user would:
 ``conv2d(mode="square_pallas")`` with prepared filters over those layers
 and the CIFAR ResNet stem (K7 six times, K1 once through im2col), and
 ``ops.sq_conv`` over the three streams (K8 three times).
@@ -84,9 +88,9 @@ from repro_torch.kernels.cpm3_matmul import (                   # noqa: E402
 from repro_torch.kernels.cpm4_matmul import (                   # noqa: E402
     cpm4_matmul_k6, cpm4_matmul_plain, k6_launch_shape)
 from repro_torch.kernels.sq_conv import (                       # noqa: E402
-    sq_conv_k8, sq_conv_plain)
+    k8_launch_shape, sq_conv_k8, sq_conv_plain)
 from repro_torch.kernels.sq_conv2d import (                     # noqa: E402
-    conv2d_out_hw, k_splits, sq_conv2d_k7, sq_conv2d_plain)
+    conv2d_out_hw, k7_launch_shape, sq_conv2d_k7, sq_conv2d_plain)
 from repro_torch.kernels.sq_paged_attn import (                 # noqa: E402
     k4_splits, sq_paged_attn_k4, sq_paged_attn_plain)
 from repro_torch.launch.serve import make_requests              # noqa: E402
@@ -1070,15 +1074,32 @@ def k7_call(x, w, stride, padding):
                                          padding=padding))
 
 
+def conv_build_report():
+    """K7's and K8's compiler report: each template instance's registers
+    and spill bytes, which must be 0."""
+    for name, source in (("K7", "sq_conv2d"), ("K8", "sq_conv")):
+        for row in build.ptxas_usage(build.report(source)):
+            inst = re.search(r"kernelI([if])E", row["entry"])
+            dtype = {"f": "f32", "i": "int32"}[inst[1]] if inst else \
+                row["entry"]
+            spill = row["spill_stores"] + row["spill_loads"]
+            check(spill == 0, f"{name} {dtype}: {row['registers']} "
+                              f"registers, {spill} bytes spilled")
+
+
 def k7_phase(dev, gen):
     """K7 against its plain version at every ResNet-50 fused layer and a
     ragged/padded set (f32 and int8), against the im2col route on the same
-    operands, and timed beside the plain version, F.conv2d and the bound.
+    operands, each launch's grid and tile checked against
+    ``k7_launch_shape``, and timed beside the plain version, F.conv2d, the
+    bound and the FP32 slot floor (2 slots a term), with the per-pass sums.
     Operands are activations their caller has just written, so they stay
     hot, as for K2/K3."""
     print("K7 sq_conv2d vs plain (f32 |err| <= K * 2^-23 * (max|x| + "
           "max|w|)^2 with K = kh*kw*cin; int8 exact; fused = im2col route "
           "within the same bound, int8 bit for bit)", flush=True)
+    conv_build_report()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     cases = [(name, xs, ws, st, pd, True) for name, xs, ws, st, pd
              in RESNET50_LAYERS]
@@ -1091,6 +1112,10 @@ def k7_phase(dev, gen):
         kern, plain, im2col = k7_call(x, w, stride, padding)
         out, ref, via = kern(), plain(), im2col()
         torch.cuda.synchronize()
+        shape = sq_conv2d_k7.last_shape
+        strides, pads = conv_geometry(xshape, wshape, stride, padding)
+        want = k7_launch_shape(xshape, wshape[0], wshape[2:], strides, pads,
+                               sms)
         tol = conv_tol(x, w, kvol)
         err = (out - ref).abs().max().item()
         err_route = (out - via).abs().max().item()
@@ -1101,12 +1126,17 @@ def k7_phase(dev, gen):
               f"f32 {label}: max|err| {err:.3e} <= {tol:.3e}")
         check(err_route <= tol, f"f32 {label}: fused vs im2col route "
                                 f"max|diff| {err_route:.3e} <= {tol:.3e}")
+        check(shape == want, f"{label}: grid {shape['grid']} of "
+                             f"{shape['tile'][0]} x {shape['tile'][1]} tiles, "
+                             f"band {shape['band']}, {shape['pixels']} pixels "
+                             f"a tile, {shape['slice']} channels a slice, "
+                             f"window {shape['window']}, "
+                             f"{shape['grid'][2]} split(s), as the mirror says")
         if not timed or name in ("conv1", "conv3_1 3x3/2", "conv5_x 3x3"):
             xi = torch.randint(-128, 128, xshape, generator=gen,
                                dtype=torch.int32).to(dev)
             wi = torch.randint(-128, 128, wshape, generator=gen,
                                dtype=torch.int32).to(dev)
-            strides, pads = conv_geometry(xshape, wshape, stride, padding)
             ki, pi, ii = k7_call(xi, wi, stride, padding)
             oi = ki()
             exact = conv_core.conv2d_nchw(xi, wi, strides, pads, torch.int32)
@@ -1116,7 +1146,6 @@ def k7_phase(dev, gen):
         if not timed:
             rows.append(dict(name=name, max_abs_err=err))
             continue
-        strides, pads = conv_geometry(xshape, wshape, stride, padding)
         ms = time_graph([kern])
         plain_ms = time_graph([plain], reps=2, replays=2)
         lib_ms = time_graph([lambda: torch.nn.functional.conv2d(
@@ -1129,26 +1158,33 @@ def k7_phase(dev, gen):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, \
             ops_n / FP32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
+        floor = 2 * terms / FP32_SLOTS_PER_S * 1e3
         row = dict(name=name, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=bound, t_bytes=t_bytes, t_ops=t_ops,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   max_abs_err=err, terms=terms)
+                   max_abs_err=err, terms=terms, slot_floor_ms=floor)
         rows.append(row)
-        splits = k_splits(out.shape[0] * oh * ow, cout, kvol,
-                          torch.cuda.get_device_properties(
-                              dev).multi_processor_count)
         print(f"    {name:14s} {terms / 1e6:7.1f} M terms, K walk split "
-              f"{splits}x  K7 {ms:.4f} ms | "
+              f"{shape['grid'][2]}x  K7 {ms:.4f} ms | "
               f"plain {plain_ms:.4f} ms | F.conv2d (f32, no TF32) "
               f"{lib_ms:.4f} ms | bound {bound:.4f} ms ({row['bound_by']}) "
-              f"| {bound / ms:.1%} of bound", flush=True)
+              f"| {bound / ms:.1%} of bound | slot floor {floor:.4f} ms (2 "
+              f"slots a term) | {floor / ms:.1%} of floor", flush=True)
+    timed = [r for r in rows if "ms" in r]
+    ms, lib, floor = (sum(r[k] for r in timed)
+                      for k in ("ms", "library_ms", "slot_floor_ms"))
+    print(f"  K7 per pass over the {len(timed)} layers: {ms:.4f} ms | "
+          f"F.conv2d {lib:.4f} ms ({ms / lib:.2f}x) | slot floor "
+          f"{floor:.4f} ms ({floor / ms:.1%} of floor)", flush=True)
     return rows
 
 
 def k8_phase(dev, gen):
     """K8 against its plain version on the FIR streams (L = 2^20 at 16, 127
-    and 255 taps) and a ragged set, f32 and int8, timed beside the plain
-    version, F.conv1d and the bound."""
+    and 255 taps) and a ragged set, f32 and int8, each launch's grid
+    checked against ``k8_launch_shape``, timed beside the plain version,
+    F.conv1d, the bound and the FP32 slot floor (2 slots a term), with the
+    per-pass sums."""
     print("K8 sq_conv vs plain (f32 |err| <= n * 2^-23 * (max|x| + "
           "max|w|)^2; int8 exact)", flush=True)
     rows = []
@@ -1161,10 +1197,15 @@ def k8_phase(dev, gen):
         out = sq_conv_k8(x, w, sw)
         ref = sq_conv_plain(x, w, sw)
         torch.cuda.synchronize()
+        shape = sq_conv_k8.last_shape
         tol = conv_tol(x, w, n)
         err = (out - ref).abs().max().item()
         check(bool(torch.isfinite(out).all()) and err <= tol,
               f"f32 L={L} n={n}: max|err| {err:.3e} <= {tol:.3e}")
+        check(shape == k8_launch_shape(L, n),
+              f"L={L} n={n}: {shape['grid']} blocks of {shape['block']} "
+              f"outputs, {shape['thread']} a thread, taps staged "
+              f"{shape['tap_chunk']} at a time, as the mirror says")
         xi = torch.randint(-128, 128, (L,), generator=gen,
                            dtype=torch.int32).to(dev)
         wi = torch.randint(-128, 128, (n,), generator=gen,
@@ -1189,15 +1230,23 @@ def k8_phase(dev, gen):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, \
             ops_n / FP32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
+        floor = 2 * k_out * n / FP32_SLOTS_PER_S * 1e3
         row = dict(L=L, n=n, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                    bound_ms=bound, t_bytes=t_bytes, t_ops=t_ops,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   max_abs_err=err)
+                   max_abs_err=err, slot_floor_ms=floor)
         rows.append(row)
         print(f"    L=2^20 n={n:3d}  K8 {ms:.4f} ms | plain {plain_ms:.4f} ms "
               f"| F.conv1d (f32, no TF32) {lib_ms:.4f} ms | bound "
               f"{bound:.4f} ms ({row['bound_by']}) | {bound / ms:.1%} of "
-              f"bound", flush=True)
+              f"bound | slot floor {floor:.4f} ms (2 slots a term) | "
+              f"{floor / ms:.1%} of floor", flush=True)
+    timed = [r for r in rows if "ms" in r]
+    ms, lib, bound = (sum(r[k] for r in timed)
+                      for k in ("ms", "library_ms", "bound_ms"))
+    print(f"  K8 per pass over the {len(timed)} streams: {ms:.4f} ms | "
+          f"F.conv1d {lib:.4f} ms ({ms / lib:.2f}x) | bound {bound:.4f} ms "
+          f"({bound / ms:.1%} of bound)", flush=True)
     return rows
 
 

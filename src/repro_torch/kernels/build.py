@@ -30,7 +30,7 @@ from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
 __all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "BUILD_DIR", "build", "load",
-           "check", "report", "ptxas_usage"]
+           "bind", "check", "report", "ptxas_usage"]
 
 KERNEL_SOURCES = ("sq_matmul", "sq_paged_attn", "cpm3_matmul", "cpm4_matmul",
                   "sq_conv2d", "sq_conv")
@@ -49,6 +49,7 @@ _LOCK = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "sq_matmul": {
         "fs_sq_matmul": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -67,11 +68,11 @@ _SIGNATURES = {
         "fs_cpm4_matmul": [_P] * 8 + [_I, _I, _I, _P, _P],
     },
     "sq_conv2d": {
-        "fs_sq_conv2d": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+        "fs_sq_conv2d": [_I, _P, _P, _P, _P] + [_I] * 14
+                        + [_P, _L, _P, _L, _P, _P],
     },
     "sq_conv": {
-        "fs_sq_conv": [_I, _P, _P, _P, _P, _I, _I, _P],
+        "fs_sq_conv": [_I, _P, _P, _P, _P, _I, _I, _P, _P],
     },
 }
 
@@ -140,6 +141,17 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
         return reports
 
 
+def bind(path, name: str) -> ctypes.CDLL:
+    """Load the library at ``path`` with the C entries of source ``name``."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.fs_error_string.argtypes = [ctypes.c_int]
+    lib.fs_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, built first if needed."""
     lib = _LIBS.get(name)
@@ -149,13 +161,7 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_library_path(name)))
-            for fn, argtypes in _SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            lib.fs_error_string.argtypes = [ctypes.c_int]
-            lib.fs_error_string.restype = ctypes.c_char_p
-            _LIBS[name] = lib
+            lib = _LIBS[name] = bind(_library_path(name), name)
     return lib
 
 

@@ -4,7 +4,9 @@ its plain PyTorch version.
 :func:`sq_conv_k8` replaces ``src/repro/kernels/sq_conv.py::
 sq_conv_kernel`` (behind ``sq_conv_pallas``).  The kernel lives in
 ``src/repro_torch/csrc/sq_conv.cu``, whose header states what bounds it on
-an H100 and how its design meets that.
+an H100 and how its design meets that: 2048 outputs a block, 8 a thread,
+the taps walked in staged chunks of 256, each output's sum of squares
+formed from squares taken once a sample (:func:`k8_launch_shape`).
 
 It takes pre-widened operands in f32 or int32 -- samples ``xw`` (L,), taps
 ``ww`` (n,) with 1 <= n <= L, and the tap correction ``sw`` (1,)
@@ -19,16 +21,20 @@ arithmetic shift, as ``squares.halve`` does.
 from __future__ import annotations
 
 import collections
+import ctypes
 
 import torch
 
 from repro_torch.core import squares as sq
 from repro_torch.kernels import build
 
-__all__ = ["sq_conv_k8", "sq_conv_plain"]
+__all__ = ["sq_conv_k8", "sq_conv_plain", "k8_launch_shape"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
 _INT_MAX = 2 ** 31 - 1
+# csrc/sq_conv.cu: outputs a thread, threads a block, taps a staged chunk
+_R, _THREADS, _TC = 8, 256, 256
+_SHAPE_INTS = 4               # the C entry's launch report
 _PLAIN_CHUNK_ELEMS = 1 << 24  # bound on the plain version's live term tensor
 
 
@@ -48,6 +54,15 @@ def sq_conv_plain(xw: torch.Tensor, ww: torch.Tensor,
         s = xs + ww[t0:t0 + tc, None]
         acc = acc + torch.sum(s * s - xs * xs, dim=0, dtype=acc.dtype)
     return sq.halve(acc)
+
+
+def k8_launch_shape(L: int, n: int) -> dict:
+    """K8's launch for L samples and n taps, as ``csrc/sq_conv.cu`` makes
+    it: one block a run of ``block`` outputs, ``thread`` outputs a thread,
+    the taps staged ``tap_chunk`` at a time."""
+    bo = _R * _THREADS
+    return {"grid": -(-(L - n + 1) // bo), "block": bo, "thread": _R,
+            "tap_chunk": _TC}
 
 
 def _check(xw, ww, sw) -> None:
@@ -76,7 +91,9 @@ def sq_conv_k8(xw: torch.Tensor, ww: torch.Tensor,
 
     ``sq_conv_k8.launches`` counts the kernel launches made by this
     process, and ``sq_conv_k8.shapes`` counts them by ``(L, n)``; a CPU
-    call does not count.
+    call does not count.  ``sq_conv_k8.last_shape`` is the last launch as
+    the kernel reports it (:func:`k8_launch_shape`'s form), None before
+    one.
     """
     _check(xw, ww, sw)
     if xw.device.type == "cpu":
@@ -91,16 +108,21 @@ def sq_conv_k8(xw: torch.Tensor, ww: torch.Tensor,
     out = torch.empty((L - n + 1,), dtype=xw.dtype, device=xw.device)
     xw, ww, sw = xw.contiguous(), ww.contiguous(), sw.contiguous()
     lib = build.load("sq_conv")
+    report = (ctypes.c_int * _SHAPE_INTS)()
     with torch.cuda.device(xw.device):
         stream = torch.cuda.current_stream(xw.device).cuda_stream
         rc = lib.fs_sq_conv(_DTYPE_CODES[xw.dtype], xw.data_ptr(),
                             ww.data_ptr(), sw.data_ptr(), out.data_ptr(), L,
-                            n, stream)
+                            n, stream, ctypes.addressof(report))
     build.check(lib, rc, "K8 sq_conv launch")
     sq_conv_k8.launches += 1
     sq_conv_k8.shapes[(L, n)] += 1
+    grid, bo, r, tc = report
+    sq_conv_k8.last_shape = {"grid": grid, "block": bo, "thread": r,
+                             "tap_chunk": tc}
     return out
 
 
 sq_conv_k8.launches = 0
 sq_conv_k8.shapes = collections.Counter()
+sq_conv_k8.last_shape = None

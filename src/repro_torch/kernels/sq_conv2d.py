@@ -4,7 +4,10 @@
 sq_conv2d_kernel`` (behind ``sq_conv2d_pallas``): an implicit-GEMM
 correlation that never builds the im2col patch tensor.  The kernel lives
 in ``src/repro_torch/csrc/sq_conv2d.cu``, whose header states what bounds
-it on an H100 and how its design meets that.
+it on an H100 and how its design meets that: a block of 128 threads per
+64-pixel x 64-filter tile, each thread an 8 x 4 register tile, one input
+window per tile and channel slice staged in shared memory, the launch
+picked per layer by the rule that :func:`k7_launch_shape` mirrors.
 
 It takes pre-widened operands, as the Pallas kernel does, in f32 or int32:
 the input ``xw`` (B, cin, H, W) NCHW and unpadded (the kernel masks the
@@ -20,6 +23,7 @@ correction ``sw`` (cout,) ``= -sum w^2``.  It returns
 from __future__ import annotations
 
 import collections
+import ctypes
 from typing import Tuple
 
 import torch
@@ -28,19 +32,23 @@ import torch.nn.functional as F
 from repro_torch.core import squares as sq
 from repro_torch.kernels import build
 
-__all__ = ["sq_conv2d_k7", "sq_conv2d_plain", "conv2d_out_hw", "k_splits"]
+__all__ = ["sq_conv2d_k7", "sq_conv2d_plain", "conv2d_out_hw",
+           "k7_launch_shape"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
 _INT_MAX = 2 ** 31 - 1
 _MAX_GRID_Y = 65535
-_BM, _BN, _BK = 128, 64, 16   # pixels x filters a block, K chunk: the source's
-# The K walk of a tile is split over several blocks when the card has more
-# SMs than there are tiles, for _BLOCKS_PER_SM blocks per SM, each split at
-# least _MIN_SPLIT_CHUNKS chunks deep.  (With a tile or more per SM a split
-# bought nothing on an H100: PERF.md, K7 findings.)
-_BLOCKS_PER_SM = 2
-_MIN_SPLIT_CHUNKS = 8
-_MAX_SPLITS = 16
+# The tile rule of csrc/sq_conv2d.cu (launch_shape): a block's tile of
+# pixels x filters and its K tile; the band widths tried (divisors of ow),
+# the channels a slice, the bytes of the window ring, the blocks an SM that
+# keep its FP32 pipes busy and the most splits of a K walk.
+_BM, _BN, _BK = 64, 64, 16
+_TC_LO, _TC_HI = 8, 16
+_CS_MAX = 16
+_WINDOW_BYTES = 64 * 1024
+_SAT_BLOCKS = 3
+_MAX_SPLITS = 8
+_SHAPE_INTS = 11              # the C entry's launch report
 _PLAIN_CHUNK_ELEMS = 1 << 24  # bound on the plain version's live term tensor
 
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
@@ -87,17 +95,77 @@ def sq_conv2d_plain(xw: torch.Tensor, wt: torch.Tensor, sw: torch.Tensor,
     return out.permute(0, 2, 1).reshape(B, N, oh, ow)
 
 
-def k_splits(M: int, N: int, K: int, sms: int) -> int:
-    """How many blocks K7 splits each output tile's K walk over on a card
-    with ``sms`` SMs: none while there are as many tiles as SMs, else enough
-    for ``_BLOCKS_PER_SM`` blocks per SM, each split at least
-    ``_MIN_SPLIT_CHUNKS`` chunks deep, at most ``_MAX_SPLITS``."""
-    tiles = -(-M // _BM) * -(-N // _BN)
-    if tiles >= sms:
-        return 1
-    want = -(-_BLOCKS_PER_SM * sms // tiles)
-    deep = -(-K // _BK) // _MIN_SPLIT_CHUNKS
-    return max(1, min(want, deep, _MAX_SPLITS))
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _window(pt: int, tc: int, oh: int, khw, stride, pw: int,
+            vec: bool) -> Tuple[int, int]:
+    """Window rows and columns of a run of ``pt`` pixels in a band of ``tc``
+    output columns: the band rows it can span, each image it crosses
+    adding kh - sh virtual rows (none when whole runs tile every image's
+    rows); with 16-byte copies (``vec``) from the aligned column at or left
+    of the band's first, in whole 4-column chunks."""
+    (kh, kw), (sh, sv) = khw, stride
+    whole = pt % tc == 0
+    rows = pt // tc if whole else (pt - 1) // tc + 2
+    cross = 0 if whole and oh % rows == 0 else _cdiv(rows - 1, oh)
+    wc = (tc - 1) * sv + kw
+    if vec:
+        wc = _cdiv((-pw & 3 if tc * sv % 4 == 0 else 3) + wc, 4) * 4
+    return (rows - 1) * sh + kh + cross * max(0, kh - sh), wc
+
+
+def k7_launch_shape(xshape, N: int, khw, stride, pads: Pads, sms: int,
+                    elem: int = 4, x_aligned: bool = True) -> dict:
+    """K7's launch for a (B, C, H, W) input, N filters of ``khw`` taps under
+    ``stride`` and ``pads``, on a card of ``sms`` SMs, as
+    ``csrc/sq_conv2d.cu`` (``launch_shape``) makes it; ``x_aligned``: the
+    input starts on a 16-byte boundary.
+
+    ``band`` is the output columns a tile row (the smallest divisor of ow
+    in [8, 16], else min(ow, 8)), ``pixels`` the pixels a tile (64 unless
+    one channel's window would not fit), ``slice`` the channels a window,
+    ``window`` its rows and staged columns (4-column chunks where W % 4 ==
+    0), ``splits`` (grid z) the blocks a tile's K walk is split over: the
+    count that least loads the busiest SM, counting fewer than 3 blocks an
+    SM as 3, the smallest on a tie.  ``grid`` is (pixel tiles, filter
+    tiles, splits); ``tile`` the block's (pixels, filters)."""
+    B, C, H, W = xshape
+    kh, kw = khw
+    oh, ow = conv2d_out_hw((H, W), khw, stride, pads)
+    vec = W % 4 == 0 and x_aligned
+    tc = next((d for d in range(_TC_LO, _TC_HI + 1) if ow % d == 0),
+              min(ow, _TC_LO))
+    pt = _BM
+    while True:
+        wr, wc = _window(pt, tc, oh, khw, stride, pads[1][0], vec)
+        if pt == 1 or 2 * elem * wr * wc <= _WINDOW_BYTES:
+            break
+        pt //= 2
+    cs = min(_CS_MAX, C, max(1, _WINDOW_BYTES // (2 * elem * wr * wc)))
+    tps = _cdiv(kh * kw * cs, _BK)
+    k_tiles = _cdiv(C, cs) * tps
+    grid_xy = (_cdiv(ow, tc) * _cdiv(B * oh * tc, pt), _cdiv(N, _BN))
+    tiles = grid_xy[0] * grid_xy[1]
+    cost = {z: max(_cdiv(tiles * z, sms), _SAT_BLOCKS) * _cdiv(k_tiles, z)
+            for z in range(1, min(_MAX_SPLITS, k_tiles) + 1)}
+    z = min(cost, key=lambda z: (cost[z], z))
+    per_split = _cdiv(k_tiles, z)
+    smem = (elem * (2 * _BK * _BM + 2 * _BK * _BN + 2 * _BM) + 4 * 6 * _BK
+            + 4 * _cdiv(cs * wr, 4) * 4 + elem * 2 * cs * wr * wc)
+    return {"grid": (*grid_xy, _cdiv(k_tiles, per_split)),
+            "tile": (_BM, _BN), "band": tc, "pixels": pt, "slice": cs,
+            "per_split": per_split, "k_tiles": k_tiles, "window": (wr, wc),
+            "smem": smem}
+
+
+def _reported(shape) -> dict:
+    """The C entry's launch report in :func:`k7_launch_shape`'s form."""
+    gx, gy, gz, tc, cs, per_split, wr, wc, smem, k_tiles, pt = shape
+    return {"grid": (gx, gy, gz), "tile": (_BM, _BN), "band": tc,
+            "pixels": pt, "slice": cs, "per_split": per_split,
+            "k_tiles": k_tiles, "window": (wr, wc), "smem": smem}
 
 
 def _check(xw, wt, sw, khw) -> None:
@@ -131,6 +199,8 @@ def sq_conv2d_k7(xw: torch.Tensor, wt: torch.Tensor, sw: torch.Tensor, *,
     ``sq_conv2d_k7.launches`` counts the kernel launches made by this
     process, and ``sq_conv2d_k7.shapes`` counts them by ``(B, cin, H, W,
     cout, kh, kw, stride, pads)``; a CPU call does not count.
+    ``sq_conv2d_k7.last_shape`` is the last launch as the kernel reports it
+    (:func:`k7_launch_shape`'s form), None before one.
     """
     _check(xw, wt, sw, khw)
     B, C, H, W = xw.shape
@@ -146,36 +216,43 @@ def sq_conv2d_k7(xw: torch.Tensor, wt: torch.Tensor, sw: torch.Tensor, *,
         raise ValueError(f"K7 runs on CUDA (or its plain version on CPU), "
                          f"got a tensor on {xw.device}")
     M = B * oh * ow
-    if max(xw.numel(), wt.numel(), M * N, M + _BM) > _INT_MAX \
-            or -(-N // _BN) > _MAX_GRID_Y:
+    xw, wt, sw = xw.contiguous(), wt.contiguous(), sw.contiguous()
+    sms = torch.cuda.get_device_properties(xw.device).multi_processor_count
+    shape = k7_launch_shape(xw.shape, N, khw, stride, pads, sms,
+                            x_aligned=xw.data_ptr() % 16 == 0)
+    gx, gy, gz = shape["grid"]
+    if max(xw.numel(), wt.numel(), M * N) > _INT_MAX or gy > _MAX_GRID_Y:
         raise ValueError(f"K7 shape {tuple(xw.shape)} x {tuple(wt.shape)} "
                          f"exceeds the kernel's 32-bit indexing or grid "
                          f"limits")
     out = torch.empty((B, N, oh, ow), dtype=xw.dtype, device=xw.device)
     if out.numel() == 0:
         return out
-    xw, wt, sw = xw.contiguous(), wt.contiguous(), sw.contiguous()
-    splits = k_splits(M, N, wt.shape[0], torch.cuda.get_device_properties(
-        xw.device).multi_processor_count)
-    # the split partials and one zeroed ticket a tile (unused with 1 split)
-    partial = torch.empty(splits * M * N if splits > 1 else 0,
+    # the split partials and one zeroed ticket a tile (none with 1 split)
+    split = gz > 1
+    partial = torch.empty(gx * gy * gz * _BM * _BN if split else 0,
                           dtype=xw.dtype, device=xw.device)
-    tickets = torch.zeros(-(-M // _BM) * -(-N // _BN) if splits > 1 else 0,
-                          dtype=torch.int32, device=xw.device)
+    tickets = torch.zeros(gx * gy if split else 0, dtype=torch.int32,
+                          device=xw.device)
     lib = build.load("sq_conv2d")
+    report = (ctypes.c_int * _SHAPE_INTS)()
     with torch.cuda.device(xw.device):
         stream = torch.cuda.current_stream(xw.device).cuda_stream
         rc = lib.fs_sq_conv2d(_DTYPE_CODES[xw.dtype], xw.data_ptr(),
                               wt.data_ptr(), sw.data_ptr(), out.data_ptr(),
                               B, C, H, W, N, kh, kw, stride[0], stride[1],
-                              pads[0][0], pads[1][0], oh, ow, splits,
-                              partial.data_ptr(), tickets.data_ptr(), stream)
+                              pads[0][0], pads[1][0], oh, ow, sms,
+                              partial.data_ptr(), partial.numel(),
+                              tickets.data_ptr(), tickets.numel(), stream,
+                              ctypes.addressof(report))
     build.check(lib, rc, "K7 sq_conv2d launch")
     sq_conv2d_k7.launches += 1
     sq_conv2d_k7.shapes[(B, C, H, W, N, kh, kw, tuple(stride),
                          tuple(map(tuple, pads)))] += 1
+    sq_conv2d_k7.last_shape = _reported(tuple(report))
     return out
 
 
 sq_conv2d_k7.launches = 0
 sq_conv2d_k7.shapes = collections.Counter()
+sq_conv2d_k7.last_shape = None

@@ -243,16 +243,26 @@ def test_prepared_operands_keep_their_kind():
 
 
 def test_k7_splits_the_k_walk_of_the_deep_layers():
-    """On a 132-SM card K7 splits the K walk of the ResNet-50 layers with
-    fewer output tiles than SMs, never below 8 chunks a split."""
-    from repro_torch.kernels.sq_conv2d import k_splits
-    layers = [(8 * 112 * 112, 64, 147), (8 * 56 * 56, 64, 256),
-              (8 * 56 * 56, 64, 576), (8 * 28 * 28, 128, 1152),
-              (8 * 14 * 14, 256, 2304), (8 * 7 * 7, 512, 4608)]
-    assert [k_splits(m, n, k, 132) for m, n, k in layers] == \
-        [1, 1, 1, 3, 6, 9]
-    assert k_splits(49, 129, 130, 132) == 1          # too shallow to split
-    assert k_splits(81, 96, 2304, 132) == 16
+    """On a 132-SM card K7 splits the K walk of the ResNet-50 layers whose
+    64 x 64 tiles leave the busiest SM short of 3 blocks (conv3_1, conv4_x,
+    conv5_x: 2, 5 and 7 ways) and no other; a split is a whole number of
+    16-deep K tiles, and the splits cover the walk."""
+    from repro_torch.kernels.sq_conv2d import k7_launch_shape
+    layers = [((8, 3, 224, 224), 64, (7, 7), 2, 3),
+              ((8, 256, 56, 56), 64, (1, 1), 1, 0),
+              ((8, 64, 56, 56), 64, (3, 3), 1, 1),
+              ((8, 128, 56, 56), 128, (3, 3), 2, 1),
+              ((8, 256, 14, 14), 256, (3, 3), 1, 1),
+              ((8, 512, 7, 7), 512, (3, 3), 1, 1)]
+    shapes = [k7_launch_shape(xs, n, khw, (s, s), ((p, p), (p, p)), 132)
+              for xs, n, khw, s, p in layers]
+    assert [sh["grid"][2] for sh in shapes] == [1, 1, 1, 2, 5, 7]
+    for sh in shapes:
+        z, per = sh["grid"][2], sh["per_split"]
+        assert per * z >= sh["k_tiles"] > per * (z - 1)
+    # a card of 8 SMs is filled without a split at conv2_x
+    assert k7_launch_shape((8, 64, 56, 56), 64, (3, 3), (1, 1),
+                           ((1, 1), (1, 1)), 8)["grid"][2] == 1
 
 
 # ---------------------------------------------------------------------------

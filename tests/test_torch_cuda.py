@@ -487,6 +487,161 @@ def test_k8_matches_plain_on_card(cuda_device, L, n):
             assert (out - ref).abs().max().item() <= tol
 
 
+# Each branch of K7's tile rule (kernels/sq_conv2d.py::k7_launch_shape):
+# band 8, a wider divisor of ow (14, 15), ow itself below 8, a band that
+# does not divide ow (23 -> 8), the pixels-a-tile guard (24 x 24 filter),
+# 16-byte and single-column windows (W % 4), split and unsplit K walks,
+# ragged channels, odd sizes, every stride and padding form
+K7_TIER_CASES = [
+    ((2, 5, 16, 16), (7, 5, 3, 3), 1, "SAME"),
+    ((1, 20, 28, 28), (33, 20, 3, 3), 1, 1),
+    ((2, 9, 14, 14), (65, 9, 3, 3), 2, 1),
+    ((3, 17, 7, 7), (70, 17, 3, 3), 1, "SAME"),
+    ((1, 3, 23, 23), (4, 3, 3, 3), 1, "SAME"),
+    ((1, 2, 24, 24), (3, 2, 24, 24), 1, "VALID"),
+    ((2, 6, 30, 30), (9, 6, 7, 7), 2, 3),
+    ((2, 19, 13, 11), (5, 19, 1, 1), (1, 2), ((0, 1), (2, 0))),
+    ((8, 16, 56, 56), (64, 16, 3, 3), 1, 1),
+]
+
+
+@pytest.mark.parametrize("case", K7_TIER_CASES, ids=lambda c: "x".join(
+    map(str, c[0] + c[1][:1] + c[1][2:])))
+def test_k7_tile_tiers_on_card(cuda_device, case):
+    """f32 within the bound of the plain version; int8 bit-exact, equal to
+    the plain version and to the im2col route; each launch as the mirror
+    says."""
+    from repro_torch.core import conv as cc
+    xs, ws, stride, padding = case
+    strides = cc.resolve_stride(stride)
+    pads = cc.resolve_padding(padding, xs[2:], ws[2:], strides)
+    sms = torch.cuda.get_device_properties(
+        cuda_device).multi_processor_count
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(rng.normal(size=xs), dtype=torch.float32)
+    w = torch.as_tensor(rng.normal(size=ws) / (ws[1] * ws[2] * ws[3]) ** .5,
+                        dtype=torch.float32)
+    xi = torch.as_tensor(rng.integers(-128, 128, xs), dtype=torch.int32)
+    wi = torch.as_tensor(rng.integers(-128, 128, ws), dtype=torch.int32)
+    for x_, w_ in ((x, w), (xi, wi)):
+        x_, w_ = x_.to(cuda_device), w_.to(cuda_device)
+        wt, sw, _ = ops.prepare_conv2d_weights(w_)
+        out = sq_conv2d_k7(x_, wt, sw, khw=ws[2:], stride=strides, pads=pads)
+        torch.cuda.synchronize()
+        assert sq_conv2d_k7.last_shape == k7mod.k7_launch_shape(
+            xs, ws[0], ws[2:], strides, pads, sms)
+        ref = sq_conv2d_plain(x_, wt, sw, ws[2:], strides, pads)
+        if x_.dtype == torch.int32:
+            assert torch.equal(out, ref)
+            assert torch.equal(out, _conv_ref_int(x_, w_, strides, pads))
+            assert torch.equal(out, ops.sq_conv2d_im2col(
+                x_, w_, stride=stride, padding=padding))
+        else:
+            tol = ws[1] * ws[2] * ws[3] * 2.0 ** -23 * (
+                x_.abs().max() + w_.abs().max()).item() ** 2
+            assert torch.isfinite(out).all()
+            assert (out - ref).abs().max().item() <= tol
+
+
+def test_k7_split_layer_is_deterministic_on_card(cuda_device):
+    """At a layer whose K walk is split 8 ways, two launches are equal bit
+    for bit (the splits are added in split order, whichever finishes
+    last), and prepared filters give the raw filters' result bit for
+    bit."""
+    from repro_torch.core.conv import conv2d
+    from repro_torch.core.prepared import prepare_operand
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(1, 256, 14, 14, generator=gen).to(cuda_device)
+    w = (torch.randn(256, 256, 3, 3, generator=gen) / 48).to(cuda_device)
+    wt, sw, _ = ops.prepare_conv2d_weights(w)
+    runs = [sq_conv2d_k7(x, wt, sw, khw=(3, 3), stride=(1, 1),
+                         pads=((1, 1), (1, 1))) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert sq_conv2d_k7.last_shape["grid"][2] == 8
+    assert torch.equal(runs[0], runs[1])
+    raw = conv2d(x, w, padding=1, mode="square_pallas")
+    prep = conv2d(x, prepare_operand(w, for_="conv2d"), padding=1,
+                  mode="square_pallas")
+    assert torch.equal(raw, prep) and torch.equal(raw, runs[0])
+
+
+@pytest.mark.parametrize("n", [1, 3, 16, 127, 255, 300])
+def test_k8_ragged_lengths_on_card(cuda_device, n):
+    """L not a multiple of a block's 2048 outputs (nor of 4), taps below,
+    at and past the 256-tap chunk: f32 within the bound, int8 exact, the
+    launch as the mirror says."""
+    L = 3 * 2048 + 777 + n
+    rng = np.random.default_rng(n)
+    x = torch.as_tensor(rng.normal(size=L), dtype=torch.float32)
+    w = torch.as_tensor(rng.normal(size=n) / n ** .5, dtype=torch.float32)
+    xi = torch.as_tensor(rng.integers(-128, 128, L), dtype=torch.int32)
+    wi = torch.as_tensor(rng.integers(-128, 128, n), dtype=torch.int32)
+    for xs, ws in ((x, w), (xi, wi)):
+        xs, ws = xs.to(cuda_device), ws.to(cuda_device)
+        sw = sq.col_correction(ws, dim=0).reshape(1)
+        out = sq_conv_k8(xs, ws, sw)
+        torch.cuda.synchronize()
+        assert sq_conv_k8.last_shape == k8mod.k8_launch_shape(L, n)
+        ref = sq_conv_plain(xs, ws, sw)
+        if xs.dtype == torch.int32:
+            assert torch.equal(out, ref)
+        else:
+            tol = n * 2.0 ** -23 * (xs.abs().max()
+                                    + ws.abs().max()).item() ** 2
+            assert (out - ref).abs().max().item() <= tol
+
+
+_SANITIZED = """
+import sys, torch
+sys.path.insert(0, "src")
+from repro_torch.kernels import ops
+from repro_torch.kernels.sq_conv2d import sq_conv2d_k7
+from repro_torch.kernels.sq_conv import sq_conv_k8
+g = torch.Generator().manual_seed(0)
+for xs, ws, st, pads in [((2, 20, 28, 28), (16, 20, 3, 3), (2, 2), ((1, 1), (1, 1))),
+                         ((1, 32, 7, 7), (8, 32, 3, 3), (1, 1), ((1, 1), (1, 1))),
+                         ((1, 17, 16, 16), (9, 17, 1, 1), (1, 1), ((0, 0), (0, 0)))]:
+    x = torch.randn(xs, generator=g).cuda()
+    wt, sw, _ = ops.prepare_conv2d_weights(torch.randn(ws, generator=g).cuda())
+    sq_conv2d_k7(x, wt, sw, khw=ws[2:], stride=st, pads=pads)
+for L, n in [(5000, 16), (3000, 300)]:
+    x, w = torch.randn(L, generator=g).cuda(), torch.randn(n, generator=g).cuda()
+    sq_conv_k8(x, w, -(w * w).sum().reshape(1))
+torch.cuda.synchronize()
+print("launched", sq_conv2d_k7.launches, sq_conv_k8.launches)
+"""
+
+
+@pytest.mark.parametrize("tool", ["racecheck", "synccheck"])
+def test_conv_copy_rings_under_compute_sanitizer(cuda_device, tool):
+    """K7's cp.async rings and K8's staging at small shapes under
+    compute-sanitizer: no hazard.  Where the tool cannot run the program on
+    this host, the test skips with the tool's own words."""
+    import shutil
+    import subprocess
+    import sys
+    from pathlib import Path
+    exe = shutil.which("compute-sanitizer") or \
+        "/usr/local/cuda/bin/compute-sanitizer"
+    if not Path(exe).exists():
+        pytest.skip("compute-sanitizer is not installed on this host")
+    root = Path(__file__).resolve().parents[1]
+    from repro_torch.kernels import build
+    build.build(["sq_conv2d", "sq_conv"])      # outside the tool
+    proc = subprocess.run([exe, "--tool", tool, sys.executable, "-c",
+                           _SANITIZED], cwd=root, capture_output=True,
+                          text=True, timeout=600)
+    text = proc.stdout + proc.stderr
+    if "launched 3 2" not in text:
+        pytest.skip(f"compute-sanitizer --tool {tool} could not run the "
+                    f"kernels here (exit {proc.returncode}): "
+                    f"{text.strip()[-600:]}")
+    import re
+    assert proc.returncode == 0, text[-3000:]
+    assert re.search(r"SUMMARY: 0 ", text), text[-3000:]
+    assert not re.search(r"\b[1-9]\d* (hazard|error)", text), text[-3000:]
+
+
 def test_conv_kernels_never_reach_plain_on_card(cuda_device, monkeypatch):
     """A CUDA tensor launches K7/K8 through every entry point: with the
     plain versions made to raise, the conv path still runs."""
