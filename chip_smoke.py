@@ -12,7 +12,25 @@ through the kernels, at shapes held to their plain versions:
   attention einsums of each prefill chunk as well;
 - the dense reference Server (``--legacy``) with no policy: K2/K3 on
   prefill attention, K3 on every decode step's attention, K1 elsewhere; a
-  few of its decode steps are traced too.
+  few of its decode steps are traced too;
+- the launcher (``repro_torch.launch.serve.main``) as the first path, with
+  ``--guard``, ``--deadline-ms``, ``--queue-limit``, ``--metrics-file`` and
+  ``--trace-out``, inside a contraction audit: the first path's tokens,
+  a snapshot and a trace that pass ``repro_torch.obs.check``, no guard
+  trip, recompute or step failure, the same K1/K4 launches per step, and
+  the audit's per-site mults and square fraction equal to the analytic
+  count (the no-policy path's audit too, at a square fraction of 1); then
+  the guard alone on the first path's model, timed per decode tick and
+  traced.
+
+After the conv and complex phases below, the engine runs a fault schedule
+at full width and 2 layers (allocator, prefill and decode failures, a
+poisoned logits row, a clock skew past a deadline, a queue shedding the
+oldest, a cancel): every request terminal, no block leaked, the poisoned
+row FAILED and counted, every completed request token-identical to a
+clean run.  Last, the numerics guard on K1's route: f32 operands past the
+square form's range trip it, each call returns the standard result, and
+the second trip demotes the key so K1 is launched no more.
 
 K1 is also held bit for bit to K2 at nb = 1 and to K3 at every shape, and
 timed beside K2 at nb = 1; K3 is timed beside K2 on its own operands, and
@@ -74,6 +92,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config                      # noqa: E402
 from repro_torch.configs.base import SQUARE_GEMMS_POLICY        # noqa: E402
+from repro_torch.core import counting, guards                   # noqa: E402
+from repro_torch.core.einsum import fs_einsum                   # noqa: E402
 from repro_torch.kernels import build, routing                  # noqa: E402
 from repro_torch.kernels.sq_matmul import (                     # noqa: E402
     k1_launch_shape, k2_launch_shape, k3_launch_shape,
@@ -93,13 +113,16 @@ from repro_torch.kernels.sq_conv2d import (                     # noqa: E402
     conv2d_out_hw, k7_launch_shape, sq_conv2d_k7, sq_conv2d_plain)
 from repro_torch.kernels.sq_paged_attn import (                 # noqa: E402
     k4_splits, sq_paged_attn_k4, sq_paged_attn_plain)
+from repro_torch.launch import serve as serve_launcher          # noqa: E402
 from repro_torch.launch.serve import make_requests              # noqa: E402
 from repro_torch.models.attention import EMPTY_POS              # noqa: E402
 from repro_torch.models.lm import LM, build_model               # noqa: E402
+from repro_torch.obs import check as obs_check                  # noqa: E402
+from repro_torch.serve.faults import FaultInjector, FaultPlan   # noqa: E402
 from repro_torch.serve.engine import (                          # noqa: E402
     Engine, EngineConfig, RequestStatus)
 from repro_torch.serve.server import (                          # noqa: E402
-    ServeConfig, Server, write_slot)
+    Request, ServeConfig, Server, write_slot)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and the CUDA-core FP32 rate
 # outside the tensor cores.  The squares run on the CUDA cores.
@@ -589,6 +612,39 @@ def counts():
             sq_matmul_k3.launches, sq_paged_attn_k4.launches)
 
 
+def run_ticks(eng) -> list:
+    """Step ``eng`` to its end.  Per tick: (K1 launches, K4 launches,
+    decode steps, prefill chunks, first tokens, host wall in s)."""
+    ticks, pending = [], True
+    while pending:
+        m = eng.metrics
+        before = (sq_matmul_k1.launches, sq_paged_attn_k4.launches,
+                  m.decode_steps, m.prefill_chunks, m.first_tokens)
+        t_tick = time.perf_counter()
+        pending = eng.step()            # ends on the sampled tokens' copy
+        t_tick = time.perf_counter() - t_tick
+        ticks.append(tuple(a - b for a, b in zip(
+            (sq_matmul_k1.launches, sq_paged_attn_k4.launches,
+             m.decode_steps, m.prefill_chunks, m.first_tokens), before))
+            + (t_tick,))
+    return ticks
+
+
+def tick_walls(ticks, L: int) -> list:
+    """Check every tick's K1/K4 launches against its steps; returns the
+    sorted walls (s) of the decode-only ticks."""
+    per_step = (L * GEMMS_PER_LAYER + 1, L)
+    bad = [t for t in ticks
+           if t[0] != per_step[0] * t[2] + L * GEMMS_PER_LAYER * t[3] + t[4]
+           or t[1] != per_step[1] * t[2]]
+    decode_only = [t for t in ticks if t[2] and not t[3]]
+    check(not bad and decode_only,
+          f"every tick: K1 +{per_step[0]} and K4 +{per_step[1]} per decode "
+          f"step (K1 +{L * GEMMS_PER_LAYER} per prefill chunk, +1 per first "
+          f"token); {len(decode_only)} decode-only ticks")
+    return sorted(t[5] for t in decode_only)
+
+
 def engine_phase(dev, compared):
     cfg = serve_cfg()
     print(f"engine: {cfg.name} full width (L={cfg.n_layers} d={cfg.d_model} "
@@ -608,20 +664,8 @@ def engine_phase(dev, compared):
     eng = Engine(model, engine_cfg(), device=dev)
     eng.submit(make_requests(cfg, N_REQUESTS, seed=0))
     reset_counts()                      # counts of the main path's run only
-    ticks = []
     t0 = time.perf_counter()
-    pending = True
-    while pending:
-        m = eng.metrics
-        before = (sq_matmul_k1.launches, sq_paged_attn_k4.launches,
-                  m.decode_steps, m.prefill_chunks, m.first_tokens)
-        t_tick = time.perf_counter()
-        pending = eng.step()            # ends on the sampled tokens' copy
-        t_tick = time.perf_counter() - t_tick
-        ticks.append(tuple(a - b for a, b in zip(
-            (sq_matmul_k1.launches, sq_paged_attn_k4.launches,
-             m.decode_steps, m.prefill_chunks, m.first_tokens), before))
-            + (t_tick,))
+    ticks = run_ticks(eng)
     torch.cuda.synchronize()
     eng.metrics.wall_s = time.perf_counter() - t0
     k1_total, k4_total = sq_matmul_k1.launches, sq_paged_attn_k4.launches
@@ -635,15 +679,7 @@ def engine_phase(dev, compared):
         r.status is RequestStatus.COMPLETED and len(r.tokens) == MAX_NEW
         for r in res.values()),
         f"{N_REQUESTS} requests COMPLETED with {MAX_NEW} tokens each")
-    per_step = (L * GEMMS_PER_LAYER + 1, L)
-    bad = [t for t in ticks
-           if t[0] != per_step[0] * t[2] + L * GEMMS_PER_LAYER * t[3] + t[4]
-           or t[1] != per_step[1] * t[2]]
-    decode_only = [t for t in ticks if t[2] and not t[3]]
-    check(not bad and decode_only,
-          f"every tick: K1 +{per_step[0]} and K4 +{per_step[1]} per decode "
-          f"step (K1 +{L * GEMMS_PER_LAYER} per prefill chunk, +1 per first "
-          f"token); {len(decode_only)} decode-only ticks")
+    walls = tick_walls(ticks, L)
     check(set(shapes) <= set(compared["K1"]),
           f"K1 ran only at shapes held to its plain version above: "
           f"{sorted(shapes.items())}")
@@ -653,12 +689,11 @@ def engine_phase(dev, compared):
     check(taken.get("virtual", 0) == 0,
           f"no matmul took the virtual route (routes taken: {taken}; paged "
           f"attention: {attn_taken})")
-    check(k1_total == per_step[0] * m.decode_steps
+    check(k1_total == (L * GEMMS_PER_LAYER + 1) * m.decode_steps
           + L * GEMMS_PER_LAYER * m.prefill_chunks + m.first_tokens
           and k4_total == L * m.decode_steps,
           f"main path: K1 {k1_total} launches, K4 {k4_total} launches over "
           f"{m.decode_steps} decode steps, {m.prefill_chunks} prefill chunks")
-    walls = sorted(t[5] for t in decode_only)
     print(f"  decode-only ticks: median wall {walls[len(walls) // 2] * 1e3:.2f}"
           f" ms (min {walls[0] * 1e3:.2f}, max {walls[-1] * 1e3:.2f}) for "
           f"one ragged decode step of {SLOTS} slots", flush=True)
@@ -669,7 +704,9 @@ def engine_phase(dev, compared):
           f"{m.mean_utilization:.3f}", flush=True)
     logits_phase(model, eng.params, dev)
     trace_phase(model, dev, walls[len(walls) // 2])
-    return k1_total, k4_total, m
+    return {"K1": k1_total, "K4": k4_total, "model": model,
+            "tokens": {rid: r.tokens for rid, r in res.items()},
+            "tick_s": walls[len(walls) // 2], "tokens_per_s": m.tokens_per_s}
 
 
 def _prefill_decode_logits(model: LM, params, prompts, dev) -> torch.Tensor:
@@ -802,18 +839,302 @@ def trace_steps(step, what: str, untraced_s: float) -> None:
     print("  largest other device work per step: " + "; ".join(
         f"{name} {us / n / 1e3:.3f} ms" for name, us in other.most_common(3)),
         flush=True)
+    # the host side: the operators and CUDA runtime calls that hold the
+    # host longest (self time, so a wait lands on the call that waits)
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU
+                   and e.key != "traced_step"),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    print("  host per step, by self time: " + "; ".join(
+        f"{e.key} x{e.count / n:.0f} {e.self_cpu_time_total / n / 1e3:.3f} ms"
+        for e in host[:8]), flush=True)
 
 
-def trace_phase(model: LM, dev, untraced_tick_s: float) -> None:
+def trace_phase(model: LM, dev, untraced_tick_s: float,
+                guard: bool = False) -> None:
     """A trace of a few decode-only ticks of a fresh engine (same
-    requests)."""
-    eng = Engine(model, engine_cfg(), device=dev)
+    requests), with or without the numerics guard."""
+    eng = Engine(model, dataclasses.replace(engine_cfg(), guard=guard),
+                 device=dev)
     eng.submit(make_requests(model.cfg, N_REQUESTS, seed=0))
     while eng.metrics.first_tokens < N_REQUESTS:
         if not eng.step():
             raise SmokeFailure("trace engine ended before every request "
                                "had its first token")
-    trace_steps(eng.step, "decode-only ticks", untraced_tick_s)
+    trace_steps(eng.step, f"decode-only ticks{' (guard on)' * guard}",
+                untraced_tick_s)
+
+
+# ------------------------------------------------------------- launcher
+def expected_audit(cfg, decode_steps: int, prefill_chunks: int,
+                   first_tokens: int) -> dict:
+    """{site: mults} of a paged-engine run, from the config and the step
+    counts: each decode step runs (SLOTS, 1) rows and each prefill chunk
+    (1, CHUNK), padding included; the softmax path spans T = BLOCKS_PER_SEQ
+    * BLOCK positions; logits run every decode row and one row a first
+    token."""
+    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    rows = SLOTS * decode_steps + CHUNK * prefill_chunks
+    attn = L * H * hd * BLOCKS_PER_SEQ * BLOCK * rows
+    return {"attn_qkv": L * d * (H + 2 * KV) * hd * rows,
+            "attn_out": L * H * hd * d * rows,
+            "ffn": L * 3 * d * ff * rows,
+            "attn_scores": attn, "attn_pv": attn,
+            "logits": d * cfg.padded_vocab * (SLOTS * decode_steps
+                                              + first_tokens)}
+
+
+def audit_ok(audit, cfg, decode_steps, prefill_chunks, first_tokens,
+             square_gemms: bool) -> None:
+    """The run's contraction audit against the analytic count.  With no
+    policy every contraction is square; under square_gemms the prefill
+    chunks' softmax path runs the gather route on the multiplier while K4
+    serves the decode steps' in square form."""
+    want = expected_audit(cfg, decode_steps, prefill_chunks, first_tokens)
+    got = {site: d["mults"] for site, d in audit.by_site().items()}
+    check(got == want, f"audit: per-site mults equal the analytic count "
+                       f"{want}")
+    total = sum(want.values())
+    standard = (2 * cfg.n_layers * cfg.n_heads * cfg.resolved_head_dim
+                * BLOCKS_PER_SEQ * BLOCK * CHUNK * prefill_chunks
+                if square_gemms else 0)
+    share = (total - standard) / total
+    check(audit.fraction_square == share and audit.fraction_demoted == 0.0,
+          f"audit: fraction_square {audit.fraction_square:.6f} == analytic "
+          f"{share:.6f} ({'square_gemms' if square_gemms else 'no policy'};"
+          f" {audit.multiplies_replaced} of {audit.total_mults} multiplies "
+          f"replaced by squares)")
+
+
+def _decode_tick_walls(trace: dict) -> list:
+    """Durations (s) of the traced ticks that ran a decode step and no
+    prefill chunk, checking on the way that every engine.* span lies
+    inside one engine.tick span."""
+    spans = [e for e in trace["traceEvents"]
+             if e.get("ph") == "X" and e["name"].startswith("engine.")]
+    ticks = [e for e in spans if e["name"] == "engine.tick"]
+    inner = [e for e in spans if e["name"] != "engine.tick"]
+    owner, stray = {}, []
+    for e in inner:
+        host = [t for t in ticks if t["ts"] <= e["ts"]
+                and e["ts"] + e["dur"] <= t["ts"] + t["dur"]]
+        if len(host) != 1:
+            stray.append((e["name"], e["ts"]))
+            continue
+        owner.setdefault(id(host[0]), set()).add(e["name"])
+    check(ticks and not stray,
+          f"trace: each of {len(inner)} engine.* spans lies inside exactly "
+          f"one of {len(ticks)} engine.tick spans (outside: {stray[:4]})")
+    return sorted(t["dur"] / 1e6 for t in ticks
+                  if owner.get(id(t), set()) >= {"engine.decode_step"}
+                  and "engine.prefill_chunk" not in owner.get(id(t), set()))
+
+
+def launcher_phase(dev, compared, plain):
+    """``python -m repro_torch.launch.serve`` at full width with every
+    resilience and observability flag on, inside a contraction audit: the
+    engine_phase's tokens, a clean snapshot and trace, K1/K4 launches per
+    step unchanged, and the audit equal to the analytic count.  Then one
+    engine with the guard alone (no trace) on engine_phase's model, timed
+    by engine_phase's tick loop beside engine_phase's run, and a trace of
+    its decode-only ticks: where the guard's finite checks spend the
+    time."""
+    import tempfile
+    cfg = serve_cfg()
+    L = cfg.n_layers
+    print("launcher: python -m repro_torch.launch.serve, fairsquare-demo "
+          "full width, square_pallas + square_gemms, prepared, --guard, "
+          "--deadline-ms, --queue-limit, --metrics-file, --trace-out",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        mfile, tfile = f"{tmp}/metrics.json", f"{tmp}/trace.json"
+        argv = ["--matmul-mode", "square_pallas", "--policy", "square_gemms",
+                "--prepared", "--guard", "--deadline-ms", "600000",
+                "--queue-limit", "64", "--shed-policy", "reject-new",
+                "--requests", str(N_REQUESTS), "--max-new", str(MAX_NEW),
+                "--slots", str(SLOTS), "--block-size", str(BLOCK),
+                "--blocks", str(BLOCKS), "--blocks-per-seq",
+                str(BLOCKS_PER_SEQ), "--prefill-chunk", str(CHUNK),
+                "--seed", "0", "--device", str(dev), "--metrics-file", mfile,
+                "--trace-out", tfile]
+        reset_counts()                  # counts of this path's run only
+        with counting.track_contractions() as audit:
+            res = serve_launcher.main(argv)
+        torch.cuda.synchronize()
+        k1_total, k4_total = sq_matmul_k1.launches, sq_paged_attn_k4.launches
+        check(obs_check.main([mfile, tfile]) == 0,
+              "metrics snapshot and trace pass "
+              "python -m repro_torch.obs.check")
+        with open(mfile) as f:
+            snap = json.load(f)
+        with open(tfile) as f:
+            trace = json.load(f)
+    check(len(res) == N_REQUESTS and all(
+        r.status is RequestStatus.COMPLETED and len(r.tokens) == MAX_NEW
+        for r in res.values()),
+        f"{N_REQUESTS} requests COMPLETED with {MAX_NEW} tokens each")
+    check({rid: r.tokens for rid, r in res.items()} == plain["tokens"],
+          "launcher tokens equal engine_phase's")
+    c, eng = snap["counters"], snap["engine"]
+    parts = {k: c[f"engine_requests_{k}_total"]
+             for k in obs_check.TERMINAL_KEYS}
+    check(sum(parts.values()) == c["engine_requests_submitted_total"]
+          == N_REQUESTS, f"terminal counters partition the {N_REQUESTS} "
+                         f"submissions: {parts}")
+    check(snap["route_health"] == [], "route health: no site tripped")
+    check(eng["guard_trips"] == eng["step_failures"] == eng["watchdog_trips"]
+          == eng["preemptions"] == 0
+          and c["engine_guard_recomputes_total"] == 0,
+          "0 guard trips, 0 guard recomputes, 0 step failures, 0 watchdog "
+          "trips, 0 preemptions")
+    check(trace["otherData"]["dropped_records"] == 0,
+          f"trace: {len(trace['traceEvents'])} events, 0 dropped")
+    walls = _decode_tick_walls(trace)
+    steps, chunks = eng["decode_steps"], eng["prefill_chunks"]
+    firsts = eng["completed"]           # one first token each, no preemption
+    check(k1_total == (L * GEMMS_PER_LAYER + 1) * steps
+          + L * GEMMS_PER_LAYER * chunks + firsts
+          and k4_total == L * steps and walls,
+          f"K1 {k1_total} and K4 {k4_total} launches: +"
+          f"{L * GEMMS_PER_LAYER + 1} and +{L} per decode step, as in "
+          f"engine_phase ({steps} decode steps, {chunks} prefill chunks, "
+          f"{len(walls)} decode-only ticks)")
+    check(sq_matmul_k2.launches == sq_matmul_k3.launches == 0,
+          "K2 and K3 not launched")
+    shapes_ok(compared)
+    audit_ok(audit, cfg, steps, chunks, firsts, square_gemms=True)
+    tick = walls[len(walls) // 2]
+    print(f"  launcher (guard + trace on): {eng['tokens_per_s']:.1f} "
+          f"tokens/s, median decode-only tick wall {tick * 1e3:.2f} ms; "
+          f"engine_phase (guard and trace off): "
+          f"{plain['tokens_per_s']:.1f} tokens/s, "
+          f"{plain['tick_s'] * 1e3:.2f} ms", flush=True)
+
+    # the guard alone, without the trace: one finite check (a
+    # device-to-host read) a guarded contraction
+    guarded_cfg = dataclasses.replace(engine_cfg(), guard=True)
+    geng = Engine(plain["model"], guarded_cfg, device=dev)
+    geng.submit(make_requests(cfg, N_REQUESTS, seed=0))
+    gwalls = tick_walls(run_ticks(geng), L)
+    check({rid: r.tokens for rid, r in geng.results.items()}
+          == plain["tokens"] and geng.metrics.guard_recomputes
+          == geng.metrics.guard_trips == 0,
+          "guarded engine: engine_phase's tokens, 0 guard trips and "
+          "recomputes")
+    n_checks = L * GEMMS_PER_LAYER + 1 + L
+    gtick = gwalls[len(gwalls) // 2]
+    print(f"  guard alone: median decode-only tick wall "
+          f"{gtick * 1e3:.2f} ms beside engine_phase's "
+          f"{plain['tick_s'] * 1e3:.2f} ms; {n_checks} finite checks a "
+          f"decode step (K1's GEMMs and K4's layers), "
+          f"{(gtick - plain['tick_s']) / n_checks * 1e6:.0f} us each",
+          flush=True)
+    trace_phase(plain["model"], dev, gtick, guard=True)
+    return {"K1": k1_total, "K4": k4_total}
+
+
+FAULT_LAYERS = 2
+
+
+def fault_phase(dev) -> None:
+    """The engine under a fault schedule at full width and 2 layers:
+    allocator, prefill and decode failures, a poisoned logits row, a clock
+    skew past one request's deadline, a bounded queue shedding the oldest,
+    one cancel.  Every request ends terminal, no block leaks, the
+    registry's terminals partition the submissions, every poisoned row
+    FAILS and counts as a guard trip, and every request that completes has
+    a clean run's tokens."""
+    cfg = dataclasses.replace(serve_cfg(), n_layers=FAULT_LAYERS)
+    print(f"faults: {cfg.name} full width at {FAULT_LAYERS} layers, "
+          f"square_pallas + square_gemms, prepared, guard", flush=True)
+    model = build_model(cfg, device=dev, seed=0)
+    n = 12
+    reqs = make_requests(cfg, n, seed=5)
+    clean = Engine(model, engine_cfg(), device=dev).run(
+        [Request(r.rid, r.tokens) for r in reqs])
+    check(all(r.ok for r in clean.values()), f"clean run: {n} COMPLETED")
+    plan = FaultPlan.of(alloc_fail=(1, 4, 9), prefill_fail=(2,),
+                        decode_fail=(0, 5), nan_logits={3: 1},
+                        clock_skew={12: 3600.0})
+    inj = FaultInjector(plan)
+    eng = Engine(model, dataclasses.replace(
+        engine_cfg(), guard=True, queue_limit=6, shed_policy="evict-oldest"),
+        device=dev, faults=inj)
+    batch = [Request(r.rid, r.tokens) for r in reqs]
+    batch[-1].deadline_s = 60.0          # the newest: still pending at tick 12
+    eng.submit(batch)
+    check(eng.cancel(batch[-2].rid), "cancel a queued request")
+    while eng.step():
+        pass
+    torch.cuda.synchronize()
+    res, m = eng.results, eng.metrics
+    by = collections.Counter(str(r.status) for r in res.values())
+    print(f"  terminals {dict(by)}; injected {inj.injected}; step failures "
+          f"{m.step_failures}, guard trips {m.guard_trips}, preemptions "
+          f"{m.preemptions}", flush=True)
+    check(len(res) == n and not eng.queue
+          and all(s is None for s in eng.slots),
+          f"every one of the {n} requests is terminal")
+    check(eng.allocator.used_blocks == 0, "0 used blocks at the end")
+    c = eng.registry.snapshot()["counters"]
+    check(sum(c[f"engine_requests_{k}_total"]
+              for k in obs_check.TERMINAL_KEYS)
+          == c["engine_requests_submitted_total"] == n,
+          "the registry's terminal counters sum to the submissions")
+    poisoned = [r for r in res.values() if "numerics guard" in (r.error or "")]
+    check(inj.injected["nan"] == 1 and len(poisoned) == m.guard_trips == 1
+          and all(r.status is RequestStatus.FAILED for r in poisoned),
+          "the poisoned row's request FAILED and counts as a guard trip")
+    check(by["rejected"] == m.shed == n - 6 and by["cancelled"] == 1
+          and by["timed_out"] == 1,
+          f"{n - 6} shed (evict-oldest, queue limit 6), 1 cancelled, 1 timed "
+          f"out")
+    check(inj.injected["alloc"] + inj.injected["prefill"]
+          + inj.injected["decode"] == 6 and m.step_failures == 3,
+          "3 allocator refusals and 3 step failures absorbed")
+    done = {rid: r.tokens for rid, r in res.items() if r.ok}
+    check(done and all(toks == clean[rid].tokens
+                       for rid, toks in done.items()),
+          f"{len(done)} completed requests token-identical to the clean run")
+
+
+def guard_phase(dev) -> None:
+    """fs_einsum on K1's route with f32 operands past the square form's
+    range (|a+b| > 1.84e19; products that cancel), under guarded(trip
+    limit 2): each trip returns the standard result, the second demotes
+    the key, and a demoted key launches K1 no more."""
+    print("guard: fs_einsum on the K1 route, f32 operands of 1e19 whose "
+          "products cancel, trip limit 2", flush=True)
+    x = torch.full((32, 64), 1e19, device=dev)
+    x[:, 1::2] *= -1.0
+    y = torch.full((64, 32), 1e19, device=dev)
+    want = torch.einsum("mk,kn->mn", x, y)
+    check(bool(torch.isfinite(want).all()), "the multiplier result is finite")
+    key = routing.health_key("guard_phase", (1, 32, 64, 32), torch.float32)
+    health = routing.route_health()
+    epoch0 = routing.route_epoch()
+    reset_counts()
+    launches = []
+    with guards.guarded(trip_limit=2), \
+            counting.track_contractions() as audit:
+        for _ in range(4):
+            out = fs_einsum("mk,kn->mn", x, y, mode="square_pallas",
+                            site="guard_phase")
+            torch.cuda.synchronize()
+            launches.append(sq_matmul_k1.launches)
+            check(torch.equal(out, want), "the call returns the standard "
+                                          "result")
+    check(launches == [1, 2, 2, 2] and health.trips.get(key) == 2
+          and health.is_demoted(key) and routing.route_epoch() == epoch0 + 1,
+          f"two trips launch K1 and demote {key} (route epoch "
+          f"{epoch0} -> {routing.route_epoch()}); K1 launches per call "
+          f"{launches}")
+    check([r.demoted for r in audit.records] == [True] * 4
+          and audit.fraction_demoted == 1.0,
+          "every call noted demoted=True, served standard")
+    routing.reset_route_health()
+    check(not health.is_demoted(key), "reset_route_health re-arms the key")
 
 
 # ------------------------------------------------- every contraction square
@@ -839,18 +1160,19 @@ def engine_none_phase(model: LM, dev, compared):
     eng.submit(make_requests(cfg, N_REQUESTS, seed=0))
     reset_counts()                      # counts of this path's run only
     bad, t0, pending = [], time.perf_counter(), True
-    while pending:
-        m = eng.metrics
-        before = counts() + (m.decode_steps, m.prefill_chunks,
-                             m.first_tokens)
-        pending = eng.step()
-        d = [a - b for a, b in zip(counts() + (
-            m.decode_steps, m.prefill_chunks, m.first_tokens), before)]
-        k1, k2, k3, k4, steps, chunks, firsts = d
-        if (k1 != (L * GEMMS_PER_LAYER + 1) * steps
-                + L * GEMMS_PER_LAYER * chunks + firsts
-                or k4 != L * steps or k2 != 2 * L * chunks or k3):
-            bad.append(d)
+    with counting.track_contractions() as audit:
+        while pending:
+            m = eng.metrics
+            before = counts() + (m.decode_steps, m.prefill_chunks,
+                                 m.first_tokens)
+            pending = eng.step()
+            d = [a - b for a, b in zip(counts() + (
+                m.decode_steps, m.prefill_chunks, m.first_tokens), before)]
+            k1, k2, k3, k4, steps, chunks, firsts = d
+            if (k1 != (L * GEMMS_PER_LAYER + 1) * steps
+                    + L * GEMMS_PER_LAYER * chunks + firsts
+                    or k4 != L * steps or k2 != 2 * L * chunks or k3):
+                bad.append(d)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     m, res = eng.metrics, eng.results
@@ -869,6 +1191,8 @@ def engine_none_phase(model: LM, dev, compared):
           f"no matmul took the virtual route (routes taken: {taken}); "
           f"launches {total}")
     shapes_ok(compared)
+    audit_ok(audit, cfg, m.decode_steps, m.prefill_chunks, m.first_tokens,
+             square_gemms=False)
     print(f"  served {len(res)} requests, {m.tokens_out} tokens in "
           f"{wall:.3f} s ({m.tokens_out / wall:.1f} tokens/s)", flush=True)
     return total
@@ -1691,14 +2015,19 @@ def run(dev) -> str:
     cpm_rows = cpm_phase(dev, gen, z, w)
     compared = {"K1": [(r["m"], r["k"], r["n"]) for r in k1_rows],
                 "K2": cases["K2"], "K3": cases["K3"]}
-    k1_total, k4_total, _ = engine_phase(dev, compared)
+    plain = engine_phase(dev, compared)
+    k1_total, k4_total = plain["K1"], plain["K4"]
+    launcher = launcher_phase(dev, compared, plain)
     model = build_model(serve_cfg(policy=None), device=dev, seed=0)
     none = engine_none_phase(model, dev, compared)
     dense = server_phase(model, dev, compared)
     conv = conv_path_phase(dev, gen)
     fir = fir_path_phase(dev)
     dft = dft_path_phase(dev, z, w)
+    fault_phase(dev)
+    guard_phase(dev)
     launches = {"K1": {"engine_square_gemms": k1_total,
+                       "launcher": launcher["K1"],
                        "engine_no_policy": none["K1"],
                        "server_no_policy": dense["K1"],
                        "conv_path": conv["K1"]},
@@ -1706,6 +2035,7 @@ def run(dev) -> str:
                        "server_no_policy": dense["K2"]},
                 "K3": {"server_no_policy": dense["K3"]},
                 "K4": {"engine_square_gemms": k4_total,
+                       "launcher": launcher["K4"],
                        "engine_no_policy": none["K4"]},
                 "K7": {"conv_path": conv["K7"]},
                 "K5": {"dft_path": dft["K5"]},

@@ -1,5 +1,5 @@
 """Square-aware einsum dispatch: the PyTorch port of ``repro/core/einsum.py``
-(forward only).
+(forward only, with its contraction audit and numerics guard).
 
 ``fs_einsum(spec, x, y)`` parses a two-operand spec, classifies each index
 as batch / M / K / N, canonicalises the operands to ``(B, M, K) @ (B, K, N)``
@@ -8,7 +8,16 @@ and runs the contraction under a fair-square mode
 verbatim, except for integer operands on CUDA, which has no integer
 einsum: there :func:`_standard` runs it in float64 and wraps to the dtype
 ``jnp.einsum`` returns.  Mode resolution: ``policy.lookup(site)`` >
-``mode`` > the default.
+``mode`` > the process default.
+
+After every contraction, whatever its mode, ``_dispatch`` notes its
+``B*M*K*N`` scalar multiplies and served mode into each open
+:func:`repro_torch.core.counting.track_contractions` counter.  Under an
+enabled guard policy (:mod:`repro_torch.core.guards`) a square-routed
+output that is not finite records a trip in
+:class:`repro_torch.kernels.routing.RouteHealth` and is recomputed on
+``standard``; a demoted key runs ``standard`` from the start.  Both are
+noted ``demoted=True``.
 
 Supported specs: two operands, explicit ``->``, an optional ellipsis, no
 repeated index within one operand.  Indices in one operand only and not in
@@ -23,6 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import counting, guards
 from repro_torch.core import matmul as fsmm
 from repro_torch.core import squares as sq
 from repro_torch.core.prepared import PreparedOperand, unwrap
@@ -93,12 +103,13 @@ def plan_contraction(spec: str, x_shape: Tuple[int, ...],
 
 
 def resolve_mode(mode: Optional[str], policy, site: Optional[str]) -> str:
-    """policy[site] > explicit mode > the default mode."""
+    """policy[site] > explicit mode > the process default
+    (:func:`repro_torch.core.matmul.set_default_mode`)."""
     if policy is not None:
         pmode = policy.lookup(site)
         if pmode is not None:
             return pmode
-    return mode if mode is not None else fsmm.DEFAULT_MODE
+    return mode if mode is not None else fsmm.get_default_mode()
 
 
 def _sizes(plan: ContractionPlan, x_shape, y_shape) -> dict:
@@ -174,15 +185,45 @@ def _standard(spec: str, x: torch.Tensor, y: torch.Tensor,
 
 def _dispatch(spec: str, x: torch.Tensor, y, mode: str,
               site: Optional[str], preferred: Optional[torch.dtype]):
-    """Execute one contraction under a resolved mode."""
+    """Execute one contraction under a resolved mode: canonicalisation,
+    route-health demotion, the finite guard and the counting note all
+    live here."""
     plan = plan_contraction(spec, tuple(x.shape), tuple(y.shape))
-    if mode == "standard":
-        return _standard(spec, x, unwrap(y), preferred)
-
     sizes = _sizes(plan, x.shape, y.shape)
     prod = lambda dims: math.prod(sizes[d] for d in dims)   # noqa: E731
     B, M, K, N = (prod(plan.batch), prod(plan.m), prod(plan.k),
                   prod(plan.n))
+
+    # A call site whose square-routed output tripped the finite check
+    # ``trip_limit`` times is demoted: served standard, noted demoted.
+    gp = guards.guard_policy()
+    hkey = health = None
+    demoted = False
+    if gp.enabled and mode in counting.SQUARE_MODES:
+        from repro_torch.kernels import routing   # lazy: import cycle
+        health = routing.route_health()
+        hkey = routing.health_key(site or "einsum", (B, M, K, N), x.dtype)
+        if health.is_demoted(hkey):
+            mode, demoted = "standard", True
+
+    out = _execute(spec, plan, sizes, (B, M, K, N), x, y, mode, preferred)
+    if hkey is not None and not demoted and not guards.check_finite(out):
+        health.record_trip(hkey, limit=gp.trip_limit)
+        out = _execute(spec, plan, sizes, (B, M, K, N), x, y, "standard",
+                       preferred)
+        mode, demoted = "standard", True
+
+    counting.note_contraction(site=site or "einsum", spec=spec, mode=mode,
+                              mults=B * M * K * N, demoted=demoted)
+    return out
+
+
+def _execute(spec: str, plan: ContractionPlan, sizes: dict, bmkn, x, y,
+             mode: str, preferred: Optional[torch.dtype]):
+    """The contraction itself, under ``mode``."""
+    if mode == "standard":
+        return _standard(spec, x, unwrap(y), preferred)
+    B, M, K, N = bmkn
 
     # A prepared y is used as prepared only when its (K, N) layout IS the
     # spec's: nothing summed out, single k and n indices, no batch, and

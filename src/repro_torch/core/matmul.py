@@ -28,12 +28,27 @@ from repro_torch.core import squares as sq
 from repro_torch.core.prepared import PreparedOperand
 
 __all__ = ["matmul", "pm_matmul_exact", "pm_matmul_scan", "pm_matmul_virtual",
-           "MODES", "DEFAULT_MODE"]
+           "pm_matmul_approx", "MODES", "set_default_mode",
+           "get_default_mode"]
 
 MODES = ("standard", "square_virtual", "square_exact", "square_scan",
          "square_pallas")
 
-DEFAULT_MODE = "standard"
+_DEFAULT_MODE = "standard"
+
+
+def set_default_mode(mode: str) -> None:
+    """Set the process default mode: the one a contraction runs in when
+    neither its policy nor its caller names one."""
+    global _DEFAULT_MODE
+    if mode not in MODES:
+        raise ValueError(f"unknown matmul mode {mode!r}; expected one of "
+                         f"{MODES}")
+    _DEFAULT_MODE = mode
+
+
+def get_default_mode() -> str:
+    return _DEFAULT_MODE
 
 
 def _int_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -92,6 +107,27 @@ def pm_matmul_scan(a: torch.Tensor, b: torch.Tensor,
     return sq.halve(acc)
 
 
+def pm_matmul_approx(a: torch.Tensor, b: torch.Tensor, *, drop_bits: int = 4,
+                     block: int = 128) -> torch.Tensor:
+    """Square-based matmul with approximate squarers (paper conclusion).
+
+    The streaming structure of :func:`pm_matmul_scan`, with every square --
+    PM terms and corrections alike -- through
+    :func:`~repro_torch.core.squares.square_approx`: a datapath built from
+    truncated squarer circuits."""
+    acc_dt = sq.accum_dtype(a.dtype)
+    aw, bw = a.to(acc_dt), b.to(acc_dt)
+
+    def sqx(t):
+        return sq.square_approx(t, drop_bits=drop_bits)
+
+    acc = (-sq.acc_sum(sqx(aw), -1))[..., None] + (-sq.acc_sum(sqx(bw), 0))
+    for k0 in range(0, aw.shape[-1], max(1, block)):
+        s = aw[..., :, k0:k0 + block, None] + bw[None, k0:k0 + block, :]
+        acc = acc + sq.acc_sum(sqx(s), -2).to(acc_dt)
+    return sq.halve(acc)
+
+
 def matmul(a: torch.Tensor, b, *, mode: Optional[str] = None,
            preferred: Optional[torch.dtype] = None) -> torch.Tensor:
     """Dense contraction ``a[..., K] @ b[K, N]`` under a fair-square mode.
@@ -110,7 +146,7 @@ def matmul(a: torch.Tensor, b, *, mode: Optional[str] = None,
         raise ValueError(f"contraction mismatch: {tuple(a.shape)} @ "
                          f"{tuple(b_shape)}")
     b_arr = (lambda: prep.kn_source()) if prep is not None else (lambda: b)
-    mode = mode or DEFAULT_MODE
+    mode = mode or _DEFAULT_MODE
     if mode == "standard":
         return _standard(a, b_arr(), preferred)
     if mode == "square_virtual":

@@ -1,5 +1,5 @@
 """Fair-and-Square primitive algebra (paper §2, §6.1): the PyTorch port of
-``repro/core/squares.py`` (all but ``square_approx``).
+``repro/core/squares.py``.
 
 Accumulating PM terms ``(a+b)^2`` plus the row/column corrections yields
 ``2 * (true result)``; callers apply :func:`halve` at the end (the paper's
@@ -12,7 +12,8 @@ import torch
 
 __all__ = ["accum_dtype", "widen_for_sum", "square", "acc_sum", "pm",
            "pm_neg", "cpm4_real", "cpm4_imag", "cpm3_shared", "cpm3_real",
-           "cpm3_imag", "row_correction", "col_correction", "halve"]
+           "cpm3_imag", "row_correction", "col_correction", "square_approx",
+           "halve"]
 
 _INT_NARROW = (torch.int8, torch.uint8, torch.int16)
 
@@ -103,6 +104,25 @@ def row_correction(a: torch.Tensor, dim: int = -1) -> torch.Tensor:
 def col_correction(b: torch.Tensor, dim: int = 0) -> torch.Tensor:
     """``Sb_j = -sum_k b_kj^2`` along the contraction axis (paper eq 5)."""
     return -acc_sum(square(b), dim)
+
+
+def square_approx(x: torch.Tensor, *, drop_bits: int = 4) -> torch.Tensor:
+    """Approximate squaring (paper conclusion: "Approximate squaring is also
+    a possibility").
+
+    Integer path: a truncated squarer -- the low ``drop_bits`` bits of the
+    widened operand are zeroed before squaring (relative error at most
+    ``2^(drop_bits+1) / |x|``).  Float path: the square is computed in
+    bfloat16 (an 8-bit mantissa, a truncated multiplier array) and widened
+    to the accumulator dtype.
+    """
+    if not x.dtype.is_floating_point:
+        w = widen_for_sum(x)
+        t = torch.bitwise_left_shift(torch.bitwise_right_shift(w, drop_bits),
+                                     drop_bits)
+        return t * t
+    xb = x.to(torch.bfloat16)
+    return (xb * xb).to(accum_dtype(x.dtype))
 
 
 def halve(x: torch.Tensor) -> torch.Tensor:

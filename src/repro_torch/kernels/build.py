@@ -29,8 +29,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
-__all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "BUILD_DIR", "build", "load",
-           "bind", "check", "report", "ptxas_usage"]
+__all__ = ["KERNEL_SOURCES", "NVCC_FLAGS", "BUILD_DIR", "KernelError", "build",
+           "load", "bind", "check", "report", "ptxas_usage"]
 
 KERNEL_SOURCES = ("sq_matmul", "sq_paged_attn", "cpm3_matmul", "cpm4_matmul",
                   "sq_conv2d", "sq_conv")
@@ -43,6 +43,16 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_TIMEOUT_S = 600
+
+
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build, to load or to launch: nvcc
+    missing, failing or past its timeout, a library that does not load, a
+    launch the kernel refuses on CUDA tensors (device, size, shared-memory
+    or alignment limits its plain version does not have), or a CUDA error
+    from the launch.  The serving engine never absorbs it into a request's
+    status: it propagates."""
+
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -84,7 +94,7 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found on PATH or under /usr/local/cuda/bin: "
+    raise KernelError("nvcc not found on PATH or under /usr/local/cuda/bin: "
                        "the CUDA kernels are built from source on first use")
 
 
@@ -101,7 +111,8 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
 
     Returns ``{name: nvcc output}`` for the sources compiled by this call
     (``-Xptxas=-v`` makes that output the register and shared-memory report).
-    Raises if any build fails; no compiler process outlives the call.
+    Raises :class:`KernelError` if any build fails or runs past
+    ``NVCC_TIMEOUT_S``; no compiler process outlives the call.
     """
     names = list(names)
     for name in names:
@@ -120,13 +131,22 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
                 tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
                 cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                        str(_CSRC / f"{name}.cu")]
-                proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True)
+                try:
+                    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True)
+                except OSError as exc:
+                    raise KernelError(f"nvcc did not start for {name}.cu: "
+                                      f"{exc}") from exc
                 jobs[name] = (proc, tmp, lib)
             for name, (proc, tmp, lib) in jobs.items():
-                out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+                try:
+                    out, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+                except subprocess.TimeoutExpired as exc:
+                    raise KernelError(f"nvcc ran past {NVCC_TIMEOUT_S} s "
+                                      f"for {name}.cu") from exc
                 if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed for {name}.cu "
+                    raise KernelError(f"nvcc failed for {name}.cu "
                                        f"(exit {proc.returncode}):\n{out}")
                 lib.with_suffix(".ptxas.txt").write_text(out)
                 os.replace(tmp, lib)
@@ -142,13 +162,18 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
 
 
 def bind(path, name: str) -> ctypes.CDLL:
-    """Load the library at ``path`` with the C entries of source ``name``."""
-    lib = ctypes.CDLL(str(path))
-    for fn, argtypes in _SIGNATURES[name].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    lib.fs_error_string.argtypes = [ctypes.c_int]
-    lib.fs_error_string.restype = ctypes.c_char_p
+    """Load the library at ``path`` with the C entries of source ``name``
+    (:class:`KernelError` if it does not load or lacks an entry)."""
+    try:
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.fs_error_string.argtypes = [ctypes.c_int]
+        lib.fs_error_string.restype = ctypes.c_char_p
+    except (OSError, AttributeError) as exc:
+        raise KernelError(f"kernel library {path} of {name}.cu does not "
+                          f"load: {exc}") from exc
     return lib
 
 
@@ -170,7 +195,7 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     and a later synchronize would not report it)."""
     if code != 0:
         msg: Optional[bytes] = lib.fs_error_string(code)
-        raise RuntimeError(f"{what}: CUDA error {code} "
+        raise KernelError(f"{what}: CUDA error {code} "
                            f"({(msg or b'?').decode()})")
 
 

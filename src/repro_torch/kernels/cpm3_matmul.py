@@ -140,14 +140,14 @@ def launch_planes(label: str, source: str, counter, tile, planes, corrs):
     returns the (re, im) planes."""
     a, _, c, _ = planes
     if a.device.type != "cuda":
-        raise ValueError(f"{label} runs on CUDA (or its plain version on "
-                         f"CPU), got a tensor on {a.device}")
+        raise build.KernelError(f"{label} runs on CUDA (or its plain version "
+                                f"on CPU), got a tensor on {a.device}")
     m, k = a.shape
     n = c.shape[1]
     if max(m, n, k) > _INT_MAX \
             or cpm_launch_shape(m, n, tile)["grid"][1] > _MAX_GRID_Y:
-        raise ValueError(f"{label} shape ({m}, {k}) @ ({k}, {n}) exceeds "
-                         f"the kernel's grid limits")
+        raise build.KernelError(f"{label} shape ({m}, {k}) @ ({k}, {n}) "
+                                "exceeds the kernel's grid limits")
     re = torch.empty((m, n), dtype=a.dtype, device=a.device)
     im = torch.empty_like(re)
     if re.numel() == 0:

@@ -1,5 +1,6 @@
-"""Route planner for the ``square_pallas`` mode: the PyTorch port of
-``repro/kernels/routing.py`` (route rules and ``REPRO_ROUTE`` only).
+"""Route planner for the ``square_pallas`` mode and the route-health
+circuit breaker: the PyTorch port of ``repro/kernels/routing.py`` (route
+rules, ``REPRO_ROUTE`` and :class:`RouteHealth`).
 
 ``matmul`` routes: ``kernel`` (K1), ``batched`` (K2), ``fold`` (K3) and
 ``virtual`` (the square-form contract through the
@@ -17,23 +18,33 @@ again on the H100.
 it is valid for (``kernel`` pins matmul and paged_attn), ``kind=route``
 lists scope it, ``auto`` defers to the rules.  Each selector counts its
 decisions in its ``taken`` counter, so a run can show which routes it used.
+
+:class:`RouteHealth` is the per-(site, shape, dtype) breaker the numerics
+guard (:mod:`repro_torch.core.guards`) records its trips in; its keys
+(:func:`health_key`) are the JAX package's, letter for letter.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import logging
 import os
-from typing import Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch.core import squares as sq
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["Route", "select_matmul_route", "select_conv2d_route",
            "select_paged_attn_route", "conv2d_patch_bytes", "MATMUL_ROUTES",
            "CONV2D_ROUTES", "PAGED_ATTN_ROUTES", "VIRTUAL_FLOOR_MULTS",
            "FOLD_STEP_LANE_OPS", "FOLD_MIN_BATCH", "IM2COL_PATCH_BYTES_MAX",
-           "IM2COL_K_MAX", "PAGED_KERNEL_MAX_S", "PAGED_KERNEL_MIN_T"]
+           "IM2COL_K_MAX", "PAGED_KERNEL_MAX_S", "PAGED_KERNEL_MIN_T",
+           "health_key", "RouteHealth", "route_health", "reset_route_health",
+           "route_epoch"]
+
+logger = logging.getLogger(__name__)
 
 MATMUL_ROUTES = ("kernel", "batched", "fold", "virtual")
 CONV2D_ROUTES = ("fused", "im2col")
@@ -186,3 +197,119 @@ def select_paged_attn_route(s: int, t: int, *, batch: int = 1,
 select_matmul_route.taken = collections.Counter()
 select_conv2d_route.taken = collections.Counter()
 select_paged_attn_route.taken = collections.Counter()
+
+
+# --------------------------------------------------------------------------
+# Route health: the per-(site, shape, dtype) circuit breaker.
+#
+# The numerics guard (repro_torch.core.guards) checks square-routed outputs
+# for non-finite values; every trip is recorded here and its call is
+# recomputed on the standard route.  After ``trip_limit`` trips of one key
+# the key is DEMOTED: its call site is served on the standard route from
+# then on.  A demotion is logged once per key and shows in the contraction
+# audit (``mode="standard"``, ``demoted=True``).  State is per process and
+# resettable (:func:`reset_route_health`), as a deployment re-arms its
+# breakers on a model reload.
+# --------------------------------------------------------------------------
+
+def health_key(site: str, sizes, dtype: torch.dtype) -> str:
+    """Circuit-breaker key of one contraction call site:
+    ``site|BxMxKxN|float32``.
+
+    ``sizes`` is any shape-describing tuple (the dispatcher passes the
+    canonical ``(B, M, K, N)``); ``dtype`` is the *operand* dtype, named
+    as numpy names it (``float32``, ``bfloat16``), so the keys are the JAX
+    package's.
+    """
+    sig = "x".join(str(int(s)) for s in sizes)
+    return f"{site}|{sig}|{str(dtype).removeprefix('torch.')}"
+
+
+@dataclasses.dataclass
+class RouteHealth:
+    """Trip counts and demotions, keyed by :func:`health_key`.
+
+    ``epoch`` increments on every routing-state change (a demotion, or a
+    reset that re-arms demoted keys), so a caller that caches routing
+    decisions can tell when they went stale (:func:`route_epoch`).
+    ``recomputes`` counts the guarded calls recomputed on the standard
+    route after a trip; every caller of :meth:`record_trip` recomputes its
+    call, so the trip counts it.  The serving engine reports it as
+    ``engine_guard_recomputes_total``.
+    """
+    trips: Dict[str, int] = dataclasses.field(default_factory=dict)
+    demotions: Dict[str, str] = dataclasses.field(default_factory=dict)
+    epoch: int = 0
+    # every record_trip() gets a process-wide sequence number; first/last
+    # per key date a breaker's history without storing timestamps
+    trip_seq: int = 0
+    first_trip: Dict[str, int] = dataclasses.field(default_factory=dict)
+    last_trip: Dict[str, int] = dataclasses.field(default_factory=dict)
+    recomputes: int = 0
+
+    def record_trip(self, key: str, limit: int,
+                    reason: str = "non-finite square-route output") -> bool:
+        """Record one guard trip and the recompute that follows it; returns
+        True when this trip demotes."""
+        self.trips[key] = self.trips.get(key, 0) + 1
+        self.trip_seq += 1
+        self.recomputes += 1
+        self.first_trip.setdefault(key, self.trip_seq)
+        self.last_trip[key] = self.trip_seq
+        obs_trace.event("guard.trip", cat="guard", key=key,
+                        trips=self.trips[key], reason=reason)
+        if key not in self.demotions and self.trips[key] >= max(1, limit):
+            self.demotions[key] = f"{reason} ({self.trips[key]} trips)"
+            self.epoch += 1
+            obs_trace.event("guard.demote", cat="guard", key=key,
+                            trips=self.trips[key])
+            logger.warning(
+                "route-health: demoting %s to the standard route after "
+                "%d guard trips (%s)", key, self.trips[key], reason)
+            return True
+        return False
+
+    def is_demoted(self, key: str) -> bool:
+        return key in self.demotions
+
+    def summary(self) -> Dict[str, object]:
+        return {"trips": dict(self.trips),
+                "demotions": dict(self.demotions)}
+
+    def snapshot(self) -> List[Dict[str, object]]:
+        """One entry per key that ever tripped: trip count, demoted flag and
+        reason, first/last trip ordinals.  The engine's observability
+        snapshot carries it, and
+        :func:`repro_torch.obs.metrics.publish_route_health` publishes it
+        as labeled gauges."""
+        return [{"key": key,
+                 "trips": n,
+                 "demoted": key in self.demotions,
+                 "reason": self.demotions.get(key),
+                 "first_trip": self.first_trip.get(key, 0),
+                 "last_trip": self.last_trip.get(key, 0)}
+                for key, n in sorted(self.trips.items())]
+
+
+_HEALTH = RouteHealth()
+
+
+def route_health() -> RouteHealth:
+    """The process-wide route-health registry."""
+    return _HEALTH
+
+
+def reset_route_health() -> None:
+    """Re-arm every breaker (tests / model reload).  Moves the route epoch
+    if any key was demoted."""
+    if _HEALTH.demotions:
+        _HEALTH.epoch += 1
+    _HEALTH.trips.clear()
+    _HEALTH.demotions.clear()
+    _HEALTH.first_trip.clear()
+    _HEALTH.last_trip.clear()
+
+
+def route_epoch() -> int:
+    """Monotonic counter of routing-state changes (demotions, resets)."""
+    return _HEALTH.epoch

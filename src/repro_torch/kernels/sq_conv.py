@@ -99,12 +99,12 @@ def sq_conv_k8(xw: torch.Tensor, ww: torch.Tensor,
     if xw.device.type == "cpu":
         return sq_conv_plain(xw, ww, sw)
     if xw.device.type != "cuda":
-        raise ValueError(f"K8 runs on CUDA (or its plain version on CPU), "
-                         f"got a tensor on {xw.device}")
+        raise build.KernelError("K8 runs on CUDA (or its plain version on "
+                                f"CPU), got a tensor on {xw.device}")
     L, n = xw.shape[0], ww.shape[0]
     if L + 4096 > _INT_MAX:
-        raise ValueError(f"K8 stream of {L} samples exceeds the kernel's "
-                         f"32-bit indexing")
+        raise build.KernelError(f"K8 stream of {L} samples exceeds the "
+                                "kernel's 32-bit indexing")
     out = torch.empty((L - n + 1,), dtype=xw.dtype, device=xw.device)
     xw, ww, sw = xw.contiguous(), ww.contiguous(), sw.contiguous()
     lib = build.load("sq_conv")

@@ -213,8 +213,8 @@ def sq_conv2d_k7(xw: torch.Tensor, wt: torch.Tensor, sw: torch.Tensor, *,
     if xw.device.type == "cpu":
         return sq_conv2d_plain(xw, wt, sw, khw, stride, pads)
     if xw.device.type != "cuda":
-        raise ValueError(f"K7 runs on CUDA (or its plain version on CPU), "
-                         f"got a tensor on {xw.device}")
+        raise build.KernelError("K7 runs on CUDA (or its plain version on "
+                                f"CPU), got a tensor on {xw.device}")
     M = B * oh * ow
     xw, wt, sw = xw.contiguous(), wt.contiguous(), sw.contiguous()
     sms = torch.cuda.get_device_properties(xw.device).multi_processor_count
@@ -222,9 +222,9 @@ def sq_conv2d_k7(xw: torch.Tensor, wt: torch.Tensor, sw: torch.Tensor, *,
                             x_aligned=xw.data_ptr() % 16 == 0)
     gx, gy, gz = shape["grid"]
     if max(xw.numel(), wt.numel(), M * N) > _INT_MAX or gy > _MAX_GRID_Y:
-        raise ValueError(f"K7 shape {tuple(xw.shape)} x {tuple(wt.shape)} "
-                         f"exceeds the kernel's 32-bit indexing or grid "
-                         f"limits")
+        raise build.KernelError(f"K7 shape {tuple(xw.shape)} x "
+                                f"{tuple(wt.shape)} exceeds the kernel's "
+                                "32-bit indexing or grid limits")
     out = torch.empty((B, N, oh, ow), dtype=xw.dtype, device=xw.device)
     if out.numel() == 0:
         return out

@@ -154,15 +154,15 @@ def sq_matmul_k1(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
     if aw.device.type == "cpu":
         return sq_matmul_plain(aw, bw, sa, sb)
     if aw.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA (or its plain version on CPU), "
-                         f"got a tensor on {aw.device}")
+        raise build.KernelError("K1 runs on CUDA (or its plain version on "
+                                f"CPU), got a tensor on {aw.device}")
     m, k = aw.shape
     n = bw.shape[1]
     gx, gy = k1_launch_shape(m, n)["grid"]
     if max(m * k, k * n, m * n) > _INT_MAX or gx > _INT_MAX \
             or gy > _MAX_GRID_Y:
-        raise ValueError(f"K1 shape ({m}, {k}) @ ({k}, {n}) exceeds the "
-                         f"kernel's 32-bit indexing or grid limits")
+        raise build.KernelError(f"K1 shape ({m}, {k}) @ ({k}, {n}) exceeds "
+                                "the kernel's 32-bit indexing or grid limits")
     out = torch.empty((m, n), dtype=aw.dtype, device=aw.device)
     if out.numel() == 0:
         return out
@@ -193,16 +193,16 @@ def _batched(label: str, entry: str, counter, launch_shape, aw, bw, sa,
     if aw.device.type == "cpu":
         return sq_matmul_batched_plain(aw, bw, sa, sb)
     if aw.device.type != "cuda":
-        raise ValueError(f"{label} runs on CUDA (or its plain version on "
-                         f"CPU), got a tensor on {aw.device}")
+        raise build.KernelError(f"{label} runs on CUDA (or its plain version "
+                                f"on CPU), got a tensor on {aw.device}")
     nb, m, k = aw.shape
     n = bw.shape[2]
     gx, gy, gz = launch_shape(nb, m, n)["grid"]
     if max(m * k, k * n, m * n) > _INT_MAX or gx > _INT_MAX \
             or gy > _MAX_GRID_Y or gz > _MAX_GRID_Z:
-        raise ValueError(f"{label} shape ({nb}, {m}, {k}) @ ({nb}, {k}, "
-                         f"{n}) exceeds the kernel's 32-bit indexing or grid "
-                         f"limits")
+        raise build.KernelError(f"{label} shape ({nb}, {m}, {k}) @ ({nb}, "
+                                f"{k}, {n}) exceeds the kernel's 32-bit "
+                                "indexing or grid limits")
     out = torch.empty((nb, m, n), dtype=aw.dtype, device=aw.device)
     if out.numel() == 0:
         return out

@@ -161,24 +161,25 @@ def sq_paged_attn_k4(q, k_pool, v_pool, tables, pos_pool, q_pos, *,
                                    window=window, softcap=softcap,
                                    attend_limit=attend_limit)
     if q.device.type != "cuda":
-        raise ValueError(f"K4 runs on CUDA (or its plain version on CPU), "
-                         f"got a tensor on {q.device}")
+        raise build.KernelError("K4 runs on CUDA (or its plain version on "
+                                f"CPU), got a tensor on {q.device}")
     B, S, KV, G, hd = q.shape
     nb = tables.shape[1]
     if hd % 8:
-        raise ValueError(f"K4 copies K/V rows in 16-byte pieces of 8 "
-                         f"elements: head_dim {hd} is not a multiple of 8")
+        raise build.KernelError("K4 copies K/V rows in 16-byte pieces of "
+                                f"8 elements: head_dim {hd} is not a "
+                                "multiple of 8")
     splits = k4_splits(B, KV, nb, _sm_count(q.device.index))
     smem = smem_bytes(S * G, block_size, hd, k_pool.element_size(),
                       -(-nb // splits))
     if smem > _SMEM_MAX:
-        raise ValueError(f"K4 needs {smem} bytes of shared memory for "
-                         f"S*G={S * G}, block_size={block_size}, hd={hd}, "
-                         f"{nb} table columns; one block may use "
-                         f"{_SMEM_MAX}")
+        raise build.KernelError(f"K4 needs {smem} bytes of shared memory for "
+                                f"S*G={S * G}, block_size={block_size}, "
+                                f"hd={hd}, {nb} table columns; one block may "
+                                f"use {_SMEM_MAX}")
     q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), v_pool.contiguous()
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("K4 pools must start on a 16-byte boundary")
+        raise build.KernelError("K4 pools must start on a 16-byte boundary")
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out

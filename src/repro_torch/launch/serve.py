@@ -12,11 +12,21 @@ attention, and K2/K3 the attention einsums of prefill (and, under
 attention softmax path on the multiplier.  ``--reduced`` serves the small
 smoke configuration; ``--device cpu`` runs the kernels' plain versions;
 ``--route`` pins the square_pallas route (``REPRO_ROUTE`` syntax).
+
+The paged engine's resilience and observability flags are the JAX
+launcher's: ``--deadline-ms``, ``--queue-limit``, ``--shed-policy``,
+``--guard`` (fail non-finite-logits slots, guard every square-routed
+contraction), ``--metrics-file`` (the engine's registry snapshot as JSON)
+and ``--trace-out`` (a Chrome trace of the run).  Check the two files with
+``python -m repro_torch.obs.check METRICS TRACE``.  :func:`main` returns
+``{rid: RequestResult}`` (the engine) or ``{rid: tokens}`` (``--legacy``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 import os
 import time
 from typing import List, Optional
@@ -28,7 +38,9 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import SQUARE_GEMMS_POLICY
 from repro_torch.models.blocks import PAGEABLE_KINDS
 from repro_torch.models.lm import build_model
-from repro_torch.serve.engine import Engine, EngineConfig
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.export import write_chrome_trace
+from repro_torch.serve.engine import SHED_POLICIES, Engine, EngineConfig
 from repro_torch.serve.server import Request, ServeConfig, Server
 
 __all__ = ["make_requests", "main"]
@@ -74,8 +86,44 @@ def main(argv: Optional[List[str]] = None):
                     help="serve through the dense reference Server")
     ap.add_argument("--max-batch", type=int, default=4,
                     help="decode slots of the dense Server (--legacy)")
+    # resilience (engine only)
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request deadline from submit, in ms (an "
+                         "expired request ends TIMED_OUT with its partial "
+                         "tokens)")
+    ap.add_argument("--queue-limit", type=int, default=None,
+                    help="bounded admission queue depth; overflow is shed "
+                         "per --shed-policy")
+    ap.add_argument("--shed-policy", choices=SHED_POLICIES,
+                    default="reject-new",
+                    help="full-queue policy: refuse the newcomer, or evict "
+                         "the oldest queued request")
+    ap.add_argument("--guard", action="store_true",
+                    help="numerics guard: fail non-finite-logits slots and "
+                         "let the route-health breaker demote saturating "
+                         "square-route sites")
+    # observability
+    ap.add_argument("--metrics-file", default=None,
+                    help="write the engine's registry snapshot (counters, "
+                         "gauges, histogram percentiles, route health) as "
+                         "JSON")
+    ap.add_argument("--trace-out", default=None,
+                    help="trace the run and write a Chrome trace_event JSON "
+                         "(Perfetto / chrome://tracing)")
     args = ap.parse_args(argv)
+    tracing = (obs_trace.capture() if args.trace_out
+               else contextlib.nullcontext())
+    with tracing as tracer:
+        results = _serve(args)
+        if tracer is not None:
+            write_chrome_trace(tracer, args.trace_out)
+            print(f"  trace -> {args.trace_out} ({len(tracer.records())} "
+                  f"records, {tracer.dropped} dropped)")
+    return results
 
+
+def _serve(args):
+    """Build the model and serve the requests as ``args`` say."""
     if args.route:
         os.environ["REPRO_ROUTE"] = args.route
     cfg = get_config(args.arch)
@@ -93,12 +141,20 @@ def main(argv: Optional[List[str]] = None):
     model = build_model(cfg, device=args.device, seed=args.seed)
     reqs = make_requests(cfg, args.requests, seed=args.seed)
     if args.legacy:
+        if args.metrics_file:
+            print("note: --metrics-file needs the paged engine's registry; "
+                  "ignored under --legacy")
         return _serve_legacy(model, reqs, args)
     ecfg = EngineConfig(max_slots=args.slots, block_size=args.block_size,
                         num_blocks=args.blocks,
                         blocks_per_seq=args.blocks_per_seq,
                         prefill_chunk=args.prefill_chunk,
-                        max_new_tokens=args.max_new, prepared=args.prepared)
+                        max_new_tokens=args.max_new, prepared=args.prepared,
+                        deadline_s=(args.deadline_ms / 1e3
+                                    if args.deadline_ms is not None
+                                    else None),
+                        queue_limit=args.queue_limit,
+                        shed_policy=args.shed_policy, guard=args.guard)
     engine = Engine(model, ecfg, seed=args.seed, device=model.device)
     results = engine.run(reqs)
     m = engine.metrics
@@ -114,7 +170,27 @@ def main(argv: Optional[List[str]] = None):
     by_status = {}
     for r in results.values():
         by_status[str(r.status)] = by_status.get(str(r.status), 0) + 1
-    print(f"  terminals: {by_status}")
+    print(f"  terminals: {by_status} | shed {m.shed} | timeouts "
+          f"{m.timeouts} | guard trips {m.guard_trips} | guard recomputes "
+          f"{m.guard_recomputes} | step failures {m.step_failures}")
+    summ = m.summary()
+    print(f"  ttft p50/p95/p99 {summ['ttft_p50_s'] * 1e3:.0f}/"
+          f"{summ['ttft_p95_s'] * 1e3:.0f}/{summ['ttft_p99_s'] * 1e3:.0f}ms"
+          f" | decode step p50/p95/p99 "
+          f"{summ['decode_step_p50_s'] * 1e3:.1f}/"
+          f"{summ['decode_step_p95_s'] * 1e3:.1f}/"
+          f"{summ['decode_step_p99_s'] * 1e3:.1f}ms")
+    snap = engine.obs_snapshot()
+    demoted = [h["key"] for h in snap["route_health"] if h["demoted"]]
+    line = (f"  route health: {len(snap['route_health'])} tracked site(s), "
+            f"{len(demoted)} demoted")
+    if demoted:
+        line += " -> " + ", ".join(demoted)
+    print(line)
+    if args.metrics_file:
+        with open(args.metrics_file, "w") as f:
+            json.dump(snap, f, indent=1, sort_keys=True)
+        print(f"  metrics snapshot -> {args.metrics_file}")
     for rid in sorted(results)[:4]:
         print(f"  req {rid}: {results[rid].tokens[:8]}...")
     if len(results) != args.requests:

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import counting, guards
 from repro_torch.core.einsum import fs_einsum, resolve_mode
 from repro_torch.core.prepared import PreparedOperand
 from repro_torch.layers import basic
@@ -274,9 +275,12 @@ def _attn_paged_step(p, x, cache, pos, *, cfg, window: Optional[int], mode,
     New K/V are written to their physical slots IN PLACE (the pools are
     the engine's, updated step by step; the JAX version returns new
     pools), then every query attends over its own block table's window
-    with the absolute-position causal mask.  ``kernel`` runs K4;
-    ``gather`` materialises the window.  There is no guard and no
-    recompute: a kernel fault surfaces as an error.
+    with the absolute-position causal mask.  ``kernel`` runs K4 (not for
+    an ``attn_paged`` health key that was demoted); ``gather``
+    materialises the window.  K4's result is noted into the contraction
+    audit at ``attn_scores`` and ``attn_pv``.  Under an enabled guard a
+    non-finite K4 result is a counted trip, recomputed on the gather
+    route; a kernel fault surfaces as an error.
 
     ``paged``: dict(tables (B, nb) int32, pos_pool (P,) int32 already
     holding this step's positions, phys (B, S) slots, block_size).
@@ -304,21 +308,7 @@ def _attn_paged_step(p, x, cache, pos, *, cfg, window: Optional[int], mode,
     T = tables.shape[1] * bs
     qf = qr.reshape(B, S, KV, G, hd).float() * hd ** -0.5
 
-    use_kernel = False
-    if resolve_mode(mode, policy, "attn_paged") == "square_pallas" \
-            and dt.is_floating_point:
-        from repro_torch.kernels import routing
-        route = routing.select_paged_attn_route(
-            S, T, batch=B, kv_heads=KV, group=G, hd=hd, dtype=dt)
-        use_kernel = route.name == "kernel"
-
-    if use_kernel:
-        from repro_torch.kernels.sq_paged_attn import sq_paged_attn_k4
-        out = sq_paged_attn_k4(qf, k_pool, v_pool, tables, pos_pool, pos,
-                               block_size=bs, window=window,
-                               softcap=cfg.attn_logit_softcap,
-                               attend_limit=ATTEND_POS_LIMIT)
-    else:
+    def gather_attend():
         idx = paged_gather_indices(tables, bs)
         k = k_pool[idx].float()                            # (B, T, KV, hd)
         v = v_pool[idx].float()
@@ -332,8 +322,43 @@ def _attn_paged_step(p, x, cache, pos, *, cfg, window: Optional[int], mode,
         s = _softcap(s, cfg.attn_logit_softcap)
         s = s.masked_fill(~valid[:, None, None], NEG_INF)
         w = torch.softmax(s, dim=-1)
-        out = fs_einsum("bkgqt,btkh->bqkgh", w, v, mode=mode, policy=policy,
-                        site="attn_pv")
+        return fs_einsum("bkgqt,btkh->bqkgh", w, v, mode=mode, policy=policy,
+                         site="attn_pv")
+
+    use_kernel = False
+    if resolve_mode(mode, policy, "attn_paged") == "square_pallas" \
+            and dt.is_floating_point:
+        from repro_torch.kernels import routing
+        route = routing.select_paged_attn_route(
+            S, T, batch=B, kv_heads=KV, group=G, hd=hd, dtype=dt)
+        hkey = routing.health_key("attn_paged", (B, S, KV, G, hd, T), dt)
+        use_kernel = (route.name == "kernel"
+                      and not routing.route_health().is_demoted(hkey))
+
+    if use_kernel:
+        from repro_torch.kernels.sq_paged_attn import sq_paged_attn_k4
+        out = sq_paged_attn_k4(qf, k_pool, v_pool, tables, pos_pool, pos,
+                               block_size=bs, window=window,
+                               softcap=cfg.attn_logit_softcap,
+                               attend_limit=ATTEND_POS_LIMIT)
+        gp = guards.guard_policy()
+        if gp.enabled and not guards.check_finite(out):
+            # a counted recompute, never a quiet one: the trip lands in
+            # RouteHealth (a guard.trip event; demotion at the limit) and
+            # in its recompute count, and the gather route's fs_einsums
+            # note themselves
+            health = routing.route_health()
+            health.record_trip(hkey, limit=gp.trip_limit)
+            out = gather_attend()
+        else:
+            # K4 computes both softmax-path contractions: note them at the
+            # sites the audit knows, with the gather route's volumes
+            for site in ("attn_scores", "attn_pv"):
+                counting.note_contraction(
+                    site=site, spec="paged_attn_kernel",
+                    mode="square_pallas", mults=B * KV * G * S * T * hd)
+    else:
+        out = gather_attend()
 
     out = out.reshape(B, S, H, hd).to(dt)
     return _proj_out(p["wo"], out, mode, x.dtype, policy=policy)

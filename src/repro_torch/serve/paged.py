@@ -1,8 +1,7 @@
 """Paged KV-cache management: fixed-size blocks, per-sequence block tables.
 
 A numpy copy of ``repro/serve/paged.py`` (the port imports nothing of the
-JAX package).  Windowed eviction is kept here as in the reference, but the
-port's engine does not call it yet.
+JAX package).
 
 The serving engine's cache is a single physical pool per attention layer
 (``LM.init_paged_cache``: ``(num_blocks * block_size, KV, hd)`` token
@@ -83,6 +82,15 @@ class BlockAllocator:
     def blocks_for(self, n_tokens: int) -> int:
         """Blocks needed to hold ``n_tokens`` cache entries."""
         return -(-max(0, int(n_tokens)) // self.block_size)
+
+    def occupancy(self) -> dict:
+        """Pool occupancy snapshot: the engine publishes it as its
+        ``engine_blocks_used`` / ``engine_block_utilization`` gauges each
+        tick."""
+        return {"num_blocks": self.num_blocks - 1,
+                "used_blocks": self.used_blocks,
+                "free_blocks": self.free_blocks,
+                "utilization": self.utilization}
 
     def alloc(self, n: int) -> Optional[List[int]]:
         """Grant ``n`` blocks, or None (untouched) if they are not free."""

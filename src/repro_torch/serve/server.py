@@ -40,6 +40,9 @@ class Request:
     rid: int
     tokens: np.ndarray            # (prompt_len,) int32
     out: Optional[List[int]] = None
+    deadline_s: Optional[float] = None    # per-request wall budget from
+                                          # submit (engine only; overrides
+                                          # EngineConfig.deadline_s)
 
 
 def write_slot(cache, slot: int, one) -> None:

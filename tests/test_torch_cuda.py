@@ -285,6 +285,18 @@ def test_k4_matches_plain_on_card(cuda_device, kw, pool_dtype):
     assert (out - ref).abs().max().item() <= 1e-4
 
 
+def test_k4_refusals_on_card_are_kernel_errors(cuda_device):
+    """A launch K4 refuses on CUDA tensors (a head_dim that is not a whole
+    number of its 16-byte copies) is a KernelError, which the serving
+    engine re-raises rather than retrying; nothing launches."""
+    from repro_torch.kernels.build import KernelError
+    q, kp, vp, tables, pos_pool, q_pos = _k4_inputs(cuda_device, hd=12)
+    before = sq_paged_attn_k4.launches
+    with pytest.raises(KernelError, match="multiple of 8"):
+        sq_paged_attn_k4(q, kp, vp, tables, pos_pool, q_pos, block_size=16)
+    assert sq_paged_attn_k4.launches == before
+
+
 # (table columns, live tokens, S, G, hd, block size, options): every split
 # shape K4 takes -- more columns than splits, a ragged split of columns, fewer
 # columns than 8, a window that masks whole splits, 32 query rows (S = 8,
