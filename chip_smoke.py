@@ -15,22 +15,37 @@ through the kernels, at shapes held to their plain versions:
   few of its decode steps are traced too;
 - the launcher (``repro_torch.launch.serve.main``) as the first path, with
   ``--guard``, ``--deadline-ms``, ``--queue-limit``, ``--metrics-file`` and
-  ``--trace-out``, inside a contraction audit: the first path's tokens,
-  a snapshot and a trace that pass ``repro_torch.obs.check``, no guard
-  trip, recompute or step failure, the same K1/K4 launches per step, and
-  the audit's per-site mults and square fraction equal to the analytic
-  count (the no-policy path's audit too, at a square fraction of 1); then
-  the guard alone on the first path's model, timed per decode tick and
-  traced.
+  ``--trace-out``, compiled (CUDA graphs, its default on the GPU) inside
+  the compiled contraction audit: the first path's tokens, a snapshot and
+  a trace that pass ``repro_torch.obs.check``, no guard trip, recompute,
+  re-capture or step failure, the same K1/K4 launches per step (and one
+  call more for each capture's warm-up), and the audit's per-site mults
+  and square fraction equal to the analytic count (the no-policy path's
+  eager audit too, at a square fraction of 1); then the eager guard alone
+  on the first path's model, timed per decode tick and traced;
+- the first path again with its three model calls replayed from CUDA
+  graphs: the eager path's tokens, 3 captures, K1 +85 and K4 +12 a decode
+  tick by the capture ledger and in a profiled replay, eager and compiled
+  engines timed in turns and traced, and a guarded compiled engine; and
+  the dense Server with its decode step replayed (the eager Server's
+  tokens, K1 85 and K3 24 a step by the ledger and the profiler).
+
+The first three paths run eagerly (``jit=False``), as the JAX engine's
+benchmark regime does; the launcher and the graph phases run what the
+launcher serves on the GPU.
 
 After the conv and complex phases below, the engine runs a fault schedule
 at full width and 2 layers (allocator, prefill and decode failures, a
 poisoned logits row, a clock skew past a deadline, a queue shedding the
 oldest, a cancel): every request terminal, no block leaked, the poisoned
 row FAILED and counted, every completed request token-identical to a
-clean run.  Last, the numerics guard on K1's route: f32 operands past the
-square form's range trip it, each call returns the standard result, and
-the second trip demotes the key so K1 is launched no more.
+clean run, eagerly and compiled.  Then the numerics guard on K1's route:
+f32 operands past the square form's range trip it, each call returns the
+standard result, and the second trip demotes the key so K1 is launched no
+more.  Last, the compiled guard: the same contraction captured in a CUDA
+graph trips through its probes, demotes on the second replay and is
+re-captured on the standard route; and an engine whose seeded demotion
+re-captures its graphs keeps its tokens and its memory.
 
 K1 is also held bit for bit to K2 at nb = 1 and to K3 at every shape, and
 timed beside K2 at nb = 1; K3 is timed beside K2 on its own operands, and
@@ -92,7 +107,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config                      # noqa: E402
 from repro_torch.configs.base import SQUARE_GEMMS_POLICY        # noqa: E402
-from repro_torch.core import counting, guards                   # noqa: E402
+from repro_torch.core import counting, graphs, guards           # noqa: E402
 from repro_torch.core.einsum import fs_einsum                   # noqa: E402
 from repro_torch.kernels import build, routing                  # noqa: E402
 from repro_torch.kernels.sq_matmul import (                     # noqa: E402
@@ -590,10 +605,13 @@ def serve_cfg(policy=SQUARE_GEMMS_POLICY):
                                contraction_policy=policy)
 
 
-def engine_cfg(max_new=MAX_NEW):
+def engine_cfg(max_new=MAX_NEW, jit=False, guard=False):
+    """The launcher's engine geometry; eager unless ``jit`` (the launcher's
+    own default captures on CUDA)."""
     return EngineConfig(max_slots=SLOTS, block_size=BLOCK, num_blocks=BLOCKS,
                         blocks_per_seq=BLOCKS_PER_SEQ, prefill_chunk=CHUNK,
-                        max_new_tokens=max_new, prepared=True)
+                        max_new_tokens=max_new, prepared=True, jit=jit,
+                        guard=guard)
 
 
 def reset_counts():
@@ -614,34 +632,48 @@ def counts():
 
 def run_ticks(eng) -> list:
     """Step ``eng`` to its end.  Per tick: (K1 launches, K4 launches,
-    decode steps, prefill chunks, first tokens, host wall in s)."""
+    decode steps, prefill chunks, first tokens, host wall in s, model
+    calls captured)."""
     ticks, pending = [], True
     while pending:
         m = eng.metrics
         before = (sq_matmul_k1.launches, sq_paged_attn_k4.launches,
                   m.decode_steps, m.prefill_chunks, m.first_tokens)
+        graphs0 = set(eng._graph_set.calls)
         t_tick = time.perf_counter()
         pending = eng.step()            # ends on the sampled tokens' copy
         t_tick = time.perf_counter() - t_tick
         ticks.append(tuple(a - b for a, b in zip(
             (sq_matmul_k1.launches, sq_paged_attn_k4.launches,
              m.decode_steps, m.prefill_chunks, m.first_tokens), before))
-            + (t_tick,))
+            + (t_tick, frozenset(set(eng._graph_set.calls) - graphs0)))
     return ticks
 
 
+def warmup_launches(captured, L: int):
+    """(K1, K4) launches of the warm-up calls of the model calls captured
+    (each capture runs its call once eagerly first)."""
+    per_call = {"_chunk": (L * GEMMS_PER_LAYER, 0),
+                "_decode": (L * GEMMS_PER_LAYER + 1, L),
+                "_logits_at": (1, 0)}
+    return tuple(sum(per_call[c][i] for c in captured) for i in (0, 1))
+
+
 def tick_walls(ticks, L: int) -> list:
-    """Check every tick's K1/K4 launches against its steps; returns the
-    sorted walls (s) of the decode-only ticks."""
+    """Check every tick's K1/K4 launches against its steps (and, for a
+    compiled engine, the warm-ups of its captures); returns the sorted
+    walls (s) of the decode-only ticks without a capture."""
     per_step = (L * GEMMS_PER_LAYER + 1, L)
     bad = [t for t in ticks
            if t[0] != per_step[0] * t[2] + L * GEMMS_PER_LAYER * t[3] + t[4]
-           or t[1] != per_step[1] * t[2]]
-    decode_only = [t for t in ticks if t[2] and not t[3]]
+           + warmup_launches(t[6], L)[0]
+           or t[1] != per_step[1] * t[2] + warmup_launches(t[6], L)[1]]
+    decode_only = [t for t in ticks if t[2] and not t[3] and not t[6]]
     check(not bad and decode_only,
           f"every tick: K1 +{per_step[0]} and K4 +{per_step[1]} per decode "
           f"step (K1 +{L * GEMMS_PER_LAYER} per prefill chunk, +1 per first "
-          f"token); {len(decode_only)} decode-only ticks")
+          f"token; one call more for each capture's warm-up); "
+          f"{len(decode_only)} decode-only ticks")
     return sorted(t[5] for t in decode_only)
 
 
@@ -780,11 +812,13 @@ TRACE_KERNELS = (("K1", "sq_matmul_cluster_kernel"),
                  ("K6", "Cpm4"))
 
 
-def trace_steps(step, what: str, untraced_s: float) -> None:
+def trace_steps(step, what: str, untraced_s: float) -> dict:
     """torch.profiler trace of ``TRACE_TICKS`` calls of ``step``: the
     device-busy share of their wall, and each kernel's and the other
     device work's time per call.  Profiling slows the host, so the busy
-    share it reads is a lower bound for the untraced run."""
+    share it reads is a lower bound for the untraced run.  Returns the
+    per-call device operations, busy ms, busy share and launches of each
+    kernel (an empty dict when the trace recorded no device events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -809,7 +843,7 @@ def trace_steps(step, what: str, untraced_s: float) -> None:
     if not device:
         print("  trace: no device events recorded; device-busy share not "
               "measured", flush=True)
-        return
+        return {}
 
     def kernel(name):
         for label, sym in TRACE_KERNELS:
@@ -820,14 +854,19 @@ def trace_steps(step, what: str, untraced_s: float) -> None:
     busy_us = _union_us((e.time_range.start, e.time_range.end)
                         for e in device)
     parts = []
+    stats = {"ops": len(device) / n, "busy_ms": busy_us / n / 1e3,
+             "busy_share": busy_us / wall_us, "wall_ms": wall_us / n / 1e3}
     for label in [lb for lb, _ in TRACE_KERNELS] + [None]:
         mine = [e for e in device if kernel(e.name) == label]
         ms = sum(e.time_range.end - e.time_range.start
                  for e in mine) / 1e3 / n
         if label is None:
             parts.append(f"other device work {ms:.3f} ms")
-        elif mine:
-            parts.append(f"{label} {len(mine) / n:.0f} launches {ms:.3f} ms")
+        else:
+            stats[label] = len(mine) / n
+            if mine:
+                parts.append(f"{label} {len(mine) / n:.0f} launches "
+                             f"{ms:.3f} ms")
     print(f"  trace per step: {len(device) / n:.0f} device operations, "
           f"device busy {busy_us / n / 1e3:.3f} ms = "
           f"{busy_us / wall_us:.1%} of the traced wall; "
@@ -848,21 +887,22 @@ def trace_steps(step, what: str, untraced_s: float) -> None:
     print("  host per step, by self time: " + "; ".join(
         f"{e.key} x{e.count / n:.0f} {e.self_cpu_time_total / n / 1e3:.3f} ms"
         for e in host[:8]), flush=True)
+    return stats
 
 
 def trace_phase(model: LM, dev, untraced_tick_s: float,
-                guard: bool = False) -> None:
+                guard: bool = False, jit: bool = False) -> dict:
     """A trace of a few decode-only ticks of a fresh engine (same
-    requests), with or without the numerics guard."""
-    eng = Engine(model, dataclasses.replace(engine_cfg(), guard=guard),
-                 device=dev)
+    requests), with or without the numerics guard, eager or compiled
+    (then every model call is captured before the traced ticks)."""
+    eng = Engine(model, engine_cfg(jit=jit, guard=guard), device=dev)
     eng.submit(make_requests(model.cfg, N_REQUESTS, seed=0))
     while eng.metrics.first_tokens < N_REQUESTS:
         if not eng.step():
             raise SmokeFailure("trace engine ended before every request "
                                "had its first token")
-    trace_steps(eng.step, f"decode-only ticks{' (guard on)' * guard}",
-                untraced_tick_s)
+    return trace_steps(eng.step, f"{'replayed ' * jit}decode-only ticks"
+                                 f"{' (guard on)' * guard}", untraced_tick_s)
 
 
 # ------------------------------------------------------------- launcher
@@ -933,9 +973,12 @@ def _decode_tick_walls(trace: dict) -> list:
 
 def launcher_phase(dev, compared, plain):
     """``python -m repro_torch.launch.serve`` at full width with every
-    resilience and observability flag on, inside a contraction audit: the
-    engine_phase's tokens, a clean snapshot and trace, K1/K4 launches per
-    step unchanged, and the audit equal to the analytic count.  Then one
+    resilience and observability flag on -- its engine compiled, as the
+    launcher's default is on CUDA -- inside the compiled contraction
+    audit: the engine_phase's tokens, a clean snapshot and trace, K1/K4
+    launches per step unchanged (plus one call for each capture's
+    warm-up), no re-capture, and the audit of the replays equal to the
+    analytic count.  Then one
     engine with the guard alone (no trace) on engine_phase's model, timed
     by engine_phase's tick loop beside engine_phase's run, and a trace of
     its decode-only ticks: where the guard's finite checks spend the
@@ -945,7 +988,8 @@ def launcher_phase(dev, compared, plain):
     L = cfg.n_layers
     print("launcher: python -m repro_torch.launch.serve, fairsquare-demo "
           "full width, square_pallas + square_gemms, prepared, --guard, "
-          "--deadline-ms, --queue-limit, --metrics-file, --trace-out",
+          "--deadline-ms, --queue-limit, --metrics-file, --trace-out; "
+          "compiled (CUDA graphs, the default), compiled audit",
           flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         mfile, tfile = f"{tmp}/metrics.json", f"{tmp}/trace.json"
@@ -959,7 +1003,10 @@ def launcher_phase(dev, compared, plain):
                 "--seed", "0", "--device", str(dev), "--metrics-file", mfile,
                 "--trace-out", tfile]
         reset_counts()                  # counts of this path's run only
-        with counting.track_contractions() as audit:
+        # the compiled audit must cover the captures, which happen inside
+        # the run; the counter tallies every replay
+        with counting.compiled_audit(), \
+                counting.track_compiled_contractions() as audit:
             res = serve_launcher.main(argv)
         torch.cuda.synchronize()
         k1_total, k4_total = sq_matmul_k1.launches, sq_paged_attn_k4.launches
@@ -984,37 +1031,42 @@ def launcher_phase(dev, compared, plain):
                          f"submissions: {parts}")
     check(snap["route_health"] == [], "route health: no site tripped")
     check(eng["guard_trips"] == eng["step_failures"] == eng["watchdog_trips"]
-          == eng["preemptions"] == 0
-          and c["engine_guard_recomputes_total"] == 0,
-          "0 guard trips, 0 guard recomputes, 0 step failures, 0 watchdog "
-          "trips, 0 preemptions")
+          == eng["preemptions"] == eng["guard_rejits"] == 0
+          and c["engine_guard_recomputes_total"] == 0
+          and c["engine_guard_rejits_total"] == 0,
+          "0 guard trips, 0 guard recomputes, 0 re-captures, 0 step "
+          "failures, 0 watchdog trips, 0 preemptions")
     check(trace["otherData"]["dropped_records"] == 0,
           f"trace: {len(trace['traceEvents'])} events, 0 dropped")
     walls = _decode_tick_walls(trace)
     steps, chunks = eng["decode_steps"], eng["prefill_chunks"]
     firsts = eng["completed"]           # one first token each, no preemption
+    # no re-capture: each of the three calls captured once, its warm-up
+    # one eager call more
+    warm = warmup_launches(("_chunk", "_decode", "_logits_at"), L)
     check(k1_total == (L * GEMMS_PER_LAYER + 1) * steps
-          + L * GEMMS_PER_LAYER * chunks + firsts
-          and k4_total == L * steps and walls,
+          + L * GEMMS_PER_LAYER * chunks + firsts + warm[0]
+          and k4_total == L * steps + warm[1] and walls,
           f"K1 {k1_total} and K4 {k4_total} launches: +"
           f"{L * GEMMS_PER_LAYER + 1} and +{L} per decode step, as in "
-          f"engine_phase ({steps} decode steps, {chunks} prefill chunks, "
+          f"engine_phase, and {warm} for the three captures' warm-ups "
+          f"({steps} decode steps, {chunks} prefill chunks, "
           f"{len(walls)} decode-only ticks)")
     check(sq_matmul_k2.launches == sq_matmul_k3.launches == 0,
           "K2 and K3 not launched")
     shapes_ok(compared)
     audit_ok(audit, cfg, steps, chunks, firsts, square_gemms=True)
     tick = walls[len(walls) // 2]
-    print(f"  launcher (guard + trace on): {eng['tokens_per_s']:.1f} "
+    print(f"  launcher (compiled, guard + trace on): "
+          f"{eng['tokens_per_s']:.1f} "
           f"tokens/s, median decode-only tick wall {tick * 1e3:.2f} ms; "
           f"engine_phase (guard and trace off): "
           f"{plain['tokens_per_s']:.1f} tokens/s, "
           f"{plain['tick_s'] * 1e3:.2f} ms", flush=True)
 
-    # the guard alone, without the trace: one finite check (a
+    # the eager guard alone, without the trace: one finite check (a
     # device-to-host read) a guarded contraction
-    guarded_cfg = dataclasses.replace(engine_cfg(), guard=True)
-    geng = Engine(plain["model"], guarded_cfg, device=dev)
+    geng = Engine(plain["model"], engine_cfg(guard=True), device=dev)
     geng.submit(make_requests(cfg, N_REQUESTS, seed=0))
     gwalls = tick_walls(run_ticks(geng), L)
     check({rid: r.tokens for rid, r in geng.results.items()}
@@ -1037,7 +1089,7 @@ def launcher_phase(dev, compared, plain):
 FAULT_LAYERS = 2
 
 
-def fault_phase(dev) -> None:
+def fault_phase(dev, jit: bool = False) -> None:
     """The engine under a fault schedule at full width and 2 layers:
     allocator, prefill and decode failures, a poisoned logits row, a clock
     skew past one request's deadline, a bounded queue shedding the oldest,
@@ -1047,11 +1099,12 @@ def fault_phase(dev) -> None:
     a clean run's tokens."""
     cfg = dataclasses.replace(serve_cfg(), n_layers=FAULT_LAYERS)
     print(f"faults: {cfg.name} full width at {FAULT_LAYERS} layers, "
-          f"square_pallas + square_gemms, prepared, guard", flush=True)
+          f"square_pallas + square_gemms, prepared, guard, "
+          f"{'compiled' if jit else 'eager'}", flush=True)
     model = build_model(cfg, device=dev, seed=0)
     n = 12
     reqs = make_requests(cfg, n, seed=5)
-    clean = Engine(model, engine_cfg(), device=dev).run(
+    clean = Engine(model, engine_cfg(jit=jit), device=dev).run(
         [Request(r.rid, r.tokens) for r in reqs])
     check(all(r.ok for r in clean.values()), f"clean run: {n} COMPLETED")
     plan = FaultPlan.of(alloc_fail=(1, 4, 9), prefill_fail=(2,),
@@ -1059,8 +1112,8 @@ def fault_phase(dev) -> None:
                         clock_skew={12: 3600.0})
     inj = FaultInjector(plan)
     eng = Engine(model, dataclasses.replace(
-        engine_cfg(), guard=True, queue_limit=6, shed_policy="evict-oldest"),
-        device=dev, faults=inj)
+        engine_cfg(jit=jit, guard=True), queue_limit=6,
+        shed_policy="evict-oldest"), device=dev, faults=inj)
     batch = [Request(r.rid, r.tokens) for r in reqs]
     batch[-1].deadline_s = 60.0          # the newest: still pending at tick 12
     eng.submit(batch)
@@ -1137,6 +1190,237 @@ def guard_phase(dev) -> None:
     check(not health.is_demoted(key), "reset_route_health re-arms the key")
 
 
+# ------------------------------------------------------- compiled step
+CARD = ""                       # nvidia-smi's name and power limit
+
+
+def _timed_run(eng, reqs, off: int, per_tick: bool = True) -> dict:
+    """Serve ``reqs`` on ``eng`` with their rids shifted by ``off`` (so one
+    engine serves them again): the tokens by the original rid, the wall,
+    tokens/s, mean TTFT, the decode-only tick walls (checked per tick by
+    :func:`tick_walls`, unless ``per_tick`` is off: a retried call
+    launches its kernels twice) and whether all COMPLETED with MAX_NEW
+    tokens."""
+    eng.submit([Request(r.rid + off, r.tokens) for r in reqs])
+    t0 = time.perf_counter()
+    ticks = run_ticks(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rids = [r.rid + off for r in reqs]
+    toks = {rid - off: eng.results[rid].tokens for rid in rids}
+    ttft = [eng.metrics.ttft_s[rid] for rid in rids]
+    return {"tokens": toks, "wall": wall,
+            "tokens_per_s": sum(len(t) for t in toks.values()) / wall,
+            "ttft_ms": 1e3 * sum(ttft) / len(ttft),
+            "walls": (tick_walls(ticks, eng.model.cfg.n_layers) if per_tick
+                      else None),
+            "ok": all(eng.results[rid].ok
+                      and len(eng.results[rid].tokens) == MAX_NEW
+                      for rid in rids)}
+
+
+def _walls_str(walls) -> str:
+    return (f"median {walls[len(walls) // 2] * 1e3:.2f} ms (min "
+            f"{walls[0] * 1e3:.2f}, max {walls[-1] * 1e3:.2f}, "
+            f"{len(walls)} ticks)")
+
+
+def graph_engine_phase(dev, compared, plain):
+    """The paged engine with its three model calls captured into CUDA
+    graphs (``EngineConfig(jit=True)``), on engine_phase's model and
+    requests: engine_phase's tokens, 3 captures and no re-capture, K1 +85
+    and K4 +12 a decode tick by the ledger (each capture's warm-up one
+    call more), exactly 85 K1 and 12 K4 kernels in a profiled replayed
+    tick; then eager and compiled engines timed in turns (eager, graph,
+    graph, eager), each traced once, and a guarded compiled engine."""
+    model = plain["model"]
+    cfg = model.cfg
+    L = cfg.n_layers
+    print(f"graph engine: {cfg.name} full width, square_pallas + "
+          f"square_gemms, prepared, _chunk/_decode/_logits_at captured into "
+          f"CUDA graphs (EngineConfig(jit=True)); card {CARD}", flush=True)
+    reqs = make_requests(cfg, N_REQUESTS, seed=0)
+    geng = Engine(model, engine_cfg(jit=True), device=dev)
+    reset_counts()                      # counts of this path's run only
+    first = _timed_run(geng, reqs, 0)
+    k1, k4 = sq_matmul_k1.launches, sq_paged_attn_k4.launches
+    m = geng.metrics
+    check(first["ok"] and first["tokens"] == plain["tokens"],
+          f"{N_REQUESTS} requests COMPLETED; tokens equal engine_phase's "
+          f"(eager)")
+    check(geng.captures == 3 and sorted(geng._graph_set.calls) == [
+        "_chunk", "_decode", "_logits_at"] and m.guard_rejits == 0,
+        f"3 captures ({sorted(geng._graph_set.calls)}), 0 re-captures")
+    check(sq_matmul_k2.launches == sq_matmul_k3.launches == 0,
+          "K2 and K3 not launched")
+    shapes_ok(compared)
+    warm = warmup_launches(("_chunk", "_decode", "_logits_at"), L)
+    check(k1 == (L * GEMMS_PER_LAYER + 1) * m.decode_steps
+          + L * GEMMS_PER_LAYER * m.prefill_chunks + m.first_tokens + warm[0]
+          and k4 == L * m.decode_steps + warm[1],
+          f"by the ledger: K1 {k1}, K4 {k4} over {m.decode_steps} decode "
+          f"steps, {m.prefill_chunks} prefill chunks and the warm-ups {warm}")
+
+    runs = {"eager": [], "graph": []}
+    for i, kind in enumerate(("eager", "graph", "graph", "eager")):
+        eng = geng if kind == "graph" else Engine(model, engine_cfg(),
+                                                  device=dev)
+        r = _timed_run(eng, reqs, 100 * (i + 1))
+        check(r["ok"] and r["tokens"] == plain["tokens"],
+              f"turn {i + 1} ({kind}): engine_phase's tokens")
+        runs[kind].append(r)
+        print(f"  turn {i + 1} {kind}: {r['tokens_per_s']:.1f} tokens/s, "
+              f"mean TTFT {r['ttft_ms']:.2f} ms, decode-only tick "
+              f"{_walls_str(r['walls'])}; card {CARD}", flush=True)
+    check(geng.captures == 3, "the reused compiled engine captured no more")
+    med = {k: sorted(w for r in v for w in r["walls"])[
+        len(v[0]["walls"] + v[1]["walls"]) // 2] for k, v in runs.items()}
+    stats = {k: trace_phase(model, dev, med[k], jit=(k == "graph"))
+             for k in ("eager", "graph")}
+    check(stats["graph"].get("K1") == L * GEMMS_PER_LAYER + 1
+          and stats["graph"].get("K4") == L,
+          f"a profiled replayed tick holds {stats['graph'].get('K1')} K1 and "
+          f"{stats['graph'].get('K4')} K4 kernels (want "
+          f"{L * GEMMS_PER_LAYER + 1} and {L})")
+    for k in ("eager", "graph"):
+        rs = runs[k]
+        print(f"  {k} (2 turns): {rs[0]['tokens_per_s']:.1f} and "
+              f"{rs[1]['tokens_per_s']:.1f} tokens/s, mean TTFT "
+              f"{rs[0]['ttft_ms']:.2f} and {rs[1]['ttft_ms']:.2f} ms, median "
+              f"decode-only tick {med[k] * 1e3:.2f} ms; traced tick: "
+              f"{stats[k]['ops']:.0f} device operations, device busy "
+              f"{stats[k]['busy_ms']:.3f} ms = {stats[k]['busy_share']:.1%} "
+              f"of the traced wall; untraced tick wall - device busy = "
+              f"{med[k] * 1e3 - stats[k]['busy_ms']:.2f} ms of host time "
+              f"outside the device's work; card {CARD}", flush=True)
+
+    # the compiled guard on a clean run: probes in the graphs, one read of
+    # their flags a call, no trip
+    gg = Engine(model, engine_cfg(jit=True, guard=True), device=dev)
+    r = _timed_run(gg, reqs, 0)
+    gm = gg.metrics
+    check(r["ok"] and r["tokens"] == plain["tokens"] and gm.guard_trips
+          == gm.guard_rejits == gm.guard_recomputes == 0 and gg.captures == 3,
+          "guarded compiled engine: engine_phase's tokens, 0 trips, 0 "
+          "re-captures, 0 recomputes, 3 captures")
+    gstats = trace_phase(model, dev, r["walls"][len(r["walls"]) // 2],
+                         guard=True, jit=True)
+    print(f"  graph + guard: {r['tokens_per_s']:.1f} tokens/s, decode-only "
+          f"tick {_walls_str(r['walls'])}, traced tick "
+          f"{gstats.get('ops', 0):.0f} device operations, busy "
+          f"{gstats.get('busy_share', 0):.1%}; card {CARD}", flush=True)
+    return {"K1": k1, "K4": k4}
+
+
+def compiled_guard_phase(dev, plain) -> None:
+    """The compiled guard: ``fs_einsum`` on K1's route captured under
+    ``guarded(trip_limit=2)`` with static f32 operands; operands past the
+    square form's range (``|a+b| > 1.84e19``) written in and replayed trip
+    it, the second replay demotes the key and moves the route epoch, and a
+    re-capture launches K1 no more and returns torch.einsum's result.
+    Then the engine: a seeded pending trip and demotion re-capture the
+    model calls and the run recovers engine_phase's tokens, with
+    ``memory_allocated`` not growing across a re-capture."""
+    print("compiled guard: fs_einsum on the K1 route in a CUDA graph, f32 "
+          "operands of 1e19 whose products cancel, trip limit 2", flush=True)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(32, 64, generator=gen).to(dev)
+    y = torch.randn(64, 32, generator=gen).to(dev)
+    xs = torch.full((32, 64), 1e19, device=dev)
+    xs[:, 1::2] *= -1.0
+    ys = torch.full((64, 32), 1e19, device=dev)
+    want = torch.einsum("mk,kn->mn", xs, ys)
+    check(bool(torch.isfinite(want).all()), "the multiplier result is finite")
+    key = routing.health_key("graph_guard", (1, 32, 64, 32), torch.float32)
+    routing.reset_route_health()
+    guards.clear_pending_trips()
+    health, epoch0 = routing.route_health(), routing.route_epoch()
+
+    def fn(a, b):
+        return fs_einsum("mk,kn->mn", a, b, mode="square_pallas",
+                         site="graph_guard")
+
+    reset_counts()
+    with guards.guarded(trip_limit=2):
+        call = graphs.CapturedCall(fn, (x, y), device=dev, name="graph_guard")
+        check(call.ledger.flags[0] == (key,)
+              and [(kern.__name__, n) for kern, n, _ in call.ledger.launches]
+              == [("sq_matmul_k1", 1)],
+              f"the capture holds one probe ({key}) and one K1 launch")
+        clean = call.replay()
+        drained = [guards.drain_pending_trips()]
+        torch.cuda.synchronize()
+        tol = 64 * 2.0 ** -23 * (x.abs().max() + y.abs().max()).item() ** 2
+        check(drained == [{}] and (clean - x @ y).abs().max().item() <= tol,
+              "clean operands: no trip, the square result")
+        for _ in range(2):
+            call(xs, ys)
+            drained.append(guards.drain_pending_trips())
+        check(drained[1:] == [{key: 1}, {key: 1}]
+              and health.trips.get(key) == 2 and health.is_demoted(key)
+              and routing.route_epoch() == epoch0 + 1,
+              f"two replays past the range trip twice and demote the key "
+              f"(route epoch {epoch0} -> {routing.route_epoch()}; drained "
+              f"{drained})")
+        launched = sq_matmul_k1.launches
+        check(launched == 4, f"K1: 1 warm-up + 3 replays = {launched}")
+        call.release()
+        recap = graphs.CapturedCall(fn, (xs, ys), device=dev,
+                                    name="graph_guard")
+        out = recap.replay()
+        torch.cuda.synchronize()
+        check(not recap.ledger.launches and recap.ledger.flags is None
+              and sq_matmul_k1.launches == launched
+              and torch.equal(out, want)
+              and guards.drain_pending_trips() == {},
+              "the re-capture serves the demoted key on the standard route: "
+              "no K1 launch, no probe, torch.einsum's result")
+    routing.reset_route_health()
+
+    # the engine: a seeded pending trip and demotion (a synthetic key: the
+    # ledger is the injection point) make _guarded_call drain, re-capture
+    # and retry; the run is token-exact
+    model = plain["model"]
+    reqs = make_requests(model.cfg, N_REQUESTS, seed=0)
+    eng = Engine(model, engine_cfg(jit=True, guard=True), device=dev)
+
+    def mem():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_allocated(dev) / 2 ** 20,
+                torch.cuda.memory_reserved(dev) / 2 ** 20)
+
+    mems = [mem()]
+    for i in range(2):
+        probe = routing.health_key("synthetic_probe", (1, 2, 256, 1024),
+                                   torch.float32)
+        guards.emit_trace_probe(probe, torch.full((1,), float("nan"),
+                                                  device=dev))
+        health.record_trip(probe, limit=1)
+        epoch = eng._route_epoch
+        r = _timed_run(eng, reqs, 1000 * i, per_tick=False)
+        mems.append(mem())
+        # run 1 captures _chunk, re-captures it after the drain, then
+        # _logits_at and _decode; run 2 re-captures all three
+        check(r["ok"] and r["tokens"] == plain["tokens"]
+              and eng.metrics.guard_rejits == i + 1
+              and eng._route_epoch > epoch and eng.captures == 4 + 3 * i,
+              f"run {i + 1} after a seeded demotion: engine_phase's tokens, "
+              f"guard_rejits {eng.metrics.guard_rejits}, route epoch "
+              f"{epoch} -> {eng._route_epoch}, {eng.captures} captures")
+        routing.reset_route_health()
+    eng._jit_model_fns()                # frees the three graphs
+    mems.append(mem())
+    print(f"  memory (allocated, reserved) MiB: before the first run "
+          f"{mems[0][0]:.1f}, {mems[0][1]:.1f}; after it (3 graphs live) "
+          f"{mems[1][0]:.1f}, {mems[1][1]:.1f}; after the second, which "
+          f"re-captured all three {mems[2][0]:.1f}, {mems[2][1]:.1f}; the "
+          f"graphs freed {mems[3][0]:.1f}, {mems[3][1]:.1f}", flush=True)
+    check(abs(mems[2][0] - mems[1][0]) <= 1.0
+          and mems[3][0] < mems[2][0],
+          "a re-capture frees the old graphs: allocated memory after it "
+          "within 1 MiB of before it, and lower once the graphs are freed")
+
+
 # ------------------------------------------------- every contraction square
 def shapes_ok(compared) -> None:
     """K1, K2 and K3 ran only at shapes their phases held to the plain
@@ -1211,7 +1495,7 @@ def server_phase(model: LM, dev, compared):
         params = model.prepare_params()
     server = Server(model, params, ServeConfig(
         max_batch=DENSE_BATCH, cache_len=DENSE_CACHE,
-        max_new_tokens=MAX_NEW), device=dev)
+        max_new_tokens=MAX_NEW, jit=False), device=dev)
     calls = []
 
     def traced(kind, fn):
@@ -1282,6 +1566,67 @@ def server_phase(model: LM, dev, compared):
         trace_steps(lambda: model.decode_step(params, cache, toks, pos),
                     f"dense decode steps of {DENSE_BATCH} slots",
                     walls[len(walls) // 2])
+    total["tokens"] = out
+    total["step_s"] = walls[len(walls) // 2]
+    return total
+
+
+def dense_graph_phase(model: LM, dev, compared, dense):
+    """The dense Server with its decode step captured into a CUDA graph
+    (its default on CUDA, as the JAX Server jits ``decode_step``):
+    server_phase's tokens, K1 85 and K3 24 a decode step by the ledger
+    (the first step twice: its capture's warm-up runs it eagerly once) and
+    in a profiled replay."""
+    cfg = model.cfg
+    L = cfg.n_layers
+    print(f"dense Server, decode step captured (CUDA graph): {cfg.name} full "
+          f"width, no policy, prepared, max_batch {DENSE_BATCH}; card {CARD}",
+          flush=True)
+    with torch.no_grad():
+        params = model.prepare_params()
+    server = Server(model, params, ServeConfig(
+        max_batch=DENSE_BATCH, cache_len=DENSE_CACHE,
+        max_new_tokens=MAX_NEW), device=dev)
+    check(server.jit, "the Server captures its decode step by default on "
+                      "CUDA")
+    calls, inner = [], server._decode
+
+    def decode(*args):
+        before = counts()
+        t = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        calls.append(([a - b for a, b in zip(counts(), before)],
+                      time.perf_counter() - t))
+        return out
+
+    server._decode = decode
+    reset_counts()                      # counts of this path's run only
+    t0 = time.perf_counter()
+    out = server.run(make_requests(cfg, N_REQUESTS, seed=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    total = dict(zip(("K1", "K2", "K3", "K4"), counts()))
+    check(out == dense["tokens"], "tokens equal server_phase's (eager)")
+    per = [L * GEMMS_PER_LAYER + 1, 0, 2 * L, 0]
+    check(calls and calls[0][0] == [2 * n for n in per]
+          and all(c[0] == per for c in calls[1:])
+          and server.graph.replays == len(calls),
+          f"by the ledger: every replayed decode step K1 {per[0]} and K3 "
+          f"{per[2]}, the first twice (warm-up + replay); {len(calls)} "
+          f"steps, {server.graph.replays} replays")
+    shapes_ok(compared)
+    walls = sorted(c[1] for c in calls[1:])
+    tokens = sum(len(t) for t in out.values())
+    print(f"  served {len(out)} requests, {tokens} tokens in {wall:.3f} s "
+          f"({tokens / wall:.1f} tokens/s); replayed decode step "
+          f"{_walls_str(walls)} beside server_phase's eager median "
+          f"{dense['step_s'] * 1e3:.2f} ms; card {CARD}", flush=True)
+    stats = trace_steps(server.graph.replay, "replayed dense decode steps",
+                        walls[len(walls) // 2])
+    check(stats.get("K1") == per[0] and stats.get("K3") == per[2],
+          f"a profiled replay holds {stats.get('K1')} K1 and "
+          f"{stats.get('K3')} K3 kernels (want {per[0]} and {per[2]})")
     return total
 
 
@@ -2018,24 +2363,33 @@ def run(dev) -> str:
     plain = engine_phase(dev, compared)
     k1_total, k4_total = plain["K1"], plain["K4"]
     launcher = launcher_phase(dev, compared, plain)
+    graph = graph_engine_phase(dev, compared, plain)
     model = build_model(serve_cfg(policy=None), device=dev, seed=0)
     none = engine_none_phase(model, dev, compared)
     dense = server_phase(model, dev, compared)
+    dense_graph = dense_graph_phase(model, dev, compared, dense)
     conv = conv_path_phase(dev, gen)
     fir = fir_path_phase(dev)
     dft = dft_path_phase(dev, z, w)
     fault_phase(dev)
+    fault_phase(dev, jit=True)
     guard_phase(dev)
+    compiled_guard_phase(dev, plain)
     launches = {"K1": {"engine_square_gemms": k1_total,
                        "launcher": launcher["K1"],
+                       "engine_graph": graph["K1"],
                        "engine_no_policy": none["K1"],
                        "server_no_policy": dense["K1"],
+                       "server_graph": dense_graph["K1"],
                        "conv_path": conv["K1"]},
                 "K2": {"engine_no_policy": none["K2"],
-                       "server_no_policy": dense["K2"]},
-                "K3": {"server_no_policy": dense["K3"]},
+                       "server_no_policy": dense["K2"],
+                       "server_graph": dense_graph["K2"]},
+                "K3": {"server_no_policy": dense["K3"],
+                       "server_graph": dense_graph["K3"]},
                 "K4": {"engine_square_gemms": k4_total,
                        "launcher": launcher["K4"],
+                       "engine_graph": graph["K4"],
                        "engine_no_policy": none["K4"]},
                 "K7": {"conv_path": conv["K7"]},
                 "K5": {"dft_path": dft["K5"]},
@@ -2062,6 +2416,8 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
+    global CARD
+    CARD = smi
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()

@@ -1,5 +1,5 @@
 """Op counting and the contraction audit: the PyTorch port of
-``repro/core/counting.py`` (all but its compiled audit).
+``repro/core/counting.py``.
 
 Two counters back the paper's claims.
 
@@ -13,10 +13,14 @@ Two counters back the paper's claims.
   contraction volume runs in square form.  Every
   :func:`repro_torch.core.einsum.fs_einsum` call notes its ``B*M*K*N``
   scalar multiplies and its served mode into each open counter
-  (:func:`track_contractions`).  The port runs eagerly, so a note fires
-  once per executed call: a Python loop notes every iteration, and
-  :func:`count_scale` is needed only where one call stands for ``n``
-  executions.
+  (:func:`track_contractions`).  An eager call notes once per execution:
+  a Python loop notes every iteration, and :func:`count_scale` is needed
+  only where one call stands for ``n`` executions.
+- The compiled audit covers calls replayed from CUDA graphs
+  (:mod:`repro_torch.core.graphs`), where Python does not run again: under
+  :func:`compiled_audit` the dispatcher also emits a runtime note
+  (:func:`emit_runtime_note`) into the capture's ledger, and every replay
+  tallies it into each open :func:`track_compiled_contractions` counter.
 
     with counting.track_contractions() as ctr:
         model.forward(params, tokens)
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import warnings
 from typing import Dict, List
 
@@ -40,7 +45,9 @@ __all__ = ["OpCounter", "pm_matmul_counted", "standard_matmul_counted",
            "real_matmul_square_count", "cpm4_square_count",
            "cpm3_square_count", "ContractionRecord", "ContractionCounter",
            "track_contractions", "count_scale", "note_contraction",
-           "SQUARE_MODES", "GRAD_SITE_SUFFIXES", "EmptyAuditWarning"]
+           "SQUARE_MODES", "GRAD_SITE_SUFFIXES", "EmptyAuditWarning",
+           "compiled_audit", "compiled_audit_enabled", "emit_runtime_note",
+           "land_runtime_note", "track_compiled_contractions"]
 
 
 class EmptyAuditWarning(UserWarning):
@@ -332,7 +339,8 @@ def count_scale(n: int):
 
 def note_contraction(*, site: str, spec: str, mode: str, mults: int,
                      demoted: bool = False) -> None:
-    """Record one contraction into every open counter (no-op otherwise).
+    """Record one contraction into every open counter (no-op otherwise,
+    and while a capture records: a capture executes nothing).
 
     ``demoted=True`` marks a contraction that would have been square-routed
     but was served standard because its route-health breaker tripped
@@ -343,3 +351,88 @@ def note_contraction(*, site: str, spec: str, mode: str, mults: int,
     scaled = int(mults) * _SCALES[-1]
     for ctr in _COUNTERS:
         ctr.record(site or "einsum", spec, mode, scaled, demoted)
+
+
+# --------------------------------------------------------------------------
+# Compiled contraction accounting
+#
+# A CUDA graph replay runs no Python, so the notes above cannot see it.
+# While ``compiled_audit`` is enabled AT CAPTURE TIME, the dispatcher also
+# emits a runtime note into the capture's ledger (core/graphs.py), and
+# every replay tallies it into the counters ``track_compiled_contractions``
+# opened (no ``count_scale``: a replay is one execution).
+# --------------------------------------------------------------------------
+
+_RUNTIME_COUNTERS: List[ContractionCounter] = []
+_COMPILED_AUDIT_STACK: List[bool] = []
+
+
+def compiled_audit_enabled() -> bool:
+    """Whether the dispatcher emits runtime notes into captures (innermost
+    :func:`compiled_audit` region, else ``$REPRO_COMPILED_AUDIT=1``).
+    Consulted at capture time only."""
+    if _COMPILED_AUDIT_STACK:
+        return _COMPILED_AUDIT_STACK[-1]
+    return os.environ.get("REPRO_COMPILED_AUDIT", "") == "1"
+
+
+@contextlib.contextmanager
+def compiled_audit(enabled: bool = True):
+    """Scope runtime-note emission.  Must cover the call that CAPTURES: the
+    notes are part of a graph's ledger, so enabling the audit after the
+    capture changes nothing (and disabling it later does not take notes
+    out of a captured ledger)."""
+    _COMPILED_AUDIT_STACK.append(bool(enabled))
+    try:
+        yield
+    finally:
+        _COMPILED_AUDIT_STACK.pop()
+
+
+def land_runtime_note(site: str, spec: str, mode: str, mults: int,
+                      demoted: bool = False) -> None:
+    """Tally one executed runtime note into every open
+    :func:`track_compiled_contractions` counter (a graph's ledger calls
+    this at each replay)."""
+    for ctr in _RUNTIME_COUNTERS:
+        ctr.record(site, spec, mode, mults, demoted)
+
+
+def emit_runtime_note(*, site: str, spec: str, mode: str, mults: int,
+                      demoted: bool = False) -> None:
+    """Record one contraction note into the capture's ledger, so that each
+    replay of the graph tallies it.  Outside a capture it tallies at once,
+    as a note of an eager execution; a capture without a ledger (not made
+    by :class:`~repro_torch.core.graphs.CapturedCall`) cannot replay it
+    and raises."""
+    from repro_torch.core import graphs           # lazy: import cycle
+    note = (site or "einsum", spec, mode, int(mults), bool(demoted))
+    ledger = graphs.current_ledger()
+    if ledger is not None:
+        ledger.notes.append(note)
+    elif graphs.capturing():
+        raise graphs.CaptureError(
+            "a compiled-audit note under a CUDA graph capture that no "
+            "ledger records: capture through repro_torch.core.graphs."
+            "CapturedCall")
+    else:
+        land_runtime_note(*note)
+
+
+@contextlib.contextmanager
+def track_compiled_contractions():
+    """Counter over the runtime notes of the graph replays made inside the
+    region.
+
+    The runtime complement of :func:`track_contractions`: a replay of a
+    graph captured under :func:`compiled_audit` tallies its contraction
+    mix here, where the eager counter sees nothing (and warns
+    :class:`EmptyAuditWarning`).  Notes land when the replay is issued on
+    the host, so the counter is complete when the region closes.
+    """
+    ctr = ContractionCounter()
+    _RUNTIME_COUNTERS.append(ctr)
+    try:
+        yield ctr
+    finally:
+        _RUNTIME_COUNTERS.remove(ctr)

@@ -17,7 +17,11 @@ enabled guard policy (:mod:`repro_torch.core.guards`) a square-routed
 output that is not finite records a trip in
 :class:`repro_torch.kernels.routing.RouteHealth` and is recomputed on
 ``standard``; a demoted key runs ``standard`` from the start.  Both are
-noted ``demoted=True``.
+noted ``demoted=True``.  Under a CUDA graph capture
+(:mod:`repro_torch.core.graphs`) there is no in-line check: a compiled
+guard policy emits a finite probe into the graph instead, and under
+:func:`repro_torch.core.counting.compiled_audit` a runtime note joins the
+contraction note, so that every replay is audited.
 
 Supported specs: two operands, explicit ``->``, an optional ellipsis, no
 repeated index within one operand.  Indices in one operand only and not in
@@ -32,7 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core import counting, guards
+from repro_torch.core import counting, graphs, guards
 from repro_torch.core import matmul as fsmm
 from repro_torch.core import squares as sq
 from repro_torch.core.prepared import PreparedOperand, unwrap
@@ -207,14 +211,26 @@ def _dispatch(spec: str, x: torch.Tensor, y, mode: str,
             mode, demoted = "standard", True
 
     out = _execute(spec, plan, sizes, (B, M, K, N), x, y, mode, preferred)
-    if hkey is not None and not demoted and not guards.check_finite(out):
-        health.record_trip(hkey, limit=gp.trip_limit)
-        out = _execute(spec, plan, sizes, (B, M, K, N), x, y, "standard",
-                       preferred)
-        mode, demoted = "standard", True
+    if hkey is not None and not demoted:
+        # check_finite is None under a CUDA graph capture, where nothing
+        # can be read back: no in-line recompute there.  Under a compiled
+        # guard policy the capture gets a finite probe instead, and the
+        # step owner drains, demotes and retries after each replay.
+        ok = guards.check_finite(out)
+        if ok is False:
+            health.record_trip(hkey, limit=gp.trip_limit)
+            out = _execute(spec, plan, sizes, (B, M, K, N), x, y,
+                           "standard", preferred)
+            mode, demoted = "standard", True
+        elif ok is None and gp.compiled:
+            guards.emit_trace_probe(hkey, out)
 
-    counting.note_contraction(site=site or "einsum", spec=spec, mode=mode,
-                              mults=B * M * K * N, demoted=demoted)
+    note = dict(site=site or "einsum", spec=spec, mode=mode,
+                mults=B * M * K * N, demoted=demoted)
+    counting.note_contraction(**note)
+    if counting.compiled_audit_enabled() and graphs.capturing():
+        # the replay twin of the note: tallied at every replay
+        counting.emit_runtime_note(**note)
     return out
 
 

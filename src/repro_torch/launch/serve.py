@@ -20,6 +20,16 @@ contraction), ``--metrics-file`` (the engine's registry snapshot as JSON)
 and ``--trace-out`` (a Chrome trace of the run).  Check the two files with
 ``python -m repro_torch.obs.check METRICS TRACE``.  :func:`main` returns
 ``{rid: RequestResult}`` (the engine) or ``{rid: tokens}`` (``--legacy``).
+
+On the GPU both paths serve from CUDA graphs, as the JAX launcher serves
+from jitted steps: the engine captures its three model calls
+(``EngineConfig.jit``, whose default captures on CUDA), the dense Server
+its decode step; ``--guard`` then runs the compiled guard (probes in the
+graphs, drained after each call; a demotion re-captures, counted in
+``engine_guard_rejits_total``).  On the CPU both run eagerly.  To audit a
+compiled run, enclose :func:`main` in
+``repro_torch.core.counting.compiled_audit()`` (it must cover the
+captures) and ``track_compiled_contractions()``.
 """
 from __future__ import annotations
 
@@ -172,7 +182,8 @@ def _serve(args):
         by_status[str(r.status)] = by_status.get(str(r.status), 0) + 1
     print(f"  terminals: {by_status} | shed {m.shed} | timeouts "
           f"{m.timeouts} | guard trips {m.guard_trips} | guard recomputes "
-          f"{m.guard_recomputes} | step failures {m.step_failures}")
+          f"{m.guard_recomputes} | guard rejits {m.guard_rejits} | step "
+          f"failures {m.step_failures}")
     summ = m.summary()
     print(f"  ttft p50/p95/p99 {summ['ttft_p50_s'] * 1e3:.0f}/"
           f"{summ['ttft_p95_s'] * 1e3:.0f}/{summ['ttft_p99_s'] * 1e3:.0f}ms"

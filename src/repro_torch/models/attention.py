@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import counting, guards
+from repro_torch.core import counting, graphs, guards
 from repro_torch.core.einsum import fs_einsum, resolve_mode
 from repro_torch.core.prepared import PreparedOperand
 from repro_torch.layers import basic
@@ -278,9 +278,11 @@ def _attn_paged_step(p, x, cache, pos, *, cfg, window: Optional[int], mode,
     with the absolute-position causal mask.  ``kernel`` runs K4 (not for
     an ``attn_paged`` health key that was demoted); ``gather``
     materialises the window.  K4's result is noted into the contraction
-    audit at ``attn_scores`` and ``attn_pv``.  Under an enabled guard a
-    non-finite K4 result is a counted trip, recomputed on the gather
-    route; a kernel fault surfaces as an error.
+    audit at ``attn_scores`` and ``attn_pv`` (and, captured under the
+    compiled audit, into the graph's runtime notes).  Under an enabled
+    guard an eager non-finite K4 result is a counted trip, recomputed on
+    the gather route; a captured one is not checked in line; a kernel
+    fault surfaces as an error.
 
     ``paged``: dict(tables (B, nb) int32, pos_pool (P,) int32 already
     holding this step's positions, phys (B, S) slots, block_size).
@@ -341,22 +343,34 @@ def _attn_paged_step(p, x, cache, pos, *, cfg, window: Optional[int], mode,
                                block_size=bs, window=window,
                                softcap=cfg.attn_logit_softcap,
                                attend_limit=ATTEND_POS_LIMIT)
-        gp = guards.guard_policy()
-        if gp.enabled and not guards.check_finite(out):
+        # None under a CUDA graph capture: no in-line check and no
+        # recompute there (JAX's recompute is eager-only too); the
+        # engine's per-slot logits guard catches a non-finite K4 result
+        ok = guards.check_finite(out) if guards.guard_policy().enabled \
+            else True
+        if ok is False:
             # a counted recompute, never a quiet one: the trip lands in
             # RouteHealth (a guard.trip event; demotion at the limit) and
             # in its recompute count, and the gather route's fs_einsums
             # note themselves
-            health = routing.route_health()
-            health.record_trip(hkey, limit=gp.trip_limit)
+            routing.route_health().record_trip(
+                hkey, limit=guards.guard_policy().trip_limit)
             out = gather_attend()
         else:
             # K4 computes both softmax-path contractions: note them at the
-            # sites the audit knows, with the gather route's volumes
+            # sites the audit knows, with the gather route's volumes.  A
+            # capture under the compiled audit emits their runtime notes
+            # too (the JAX package's compiled audit omits these sites), so
+            # a replayed step's audit equals an eager step's.
+            runtime = counting.compiled_audit_enabled() \
+                and graphs.capturing()
             for site in ("attn_scores", "attn_pv"):
-                counting.note_contraction(
-                    site=site, spec="paged_attn_kernel",
-                    mode="square_pallas", mults=B * KV * G * S * T * hd)
+                note = dict(site=site, spec="paged_attn_kernel",
+                            mode="square_pallas",
+                            mults=B * KV * G * S * T * hd)
+                counting.note_contraction(**note)
+                if runtime:
+                    counting.emit_runtime_note(**note)
     else:
         out = gather_attend()
 

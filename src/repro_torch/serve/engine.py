@@ -33,7 +33,10 @@ tests and on the card.
 
 A failed model call is retried on the next tick: the calls write the
 cache only at the positions of their inputs, so a retry rewrites the same
-values and is token-exact.  Kernel faults are never absorbed: a
+values and is token-exact.  (The JAX engine's calls return new pools; the
+port writes its K/V pools and ``pos_pool`` in place, at the same
+positions on every try, so the pools after a retried call are bit-equal
+to a clean call's.)  Kernel faults are never absorbed: a
 :class:`~repro_torch.kernels.build.KernelError` (a kernel that did not
 build, load or launch, a launch its wrapper refused included) and the
 CUDA errors torch raises (``torch.AcceleratorError``,
@@ -41,11 +44,37 @@ CUDA errors torch raises (``torch.AcceleratorError``,
 :meth:`Engine.run`, so a broken kernel cannot end as clean ``FAILED``
 terminals.
 
+Compiled step (``EngineConfig.jit``, the JAX engine's ``jit``): on a
+CUDA device the three model calls -- ``_chunk`` (one prefill chunk,
+``(1, prefill_chunk)`` tokens), ``_decode`` (one ragged decode step,
+``(max_slots, 1)``, with its logits) and ``_logits_at`` (one row's
+logits, its index a static device scalar) -- are each captured once into
+a CUDA graph (:class:`~repro_torch.core.graphs.CapturedCall`, one memory
+pool for the three) at first use and replayed from then on: a decode
+tick is one replay and one read of the sampled tokens.  Inputs are
+written into the graphs' static buffers; fault hooks, ``poison_logits``,
+sampling and the per-slot logits guard stay on the host, outside the
+replay.  ``jit=None`` (the default) captures on CUDA and runs eagerly on
+the CPU, which has no graphs; ``jit=True`` on the CPU is refused;
+``jit=False`` runs eagerly anywhere (the benchmark regime, and the
+in-line guard's).  A capture that fails raises; nothing falls back to
+eager.  The route a call takes is fixed at capture, as a jit trace fixes
+it: only a route-health demotion re-captures (below).
+
 With ``guard=True`` each tick runs under :func:`repro_torch.core.guards.
-guarded`: the einsum dispatcher checks square-routed outputs in line (the
-port runs eagerly, the JAX engine's ``jit=False`` regime), and a slot
-whose logits go non-finite FAILS alone.  Each guard recompute counts in
-``engine_guard_recomputes_total``.
+guarded`, and a slot whose logits go non-finite FAILS alone.  Eagerly the
+einsum dispatcher checks square-routed outputs in line and recomputes a
+trip on the standard route; each recompute counts in
+``engine_guard_recomputes_total``.  Compiled, the graphs carry finite
+probes instead, and :meth:`Engine._guarded_call` runs the JAX engine's
+compiled guard: replay, drain the probe flags into ``RouteHealth`` (one
+read), and on a trip count it, re-capture if the route epoch moved (a
+demotion; the span ``engine.rejit``, counted in ``guard_rejits`` and
+``engine_guard_rejits_total``) and retry on the same inputs, at most
+``max_step_retries + 1`` times.  The retry rewrites the same pool
+positions, so it is token-exact.  The logits guard's read joins the
+sampled tokens' read, so a guarded compiled tick costs one more read (the
+probe flags') than an unguarded one.
 
 Observability: a per-engine :class:`~repro_torch.obs.metrics.
 MetricsRegistry` (or the caller's) holds the request, work and guard
@@ -59,15 +88,13 @@ writes.
 Sampling is greedy at ``temperature=0`` (token-identical to the JAX
 engine).  At ``temperature>0`` it draws from a ``torch.Generator`` seeded
 with ``seed``, whose stream differs from the JAX engine's PRNG.
-
-Not ported yet: the compiled serving step, and with it the JAX engine's
-compiled guard (``_guarded_call``'s drain, demote, re-jit and retry).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import enum
+import functools
 import itertools
 import time
 from typing import Dict, List, Optional, Union
@@ -75,7 +102,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from repro_torch.core import guards
+from repro_torch.core import graphs, guards
 from repro_torch.device import resolve_device
 from repro_torch.kernels import routing
 from repro_torch.kernels.build import KernelError
@@ -156,6 +183,11 @@ class EngineConfig:
     eos_id: int = -1              # -1: never terminates early
     temperature: float = 0.0      # 0 = greedy
     prepared: bool = False        # LM.prepare_params at engine start
+    jit: Optional[bool] = None    # capture the model calls into CUDA graphs:
+                                  # None = on CUDA (eager on the CPU), True
+                                  # = always (a CPU engine refuses it),
+                                  # False = eager (the in-line guard's and
+                                  # the benchmark regime)
     # ---- resilience (see the module docstring) ----
     deadline_s: Optional[float] = None   # per-request budget from submit
                                          # (Request.deadline_s wins)
@@ -203,6 +235,7 @@ class EngineMetrics:
     watchdog_trips: int = 0
     guard_trips: int = 0          # non-finite logits rows
     guard_recomputes: int = 0     # contractions recomputed by the guard
+    guard_rejits: int = 0         # re-captures forced by route demotions
     peak_queue_depth: int = 0
     util_sum: float = 0.0
     util_steps: int = 0
@@ -258,6 +291,7 @@ class EngineMetrics:
             "watchdog_trips": self.watchdog_trips,
             "guard_trips": self.guard_trips,
             "guard_recomputes": self.guard_recomputes,
+            "guard_rejits": self.guard_rejits,
             "peak_queue_depth": self.peak_queue_depth,
             "ttft_p50_s": self.ttft_hist.quantile(0.50),
             "ttft_p95_s": self.ttft_hist.quantile(0.95),
@@ -295,6 +329,10 @@ class Engine:
                 dev.index is not None and model.device != dev):
             raise ValueError(f"the model lies on {model.device}, the engine "
                              f"was asked to run on {dev}")
+        if cfg.jit and model.device.type != "cuda":
+            raise ValueError(f"EngineConfig(jit=True) captures CUDA graphs; "
+                             f"the engine runs on {model.device} (pass "
+                             f"jit=None or False)")
         self.model = model
         self.cfg = cfg
         self.device = model.device
@@ -317,6 +355,14 @@ class Engine:
             device=self.device)
         self._evict_window = (eviction_window(model.cfg)
                               if cfg.window_eviction else None)
+        # the model calls: raw functions of device tensors, kept so the
+        # compiled guard can re-capture after a demotion
+        self._jit = (model.device.type == "cuda" if cfg.jit is None
+                     else bool(cfg.jit))
+        self._model_fns = self._make_model_fns()
+        self._graph_set = graphs.GraphSet(self._model_fns, self.device)
+        self._jit_model_fns()
+        self._route_epoch = routing.route_epoch()
         self.slots: List[Optional[_Slot]] = [None] * cfg.max_slots
         self.queue: List[Request] = []
         self.results: Dict[int, RequestResult] = {}
@@ -347,6 +393,10 @@ class Engine:
                 "engine_guard_recomputes_total",
                 help="contractions the numerics guard recomputed on the "
                      "standard route after a non-finite square output"),
+            "guard_rejits": reg.counter(
+                "engine_guard_rejits_total",
+                help="model-call re-captures forced by route demotions "
+                     "(compiled guard)"),
         }
         self._g_queue = reg.gauge("engine_queue_depth")
         self._g_blocks = reg.gauge("engine_blocks_used")
@@ -368,6 +418,91 @@ class Engine:
         self._idle_ticks = 0                      # watchdog state
         self._fail_streak = {"prefill": 0, "decode": 0}
 
+    # ------------------------------------------------------- model calls
+    def _make_model_fns(self) -> Dict[str, object]:
+        """The three model calls as functions of device tensors (the JAX
+        engine's ``_model_fns``); each writes the pools in place."""
+        model, params, cache = self.model, self.params, self.cache
+        pos_pool, bs = self.pos_pool, self.cfg.block_size
+
+        def _chunk(tokens, positions, tables):
+            return model.decode_paged(params, cache, tokens, positions,
+                                      tables, pos_pool, block_size=bs)
+
+        def _decode(tokens, positions, tables):
+            hidden = model.decode_paged(params, cache, tokens, positions,
+                                        tables, pos_pool, block_size=bs)
+            return model.logits(params, hidden)[:, -1]     # (B, V)
+
+        def _logits_at(hidden, idx):
+            # idx: a static device scalar, so one graph serves every row
+            return model.logits(params,
+                                hidden.index_select(1, idx.reshape(1)))[:, 0]
+
+        return {"_chunk": _chunk, "_decode": _decode,
+                "_logits_at": _logits_at}
+
+    def _eager(self, name: str):
+        """``name`` run eagerly on host arrays (``_logits_at``: a device
+        hidden and a Python index).  Bound to locals, not ``self``, so the
+        engine stays free of reference cycles."""
+        model, params, dev = self.model, self.params, self.device
+        if name == "_logits_at":
+            return lambda hidden, idx: model.logits(
+                params, hidden[:, idx:idx + 1])[:, 0]
+        fn = self._model_fns[name]
+        return lambda *arrays: fn(*(torch.as_tensor(a, device=dev)
+                                    for a in arrays))
+
+    @property
+    def captures(self) -> int:
+        """Model calls captured into graphs so far (re-captures counted)."""
+        return self._graph_set.captures
+
+    def _jit_model_fns(self) -> None:
+        """(Re-)bind ``_chunk``, ``_decode`` and ``_logits_at``: eager, or
+        each captured into a graph at its first call.  A re-capture frees
+        the old graphs and their pool first."""
+        self._graph_set.release()
+        for name in self._model_fns:
+            setattr(self, name,
+                    functools.partial(self._graph_set, name) if self._jit
+                    else self._eager(name))
+
+    def _guarded_call(self, name: str, *args):
+        """One model call under the compiled numerics guard (the JAX
+        engine's ``_guarded_call``).
+
+        With ``guard=True`` and a compiled engine the graphs carry finite
+        probes: after each replay the pending trips are drained into
+        ``RouteHealth`` (one read of the probe flags); on a trip the
+        result is suspect and DISCARDED, the model calls are re-captured
+        if a demotion moved the route epoch (a fresh capture takes the
+        demoted -- standard -- route), and the call retries on identical
+        inputs, at most ``max_step_retries + 1`` times.  The calls write
+        the pools in place at the positions of their inputs, so a retry
+        rewrites the same values and is token-exact.  Eager engines keep
+        the in-line guard and skip the drain."""
+        if not (self.cfg.guard and self._jit):
+            return getattr(self, name)(*args)
+        for _ in range(self.cfg.max_step_retries + 1):
+            out = getattr(self, name)(*args)
+            trips = guards.drain_pending_trips()
+            if not trips:
+                return out
+            n_trips = sum(trips.values())
+            self.metrics.guard_trips += n_trips
+            self._c_work["guard_trips"].inc(n_trips)
+            if routing.route_epoch() != self._route_epoch:
+                self._route_epoch = routing.route_epoch()
+                with obs_trace.span("engine.rejit", cat="engine", fn=name):
+                    self._jit_model_fns()
+                self.metrics.guard_rejits += 1
+                self._c_work["guard_rejits"].inc()
+        # retries spent on a key the breaker did not demote; the per-slot
+        # logits guard downstream isolates the damage
+        return out
+
     # ------------------------------------------------------------ helpers
     def _now(self) -> float:
         """The engine clock: wall time plus any injected skew (deadlines
@@ -380,6 +515,26 @@ class Engine:
         probs = torch.softmax(logits.float() / self.cfg.temperature, dim=-1)
         return torch.multinomial(probs, 1, generator=self.generator)[:, 0] \
             .cpu().numpy()
+
+    def _sample_read(self, logits: torch.Tensor):
+        """The compiled engine's read of one step: the sampled tokens and,
+        under ``guard``, each row's finiteness, in one device-to-host copy.
+        Returns ``(tokens, finite rows or None)``."""
+        finite = (torch.isfinite(logits.amax(dim=-1)) if self.cfg.guard
+                  else None)
+        if self.cfg.temperature <= 0.0:
+            nxt = torch.argmax(logits, dim=-1)
+        else:
+            x = logits.float()
+            if finite is not None:       # a poisoned row samples no nan
+                x = torch.where(finite[:, None], x, 0.0)
+            nxt = torch.multinomial(torch.softmax(x / self.cfg.temperature,
+                                                  dim=-1), 1,
+                                    generator=self.generator)[:, 0]
+        if finite is None:
+            return nxt.cpu().numpy(), None
+        both = torch.stack([nxt, finite.long()]).cpu().numpy()
+        return both[0], both[1].astype(bool)
 
     def _reset_pos(self, blocks: List[int]) -> None:
         if blocks:
@@ -629,18 +784,14 @@ class Engine:
         poss = np.full((1, cfg.prefill_chunk), -1, np.int32)
         toks[0, :len(chunk)] = chunk
         poss[0, :len(chunk)] = np.arange(lo, lo + len(chunk), dtype=np.int32)
-        dev = self.device
         try:
             with obs_trace.span("engine.prefill_chunk", cat="engine",
                                 rid=slot.req.rid, lo=lo, n=len(chunk)):
                 if self._faults is not None:
                     self._faults.before_step("prefill")
-                hidden = self.model.decode_paged(
-                    self.params, self.cache, torch.as_tensor(toks, device=dev),
-                    torch.as_tensor(poss, device=dev),
-                    torch.as_tensor(self.tables.table[slot_id:slot_id + 1],
-                                    device=dev),
-                    self.pos_pool, block_size=cfg.block_size)
+                hidden = self._guarded_call(
+                    "_chunk", toks, poss,
+                    self.tables.table[slot_id:slot_id + 1])
         except Exception as e:                        # noqa: BLE001
             self._step_failed("prefill", e, [slot_id])
             return False
@@ -650,17 +801,21 @@ class Engine:
         self._c_work["prefill_chunks"].inc()
         self.metrics.prefill_tokens += len(chunk)
         if slot.n_prefilled == len(prompt):      # final chunk: first token
-            last = len(chunk) - 1
-            logits = self.model.logits(self.params,
-                                       hidden[:, last:last + 1])[:, 0]
+            logits = self._guarded_call("_logits_at", hidden, len(chunk) - 1)
             self.metrics.first_tokens += 1
-            # one reduce and a scalar copy (nan/+inf propagate through max)
-            if cfg.guard and not bool(torch.isfinite(logits.max())):
+            if self._jit:
+                nxt, finite = self._sample_read(logits)
+                bad = finite is not None and not finite[0]
+            else:
+                # one reduce and a scalar copy (nan/+inf propagate through
+                # max)
+                bad = cfg.guard and not bool(torch.isfinite(logits.max()))
+            if bad:
                 self._guard_trip()
                 self._terminate(slot_id, RequestStatus.FAILED,
                                 "non-finite prefill logits (numerics guard)")
                 return True
-            tok = int(self._sample(logits)[0])
+            tok = int(nxt[0] if self._jit else self._sample(logits)[0])
             rid = slot.req.rid
             self.metrics.ttft_s[rid] = self._now() - self._arrival[rid]
             obs_trace.event("request.first_token", cat="engine", rid=rid,
@@ -707,20 +862,14 @@ class Engine:
         for i in live:
             toks[i, 0] = self.slots[i].last_tok
             poss[i, 0] = self.slots[i].pos
-        dev = self.device
         t0 = time.perf_counter()
         try:
             with obs_trace.span("engine.decode_step", cat="engine",
                                 n_live=len(live)):
                 if self._faults is not None:
                     self._faults.before_step("decode")
-                hidden = self.model.decode_paged(
-                    self.params, self.cache,
-                    torch.as_tensor(toks, device=dev),
-                    torch.as_tensor(poss, device=dev),
-                    torch.as_tensor(self.tables.table, device=dev),
-                    self.pos_pool, block_size=cfg.block_size)
-                logits = self.model.logits(self.params, hidden)[:, -1]
+                logits = self._guarded_call("_decode", toks, poss,
+                                            self.tables.table)
         except Exception as e:                        # noqa: BLE001
             self._step_failed("decode", e, live)
             return False
@@ -728,11 +877,14 @@ class Engine:
         if self._faults is not None:
             logits = self._faults.poison_logits(logits,
                                                 self.metrics.decode_steps)
-        nxt = self._sample(logits)               # ends on the tokens' copy
-        finite = None
-        if cfg.guard:
+        if self._jit:
             # per-row max: nan/+inf propagate, one reduce over the vocab
-            finite = torch.isfinite(logits.amax(dim=-1)).cpu().numpy()
+            nxt, finite = self._sample_read(logits)
+        else:
+            nxt = self._sample(logits)           # ends on the tokens' copy
+            finite = None
+            if cfg.guard:
+                finite = torch.isfinite(logits.amax(dim=-1)).cpu().numpy()
         # one ragged decode step = one token per live slot: its wall is
         # the per-token latency those slots paid
         self.metrics.decode_step_hist.observe(time.perf_counter() - t0)

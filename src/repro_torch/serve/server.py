@@ -10,18 +10,31 @@
 - greedy or temperature sampling (from an explicit ``torch.Generator``);
 - per-request ``max_new_tokens`` / EOS termination.
 
+On a CUDA device the decode step is captured once into a CUDA graph
+(:class:`~repro_torch.core.graphs.CapturedCall`, with static token and
+position buffers over the server's one dense cache) and replayed at every
+step after, as the JAX ``Server`` jits ``decode_step``; prefill varies in
+length and runs eagerly, as in JAX.  ``ServeConfig.jit`` has the engine's
+meaning: ``None`` captures on CUDA and runs eagerly on the CPU, ``True``
+on the CPU is refused, ``False`` runs eagerly anywhere.  The cache is the
+server's for its lifetime (a graph holds its address) and is reset at the
+start of every :meth:`Server.run`.
+
 The paged :class:`~repro_torch.serve.engine.Engine` is the production
 path; this loop is the plain reference it is compared with.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import graphs
 from repro_torch.device import resolve_device
+from repro_torch.models.attention import EMPTY_POS
 
 __all__ = ["ServeConfig", "Request", "Server", "write_slot"]
 
@@ -33,6 +46,9 @@ class ServeConfig:
     max_new_tokens: int = 32
     eos_id: int = -1              # -1: never terminates early
     temperature: float = 0.0      # 0 = greedy
+    jit: Optional[bool] = None    # capture decode_step into a CUDA graph
+                                  # (None: on CUDA only; see the module
+                                  # docstring)
 
 
 @dataclasses.dataclass
@@ -68,13 +84,37 @@ class Server:
                 dev.index is not None and model.device != dev):
             raise ValueError(f"the model lies on {model.device}, the server "
                              f"was asked to run on {dev}")
+        if cfg.jit and model.device.type != "cuda":
+            raise ValueError(f"ServeConfig(jit=True) captures a CUDA graph; "
+                             f"the server runs on {model.device} (pass "
+                             f"jit=None or False)")
         self.model = model
         self.params = params
         self.cfg = cfg
         self.device = model.device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._decode = model.decode_step
+        self.cache = cache = model.init_cache(cfg.max_batch, cfg.cache_len)
+        self.jit = (self.device.type == "cuda" if cfg.jit is None
+                    else bool(cfg.jit))
+        dev = self.device
+
+        def step(tokens: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+            return model.decode_step(params, cache, tokens, pos)[0]
+
+        # _decode(tokens (B, 1), pos (B,)) on host arrays -> logits (B, V);
+        # compiled, the logits are the graph's, overwritten by the next
+        # step.  Bound to locals, not self: no reference cycle.
+        self._graph_set = graphs.GraphSet({"decode_step": step}, dev)
+        self._decode = (
+            functools.partial(self._graph_set, "decode_step") if self.jit
+            else lambda tokens, pos: step(torch.as_tensor(tokens, device=dev),
+                                          torch.as_tensor(pos, device=dev)))
         self._prefill = model.prefill
+
+    @property
+    def graph(self) -> Optional[graphs.CapturedCall]:
+        """The captured decode step (None until the first compiled step)."""
+        return self._graph_set.calls.get("decode_step")
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         if self.cfg.temperature <= 0.0:
@@ -102,7 +142,11 @@ class Server:
         pos = np.zeros(cfg.max_batch, np.int32)
         last_tok = np.zeros(cfg.max_batch, np.int32)
         remaining = np.zeros(cfg.max_batch, np.int32)
-        cache = self.model.init_cache(cfg.max_batch, cfg.cache_len)
+        cache = self.cache
+        for layer in cache:                 # a fresh cache, in place
+            layer["k"].zero_()
+            layer["v"].zero_()
+            layer["pos"].fill_(EMPTY_POS)
 
         def insert(slot: int, req: Request) -> None:
             toks = torch.as_tensor(np.asarray(req.tokens, np.int32)[None, :],
@@ -129,10 +173,7 @@ class Server:
             live = [s for s in range(cfg.max_batch) if active[s] is not None]
             if not live:
                 continue              # instantly-finished inserts: re-admit
-            logits, cache = self._decode(
-                self.params, cache,
-                torch.as_tensor(last_tok[:, None], device=dev),
-                torch.as_tensor(pos, device=dev))
+            logits = self._decode(last_tok[:, None], pos)
             nxt = self._sample(logits)
             for slot in live:
                 req = active[slot]

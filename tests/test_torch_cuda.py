@@ -814,3 +814,204 @@ def test_complex_ops_launch_k5_k6_on_card(cuda_device, monkeypatch):
                                    atol=1e-3 * 300)
         np.testing.assert_allclose(im.cpu().numpy(), z.imag, rtol=1e-3,
                                    atol=1e-3 * 300)
+
+
+# ---------------------------------------------------- the compiled step
+# The counterparts of tests/test_compiled_guard.py's audit and engine tests
+# (the JAX package jits; the port captures CUDA graphs).  The reduced
+# fairsquare-demo (2 layers, d 64, f32) under square_pallas and the
+# square_gemms policy: K1 on its larger GEMMs, K4 on decode attention
+# (128-token tables).
+COMPILED_KW = dict(max_slots=4, block_size=16, num_blocks=40,
+                   blocks_per_seq=8, prefill_chunk=16, max_new_tokens=6,
+                   prepared=True)
+
+
+@pytest.fixture
+def compiled_world(cuda_device):
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SQUARE_GEMMS_POLICY
+    from repro_torch.core import guards
+    from repro_torch.kernels import routing
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.lm import build_model
+    cfg = dataclasses.replace(get_config("fairsquare-demo").reduced(),
+                              matmul_mode="square_pallas",
+                              contraction_policy=SQUARE_GEMMS_POLICY)
+    routing.reset_route_health()
+    guards.clear_pending_trips()
+    yield build_model(cfg, device=cuda_device, seed=0), \
+        make_requests(cfg, 4, seed=0)
+    routing.reset_route_health()
+    guards.clear_pending_trips()
+
+
+def _serve(model, reqs, device, **kw):
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.serve.server import Request
+    eng = Engine(model, EngineConfig(**COMPILED_KW, **kw), device=device)
+    out = eng.run([Request(r.rid, r.tokens) for r in reqs])
+    assert all(r.ok for r in out.values())
+    return eng, {rid: r.tokens for rid, r in out.items()}
+
+
+def test_compiled_guarded_engine_clean_run_matches_eager_on_card(
+        cuda_device, compiled_world):
+    """guard=True on a compiled engine (the CUDA default): probes in the
+    graphs, drained after every call; a clean run has 0 trips and 0
+    re-captures, 3 captures, and the eager engine's tokens."""
+    model, reqs = compiled_world
+    _, base = _serve(model, reqs, cuda_device, jit=False)
+    eng, toks = _serve(model, reqs, cuda_device, guard=True)
+    assert eng._jit and eng.captures == 3
+    assert toks == base
+    assert eng.metrics.guard_trips == eng.metrics.guard_rejits == 0
+
+
+def test_compiled_engine_recaptures_and_recovers_on_card(cuda_device,
+                                                         compiled_world):
+    """A pending probe trip and a demotion seeded before the run: the
+    first drain finds it, the route epoch moved, so ``_guarded_call``
+    re-captures and retries, and the tokens equal a clean run's."""
+    from repro_torch.core import guards
+    from repro_torch.kernels import routing
+    model, reqs = compiled_world
+    _, base = _serve(model, reqs, cuda_device, jit=False)
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.serve.server import Request
+    eng = Engine(model, EngineConfig(guard=True, **COMPILED_KW),
+                 device=cuda_device)
+    key = routing.health_key("synthetic_probe", (1, 2, 256, 1024),
+                             torch.float32)
+    guards.emit_trace_probe(key, torch.full((1,), float("nan"),
+                                            device=cuda_device))
+    routing.route_health().record_trip(key, limit=1)
+    epoch0 = eng._route_epoch
+    out = eng.run([Request(r.rid, r.tokens) for r in reqs])
+    assert {rid: r.tokens for rid, r in out.items()} == base
+    assert eng.metrics.guard_trips >= 1 and eng.metrics.guard_rejits >= 1
+    assert eng._route_epoch > epoch0
+
+
+def test_ledger_launches_equal_the_profiler_on_card(cuda_device,
+                                                    compiled_world):
+    """The captured decode call's ledger counts exactly the K1 and K4
+    kernels a profiler sees in its replays (CUPTI records kernels inside
+    graphs), and each replay adds the ledger's counts to the wrappers'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.engine import Engine, EngineConfig
+    model, reqs = compiled_world
+    eng = Engine(model, EngineConfig(**COMPILED_KW), device=cuda_device)
+    eng.submit(reqs)
+    while "_decode" not in eng._graph_set.calls:
+        assert eng.step()
+    graph = eng._graph_set.calls["_decode"]
+    want = {k.__name__: n for k, n, _ in graph.ledger.launches}
+    assert want.get("sq_matmul_k1", 0) > 0 and want.get(
+        "sq_paged_attn_k4", 0) == model.cfg.n_layers
+    k1, k4 = sq_matmul_k1.launches, sq_paged_attn_k4.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            graph.replay()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert sum("sq_matmul_cluster_kernel" in n for n in names) \
+        == 3 * want["sq_matmul_k1"]
+    assert sum("sq_paged_attn_kernel" in n for n in names) \
+        == 3 * want["sq_paged_attn_k4"]
+    assert sq_matmul_k1.launches == k1 + 3 * want["sq_matmul_k1"]
+    assert sq_paged_attn_k4.launches == k4 + 3 * want["sq_paged_attn_k4"]
+
+
+def test_compiled_audit_counts_every_replay_on_card(cuda_device):
+    """N replays of a call captured under ``compiled_audit`` tally N times
+    its volume; a capture outside the audit tallies nothing; an eager
+    ``track_contractions`` around replays alone sees nothing and warns."""
+    import warnings
+    from repro_torch.core import counting, graphs
+    from repro_torch.core.einsum import fs_einsum
+
+    def fn(a, b):
+        return fs_einsum("mk,kn->mn", a, b, mode="square_virtual",
+                         site="ffn")
+
+    x = torch.ones(4, 8, device=cuda_device)
+    w = torch.ones(8, 2, device=cuda_device)
+    with counting.compiled_audit():
+        f = graphs.CapturedCall(fn, (x, w), device=cuda_device)
+    with counting.track_compiled_contractions() as ctr:
+        for _ in range(3):
+            f.replay()
+    assert ctr.total_mults == 3 * 4 * 8 * 2
+    assert ctr.fraction_square == 1.0
+    g = graphs.CapturedCall(fn, (x, w), device=cuda_device)
+    with counting.track_compiled_contractions() as ctr2:
+        g.replay()
+    assert ctr2.total_mults == 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with counting.track_contractions() as tctr:
+            f.replay()
+    assert tctr.total_mults == 0
+    assert any(issubclass(c.category, counting.EmptyAuditWarning)
+               for c in caught)
+    torch.cuda.synchronize()
+    assert torch.equal(f.outputs, torch.full((4, 2), 8.0,
+                                             device=cuda_device))
+
+
+def test_compiled_engine_audit_equals_eager_on_card(cuda_device,
+                                                    compiled_world):
+    """The serving half of tests/test_compiled_guard.py's cached-run audit
+    test: a compiled engine captured under ``compiled_audit`` reports its
+    replays' real contraction mix through ``track_compiled_contractions``
+    -- the eager engine's audit, site for site -- while an eager
+    ``track_contractions`` around a second, replay-only run sees nothing
+    and warns."""
+    import warnings
+    from repro_torch.core import counting
+    from repro_torch.serve.engine import Engine, EngineConfig
+    from repro_torch.serve.server import Request
+    model, reqs = compiled_world
+    with counting.track_contractions() as eager:
+        _serve(model, reqs, cuda_device, jit=False)
+    eng = Engine(model, EngineConfig(**COMPILED_KW), device=cuda_device)
+    with counting.compiled_audit(), \
+            counting.track_compiled_contractions() as compiled:
+        eng.run([Request(r.rid, r.tokens) for r in reqs])
+    assert eng.captures == 3
+    assert compiled.by_site() == eager.by_site()
+    assert 0.0 < compiled.fraction_square == eager.fraction_square < 1.0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with counting.track_contractions() as replays:
+            eng.run([Request(r.rid + 100, r.tokens) for r in reqs])
+    assert eng.captures == 3 and replays.total_mults == 0
+    assert any(issubclass(c.category, counting.EmptyAuditWarning)
+               for c in caught)
+
+
+def test_capture_survives_a_collected_graph_on_card(cuda_device,
+                                                    compiled_world):
+    """An engine left to the cyclic garbage collector (its model calls
+    close over it) holds graphs; freed during another capture, a graph
+    resets itself, which a capture does not permit.  A capture keeps the
+    collector off, so a second engine captures and serves the first one's
+    tokens even with the collector running at nearly every allocation
+    outside its captures."""
+    import gc
+    model, reqs = compiled_world
+    first, base = _serve(model, reqs, cuda_device)
+    assert first.captures == 3
+    del first
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        eng, toks = _serve(model, reqs, cuda_device)
+    finally:
+        gc.set_threshold(*threshold)
+    assert eng.captures == 3 and toks == base
