@@ -47,6 +47,19 @@ graph trips through its probes, demotes on the second replay and is
 re-captured on the standard route; and an engine whose seeded demotion
 re-captures its graphs keeps its tokens and its memory.
 
+Last of all, training: K1 and K2 are held to their plain versions at
+every shape of a full-width train step (forward, dL/dx and dL/dW; the
+plain K1 in blocks of output rows) and timed beside torch.matmul /
+torch.bmm and the FP32 slot floor; then ``repro_torch.launch.train``
+trains fairsquare-demo at full width (square_pallas, bf16, remat
+"block", 8 x 256 tokens, 4 steps, checkpoints every 2, metrics and
+trace files): finite losses, every checkpoint restorable, the first
+step's audit equal to the analytic count (fraction 1.0 forward and
+backward), K1/K2 only at held shapes.  f32 losses over 3 steps against
+standard, every K1/K2 launch of a step against the exact product of its
+operands, two fixed-seed runs' fingerprints, launches by forward /
+backward / recompute, the median step wall and a profiled step follow.
+
 K1 is also held bit for bit to K2 at nb = 1 and to K3 at every shape, and
 timed beside K2 at nb = 1; K3 is timed beside K2 on its own operands, and
 K2's and K3's per-unit sums are printed beside torch.bmm's and the bound's;
@@ -812,8 +825,9 @@ TRACE_KERNELS = (("K1", "sq_matmul_cluster_kernel"),
                  ("K6", "Cpm4"))
 
 
-def trace_steps(step, what: str, untraced_s: float) -> dict:
-    """torch.profiler trace of ``TRACE_TICKS`` calls of ``step``: the
+def trace_steps(step, what: str, untraced_s: float,
+                calls: int = TRACE_TICKS) -> dict:
+    """torch.profiler trace of ``calls`` calls of ``step``: the
     device-busy share of their wall, and each kernel's and the other
     device work's time per call.  Profiling slows the host, so the busy
     share it reads is a lower bound for the untraced run.  Returns the
@@ -825,7 +839,7 @@ def trace_steps(step, what: str, untraced_s: float) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(TRACE_TICKS):
+        for _ in range(calls):
             with record_function("traced_step"):
                 step()
         torch.cuda.synchronize()
@@ -2264,14 +2278,521 @@ def dft_path_phase(dev, z, w):
 
 
 # ---------------------------------------------------------------- main
+# ------------------------------------------------------------- training
+# The training launcher's defaults (the JAX launcher's): 8 sequences of 256
+# tokens a step, fairsquare-demo at full width, bf16, remat="block".
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 4
+TRAIN_T = TRAIN_B * TRAIN_S
+
+
+def train_cfg(mode="square_pallas", **kw):
+    return dataclasses.replace(get_config("fairsquare-demo"),
+                               matmul_mode=mode, **kw)
+
+
+def train_k1_shapes(cfg):
+    """{(m, k, n): launches a step} of K1 in one train step, from the
+    config: each 2D GEMM (T, k) @ (k, n) of the forward, its dL/dx (T, n)
+    @ (n, k) and its dL/dW (n, T) @ (T, k); the forward's counts once more
+    for the rematerialised recompute, whose K1 launches are read on the
+    card (``train_timing_phase``), not assumed here."""
+    L, d, ff, V, T = (cfg.n_layers, cfg.d_model, cfg.d_ff,
+                      cfg.padded_vocab, TRAIN_T)
+    hd, H, KV = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    fwd = collections.Counter()
+    for k, n, times in ((d, H * hd, L), (d, KV * hd, 2 * L),
+                        (H * hd, d, L), (d, ff, 2 * L), (ff, d, L),
+                        (d, V, 1)):
+        fwd[(k, n)] += times
+    shapes = collections.Counter()
+    for (k, n), times in fwd.items():
+        shapes[(T, k, n)] += times          # forward
+        shapes[(T, n, k)] += times          # dL/dx
+        shapes[(n, T, k)] += times          # dL/dW
+    return dict(shapes)
+
+
+def train_k2_shapes(cfg):
+    """The batched attention GEMMs of a train step at one q and one kv
+    chunk (S <= both chunk sizes): scores (B*KV, G*S, hd) @ (hd, S), PV
+    (B*KV, G*S, S) @ (S, hd), and their gradients; (B, m, k, n) -> the
+    contractions a step that map to it (forward and backward)."""
+    S, hd = TRAIN_S, cfg.resolved_head_dim
+    nb, gs = TRAIN_B * cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads * S
+    L = cfg.n_layers
+    return {(nb, gs, hd, S): 2 * L,    # scores; PV's dL/dx
+            (nb, gs, S, hd): 3 * L,    # PV; scores' dL/dx and dL/dW
+            (nb, hd, gs, S): L}        # PV's dL/dW
+
+
+def _plain_rows(aw, bw, sa, sb, budget=2 ** 28):
+    """K1's plain version in blocks of output rows, each block's
+    k_chunk-wide slab of squares within ``budget`` bytes."""
+    rows = max(1, budget // (16 * bw.shape[1] * 4))
+    return torch.cat([sq_matmul_plain(aw[i:i + rows], bw, sa[i:i + rows], sb)
+                      for i in range(0, aw.shape[0], rows)])
+
+
+def train_kernel_phase(dev, gen, cfg):
+    """K1 and K2 against their plain versions at every training shape (f32
+    from bf16-rounded operands; the plain K1 in blocks of output rows),
+    each timed by graph replay beside torch.matmul / torch.bmm (no TF32),
+    the FP32 slot floor (2 slots a term) and the bound.  Measured, not a
+    queue: no kernel is redesigned here."""
+    k1 = train_k1_shapes(cfg)
+    k2 = train_k2_shapes(cfg)
+    print(f"training shapes (T = {TRAIN_B} x {TRAIN_S} = {TRAIN_T} tokens "
+          f"a step): K1 at {len(k1)} shapes, K2 at {len(k2)}, held to their "
+          f"plain versions (f32 |err| <= k * 2^-23 * (max|a| + max|b|)^2) "
+          f"and timed (graph replay; slot floor = 2 FP32 slots a term at "
+          f"{FP32_SLOTS_PER_S:.3g}/s)", flush=True)
+    rows = []
+    for (m, k, n), per_step in sorted(k1.items()):
+        a = torch.randn(m, k, generator=gen).to(torch.bfloat16).to(dev)
+        b = (torch.randn(k, n, generator=gen) / math.sqrt(k)).to(
+            torch.bfloat16).to(dev)
+        aw, bw = a.float(), b.float()
+        sa, sb = -(aw * aw).sum(1), -(bw * bw).sum(0)
+        out = sq_matmul_k1(aw, bw, sa, sb)
+        err = (out - _plain_rows(aw, bw, sa, sb)).abs().max().item()
+        tol = k * 2.0 ** -23 * (aw.abs().max().item()
+                                + bw.abs().max().item()) ** 2
+        check(bool(torch.isfinite(out).all()) and err <= tol,
+              f"K1 f32 m={m} k={k} n={n}: max|err| {err:.3e} <= {tol:.3e}")
+        del out
+        ms = time_graph([lambda: sq_matmul_k1(aw, bw, sa, sb)], reps=3,
+                        replays=2)
+        lib_ms = time_graph([lambda: torch.matmul(aw, bw)], reps=3,
+                            replays=2)
+        terms = m * n * k
+        floor = 2 * terms / FP32_SLOTS_PER_S * 1e3
+        t_bytes = 4 * (m * k + k * n + m + n + m * n) / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * terms / FP32_OPS_PER_S * 1e3
+        rows.append(dict(kernel="K1", shape=(m, k, n), per_step=per_step,
+                         ms=ms, library_ms=lib_ms, floor_ms=floor,
+                         bound_ms=max(t_bytes, t_ops), max_abs_err=err))
+        print(f"    K1 m={m:5d} k={k:5d} n={n:5d} x{per_step:2d} a step: "
+              f"{ms:.4f} ms | torch.matmul {lib_ms:.4f} ms "
+              f"({ms / lib_ms:.2f}x) | slot floor {floor:.4f} ms "
+              f"({floor / ms:.1%} of it) | grid "
+              f"{k1_launch_shape(m, n)['grid']}", flush=True)
+        del aw, bw, a, b
+    for (nb, m, k, n), per_step in sorted(k2.items()):
+        aw = torch.randn(nb, m, k, generator=gen).to(torch.bfloat16).to(
+            dev).float()
+        bw = torch.randn(nb, k, n, generator=gen).to(torch.bfloat16).to(
+            dev).float()
+        sa, sb = -(aw * aw).sum(2), -(bw * bw).sum(1)
+        out = sq_matmul_k2(aw, bw, sa, sb)
+        err = (out - sq_matmul_batched_plain(aw, bw, sa, sb)).abs().max(
+        ).item()
+        tol = k * 2.0 ** -23 * (aw.abs().max().item()
+                                + bw.abs().max().item()) ** 2
+        check(bool(torch.isfinite(out).all()) and err <= tol,
+              f"K2 f32 B={nb} m={m} k={k} n={n}: max|err| {err:.3e} <= "
+              f"{tol:.3e}")
+        ms = time_graph([lambda: sq_matmul_k2(aw, bw, sa, sb)], reps=5,
+                        replays=2)
+        lib_ms = time_graph([lambda: torch.bmm(aw, bw)], reps=5, replays=2)
+        terms = nb * m * n * k
+        floor = 2 * terms / FP32_SLOTS_PER_S * 1e3
+        t_bytes = 4 * nb * (m * k + k * n + m + n + m * n) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * terms / FP32_OPS_PER_S * 1e3
+        rows.append(dict(kernel="K2", shape=(nb, m, k, n), per_step=per_step,
+                         ms=ms, library_ms=lib_ms, floor_ms=floor,
+                         bound_ms=max(t_bytes, t_ops), max_abs_err=err))
+        print(f"    K2 B={nb} m={m:3d} k={k:3d} n={n:3d} x{per_step:2d} a "
+              f"step: {ms:.4f} ms | torch.bmm {lib_ms:.4f} ms "
+              f"({ms / lib_ms:.2f}x) | slot floor {floor:.4f} ms "
+              f"({floor / ms:.1%} of it) | grid "
+              f"{k2_launch_shape(nb, m, n)['grid']}", flush=True)
+    for name, lib in (("K1", "torch.matmul"), ("K2", "torch.bmm")):
+        mine = [r for r in rows if r["kernel"] == name]
+        tot = {key: sum(r["per_step"] * r[key] for r in mine)
+               for key in ("ms", "library_ms", "floor_ms")}
+        print(f"  per train step without the recompute "
+              f"({sum(r['per_step'] for r in mine)} launches): {name} "
+              f"{tot['ms']:.3f} ms | {lib} {tot['library_ms']:.3f} ms | "
+              f"slot floor {tot['floor_ms']:.3f} ms", flush=True)
+    return rows
+
+
+def expected_train_audit(cfg) -> dict:
+    """{site: mults} of one train step: each forward contraction's
+    B*M*K*N, and the same again at <site>.bwd_x and <site>.bwd_w (the
+    recompute notes nothing).  Attention spans the whole S x S block of one
+    q chunk and one kv chunk."""
+    L, d, ff, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    T, S = TRAIN_T, TRAIN_S
+    attn = L * TRAIN_B * H * S * S * hd
+    fwd = {"attn_qkv": L * T * d * (H + 2 * KV) * hd,
+           "attn_out": L * T * H * hd * d, "ffn": L * T * 3 * d * ff,
+           "attn_scores": attn, "attn_pv": attn, "loss": T * d * V}
+    out = dict(fwd)
+    for site, m in fwd.items():
+        out[f"{site}.bwd_x"] = out[f"{site}.bwd_w"] = m
+    return out
+
+
+def train_launcher_phase(dev, compared) -> dict:
+    """``python -m repro_torch.launch.train`` on full-width fairsquare-demo,
+    square_pallas, bf16, remat="block", 8 x 256 tokens, 4 steps,
+    --ckpt-every 2, --metrics-file, --trace-out: finite losses, every
+    checkpoint committed and restorable, the first step's audit equal to
+    the analytic count with every contraction (forward and backward) on
+    K1/K2."""
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.obs.metrics import MetricsRegistry
+    cfg = train_cfg()
+    print(f"train launcher: python -m repro_torch.launch.train, "
+          f"fairsquare-demo full width, square_pallas, {cfg.dtype}, "
+          f"remat={cfg.remat}, {TRAIN_B} x {TRAIN_S} tokens, "
+          f"{TRAIN_STEPS} steps, --ckpt-every 2, --metrics-file, "
+          f"--trace-out", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        mfile, tfile = f"{tmp}/metrics.json", f"{tmp}/trace.json"
+        argv = ["--arch", "fairsquare-demo", "--matmul-mode", "square_pallas",
+                "--steps", str(TRAIN_STEPS), "--global-batch", str(TRAIN_B),
+                "--seq", str(TRAIN_S), "--ckpt-every", "2", "--ckpt-dir",
+                f"{tmp}/ckpt", "--device", str(dev), "--metrics-file", mfile,
+                "--trace-out", tfile]
+        reset_counts()                  # counts of this path's run only
+        t0 = time.perf_counter()
+        res = train_launcher.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(obs_check.main([mfile, tfile]) == 0,
+              "metrics snapshot and trace pass "
+              "python -m repro_torch.obs.check")
+        launched = {"K1": sq_matmul_k1.launches, "K2": sq_matmul_k2.launches,
+                    "K3": sq_matmul_k3.launches}
+        shapes_ok(compared)
+        with open(mfile) as f:
+            snap = json.load(f)
+        with open(tfile) as f:
+            trace = json.load(f)
+        mgr = CheckpointManager(f"{tmp}/ckpt", registry=MetricsRegistry())
+        steps = mgr.steps()
+        restored = {}
+        for s in steps:
+            trees, meta = mgr.restore(step=s)   # digests and fingerprint
+            restored[s] = meta["losses"]
+    losses = res["loss_trajectory"]
+    print(f"  losses {losses}; run wall {wall:.1f} s (builds, {TRAIN_STEPS} "
+          f"steps, 3 checkpoint writes)", flush=True)
+    check(res["final_step"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS
+          and all(math.isfinite(x) for x in losses),
+          f"{TRAIN_STEPS} steps with finite losses")
+    check(steps == [2, 4] and all(restored[s] == losses[:s] for s in steps),
+          f"checkpoints {steps} committed; each restores, validated (per-"
+          f"array sha256 and tree fingerprint), with the run's losses")
+    c = snap["counters"]
+    check(c["train_steps_total"] == TRAIN_STEPS
+          and c["ckpt_commits_total"] == 3
+          and c["ckpt_write_failures_total"] == 0
+          and res["step_failures"] == res["rollbacks"] == 0,
+          f"metrics snapshot: {c['train_steps_total']} steps, "
+          f"{c['ckpt_commits_total']} commits (steps 2, 4 and the final "
+          f"save), 0 write failures, 0 step failures, 0 rollbacks")
+    spans = collections.Counter(e["name"] for e in trace["traceEvents"]
+                                if e.get("ph") == "X")
+    check(spans["train.step"] == TRAIN_STEPS and spans["ckpt.commit"] == 3
+          and trace["otherData"]["dropped_records"] == 0,
+          f"trace: {dict(spans)}, 0 dropped")
+    audit = res["contraction_audit"]
+    want = expected_train_audit(cfg)
+    got = {site: v["mults"] for site, v in audit["by_site"].items()}
+    check(got == want and audit["total_mults"] == sum(want.values()),
+          f"audit of the first step: per-site mults equal the analytic "
+          f"count, {audit['total_mults']:,} = 3 x "
+          f"{sum(want.values()) // 3:,} forward multiplies")
+    check(audit["fraction_square"] == 1.0
+          and audit["fraction_square_bwd"] == 1.0
+          and audit["fraction_demoted"] == 0.0,
+          "audit: fraction_square 1.0 and fraction_square_bwd 1.0")
+    per_step = {k: v / TRAIN_STEPS for k, v in launched.items()}
+    check(launched["K1"] > 0 and launched["K2"] > 0
+          and launched["K3"] == 0
+          and all(v == int(v) for v in per_step.values()),
+          f"launches over {TRAIN_STEPS} steps: {launched} "
+          f"({per_step} a step)")
+    return launched
+
+
+def _train_losses(cfg, dev, steps, tcfg=None):
+    """``steps`` steps of ``cfg`` from seed 0 on the launcher's first
+    batches: (losses, final params, final optimizer state)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    model = build_model(cfg, device=dev, seed=0)
+    params = model.train_params()
+    opt = adamw.adamw_init(params)
+    step = step_mod.make_train_step(model, tcfg or step_mod.TrainConfig())
+    data = SyntheticLM(DataConfig(TRAIN_B, TRAIN_S, cfg.vocab), cfg,
+                       device=dev)
+    losses = []
+    for batch in data.take(steps):
+        params, opt, met = step(params, opt, batch)
+        losses.append(float(met["loss"]))
+    return losses, params, opt
+
+
+def _probed_kernels():
+    """Wrap K1 and K2 as ``kernels.ops`` calls them, so that every launch
+    is also held to the exact (float64) product of its operands: returns
+    the list each launch appends (kernel, shape, max|err|, tolerance,
+    max|exact|) to, and the function that unwraps them."""
+    from repro_torch.kernels import ops as kops
+    seen, orig = [], (kops.sq_matmul_k1, kops.sq_matmul_k2)
+
+    def probe(name, kern):
+        def run(aw, bw, sa, sb):
+            out = kern(aw, bw, sa, sb)
+            exact = torch.matmul(aw.double(), bw.double())
+            k = aw.shape[-1]
+            tol = k * 2.0 ** -23 * (aw.abs().max().item()
+                                    + bw.abs().max().item()) ** 2
+            seen.append((name, tuple(aw.shape) + (bw.shape[-1],),
+                         (out.double() - exact).abs().max().item(), tol,
+                         exact.abs().max().item()))
+            return out
+        return run
+
+    kops.sq_matmul_k1 = probe("K1", orig[0])
+    kops.sq_matmul_k2 = probe("K2", orig[1])
+
+    def restore():
+        kops.sq_matmul_k1, kops.sq_matmul_k2 = orig
+    return seen, restore
+
+
+# One step's gradients are compared with the loss scaled by 2^14.  The
+# mean loss makes every cotangent ~1/T of the activations it meets (T =
+# 2^11 target tokens a step), and the square form's f32 error, ~2^-24 *
+# (|a| + |b|)^2 a term, is then not small against the product |ab|: the
+# unscaled square-routed gradients are mostly rounding (PERF.md section 6).
+# Scaling the loss by a power of two balances the operands, and the
+# scaling and the division after it are exact.  Of the scales 1, 2^11,
+# 2^14 and 2^17, 2^14 left the smallest gap, and the tolerances sit above
+# what it left (f32 worst 3.7e-3; bf16 worst 3.2e-2 against
+# tests/test_vjp_square.py's 5e-2), all measured by
+# scripts/train_grad_gap.py on an H100.  A zero, missing or misrouted
+# gradient is off by ~1.
+GRAD_SCALE = 2.0 ** 14
+GRAD_RTOL = {"float32": 1e-2, "bfloat16": 5e-2}
+
+
+def _leaf_names(tree, path=""):
+    """Leaf paths of ``tree`` in ``tree_leaves``'s order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{path}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in _leaf_names(t, f"{path}/{i}")]
+    return [path]
+
+
+def _grads(cfg, dev, scale=1.0):
+    """One step's gradients of ``cfg`` from seed 0 on the first batch, of
+    the loss times ``scale`` and divided by it: ``{leaf path: tensor}`` in
+    tree order."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train import step as step_mod
+    model = build_model(cfg, device=dev, seed=0)
+    batch = SyntheticLM(DataConfig(TRAIN_B, TRAIN_S, cfg.vocab), cfg,
+                        device=dev).next_batch()
+    loss_fn = step_mod.make_loss_fn(model, step_mod.TrainConfig())
+
+    def scaled(params, b):
+        loss, met = loss_fn(params, b)
+        return loss * scale, met
+
+    _, g = step_mod.value_and_grad(scaled, model.train_params(), batch)
+    return dict(zip(_leaf_names(g), (t / scale for t in tree_leaves(g))))
+
+
+def _norm_rel(got, ref):
+    """Per tensor ||got - ref|| / ||ref||: (median, worst, its path)."""
+    rel = {k: ((got[k].double() - r.double()).norm()
+               / r.double().norm().clamp_min(1e-300)).item()
+           for k, r in ref.items()}
+    worst = max(rel, key=rel.get)
+    return sorted(rel.values())[len(rel) // 2], rel[worst], worst
+
+
+def train_parity_phase(dev) -> None:
+    """Full width in f32 (remat="none"): 3 steps of square_pallas against
+    3 of standard (TF32 off) on the same batches, at
+    tests/test_train_square.py's rtol 2e-3 and atol 2e-3.  Then one step's
+    gradients, with the loss scaled by ``GRAD_SCALE``, tensor by tensor
+    against standard's: f32 within ``GRAD_RTOL["float32"]`` in norm, with
+    every K1 and K2 launch, forward and backward, held to the exact product
+    of the operands it was given within the square form's f32 bound k *
+    2^-23 * (max|a| + max|b|)^2; and bf16 (the launcher's dtype) within
+    tests/test_vjp_square.py's 5e-2."""
+    print("train parity: fairsquare-demo full width, f32, remat none, 3 "
+          "steps square_pallas vs standard (no TF32); one step's gradients "
+          f"of the loss x {GRAD_SCALE:g} against standard's, f32 with every "
+          "launch against its exact product, and bf16", flush=True)
+    got = {}
+    for mode in ("square_pallas", "standard"):
+        losses, _, _ = _train_losses(
+            train_cfg(mode, dtype="float32", remat="none"), dev, 3)
+        got[mode] = losses
+    diffs = [abs(a - b) for a, b in zip(got["square_pallas"],
+                                        got["standard"])]
+    check(all(d <= 2e-3 + 2e-3 * abs(b)
+              for d, b in zip(diffs, got["standard"])),
+          f"f32 losses: square_pallas {got['square_pallas']} vs standard "
+          f"{got['standard']} (|diff| {[f'{d:.2e}' for d in diffs]}; rtol "
+          f"2e-3, atol 2e-3)")
+    for dtype in ("float32", "bfloat16"):
+        probed = dtype == "float32"
+        seen, restore = _probed_kernels() if probed else ([], None)
+        try:
+            sq = _grads(train_cfg("square_pallas", dtype=dtype,
+                                  remat="none"), dev, GRAD_SCALE)
+        finally:
+            if probed:
+                restore()
+        if probed:
+            bad = [r for r in seen if not r[2] <= r[3]]
+            worst = max(seen, key=lambda r: r[2] / r[3])
+            check(len(seen) == 3 * (85 + 24) + 1 and not bad,
+                  f"one f32 step: all {len(seen)} K1/K2 launches within k * "
+                  f"2^-23 * (max|a| + max|b|)^2 of their exact products "
+                  f"(worst {worst[0]} {worst[1]}: {worst[2]:.3e} <= "
+                  f"{worst[3]:.3e}, {worst[2] / worst[4]:.2%} of its largest "
+                  f"exact entry)")
+        std = _grads(train_cfg("standard", dtype=dtype, remat="none"), dev,
+                     GRAD_SCALE)
+        check(list(sq) == list(std) and all(
+            bool(torch.isfinite(t).all()) for t in sq.values()),
+            f"{dtype} gradients: {len(sq)} finite tensors")
+        med, worst, name = _norm_rel(sq, std)
+        check(worst <= GRAD_RTOL[dtype],
+              f"{dtype} gradients of the loss x {GRAD_SCALE:g}, square_pallas "
+              f"vs standard: ||diff|| / ||standard|| median {med:.3e}, worst "
+              f"{worst:.3e} ({name}) <= {GRAD_RTOL[dtype]:g}")
+        del sq, std
+
+
+def train_determinism_phase(dev) -> None:
+    """Two fixed-seed runs of the launcher's configuration (bf16, remat
+    block, square_pallas), 2 steps each: equal tree_fingerprints of the
+    losses, params and optimizer state."""
+    from repro_torch.optim import adamw
+    fps = []
+    for _ in range(2):
+        losses, params, opt = _train_losses(train_cfg(), dev, 2)
+        fps.append(adamw.tree_fingerprint(
+            {"losses": torch.tensor(losses), "params": params, "opt": opt}))
+    check(fps[0] == fps[1],
+          f"two fixed-seed runs bit-identical: fingerprint {fps[0][:16]}... "
+          f"twice")
+
+
+def train_timing_phase(dev) -> dict:
+    """The launcher's configuration: K1/K2 launches of one forward, one
+    step at remat none and one at remat block (so forward, backward and
+    recompute apart); the median wall of 5 warm steps, tokens/s, and a
+    profiled trace of 2 steps (device-busy share, largest device work)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    split = {}
+    for remat in ("none", "block"):
+        cfg = train_cfg(remat=remat)
+        model = build_model(cfg, device=dev, seed=0)
+        params = model.train_params()
+        opt = adamw.adamw_init(params)
+        batch = SyntheticLM(DataConfig(TRAIN_B, TRAIN_S, cfg.vocab), cfg,
+                            device=dev).next_batch()
+        step = step_mod.make_train_step(model, step_mod.TrainConfig())
+        if remat == "none":
+            reset_counts()
+            with torch.no_grad():
+                step_mod.make_loss_fn(model, step_mod.TrainConfig())(
+                    params, batch)
+            split["forward"] = (sq_matmul_k1.launches,
+                                sq_matmul_k2.launches)
+        reset_counts()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        split[remat] = (sq_matmul_k1.launches, sq_matmul_k2.launches)
+    # the loss rematerialises its chunks at either setting (as JAX's
+    # jax.checkpoint of the chunk body does): one K1 launch a chunk
+    chunks = -(-TRAIN_S // min(cfg.loss_chunk, TRAIN_S))
+    fwd = split["forward"]
+    bwd = (2 * fwd[0], 2 * fwd[1])
+    rec = tuple(a - b - c for a, b, c in zip(split["block"], fwd, bwd))
+    print(f"train step launches (K1, K2): forward {fwd}, backward {bwd}, "
+          f"recompute {rec} (the loss's {chunks} chunk(s) at remat none "
+          f"too); a remat=none step {split['none']}, a remat=block step "
+          f"{split['block']}", flush=True)
+    check(split["none"] == (3 * fwd[0] + chunks, 3 * fwd[1])
+          and rec == (fwd[0], fwd[1]),
+          "backward: two launches (dL/dx, dL/dW) per forward launch; "
+          "remat block recomputes the whole forward")
+    walls = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    walls = sorted(walls[1:])
+    med = walls[len(walls) // 2]
+    print(f"train step wall (remat block, 5 warm steps, synchronized): "
+          f"median {med * 1e3:.2f} ms (min {walls[0] * 1e3:.2f}, max "
+          f"{walls[-1] * 1e3:.2f}); {TRAIN_T / med:.0f} tokens/s", flush=True)
+    state = {"p": params, "o": opt}
+
+    def one():
+        state["p"], state["o"], _ = step(state["p"], state["o"], batch)
+
+    stats = trace_steps(one, "train steps", med, calls=2)
+    return {"forward": fwd, "backward": bwd, "recompute": rec,
+            "step": split["block"], "median_ms": med * 1e3,
+            "tokens_per_s": TRAIN_T / med, "trace": stats}
+
+
+def train_phases(dev, gen, compared) -> dict:
+    """The training path: its kernels at its shapes, the launcher, parity,
+    determinism and timing.  Returns the launcher's K1/K2 launches."""
+    cfg = train_cfg()
+    rows = train_kernel_phase(dev, gen, cfg)
+    compared["K1"] = list(compared["K1"]) + list(train_k1_shapes(cfg))
+    compared["K2"] = list(compared["K2"]) + list(train_k2_shapes(cfg))
+    launched = train_launcher_phase(dev, compared)
+    train_parity_phase(dev)
+    train_determinism_phase(dev)
+    timing = train_timing_phase(dev)
+    check(tuple(launched[k] // TRAIN_STEPS for k in ("K1", "K2"))
+          == timing["step"],
+          f"the launcher's launches a step {launched} / {TRAIN_STEPS} equal "
+          f"a timed step's {timing['step']}")
+    return {"launches": launched, "rows": rows, "timing": timing}
+
+
 def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
-                cpm_rows, launches):
+                cpm_rows, launches, train):
     """The kernels line.  ``launches``: {kernel: {path: count}} read after
     each path's run.  K1's and K4's times are per decode step of the paged
     engine, K2's per paged prefill chunk, K3's per dense decode step, K7's
     per pass over the six fused ResNet-50 layers, K8's per pass over the
     three FIR streams, and K5's and K6's per batched DFT; each sums its
-    kernel's launches of that unit from the shape tables above."""
+    kernel's launches of that unit from the shape tables above.  K1 and K2
+    also carry ``train``: their times per train step at the training
+    shapes (forward and both gradients, no recompute), beside the library
+    call's and the FP32 slot floor."""
     decode = [r for r in k1_rows if r["m"] == 8 and "ms" in r]
 
     def per_step(rows, mult, key):
@@ -2340,6 +2861,17 @@ def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
     for kern, key in ((k5, "K5"), (k6, "K6")):
         row = next(r for r in cpm_rows[key] if r["shape"] == dft)
         kern.update(grid=row["grid"], tile=row["tile"])
+    for kern, key in ((k1, "K1"), (k2, "K2")):
+        mine = [r for r in train["rows"] if r["kernel"] == key]
+        kern["train"] = {
+            "per": f"one train step of {TRAIN_B} x {TRAIN_S} tokens, "
+                   f"forward and both gradients, no recompute",
+            "launches_per_step": sum(r["per_step"] for r in mine),
+            **{key2: sum(r["per_step"] * r[key2] for r in mine)
+               for key2 in ("ms", "library_ms", "floor_ms", "bound_ms")},
+            "max_abs_err": max(r["max_abs_err"] for r in mine)}
+        kern["max_abs_err"] = max(kern["max_abs_err"],
+                                  kern["train"]["max_abs_err"])
     return json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8]})
 
 
@@ -2375,18 +2907,22 @@ def run(dev) -> str:
     fault_phase(dev, jit=True)
     guard_phase(dev)
     compiled_guard_phase(dev, plain)
+    train = train_phases(dev, gen, compared)
     launches = {"K1": {"engine_square_gemms": k1_total,
                        "launcher": launcher["K1"],
                        "engine_graph": graph["K1"],
                        "engine_no_policy": none["K1"],
                        "server_no_policy": dense["K1"],
                        "server_graph": dense_graph["K1"],
-                       "conv_path": conv["K1"]},
+                       "conv_path": conv["K1"],
+                       "train": train["launches"]["K1"]},
                 "K2": {"engine_no_policy": none["K2"],
                        "server_no_policy": dense["K2"],
-                       "server_graph": dense_graph["K2"]},
+                       "server_graph": dense_graph["K2"],
+                       "train": train["launches"]["K2"]},
                 "K3": {"server_no_policy": dense["K3"],
-                       "server_graph": dense_graph["K3"]},
+                       "server_graph": dense_graph["K3"],
+                       "train": train["launches"]["K3"]},
                 "K4": {"engine_square_gemms": k4_total,
                        "launcher": launcher["K4"],
                        "engine_graph": graph["K4"],
@@ -2402,7 +2938,7 @@ def run(dev) -> str:
           f"m={DENSE_BATCH} {dense_k1:.3f} ms, K3 24 launches "
           f"{dense_k3:.3f} ms", flush=True)
     return kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
-                       cpm_rows, launches)
+                       cpm_rows, launches, train)
 
 
 def main() -> int:

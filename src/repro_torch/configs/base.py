@@ -3,8 +3,8 @@
 
 ``ModelConfig`` is the same record as in the JAX package, field for field,
 so a configuration means the same in both.  ``ContractionPolicy`` pins
-individual contraction sites to a mode (forward sites only in this port;
-the backward sites ``<site>.bwd_x``/``.bwd_w`` arrive with training).
+individual contraction sites to a mode: forward sites, and the backward
+sites ``<site>.bwd_x``/``<site>.bwd_w`` the ``fs_einsum`` VJP notes.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import dataclasses
 from typing import Optional, Tuple
 
 __all__ = ["ModelConfig", "pad_vocab", "ContractionPolicy",
-           "CONTRACTION_SITES", "SQUARE_GEMMS_POLICY"]
+           "CONTRACTION_SITES", "GRAD_SITE_SUFFIXES", "SQUARE_GEMMS_POLICY"]
 
 
 def pad_vocab(v: int, mult: int = 256) -> int:
@@ -36,18 +36,38 @@ CONTRACTION_SITES = (
     "attn_paged",       # fused paged-attention read (serving decode path)
 )
 
+# The fs_einsum VJP re-enters the dispatcher for both backward contractions
+# under derived site names: ``<site>.bwd_x`` (dL/dx) and ``<site>.bwd_w``
+# (dL/dW).  A policy may pin them apart from the forward site; an unpinned
+# backward site inherits the forward site's pin (``lookup``).
+GRAD_SITE_SUFFIXES = (".bwd_x", ".bwd_w")
+
+
+def _valid_site(site: str) -> bool:
+    if site in CONTRACTION_SITES:
+        return True
+    return any(site.endswith(suf) and site[:-len(suf)] in CONTRACTION_SITES
+               for suf in GRAD_SITE_SUFFIXES)
+
 
 @dataclasses.dataclass(frozen=True)
 class ContractionPolicy:
     """Per-site contraction-mode overrides.
 
-    Resolution: ``overrides[site]`` if present, else ``default`` if set,
-    else the caller's ``mode`` (models pass ``cfg.matmul_mode``).
+    Resolution: ``overrides[site]`` if present, else (for a backward
+    site) the forward site's override, else ``default`` if set, else the
+    caller's ``mode`` (models pass ``cfg.matmul_mode``).  Backward sites
+    are pinned through a dict, since dots are not identifier characters.
 
     >>> p = ContractionPolicy.of(default="square_virtual",
     ...                          attn_scores="standard")
     >>> p.lookup("attn_scores"), p.lookup("ffn")
     ('standard', 'square_virtual')
+    >>> p.lookup("attn_scores.bwd_x")    # backward inherits the fwd pin
+    'standard'
+    >>> q = ContractionPolicy.of(**{"ffn.bwd_w": "standard"})
+    >>> q.lookup("ffn.bwd_w"), q.lookup("ffn.bwd_x"), q.lookup("ffn")
+    ('standard', None, None)
     """
     overrides: Tuple[Tuple[str, str], ...] = ()
     default: Optional[str] = None
@@ -56,10 +76,11 @@ class ContractionPolicy:
     def of(cls, default: Optional[str] = None,
            **sites: str) -> "ContractionPolicy":
         from repro_torch.core.matmul import MODES
-        bad = sorted(s for s in sites if s not in CONTRACTION_SITES)
+        bad = sorted(s for s in sites if not _valid_site(s))
         if bad:
             raise ValueError(f"unknown contraction site(s) {bad}; expected "
-                             f"names from {CONTRACTION_SITES}")
+                             f"names from {CONTRACTION_SITES}, optionally "
+                             f"suffixed with {GRAD_SITE_SUFFIXES}")
         for site, m in sites.items():
             if m not in MODES:
                 raise ValueError(f"unknown mode {m!r} for site {site!r}; "
@@ -73,6 +94,11 @@ class ContractionPolicy:
         for s, m in self.overrides:
             if s == site:
                 return m
+        if site is not None and site.endswith(GRAD_SITE_SUFFIXES):
+            base = site.rsplit(".", 1)[0]
+            for s, m in self.overrides:
+                if s == base:
+                    return m
         return self.default
 
 

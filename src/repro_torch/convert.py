@@ -7,6 +7,11 @@ scan stack (``params["scan"]["pos{j}"]``, leading period axis) or the
 unrolled tail (``params["tail"]["layer{t}"]``) exactly as the JAX model
 orders them.  Tensor layouts are kept: wq/wk/wv (d, heads, hd), wo
 (heads, hd, d), dense weights (d_in, d_out).
+
+:func:`train_state_from_jax` takes a JAX params tree and AdamW state and
+returns the port's functional params tree and optimizer state (the
+layout of :meth:`repro_torch.models.lm.LM.train_params`), so both packages
+can train from one state.
 """
 from __future__ import annotations
 
@@ -15,7 +20,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "tree_from_state_dict",
+           "train_state_from_jax"]
 
 
 def _flatten(tree: Mapping, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -61,6 +67,33 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
         for k, v in layer.items():
             flat[f"layers.{i}.{k}"] = v
     return {k: _to_torch(v) for k, v in flat.items()}
+
+
+def tree_from_state_dict(flat: Mapping[str, torch.Tensor]) -> Dict:
+    """The LM's params tree (``{"embed", "final_norm", "layers": [...]}``)
+    from a state dict of dotted names."""
+    root: Dict = {}
+    for name, t in flat.items():
+        node = root
+        *path, leaf = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    layers = root.get("layers", {})
+    root["layers"] = [layers[str(i)] for i in range(len(layers))]
+    return root
+
+
+def train_state_from_jax(params: Mapping, opt_state: Mapping):
+    """``(params, opt_state)`` of the port from a numpy JAX params tree and
+    ``repro.optim.adamw`` state: the params and AdamW's ``m`` and ``v`` go
+    through :func:`params_from_jax`'s layer mapping, ``step`` alongside."""
+    p = tree_from_state_dict(params_from_jax(params))
+    opt = {k: tree_from_state_dict(params_from_jax(opt_state[k]))
+           for k in ("m", "v")}
+    opt["step"] = torch.tensor(int(np.asarray(opt_state["step"])),
+                               dtype=torch.int32)
+    return p, opt
 
 
 def _to_torch(a: np.ndarray) -> torch.Tensor:

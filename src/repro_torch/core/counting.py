@@ -15,7 +15,12 @@ Two counters back the paper's claims.
   scalar multiplies and its served mode into each open counter
   (:func:`track_contractions`).  An eager call notes once per execution:
   a Python loop notes every iteration, and :func:`count_scale` is needed
-  only where one call stands for ``n`` executions.
+  only where one call stands for ``n`` executions.  A region that
+  training rematerialises in its backward (``torch.utils.checkpoint``)
+  runs its Python twice; its second run is :func:`recomputing`, which
+  notes nothing, so each contraction of a step is noted once, as the JAX
+  package's trace-time notes are.  Kernel launch counters still count the
+  recompute's launches: they count what executed.
 - The compiled audit covers calls replayed from CUDA graphs
   (:mod:`repro_torch.core.graphs`), where Python does not run again: under
   :func:`compiled_audit` the dispatcher also emits a runtime note
@@ -45,7 +50,8 @@ __all__ = ["OpCounter", "pm_matmul_counted", "standard_matmul_counted",
            "real_matmul_square_count", "cpm4_square_count",
            "cpm3_square_count", "ContractionRecord", "ContractionCounter",
            "track_contractions", "count_scale", "note_contraction",
-           "SQUARE_MODES", "GRAD_SITE_SUFFIXES", "EmptyAuditWarning",
+           "recomputing", "remat", "SQUARE_MODES", "GRAD_SITE_SUFFIXES",
+           "EmptyAuditWarning",
            "compiled_audit", "compiled_audit_enabled", "emit_runtime_note",
            "land_runtime_note", "track_compiled_contractions"]
 
@@ -288,6 +294,10 @@ class ContractionCounter:
 
 _COUNTERS: List[ContractionCounter] = []
 _SCALES: List[int] = [1]
+# Depth of rematerialising recomputes in progress.  A module global, not a
+# thread-local: on CUDA autograd runs the recompute in its own device
+# thread while the caller's thread waits in ``backward``.
+_RECOMPUTE_DEPTH = [0]
 
 
 @contextlib.contextmanager
@@ -337,16 +347,56 @@ def count_scale(n: int):
         _SCALES.pop()
 
 
+@contextlib.contextmanager
+def recomputing():
+    """Mark the enclosed region as the recompute of a rematerialised one:
+    contraction notes (eager and runtime) are dropped inside it."""
+    _RECOMPUTE_DEPTH[0] += 1
+    try:
+        yield
+    finally:
+        _RECOMPUTE_DEPTH[0] -= 1
+
+
+def remat(fn):
+    """``fn`` under ``torch.utils.checkpoint.checkpoint(use_reentrant=
+    False)``, the counterpart of ``jax.checkpoint``: its activations are
+    recomputed in the backward, and that recompute notes no contraction
+    (:func:`recomputing`).  Outside grad mode, or when no tensor argument
+    requires grad (serving), ``fn`` just runs."""
+    import torch
+    from torch.utils import checkpoint
+
+    def run(*args):
+        if not (torch.is_grad_enabled() and any(
+                isinstance(a, torch.Tensor) and a.requires_grad
+                for a in args)):
+            return fn(*args)
+        calls = [0]
+
+        def body(*a):
+            calls[0] += 1
+            if calls[0] == 1:
+                return fn(*a)
+            with recomputing():
+                return fn(*a)
+
+        return checkpoint.checkpoint(body, *args, use_reentrant=False)
+
+    return run
+
+
 def note_contraction(*, site: str, spec: str, mode: str, mults: int,
                      demoted: bool = False) -> None:
     """Record one contraction into every open counter (no-op otherwise,
-    and while a capture records: a capture executes nothing).
+    and while a capture records: a capture executes nothing; no-op inside
+    a rematerialising recompute too, :func:`recomputing`).
 
     ``demoted=True`` marks a contraction that would have been square-routed
     but was served standard because its route-health breaker tripped
     (``mode`` is then the served mode, ``"standard"``).
     """
-    if not _COUNTERS:
+    if not _COUNTERS or _RECOMPUTE_DEPTH[0]:
         return
     scaled = int(mults) * _SCALES[-1]
     for ctr in _COUNTERS:
@@ -406,6 +456,8 @@ def emit_runtime_note(*, site: str, spec: str, mode: str, mults: int,
     by :class:`~repro_torch.core.graphs.CapturedCall`) cannot replay it
     and raises."""
     from repro_torch.core import graphs           # lazy: import cycle
+    if _RECOMPUTE_DEPTH[0]:
+        return
     note = (site or "einsum", spec, mode, int(mults), bool(demoted))
     ledger = graphs.current_ledger()
     if ledger is not None:

@@ -1,5 +1,5 @@
 """Square-aware einsum dispatch: the PyTorch port of ``repro/core/einsum.py``
-(forward only, with its contraction audit and numerics guard).
+(with its contraction audit, numerics guard and square-routed VJP).
 
 ``fs_einsum(spec, x, y)`` parses a two-operand spec, classifies each index
 as batch / M / K / N, canonicalises the operands to ``(B, M, K) @ (B, K, N)``
@@ -23,6 +23,18 @@ guard policy emits a finite probe into the graph instead, and under
 :func:`repro_torch.core.counting.compiled_audit` a runtime note joins the
 contraction note, so that every replay is audited.
 
+Under autograd (grad mode on, float operands, one of them requiring grad)
+the call goes through :class:`_FsEinsumVJP`, a ``torch.autograd.Function``
+whose backward re-enters ``fs_einsum`` for both gradients, at the sites
+``<site>.bwd_x`` (dL/dx) and ``<site>.bwd_w`` (dL/dW), under the forward's
+mode and policy: the paper's one-square-a-multiply applied to the whole
+training dataflow, each gradient audited, guarded and overridable by
+policy as a site of its own.  The backward is itself differentiable, so
+second-order gradients go through the same dispatch.  ``$REPRO_EINSUM_VJP=0``
+turns the VJP off: the torch-level modes are then differentiated
+mechanically, and ``square_pallas``, whose kernels autograd cannot see
+through, raises when a gradient is requested.
+
 Supported specs: two operands, explicit ``->``, an optional ellipsis, no
 repeated index within one operand.  Indices in one operand only and not in
 the output are summed out first (einsum semantics).
@@ -31,6 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import string
 from typing import Optional, Tuple
 
@@ -42,7 +55,14 @@ from repro_torch.core import squares as sq
 from repro_torch.core.prepared import PreparedOperand, unwrap
 
 __all__ = ["fs_einsum", "ContractionPlan", "plan_contraction",
-           "resolve_mode"]
+           "resolve_mode", "vjp_enabled"]
+
+# Escape hatch: REPRO_EINSUM_VJP=0 turns the square-routed VJP off.
+_VJP_ENV = "REPRO_EINSUM_VJP"
+
+
+def vjp_enabled() -> bool:
+    return os.environ.get(_VJP_ENV, "1") != "0"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,7 +201,10 @@ def _standard(spec: str, x: torch.Tensor, y: torch.Tensor,
     if preferred is not None:
         x, y = x.to(preferred), y.to(preferred)
     dt = torch.promote_types(x.dtype, y.dtype)
-    if x.device.type != "cuda" or dt.is_floating_point or dt.is_complex:
+    if dt.is_floating_point or dt.is_complex:
+        # jnp.einsum promotes mixed operands; torch.einsum refuses them
+        return torch.einsum(spec, x.to(dt), y.to(dt))
+    if x.device.type != "cuda":
         return torch.einsum(spec, x, y)
     out = torch.einsum(spec, x.double(), y.double())
     return out.to(torch.int64).to(dt)
@@ -277,6 +300,97 @@ def _execute(spec: str, plan: ContractionPlan, sizes: dict, bmkn, x, y,
     return out
 
 
+# --------------------------------------------------------------------------
+# The VJP: both gradients of ``out = einsum(spec, x, y)`` are einsums of the
+# cotangent with one operand,
+#
+#     dL/dx = einsum("out,y->x", g, y)        site  <site>.bwd_x
+#     dL/dW = einsum("out,x->y", g, x)        site  <site>.bwd_w
+#
+# so the backward re-enters fs_einsum for each, rather than differentiating
+# the dispatched primitives (which the kernels' ctypes launches would not
+# let autograd do at all).
+# --------------------------------------------------------------------------
+
+def _unreduce(t: torch.Tensor, dims: str, full_dims: str,
+              full_shape) -> torch.Tensor:
+    """Broadcast a gradient back over axes that were summed out before the
+    contraction (d(sum_s x)/dx broadcasts over s)."""
+    if dims == full_dims:
+        return t
+    for ax, d in enumerate(full_dims):
+        if d not in dims:
+            t = t.unsqueeze(ax)
+    return t.expand(full_shape)
+
+
+def _einsum_grads(spec: str, x: torch.Tensor, ysrc: torch.Tensor, prep, g,
+                  mode: str, policy, site: Optional[str], preferred,
+                  need_x: bool, need_w: bool):
+    """``(dx, dW)`` of ``fs_einsum(spec, x, y)`` for the cotangent ``g``, each
+    through ``fs_einsum`` at its backward site (``None`` where not
+    needed).  A prepared ``y`` gives dx its opposite-layout ``grad`` prep
+    when it has one; otherwise dispatch falls back to its source."""
+    plan = plan_contraction(spec, tuple(x.shape), tuple(ysrc.shape))
+    base = site or "einsum"
+    x_red = "".join(d for d in plan.x_dims if d not in plan.x_sum)
+    y_red = "".join(d for d in plan.y_dims if d not in plan.y_sum)
+    dx = dw = None
+    if need_x:
+        y_dx = ysrc if prep is None else (
+            prep.grad if prep.grad is not None else prep)
+        if plan.y_sum:
+            y_dx, _ = _sum_out(unwrap(y_dx), plan.y_dims, plan.y_sum)
+        dx = fs_einsum(f"{plan.out_dims},{y_red}->{x_red}", g, y_dx,
+                       mode=mode, policy=policy, site=f"{base}.bwd_x",
+                       preferred=preferred)
+        dx = _unreduce(dx, x_red, plan.x_dims, x.shape).to(x.dtype)
+    if need_w:
+        xr, _ = _sum_out(x, plan.x_dims, plan.x_sum)
+        dw = fs_einsum(f"{plan.out_dims},{x_red}->{y_red}", g, xr,
+                       mode=mode, policy=policy, site=f"{base}.bwd_w",
+                       preferred=preferred)
+        dw = _unreduce(dw, y_red, plan.y_dims, ysrc.shape).to(ysrc.dtype)
+    return dx, dw
+
+
+class _FsEinsumVJP(torch.autograd.Function):
+    """``fs_einsum`` under autograd: the forward is :func:`_dispatch`, the
+    backward :func:`_einsum_grads`.  The tensor inputs are ``x`` and ``y``'s
+    source (a :class:`PreparedOperand` is not a tensor, so its ``source``
+    stands in for it and receives dL/dW); ``prep`` rides along as a plain
+    argument.  The backward is differentiable (no ``once_differentiable``):
+    under ``create_graph`` its ``fs_einsum`` calls come back through this
+    Function."""
+
+    @staticmethod
+    def forward(ctx, x, ysrc, prep, spec, mode, policy, site, preferred):
+        ctx.save_for_backward(x, ysrc)
+        ctx.prep = prep
+        ctx.args = (spec, mode, policy, site, preferred)
+        return _dispatch(spec, x, ysrc if prep is None else prep, mode, site,
+                         preferred)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ysrc = ctx.saved_tensors
+        spec, mode, policy, site, preferred = ctx.args
+        dx, dw = _einsum_grads(spec, x, ysrc, ctx.prep, g, mode, policy,
+                               site, preferred, ctx.needs_input_grad[0],
+                               ctx.needs_input_grad[1])
+        return dx, dw, None, None, None, None, None, None
+
+
+def _wants_grad(x: torch.Tensor, ysrc: torch.Tensor) -> bool:
+    """Whether autograd will ask this call for a gradient: grad mode on,
+    float operands, and one of them requiring grad (JAX's ``_wants_vjp``,
+    which tests for tracers).  Serving (no grad) and integer operands take
+    the plain dispatch."""
+    return (torch.is_grad_enabled() and x.dtype.is_floating_point
+            and ysrc.dtype.is_floating_point
+            and (x.requires_grad or ysrc.requires_grad))
+
+
 def fs_einsum(spec: str, x: torch.Tensor, y, *, mode: Optional[str] = None,
               policy=None, site: Optional[str] = None,
               preferred: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -294,9 +408,34 @@ def fs_einsum(spec: str, x: torch.Tensor, y, *, mode: Optional[str] = None,
     (2, 5, 3)
     >>> torch.allclose(out, torch.einsum("bmk,bkn->bnm", x, y))
     True
+
+    Under autograd both gradients are square-routed sites of their own:
+
+    >>> from repro_torch.core import counting
+    >>> x = torch.ones(3, 4, requires_grad=True)
+    >>> w = torch.full((4, 2), 0.5, requires_grad=True)
+    >>> with counting.track_contractions() as ctr:
+    ...     fs_einsum("mk,kn->mn", x, w, mode="square_virtual",
+    ...               site="ffn").sum().backward()
+    >>> sorted(ctr.by_site())
+    ['ffn', 'ffn.bwd_w', 'ffn.bwd_x']
+    >>> ctr.fraction_square, torch.equal(x.grad, torch.ones(3, 4))
+    (1.0, True)
     """
     mode = resolve_mode(mode, policy, site)
     if mode not in fsmm.MODES:
         raise ValueError(f"unknown matmul mode {mode!r}; expected one of "
                          f"{fsmm.MODES}")
+    ysrc = unwrap(y)
+    if _wants_grad(x, ysrc):
+        if vjp_enabled():
+            prep = y if isinstance(y, PreparedOperand) else None
+            return _FsEinsumVJP.apply(x, ysrc, prep, spec, mode, policy,
+                                      site, preferred)
+        if mode == "square_pallas":
+            raise RuntimeError(
+                f"fs_einsum({spec!r}, site={site!r}): square_pallas cannot "
+                f"be differentiated with {_VJP_ENV}=0 (autograd does not see "
+                f"through the kernels' launches); unset {_VJP_ENV} to route "
+                f"the gradients through the square-form VJP")
     return _dispatch(spec, x, y, mode, site, preferred)

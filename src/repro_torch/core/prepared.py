@@ -10,6 +10,9 @@ prepared and raw results are bit-identical by construction.
 There is no tile padding: K1 masks ragged edges itself.  ``transposed``
 records that the call site contracts the weight's last axis (the tied
 vocab GEMM ``bsd,vd->bsv``); the transpose is materialised once, here.
+``prepare_grads=True`` also prepares the same source in the opposite
+layout, on the ``grad`` field, which the ``fs_einsum`` VJP contracts for
+dL/dx.
 
 A conv2d prepare (``for_="conv2d"``) holds what both conv routes stream
 (:func:`repro_torch.kernels.ops.prepare_conv2d_weights`): in ``canon`` the
@@ -39,6 +42,7 @@ class PreparedOperand:
     site: Optional[str] = None
     kind: str = "matmul"            # "matmul" | "conv2d"
     im2col: Optional[torch.Tensor] = None   # conv2d: (cin*kh*kw, cout)
+    grad: Optional["PreparedOperand"] = None    # dL/dx layout (VJP)
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -64,7 +68,8 @@ def unwrap(x):
 
 
 def prepare_operand(w, *, for_: str = "matmul", transpose: bool = False,
-                    site: Optional[str] = None) -> PreparedOperand:
+                    site: Optional[str] = None,
+                    prepare_grads: bool = False) -> PreparedOperand:
     """Precompute the constant-operand half of the K1 or conv prep.
 
     ``for_="matmul"``: ``w`` is a 2D ``(K, N)`` weight (``(N, K)`` with
@@ -74,6 +79,15 @@ def prepare_operand(w, *, for_: str = "matmul", transpose: bool = False,
     ``(cout, cin, kh, kw)`` filter bank, or a rank shorthand of
     :func:`repro_torch.core.conv.normalize_conv2d`.  Idempotent on an
     already-prepared operand.
+
+    ``prepare_grads`` (2D matmul only): also prepare the opposite-layout
+    form of the same source under ``<site>.bwd_x`` on the ``grad`` field,
+    which the ``fs_einsum`` VJP contracts for dL/dx.
+
+    >>> gp = prepare_operand(torch.ones(5, 7), site="dense",
+    ...                      prepare_grads=True)
+    >>> gp.grad.transposed, gp.grad.site, gp.grad.kn_shape
+    (True, 'dense.bwd_x', (7, 5))
     """
     if isinstance(w, PreparedOperand):
         return w
@@ -95,4 +109,8 @@ def prepare_operand(w, *, for_: str = "matmul", transpose: bool = False,
     from repro_torch.kernels import ops as kops          # lazy: import cycle
     mat = w.T if transpose else w
     canon, corr = kops.prepare_matmul_rhs(mat)
-    return PreparedOperand(w, canon, corr, transpose, site)
+    gradp = None
+    if prepare_grads:
+        gradp = prepare_operand(w, transpose=not transpose,
+                                site=f"{site}.bwd_x" if site else None)
+    return PreparedOperand(w, canon, corr, transpose, site, grad=gradp)

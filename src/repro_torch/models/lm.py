@@ -5,10 +5,16 @@ prepared weights).
 ``LM`` is an ``nn.Module`` whose layers are a Python loop over a
 ``ModuleList`` (the JAX package scans stacked layers; the port has no scan
 stack).  The functional entry points take a params tree, as in the JAX
-package: :meth:`LM.tree` is the module's own weights, and
-:meth:`LM.prepare_params` returns the same tree with every GEMM weight --
-of every layer -- replaced by a
+package: :meth:`LM.tree` is the module's own weights (serving weights,
+``requires_grad=False``), :meth:`LM.train_params` a copy of them as plain
+tensors for the functional train step, and :meth:`LM.prepare_params`
+returns the tree with every GEMM weight -- of every layer -- replaced by a
 :class:`~repro_torch.core.prepared.PreparedOperand`.
+
+Under autograd, ``cfg.remat == "block"`` rematerialises each block in the
+backward (``torch.utils.checkpoint`` through
+:func:`repro_torch.core.counting.remat`, where JAX wraps its scan body in
+``jax.checkpoint``).
 """
 from __future__ import annotations
 
@@ -17,8 +23,10 @@ from typing import Any, Dict, List, Optional, Union
 import torch
 from torch import nn
 
+from repro_torch.core import counting
 from repro_torch.core.einsum import fs_einsum
 from repro_torch.core.prepared import prepare_operand
+from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.layers import basic
 from repro_torch.layers.param import init_module, torch_dtype
@@ -75,6 +83,12 @@ class LM(nn.Module):
         return {"embed": _as_tree(self.embed),
                 "final_norm": _as_tree(self.final_norm),
                 "layers": [_as_tree(layer) for layer in self.layers]}
+
+    def train_params(self) -> Dict[str, Any]:
+        """A copy of the module's weights as plain tensors: the functional
+        params tree the train step takes and AdamW returns anew (the
+        module's own weights stay serving weights)."""
+        return tree_map(lambda p: p.detach().clone(), self.tree())
 
     def prepare_params(self, params: Optional[Dict[str, Any]] = None
                        ) -> Dict[str, Any]:
@@ -138,10 +152,15 @@ class LM(nn.Module):
         aux_total = torch.zeros((), device=x.device)
         caches = []
         for kind, p in zip(cfg.layer_kinds, params["layers"]):
-            x, seed, aux = blk.block_forward(kind, p, x, ctx)
+            if cfg.remat != "none" and not collect_cache:
+                x, aux = counting.remat(
+                    lambda x, kind=kind, p=p:
+                    blk.block_forward(kind, p, x, ctx)[::2])(x)
+            else:
+                x, seed, aux = blk.block_forward(kind, p, x, ctx)
+                if collect_cache:
+                    caches.append(seed)
             aux_total = aux_total + aux
-            if collect_cache:
-                caches.append(seed)
         return self._final_norm(params, x), aux_total, caches
 
     # ------------------------------------------------------------- cache

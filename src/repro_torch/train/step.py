@@ -1,0 +1,209 @@
+"""The train step and its builders: the PyTorch port of
+``repro/train/step.py``.
+
+:func:`make_train_step` returns a functional ``train_step(params,
+opt_state, batch) -> (new_params, new_opt_state, metrics)``, as the JAX
+builder does: the inputs are never written (AdamW returns new tensors), so
+a retry or a rollback can run a step again on the same inputs.  The
+gradients come from ``torch.autograd`` through the ``fs_einsum`` VJP, so
+under a square mode both backward contractions of every forward one are
+square-routed, at the sites ``<site>.bwd_x`` and ``<site>.bwd_w``.  The
+step runs eagerly (JAX's ``GuardedStep(jit=False)`` regime); capturing it
+whole in a CUDA graph is ROADMAP Q1 step 5b.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict
+
+import torch
+
+from repro_torch.core import counting, guards
+from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.optim import adamw
+from repro_torch.train import loss as loss_mod
+
+__all__ = ["TrainConfig", "make_train_step", "make_prefill_step",
+           "make_decode_step", "make_loss_fn", "value_and_grad", "audit_step",
+           "GuardedStep"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    opt: adamw.AdamWConfig = adamw.AdamWConfig()
+    aux_loss_weight: float = 0.01         # MoE load balance
+    microbatch: int = 0                   # 0 = no gradient accumulation
+    grad_compression: bool = False        # int8 + error feedback
+
+
+def make_loss_fn(model, tcfg: TrainConfig):
+    """``loss_fn(params, batch) -> (loss, metrics)``: next-token
+    cross-entropy of ``batch["tokens"]`` (B, S+1) through the chunked loss
+    at the site ``loss``, plus the weighted aux loss."""
+    cfg = model.cfg
+
+    def loss_fn(params, batch):
+        tokens = batch["tokens"]
+        inp = dict(batch)
+        inp["tokens"] = tokens[:, :-1]
+        labels = tokens[:, 1:]
+        hidden, aux, _ = model.forward(params, inp)
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+        loss, metrics = loss_mod.chunked_xent(
+            hidden, labels, params["embed"]["table"], mask=mask,
+            chunk=cfg.loss_chunk, mode=cfg.matmul_mode,
+            policy=cfg.contraction_policy)
+        total = loss + tcfg.aux_loss_weight * aux
+        return total, dict(metrics, xent=loss, aux=aux)
+
+    return loss_fn
+
+
+def value_and_grad(loss_fn, params, batch):
+    """``((loss, metrics), grads)`` of ``loss_fn`` at ``params``, the
+    counterpart of ``jax.value_and_grad(has_aux=True)``.  The leaves are
+    differentiated through detached aliases, so ``params`` itself gains no
+    ``grad`` and no graph."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(live, batch)
+        leaves = tree_leaves(live)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    it = iter(g if g is not None else torch.zeros_like(p)
+              for g, p in zip(grads, leaves))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), tree_map(lambda _: next(it), live)
+
+
+def make_train_step(model, tcfg: TrainConfig):
+    """``train_step(params, opt_state, batch)``: forward, the square-routed
+    backward and AdamW.  With ``tcfg.microbatch`` smaller than the batch the
+    gradients are accumulated in f32 over ``B // microbatch`` microbatches
+    (a loop where JAX scans); ``grad_compression`` quantizes them to int8
+    with error feedback kept in ``opt_state["error_feedback"]``."""
+    loss_fn = make_loss_fn(model, tcfg)
+
+    def train_step(params, opt_state, batch):
+        B = batch["tokens"].shape[0]
+        if tcfg.microbatch and tcfg.microbatch < B:
+            mb = tcfg.microbatch
+            n = B // mb
+            g_acc, l_acc = None, 0.0
+            for i in range(n):
+                mbatch = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                (l, metrics), g = value_and_grad(loss_fn, params, mbatch)
+                g32 = tree_map(lambda t: t.float(), g)
+                g_acc = g32 if g_acc is None else tree_map(
+                    torch.add, g_acc, g32)
+                l_acc = l_acc + l
+            grads = tree_map(lambda t: t / n, g_acc)
+            loss = l_acc / n
+        else:
+            (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
+        with torch.no_grad():
+            if tcfg.grad_compression:
+                opt_state = dict(opt_state)
+                ef = opt_state.get("error_feedback")
+                if ef is None:
+                    ef = tree_map(lambda p: torch.zeros(
+                        p.shape, dtype=torch.float32, device=p.device),
+                        params)
+                grads, ef = adamw.compressed_grad_tree(grads, ef)
+                opt_state["error_feedback"] = ef
+            new_params, new_opt, opt_metrics = adamw.adamw_update(
+                tcfg.opt, params, grads,
+                {k: opt_state[k] for k in ("step", "m", "v")})
+        if tcfg.grad_compression:
+            new_opt["error_feedback"] = opt_state["error_feedback"]
+        return new_params, new_opt, dict(metrics, loss=loss, **opt_metrics)
+
+    return train_step
+
+
+def audit_step(step_fn, params, opt_state, batch):
+    """Run one train step under a contraction audit: ``(step outputs,
+    ContractionCounter)``.  The counter covers the forward and both
+    backward contractions of each (``<site>.bwd_x`` / ``<site>.bwd_w``), so
+    ``ctr.fraction_square`` is the square-routed share of the step's whole
+    contraction volume and ``ctr.fraction_square_bwd`` the backward's.  A
+    rematerialised recompute notes nothing: each contraction counts once."""
+    with counting.track_contractions() as ctr:
+        out = step_fn(params, opt_state, batch)
+    return out, ctr
+
+
+class GuardedStep:
+    """A train step under the numerics guard, eager.
+
+    Every call runs in a :func:`repro_torch.core.guards.guarded` scope, so
+    a square-routed contraction (forward or backward) whose output is not
+    finite trips its key and is recomputed on the standard route in line;
+    ``trip_limit`` trips demote the key.  The pending-trip drain after the
+    step is then a no-op, kept so that the counters
+    (``train_guard_trips_total``, ``train_guard_rejits_total``,
+    ``train_guard_retries_total``) and the retry loop stay JAX's.  The
+    step must not write its inputs, since a retry reuses them.
+
+    ``jit=True`` (the JAX default: a jitted step whose probes are drained
+    after each call and whose demotions re-trace) is the captured train
+    step of ROADMAP Q1 step 5b and raises here rather than running eagerly
+    under another name.
+    """
+
+    def __init__(self, step_fn, *, jit: bool = False,
+                 trip_limit: int = guards.DEFAULT_TRIP_LIMIT,
+                 max_retries: int = 8,
+                 registry: obs_metrics.MetricsRegistry = None):
+        if jit:
+            raise NotImplementedError(
+                "GuardedStep(jit=True), a train step captured in a CUDA "
+                "graph, is ROADMAP Q1 step 5b; use jit=False (eager)")
+        self._fn = step_fn
+        self.trip_limit = trip_limit
+        self.max_retries = max_retries
+        self.guard_trips = 0          # probe trips drained (all keys)
+        self.rejits = 0               # fresh captures forced by demotions
+        self.retries = 0              # discarded-and-recomputed steps
+        reg = registry if registry is not None \
+            else obs_metrics.default_registry()
+        self.registry = reg
+        self._c_trips = reg.counter("train_guard_trips_total")
+        self._c_rejits = reg.counter("train_guard_rejits_total")
+        self._c_retries = reg.counter("train_guard_retries_total")
+
+    def stats(self) -> Dict[str, int]:
+        return {"guard_trips": self.guard_trips, "rejits": self.rejits,
+                "retries": self.retries}
+
+    def __call__(self, params, opt_state, batch):
+        for _ in range(self.max_retries + 1):
+            with guards.guarded(trip_limit=self.trip_limit):
+                out = self._fn(params, opt_state, batch)
+                trips = guards.drain_pending_trips(self.trip_limit)
+            if not trips:
+                return out
+            n_trips = sum(trips.values())
+            self.guard_trips += n_trips
+            self._c_trips.inc(n_trips)
+            self.retries += 1
+            self._c_retries.inc()
+        raise RuntimeError(
+            f"guarded train step still tripping after {self.max_retries} "
+            f"retries (keys: {sorted(trips)}): the non-finite source is not "
+            f"a square-routed contraction this guard can demote")
+
+
+def make_prefill_step(model, cache_len: int):
+    def prefill_step(params, batch):
+        hidden, cache = model.prefill(params, batch, cache_len)
+        logits = model.logits(params, hidden[:, -1:])[:, 0]
+        return logits, cache
+    return prefill_step
+
+
+def make_decode_step(model):
+    def decode_step(params, cache, tokens, pos):
+        return model.decode_step(params, cache, tokens, pos)
+    return decode_step

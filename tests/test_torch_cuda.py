@@ -1015,3 +1015,49 @@ def test_capture_survives_a_collected_graph_on_card(cuda_device,
     finally:
         gc.set_threshold(*threshold)
     assert eng.captures == 3 and toks == base
+
+
+# ---------------------------------------------------------------- training
+@pytest.mark.parametrize("spec,xs,ys", [
+    ("tk,kn->tn", (64, 96), (96, 80)),                 # K1 and both grads
+    ("bqkgh,bckh->bkgqc", (2, 40, 3, 1, 64), (2, 40, 3, 64))])   # K2
+def test_vjp_grads_launch_kernels_on_card(cuda_device, spec, xs, ys):
+    """Under autograd on the card both gradients of a square_pallas
+    contraction launch K1/K2 (from autograd's device thread) and equal the
+    same VJP's grads on CPU tensors (the plain versions) within the f32
+    bound k * 2^-23 * (max|a| + max|b|)^2, k taken as the larger operand's
+    size (above either gradient's contraction depth)."""
+    from repro_torch.core.einsum import fs_einsum
+    gen = torch.Generator().manual_seed(0)
+    x, y = torch.randn(xs, generator=gen), torch.randn(ys, generator=gen)
+    cot = torch.randn(torch.einsum(spec, x, y).shape, generator=gen)
+    grads = {}
+    launches = lambda: (sq_matmul_k1.launches + sq_matmul_k2.launches  # noqa
+                        + sq_matmul_k3.launches)
+    before = launches()
+    for dev in ("cpu", cuda_device):
+        tx = x.to(dev).requires_grad_(True)
+        ty = y.to(dev).requires_grad_(True)
+        out = fs_einsum(spec, tx, ty, mode="square_pallas")
+        grads[str(dev)] = [g.cpu() for g in torch.autograd.grad(
+            torch.sum(out * cot.to(dev)), (tx, ty))]
+    torch.cuda.synchronize()
+    assert launches() - before == 3          # the forward and both grads
+    for got, ref in zip(grads[str(cuda_device)], grads["cpu"]):
+        k = max(x.numel(), y.numel())
+        tol = k * 2.0 ** -23 * (cot.abs().max() + max(
+            x.abs().max(), y.abs().max())).item() ** 2
+        assert (got - ref).abs().max().item() <= tol
+
+
+def test_train_launcher_runs_on_card(cuda_device, tmp_path):
+    """The train launcher at the smoke size on the card: finite losses,
+    its first step's audit square forward and backward."""
+    from repro_torch.launch import train as launch
+    out = launch.main(["--reduced", "--steps", "2", "--global-batch", "2",
+                       "--seq", "32", "--ckpt-every", "1", "--ckpt-dir",
+                       str(tmp_path / "ck"), "--matmul-mode",
+                       "square_pallas"])
+    assert out["final_step"] == 2
+    assert np.isfinite(out["loss_trajectory"]).all()
+    assert out["contraction_audit"]["fraction_square_bwd"] == 1.0
