@@ -53,12 +53,20 @@ plain K1 in blocks of output rows) and timed beside torch.matmul /
 torch.bmm and the FP32 slot floor; then ``repro_torch.launch.train``
 trains fairsquare-demo at full width (square_pallas, bf16, remat
 "block", 8 x 256 tokens, 4 steps, checkpoints every 2, metrics and
-trace files): finite losses, every checkpoint restorable, the first
-step's audit equal to the analytic count (fraction 1.0 forward and
-backward), K1/K2 only at held shapes.  f32 losses over 3 steps against
+trace files), its step captured into one CUDA graph and replayed (the
+launcher's default on CUDA): finite losses, every checkpoint restorable,
+one capture, the first step's compiled audit equal to the analytic count
+(fraction 1.0 forward and backward), K1/K2 only at held shapes and
+(steps + captures) x 340 / 96 launches.  f32 losses over 3 steps against
 standard, every K1/K2 launch of a step against the exact product of its
-operands, two fixed-seed runs' fingerprints, launches by forward /
-backward / recompute, the median step wall and a profiled step follow.
+operands, a captured and an eager fixed-seed run's fingerprints,
+launches by forward / backward / recompute, the eager and the captured
+step timed in turns (eager, graph, graph, eager) and each traced, the
+capture's time, the state's copy into the graph's static inputs, the
+compiled audit of a replayed step, and the compiled train guard (JAX's
+saturating step under ``GuardedStep(jit=True)``: a probe trips, the
+``.bwd_*`` keys demote, a re-capture, the standard route's gradients,
+memory across a re-capture) follow.
 
 K1 is also held bit for bit to K2 at nb = 1 and to K3 at every shape, and
 timed beside K2 at nb = 1; K3 is timed beside K2 on its own operands, and
@@ -130,6 +138,7 @@ from repro_torch.kernels.sq_matmul import (                     # noqa: E402
 from repro_torch.core import conv as conv_core                   # noqa: E402
 from repro_torch.core import transforms                          # noqa: E402
 from repro_torch.core.prepared import prepare_operand           # noqa: E402
+from repro_torch.core.tree import tree_leaves                   # noqa: E402
 from repro_torch.kernels import ops                             # noqa: E402
 from repro_torch.kernels.cpm3_matmul import (                   # noqa: E402
     cpm3_matmul_k5, cpm3_matmul_plain, k5_launch_shape)
@@ -2439,10 +2448,11 @@ def expected_train_audit(cfg) -> dict:
 def train_launcher_phase(dev, compared) -> dict:
     """``python -m repro_torch.launch.train`` on full-width fairsquare-demo,
     square_pallas, bf16, remat="block", 8 x 256 tokens, 4 steps,
-    --ckpt-every 2, --metrics-file, --trace-out: finite losses, every
-    checkpoint committed and restorable, the first step's audit equal to
-    the analytic count with every contraction (forward and backward) on
-    K1/K2."""
+    --ckpt-every 2, --metrics-file, --trace-out, its step captured into a
+    CUDA graph (the launcher's default on CUDA): finite losses, every
+    checkpoint committed and restorable, one capture, the first step's
+    compiled audit equal to the analytic count with every contraction
+    (forward and backward) on K1/K2."""
     import tempfile
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.launch import train as train_launcher
@@ -2452,7 +2462,7 @@ def train_launcher_phase(dev, compared) -> dict:
           f"fairsquare-demo full width, square_pallas, {cfg.dtype}, "
           f"remat={cfg.remat}, {TRAIN_B} x {TRAIN_S} tokens, "
           f"{TRAIN_STEPS} steps, --ckpt-every 2, --metrics-file, "
-          f"--trace-out", flush=True)
+          f"--trace-out, the step replayed from a CUDA graph", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         mfile, tfile = f"{tmp}/metrics.json", f"{tmp}/trace.json"
         argv = ["--arch", "fairsquare-demo", "--matmul-mode", "square_pallas",
@@ -2482,8 +2492,10 @@ def train_launcher_phase(dev, compared) -> dict:
             trees, meta = mgr.restore(step=s)   # digests and fingerprint
             restored[s] = meta["losses"]
     losses = res["loss_trajectory"]
-    print(f"  losses {losses}; run wall {wall:.1f} s (builds, {TRAIN_STEPS} "
-          f"steps, 3 checkpoint writes)", flush=True)
+    print(f"  losses {losses}; run wall {wall:.1f} s (builds, the capture, "
+          f"{TRAIN_STEPS} steps, 3 checkpoint writes)", flush=True)
+    check(res["captures"] == 1,
+          f"the step captured once ({res['captures']} captures)")
     check(res["final_step"] == TRAIN_STEPS and len(losses) == TRAIN_STEPS
           and all(math.isfinite(x) for x in losses),
           f"{TRAIN_STEPS} steps with finite losses")
@@ -2513,19 +2525,23 @@ def train_launcher_phase(dev, compared) -> dict:
     check(audit["fraction_square"] == 1.0
           and audit["fraction_square_bwd"] == 1.0
           and audit["fraction_demoted"] == 0.0,
-          "audit: fraction_square 1.0 and fraction_square_bwd 1.0")
-    per_step = {k: v / TRAIN_STEPS for k, v in launched.items()}
+          "compiled audit of the first step's replay: fraction_square 1.0 "
+          "and fraction_square_bwd 1.0")
+    # each capture's warm-up is one eager step more
+    calls = TRAIN_STEPS + res["captures"]
+    per_step = {k: v / calls for k, v in launched.items()}
     check(launched["K1"] > 0 and launched["K2"] > 0
           and launched["K3"] == 0
           and all(v == int(v) for v in per_step.values()),
-          f"launches over {TRAIN_STEPS} steps: {launched} "
-          f"({per_step} a step)")
-    return launched
+          f"launches over {TRAIN_STEPS} replayed steps and "
+          f"{res['captures']} warm-up: {launched} ({per_step} a step)")
+    return dict(launched, calls=calls)
 
 
-def _train_losses(cfg, dev, steps, tcfg=None):
+def _train_losses(cfg, dev, steps, tcfg=None, jit=False):
     """``steps`` steps of ``cfg`` from seed 0 on the launcher's first
-    batches: (losses, final params, final optimizer state)."""
+    batches, eager or captured: (losses, final params, final optimizer
+    state)."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim import adamw
     from repro_torch.train import step as step_mod
@@ -2533,6 +2549,8 @@ def _train_losses(cfg, dev, steps, tcfg=None):
     params = model.train_params()
     opt = adamw.adamw_init(params)
     step = step_mod.make_train_step(model, tcfg or step_mod.TrainConfig())
+    if jit:
+        step = step_mod.jit_train_step(step, dev)
     data = SyntheticLM(DataConfig(TRAIN_B, TRAIN_S, cfg.vocab), cfg,
                        device=dev)
     losses = []
@@ -2602,7 +2620,6 @@ def _grads(cfg, dev, scale=1.0):
     """One step's gradients of ``cfg`` from seed 0 on the first batch, of
     the loss times ``scale`` and divided by it: ``{leaf path: tensor}`` in
     tree order."""
-    from repro_torch.core.tree import tree_leaves
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.train import step as step_mod
     model = build_model(cfg, device=dev, seed=0)
@@ -2684,26 +2701,146 @@ def train_parity_phase(dev) -> None:
         del sq, std
 
 
-def train_determinism_phase(dev) -> None:
+def train_compiled_equals_eager_phase(dev) -> None:
     """Two fixed-seed runs of the launcher's configuration (bf16, remat
-    block, square_pallas), 2 steps each: equal tree_fingerprints of the
-    losses, params and optimizer state."""
+    block, square_pallas), 2 steps each, one eager and one captured into a
+    CUDA graph: equal tree_fingerprints of the losses, params and
+    optimizer state.  (It replaces two eager runs' comparison: K1/K2 fix
+    their summation order, and a replay runs the eager step's kernels.)"""
     from repro_torch.optim import adamw
-    fps = []
-    for _ in range(2):
-        losses, params, opt = _train_losses(train_cfg(), dev, 2)
-        fps.append(adamw.tree_fingerprint(
-            {"losses": torch.tensor(losses), "params": params, "opt": opt}))
-    check(fps[0] == fps[1],
-          f"two fixed-seed runs bit-identical: fingerprint {fps[0][:16]}... "
-          f"twice")
+    fps = {}
+    for jit in (False, True):
+        losses, params, opt = _train_losses(train_cfg(), dev, 2, jit=jit)
+        fps[jit] = adamw.tree_fingerprint(
+            {"losses": torch.tensor(losses), "params": params, "opt": opt})
+        print(f"  {'captured' if jit else 'eager'} 2 steps: losses "
+              f"{losses}", flush=True)
+    check(fps[False] == fps[True],
+          f"captured and eager fixed-seed runs bit-identical: fingerprint "
+          f"{fps[False][:16]}... twice")
+
+
+def sat_train_step(mode):
+    """tests/test_compiled_guard.py::_make_sat_step on the port: the loss
+    scale puts the cotangent at ~1e22, so the square form's backward
+    ``(g + w)^2`` and ``(g + x)^2`` are inf in f32 while the standard
+    route's products stay finite.  ``x`` asks for its gradient, since
+    JAX's custom_vjp computes dL/dx of the batch operand too."""
+    from repro_torch.train import step as step_mod
+
+    def loss_fn(p, batch):
+        x = batch["x"].detach().requires_grad_(True)
+        out = fs_einsum("mk,kn->mn", x, p["w"], mode=mode, site="chaos")
+        return torch.sum(out) * 1e22, {}
+
+    def train_step(params, opt_state, batch):
+        (loss, _), grads = step_mod.value_and_grad(loss_fn, params, batch)
+        return params, opt_state, {"loss": loss, "grads": grads}
+    return train_step
+
+
+def train_guard_phase(dev) -> None:
+    """The compiled train guard: JAX's saturating step captured by
+    ``GuardedStep(jit=True)`` under ``square_exact`` at JAX's size
+    (8 x 16 x 4) and under ``square_pallas`` at 64 x 64 x 32, K1's route
+    for the forward and both gradients.  A probe trips, exactly the
+    ``chaos.bwd_*`` keys demote, the re-capture launches K1 no more there,
+    the gradients are finite and within 1e-5 of the standard route's, and
+    a second call has no trip.  Then allocated memory across a re-capture
+    (the old outputs dropped) within 1 MiB."""
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.train import step as step_mod
+    print("compiled train guard: GuardedStep(jit=True) on JAX's saturating "
+          "train step (cotangent ~1e22), trip limit 1", flush=True)
+    gen = torch.Generator().manual_seed(23)
+    for mode, (m, k, n) in (("square_exact", (8, 16, 4)),
+                            ("square_pallas", (64, 64, 32))):
+        x = torch.randn(m, k, generator=gen).to(dev)
+        w = torch.randn(k, n, generator=gen).to(dev)
+        routing.reset_route_health()
+        guards.clear_pending_trips()
+        gs = step_mod.GuardedStep(sat_train_step(mode), jit=True,
+                                  trip_limit=1, max_retries=4,
+                                  registry=MetricsRegistry())
+        reset_counts()
+        _, _, met = gs({"w": w}, {}, {"x": x})
+        torch.cuda.synchronize()
+        k1_first = sq_matmul_k1.launches
+        health = routing.route_health()
+        demoted = sorted(health.demotions)
+        # the standard route's gradients, eagerly, as the demoted graph's
+        ref = sat_train_step("standard")({"w": w}, {}, {"x": x})[2][
+            "grads"]["w"]
+        g = met["grads"]["w"]
+        rel = ((g - ref).abs() / ref.abs()).max().item()
+        call = gs._fn.current
+        check(gs.guard_trips == 2 and gs.rejits == 1 and gs.retries == 1
+              and gs.captures == 2 and len(demoted) == 2
+              and all(d.split("|")[0] in ("chaos.bwd_x", "chaos.bwd_w")
+                      for d in demoted),
+              f"{mode}: probes trip {gs.guard_trips} times, {gs.stats()}, "
+              f"demoted exactly {demoted}, {gs.captures} captures")
+        check(bool(torch.isfinite(g).all()) and rel <= 1e-5,
+              f"{mode}: gradients finite, max relative difference from the "
+              f"standard route's {rel:.2e} <= 1e-5")
+        if mode == "square_pallas":
+            # warm-up, tripped replay, re-capture's warm-up and replay
+            k1_graph = sum(n for kern, n, _ in call.ledger.launches
+                           if kern is sq_matmul_k1)
+            check(k1_first == 3 + 3 + 1 + 1 and k1_graph == 1,
+                  f"K1 launched {k1_first} times (3 a call, then 1: the "
+                  f"re-captured graph launches it for the forward alone, "
+                  f"its ledger {k1_graph})")
+        _, _, met2 = gs({"w": w}, {}, {"x": x})
+        torch.cuda.synchronize()
+        check(gs.stats() == {"guard_trips": 2, "rejits": 1, "retries": 1}
+              and gs.captures == 2 and torch.equal(met2["grads"]["w"], g),
+              f"{mode}: a second call replays clean, no trip or capture")
+        del met, met2, g, gs, call
+
+    # memory across a re-capture (after the guarded steps above, so cuBLAS
+    # already holds its workspace for the capture stream in autograd's
+    # thread, which the demoted route's first capture allocates once)
+    def mem():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated(dev) / 2 ** 20
+
+    routing.reset_route_health()
+    with guards.guarded(trip_limit=1):
+        cf = graphs.CapturedFunction(sat_train_step("square_pallas"),
+                                     device=dev, epoch_keyed=True,
+                                     name="sat_step")
+        out = cf({"w": w}, {}, {"x": x})
+        trips = guards.drain_pending_trips()
+        del out
+        before = mem()
+        cf.recapture()
+        out = cf.replay()
+        clean = guards.drain_pending_trips()
+        del out
+        after = mem()
+        cf.release()
+    freed = mem()
+    routing.reset_route_health()
+    print(f"  memory allocated across a re-capture: {before:.3f} MiB with "
+          f"the first graph, {after:.3f} MiB with the re-captured one, "
+          f"{freed:.3f} MiB with both freed", flush=True)
+    check(len(trips) == 2 and clean == {} and abs(after - before) <= 1.0
+          and freed < after,
+          "a re-capture frees the old graph: allocated memory after it "
+          "within 1 MiB of before it, lower once the graphs are freed")
 
 
 def train_timing_phase(dev) -> dict:
     """The launcher's configuration: K1/K2 launches of one forward, one
     step at remat none and one at remat block (so forward, backward and
-    recompute apart); the median wall of 5 warm steps, tokens/s, and a
-    profiled trace of 2 steps (device-busy share, largest device work)."""
+    recompute apart); then the eager step and the step captured into a
+    CUDA graph timed in turns (eager, graph, graph, eager; the median wall
+    of 5 warm steps each, tokens/s), the capture's time, its ledger's
+    launches against the eager step's, a profiled trace of 2 steps of each
+    (device-busy share, device operations, K1/K2 kernels a step), the
+    device time of the state's copy into the graph's static inputs, and
+    the compiled audit of one replayed step against the analytic count."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.optim import adamw
     from repro_torch.train import step as step_mod
@@ -2741,44 +2878,131 @@ def train_timing_phase(dev) -> dict:
           and rec == (fwd[0], fwd[1]),
           "backward: two launches (dL/dx, dL/dW) per forward launch; "
           "remat block recomputes the whole forward")
-    walls = []
-    for _ in range(6):
-        torch.cuda.synchronize()
+
+    # the captured step (remat block): its capture timed, under the
+    # compiled audit so that a replay can be audited below
+    graph = step_mod.jit_train_step(step, dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with counting.compiled_audit():
+        out = graph(params, opt, batch)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    ledger = {kern.__name__: n for kern, n, _ in graph.current.ledger.launches}
+    got = (ledger.get("sq_matmul_k1", 0), ledger.get("sq_matmul_k2", 0))
+    check(graph.captures == 1 and got == split["block"]
+          and (sq_matmul_k1.launches, sq_matmul_k2.launches)
+          == (2 * got[0], 2 * got[1]),
+          f"captured step: by its ledger K1 {got[0]} and K2 {got[1]} a "
+          f"replay (the eager step's), counted twice by the first call "
+          f"(the warm-up and the replay); the first call (warm-up, capture, "
+          f"replay) {capture_s * 1e3:.1f} ms; card {CARD}")
+
+    state = {"eager": (params, opt), "graph": out[:2]}
+    fns = {"eager": step, "graph": graph}
+
+    def one(kind):
+        p, o, met = fns[kind](*state[kind], batch)
+        state[kind] = (p, o)
+        return met
+
+    walls = {"eager": [], "graph": []}
+    for i, kind in enumerate(("eager", "graph", "graph", "eager")):
+        turn = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one(kind)
+            torch.cuda.synchronize()
+            turn.append(time.perf_counter() - t0)
+        turn = sorted(turn[1:])
+        walls[kind] += turn
+        print(f"  turn {i + 1} {kind}: median {turn[2] * 1e3:.2f} ms (min "
+              f"{turn[0] * 1e3:.2f}, max {turn[-1] * 1e3:.2f}), "
+              f"{TRAIN_T / turn[2]:.0f} tokens/s; card {CARD}", flush=True)
+    check(graph.captures == 1, "the reused captured step captured no more")
+    med = {k: sorted(v)[len(v) // 2] for k, v in walls.items()}
+    # each traced step reads its loss, as the trainer does: a replay
+    # returns before the device has run it
+    stats = {k: trace_steps(lambda k=k: float(one(k)["loss"]),
+                            f"{'replayed ' * (k == 'graph')}train steps",
+                            med[k], calls=2)
+             for k in ("eager", "graph")}
+    check(stats["graph"].get("K1") == got[0]
+          and stats["graph"].get("K2") == got[1],
+          f"a profiled replayed step holds {stats['graph'].get('K1')} K1 and "
+          f"{stats['graph'].get('K2')} K2 kernels (the ledger's {got})")
+    for k in ("eager", "graph"):
+        print(f"  {k}: median wall {med[k] * 1e3:.2f} ms over 10 warm steps "
+              f"in 2 turns, {TRAIN_T / med[k]:.0f} tokens/s; traced step "
+              f"{stats[k]['ops']:.0f} device operations, device busy "
+              f"{stats[k]['busy_ms']:.3f} ms = {stats[k]['busy_share']:.1%} "
+              f"of the traced wall, {stats[k]['busy_ms'] / (med[k] * 1e3):.1%}"
+              f" of the untraced median; card {CARD}", flush=True)
+
+    # the donation's copy of the new state (params, m, v) into the static
+    # inputs: its device time from a profile of the copy of a distinct tree
+    # of the same signature (the eager state), and its host time
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree_leaves(state["eager"]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        params, opt, met = step(params, opt, batch)
+        graph.stage(*state["eager"])
+        host_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    walls = sorted(walls[1:])
-    med = walls[len(walls) // 2]
-    print(f"train step wall (remat block, 5 warm steps, synchronized): "
-          f"median {med * 1e3:.2f} ms (min {walls[0] * 1e3:.2f}, max "
-          f"{walls[-1] * 1e3:.2f}); {TRAIN_T / med:.0f} tokens/s", flush=True)
-    state = {"p": params, "o": opt}
+    spans = [e.time_range for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    copy_ms = sum(t.end - t.start for t in spans) / 1e3
+    print(f"  the state's copy into the graph's static inputs (the "
+          f"donation's write-back): {nbytes / 1e9:.3f} GB in {len(spans)} "
+          f"device copies, {copy_ms:.3f} ms of device time ("
+          f"{2 * nbytes / copy_ms / 1e6:.0f} GB/s read + written, "
+          f"{copy_ms / (med['graph'] * 1e3):.2%} of the replayed step), "
+          f"issued in {host_ms:.3f} ms of host time; card {CARD}",
+          flush=True)
 
-    def one():
-        state["p"], state["o"], _ = step(state["p"], state["o"], batch)
-
-    stats = trace_steps(one, "train steps", med, calls=2)
+    # the compiled audit of a replayed step: the analytic count, forward
+    # and backward, the recompute's notes absent
+    want = expected_train_audit(cfg)
+    with counting.track_compiled_contractions() as ctr:
+        graph.replay()
+    torch.cuda.synchronize()
+    audited = {site: v["mults"] for site, v in ctr.by_site().items()}
+    check(audited == want and ctr.total_mults == sum(want.values())
+          and ctr.fraction_square == 1.0 and ctr.fraction_square_bwd == 1.0,
+          f"compiled audit of a replayed step: {ctr.total_mults:,} "
+          f"multiplies, per site the analytic count (no recompute note), "
+          f"fraction_square {ctr.fraction_square} and fraction_square_bwd "
+          f"{ctr.fraction_square_bwd}")
     return {"forward": fwd, "backward": bwd, "recompute": rec,
-            "step": split["block"], "median_ms": med * 1e3,
-            "tokens_per_s": TRAIN_T / med, "trace": stats}
+            "step": split["block"], "median_ms": med["eager"] * 1e3,
+            "graph_median_ms": med["graph"] * 1e3, "capture_ms":
+            capture_s * 1e3, "copy_ms": copy_ms, "trace": stats["eager"],
+            "graph_trace": stats["graph"]}
 
 
 def train_phases(dev, gen, compared) -> dict:
-    """The training path: its kernels at its shapes, the launcher, parity,
-    determinism and timing.  Returns the launcher's K1/K2 launches."""
+    """The training path: its kernels at its shapes, the launcher
+    (captured), parity, compiled against eager, timing in turns and the
+    compiled train guard.  Returns the launcher's K1/K2 launches."""
     cfg = train_cfg()
     rows = train_kernel_phase(dev, gen, cfg)
     compared["K1"] = list(compared["K1"]) + list(train_k1_shapes(cfg))
     compared["K2"] = list(compared["K2"]) + list(train_k2_shapes(cfg))
     launched = train_launcher_phase(dev, compared)
     train_parity_phase(dev)
-    train_determinism_phase(dev)
+    train_compiled_equals_eager_phase(dev)
     timing = train_timing_phase(dev)
-    check(tuple(launched[k] // TRAIN_STEPS for k in ("K1", "K2"))
-          == timing["step"],
-          f"the launcher's launches a step {launched} / {TRAIN_STEPS} equal "
-          f"a timed step's {timing['step']}")
+    train_guard_phase(dev)
+    calls = launched.pop("calls")
+    check(tuple(launched[k] for k in ("K1", "K2"))
+          == tuple(calls * n for n in timing["step"]),
+          f"the launcher's launches {launched} = (steps + captures) "
+          f"{calls} x a timed step's {timing['step']}")
     return {"launches": launched, "rows": rows, "timing": timing}
 
 

@@ -363,7 +363,10 @@ def remat(fn):
     False)``, the counterpart of ``jax.checkpoint``: its activations are
     recomputed in the backward, and that recompute notes no contraction
     (:func:`recomputing`).  Outside grad mode, or when no tensor argument
-    requires grad (serving), ``fn`` just runs."""
+    requires grad (serving), ``fn`` just runs.  Under a CUDA graph capture
+    (the captured train step) the checkpoint's save and restore of the
+    CUDA RNG state are captured with it, which torch permits; no op of a
+    train step draws random numbers, so there is nothing they change."""
     import torch
     from torch.utils import checkpoint
 

@@ -1,16 +1,27 @@
-"""Captured model calls: the part ``jax.jit`` plays for the JAX package's
-serving step, played here by CUDA graphs.
+"""Captured calls: the part ``jax.jit`` plays for the JAX package's serving
+and training steps, played here by CUDA graphs.
 
-A :class:`CapturedCall` runs a model function once eagerly (the warm-up,
-on a side stream, so that every kernel is built and loaded and every
-one-time CUDA attribute is set before capture), captures a second call
-into a ``torch.cuda.CUDAGraph`` and from then on replays it.  Its inputs
-are static device buffers that each call writes in place (host arrays go
-through pinned staging buffers, device tensors are copied on the device);
-its outputs are the tensors the captured call returned, overwritten by
-every replay, so a caller consumes them before the next one.  Graphs of
-one owner may share a memory pool (``pool=``, from
+A :class:`CapturedCall` runs a function once eagerly (the warm-up, on a
+side stream, so that every kernel is built and loaded and every one-time
+CUDA attribute is set before capture), captures a second call into a
+``torch.cuda.CUDAGraph`` and from then on replays it.  Its inputs are
+trees (nested dicts, lists and tuples, :mod:`repro_torch.core.tree`)
+whose leaves live in static device buffers that each call writes in place
+(host arrays go through pinned staging buffers, device tensors are copied
+on the device, and a leaf that already is its static buffer is not
+copied); its outputs are the tensors the captured call returned,
+overwritten by every replay, so a caller consumes them before the next
+one.  Graphs of one owner may share a memory pool (``pool=``, from
 ``torch.cuda.graph_pool_handle()``) as long as they never run at once.
+
+A :class:`CapturedFunction` is ``jax.jit``'s cache over such graphs: one
+capture per input signature (the tree structure and every leaf's shape
+and dtype, and the route epoch when a guard keys on it), each counted in
+``captures``.  It replays the current graph on its static inputs as they
+stand (a retry), re-captures it from them (after a demotion), writes a
+caller's state into them (``stage``) and, as ``jax.jit``'s
+``donate_argnums``, writes a call's new state back into them
+(``donate``, ``write_back``).
 
 Python does not run again when a graph replays, so every host-side effect
 of the captured call would otherwise happen once, at capture.  A
@@ -34,7 +45,17 @@ of the captured call would otherwise happen once, at capture.  A
 While a ledger records, :func:`repro_torch.core.counting.note_contraction`
 tallies nothing (a capture executes no contraction), the einsum
 dispatcher makes no in-line finite check (its read cannot run under a
-capture) and emits probes and runtime notes instead.
+capture) and emits probes and runtime notes instead.  The recording
+state is a module global, not a thread-local: on CUDA autograd runs a
+captured backward in its own device thread (on the capture stream), and
+its contractions record into the same ledger.
+
+The warm-up records too, into a ledger that is thrown away: it runs as
+the capture will, with no in-line finite check (a check there would trip
+and demote before the capture, so the graph would never probe what a
+jitted JAX step probes), no eager contraction note and no runtime note
+(each contraction counts once, at its replays); its kernel launches did
+execute and stay counted.
 
 A capture that fails raises :class:`CaptureError`; nothing here falls
 back to eager execution, and a CPU device is refused.
@@ -51,10 +72,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import counting
+from repro_torch.core.tree import tree_flatten, tree_unflatten
 from repro_torch.kernels.build import KernelError
 
-__all__ = ["CaptureError", "CaptureLedger", "CapturedCall", "GraphSet",
-           "recording", "current_ledger", "capturing", "counted_kernels"]
+__all__ = ["CaptureError", "CaptureLedger", "CapturedCall",
+           "CapturedFunction", "GraphSet", "recording", "current_ledger",
+           "capturing", "counted_kernels", "signature"]
 
 
 class CaptureError(KernelError):
@@ -111,6 +134,11 @@ class CaptureLedger:
             counting.land_runtime_note(*note)
         if self.flags is not None:
             guards.land_probes(*self.flags)
+        self.count_launches()
+
+    def count_launches(self) -> None:
+        """Add the recorded launch counts to the kernel wrappers' (calls
+        that executed: a replay, or a recorded warm-up)."""
         for kern, n, shapes in self.launches:
             kern.launches += n
             if shapes:
@@ -186,36 +214,53 @@ def recording(ledger: CaptureLedger):
                 ledger.launches.append((kern, delta, grown))
 
 
-def _static_like(arg, device: torch.device) -> Tuple[torch.Tensor,
-                                                     Optional[torch.Tensor]]:
-    """A static device buffer for ``arg`` and, for a host array, its pinned
-    staging buffer."""
+def _host_dtype(arg) -> torch.dtype:
+    """The torch dtype of a host input (a numpy array or Python number)."""
+    return torch.from_numpy(np.empty(0, np.asarray(arg).dtype)).dtype
+
+
+def _leaf_signature(leaf) -> Tuple[Tuple[int, ...], torch.dtype]:
+    if isinstance(leaf, torch.Tensor):
+        return tuple(leaf.shape), leaf.dtype
+    return np.shape(leaf), _host_dtype(leaf)
+
+
+def signature(args: Sequence[Any]) -> Tuple:
+    """What a capture is keyed on, as a ``jax.jit`` cache keys a trace: the
+    tree structure of ``args`` and each leaf's shape and dtype (a host
+    array and a device tensor of one shape and dtype are one input)."""
+    leaves, treedef = tree_flatten(tuple(args))
+    return treedef, tuple(_leaf_signature(x) for x in leaves)
+
+
+def _static_like(arg, device: torch.device) -> torch.Tensor:
+    """A static device buffer for the input leaf ``arg``."""
     if isinstance(arg, torch.Tensor):
         if arg.device.type == "cpu":
             raise CaptureError("pass host inputs as numpy arrays or Python "
                                "numbers; a CPU tensor is not staged")
-        return torch.empty_like(arg, device=device), None
-    host = torch.from_numpy(np.array(arg))
-    staging = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-    return torch.empty(host.shape, dtype=host.dtype, device=device), staging
+        return torch.empty_like(arg, device=device)
+    return torch.empty(np.shape(arg), dtype=_host_dtype(arg), device=device)
 
 
 class CapturedCall:
     """``fn(*args)`` captured into one CUDA graph on ``device``.
 
-    ``args``: the first call's inputs, numpy arrays or Python numbers (host
-    inputs, staged through pinned memory) or CUDA tensors; every later
-    call passes inputs of the same shapes and dtypes.  ``fn`` takes the
-    static device buffers and returns a tensor or a tuple of tensors (the
-    static outputs, returned by every call).  ``pool``: a graph memory
-    pool handle shared with the owner's other graphs.
+    ``args``: the first call's inputs, trees whose leaves are numpy arrays
+    or Python numbers (host inputs, staged through pinned memory) or CUDA
+    tensors; every later call passes inputs of the same structure, shapes
+    and dtypes.  ``fn`` takes the static device buffers in the same trees
+    (``inputs``) and returns a tree of tensors (the static outputs,
+    returned by every call).  ``pool``: a graph memory pool handle shared
+    with the owner's other graphs.
 
     Construction writes ``args`` into the static buffers, runs ``fn`` once
-    eagerly on a side stream (the warm-up; its result is discarded) and
-    captures a second call; :meth:`replay` then runs the first call, and
-    each later call is ``call(*args)``.  So ``fn`` must give the same
-    result when run again on the same inputs, as a model call that writes
-    its caches in place at the positions of its inputs does."""
+    eagerly on a side stream (the warm-up; recorded into a ledger that is
+    thrown away, its result discarded) and captures a second call;
+    :meth:`replay` then runs the first call, and each later call is
+    ``call(*args)``.  So ``fn`` must give the same result when run again
+    on the same inputs, as a functional train step does, or a model call
+    that writes its caches in place at the positions of its inputs."""
 
     def __init__(self, fn: Callable, args: Sequence[Any], *,
                  device: torch.device, pool=None, name: str = "call"):
@@ -225,17 +270,25 @@ class CapturedCall:
                                f"asked to capture on {device}")
         self.name = name
         self.device = device
-        bufs = [_static_like(a, device) for a in args]
-        self._static = [b for b, _ in bufs]
-        self._staging = [s for _, s in bufs]
+        leaves, self._treedef = tree_flatten(tuple(args))
+        self._static = [_static_like(a, device) for a in leaves]
+        self._staging: List[Optional[torch.Tensor]] = [None] * len(leaves)
         self._staged: Optional[torch.cuda.Event] = None
+        self.inputs = tree_unflatten(self._treedef, self._static)
         self._write(args)
 
         stream = torch.cuda.current_stream(device)
         side = _warmup_stream(device)
         side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            fn(*self._static)                 # builds, loads, sets attributes
+        # builds, loads, sets attributes; recorded, so that it checks and
+        # notes nothing in line (the module docstring).  The serving
+        # engine's and the dense Server's captures warm up here too, and
+        # had the same exposure while their warm-up ran unrecorded: a trip
+        # there demoted before the capture (none of their tests drives a
+        # warm-up that trips)
+        with torch.cuda.stream(side), recording(CaptureLedger()) as warm:
+            fn(*self.inputs)
+        warm.count_launches()
         stream.wait_stream(side)
 
         self.ledger = CaptureLedger()
@@ -248,7 +301,7 @@ class CapturedCall:
         try:
             with torch.cuda.graph(self.graph, pool=pool), \
                     recording(self.ledger):
-                self.outputs = fn(*self._static)
+                self.outputs = fn(*self.inputs)
         except KernelError:
             raise
         except RuntimeError as e:            # torch's capture and CUDA errors
@@ -260,29 +313,54 @@ class CapturedCall:
         self.replays = 0
 
     def _write(self, args: Sequence[Any]) -> None:
-        if len(args) != len(self._static):
-            raise ValueError(f"{self.name}: {len(args)} inputs, captured "
-                             f"with {len(self._static)}")
-        if self._staged is not None:
-            self._staged.synchronize()        # the last copies left staging
-        for arg, static, staging in zip(args, self._static, self._staging):
-            if staging is None:
+        """Write ``args``, all the inputs or a leading run of them, into
+        their static buffers."""
+        leaves, treedef = tree_flatten(tuple(args))
+        want = ("tuple", self._treedef[1][:len(args)])
+        if treedef != want:
+            raise ValueError(f"{self.name}: inputs of another tree "
+                             f"structure than captured ({len(args)} "
+                             f"inputs, captured with "
+                             f"{len(self._treedef[1])})")
+        staged, dsts, srcs = False, [], []
+        for i, (arg, static) in enumerate(zip(leaves, self._static)):
+            if arg is static:                 # a donated or staged input
+                continue
+            if isinstance(arg, torch.Tensor):
                 if tuple(arg.shape) != tuple(static.shape) \
                         or arg.dtype != static.dtype:
                     raise ValueError(f"{self.name}: input {tuple(arg.shape)} "
                                      f"{arg.dtype}, captured with "
                                      f"{tuple(static.shape)} {static.dtype}")
+                if arg.device.type == "cpu":
+                    raise CaptureError("pass host inputs as numpy arrays or "
+                                       "Python numbers; a CPU tensor is not "
+                                       "staged")
                 if arg.data_ptr() != static.data_ptr():
-                    static.copy_(arg)
+                    dsts.append(static)
+                    srcs.append(arg)
                 continue
             host = np.asarray(arg)
-            if host.shape != tuple(staging.shape):
+            if host.shape != tuple(static.shape):
                 raise ValueError(f"{self.name}: input shape {host.shape}, "
-                                 f"captured with {tuple(staging.shape)}")
-            np.copyto(staging.numpy(), host, casting="same_kind")
-            static.copy_(staging, non_blocking=True)
-        self._staged = torch.cuda.Event()
-        self._staged.record(torch.cuda.current_stream(self.device))
+                                 f"captured with {tuple(static.shape)}")
+            if not staged and self._staged is not None:
+                self._staged.synchronize()    # the last copies left staging
+            staged = True
+            if self._staging[i] is None:
+                self._staging[i] = torch.empty(static.shape,
+                                               dtype=static.dtype,
+                                               pin_memory=True)
+            np.copyto(self._staging[i].numpy(), host, casting="same_kind")
+            static.copy_(self._staging[i], non_blocking=True)
+        if dsts:
+            # one multi-tensor copy: a train step's state is hundreds of
+            # leaves, and a launch for each left the device waiting on the
+            # host for 3 % of a full-width step on an H100
+            torch._foreach_copy_(dsts, srcs)
+        if staged:
+            self._staged = torch.cuda.Event()
+            self._staged.record(torch.cuda.current_stream(self.device))
 
     def replay(self):
         """Replay the graph on the current inputs and emit its ledger."""
@@ -297,11 +375,133 @@ class CapturedCall:
 
     def release(self) -> None:
         """Free the graph and drop its buffers (its pool's memory returns
-        once no graph of the pool is left)."""
+        once no graph of the pool is left and no caller holds one of its
+        outputs)."""
         self.graph.reset()
         self.outputs = None
-        self._static, self._staging = [], []
+        self._static, self._staging, self.inputs = [], [], None
         self.ledger = CaptureLedger()
+
+
+class CapturedFunction:
+    """``fn`` over trees, captured per input signature and replayed: the
+    counterpart of ``jax.jit(fn)`` (the JAX launcher's train step is
+    ``jax.jit(make_train_step(...), donate_argnums=(0, 1))``).
+
+    A call whose :func:`signature` (with ``epoch_keyed``, also the route
+    epoch, which a guard's demotion moves) has no graph yet captures one
+    (a :class:`CapturedCall` with a memory pool of its own, counted in
+    ``captures``), as a jit cache miss traces; later calls of that
+    signature write their inputs into its static buffers and replay it.
+
+    The outputs are the graph's static outputs, overwritten by its next
+    replay.  A call copies its inputs into the static inputs before the
+    replay, unless they already are those buffers, and a replay never
+    writes them (the function is functional).  So a retry replays from the
+    static inputs (:meth:`replay`), never from the caller's tensors, which
+    may be the previous replay's outputs that the tripped replay
+    overwrote; a re-capture (:meth:`recapture`) takes its inputs from the
+    old graph's static inputs before it frees the old graph; and
+    :meth:`stage` writes a caller's state into the static inputs ahead of
+    the call.
+
+    ``donate``: the leading inputs the call hands over (a train step's
+    params and optimizer state: 2), as ``jax.jit``'s ``donate_argnums``.
+    After each call the same leading outputs, the new state, are written
+    back into those static inputs and returned from there
+    (:meth:`write_back`), so the caller, passing them back, has the next
+    call copy nothing for them; the write-back's launches are issued
+    while the device still runs the replay.  An owner that must check a
+    call first (a guard's drain) keeps ``donate`` 0 and writes back
+    itself."""
+
+    def __init__(self, fn: Callable, *, device: torch.device,
+                 name: str = "fn", epoch_keyed: bool = False,
+                 donate: int = 0):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise CaptureError(f"CUDA graphs need a CUDA device; {name} was "
+                               f"asked to capture on {device}")
+        self.fn, self.device, self.name = fn, device, name
+        self.epoch_keyed = epoch_keyed
+        self.donate = donate
+        self.calls: Dict[Tuple, CapturedCall] = {}
+        self.current: Optional[CapturedCall] = None
+        self.captures = 0
+
+    def _key(self, args: Sequence[Any]) -> Tuple:
+        key = signature(args)
+        if self.epoch_keyed:
+            from repro_torch.kernels import routing   # lazy: import cycle
+            key += (routing.route_epoch(),)
+        return key
+
+    def _capture(self, key: Tuple, args: Sequence[Any]) -> CapturedCall:
+        call = CapturedCall(self.fn, args, device=self.device,
+                            name=self.name)
+        self.captures += 1
+        self.calls[key] = self.current = call
+        return call
+
+    def __call__(self, *args):
+        key = self._key(args)
+        call = self.calls.get(key)
+        if call is None:
+            out = self._capture(key, args).replay()
+        else:
+            self.current = call
+            out = call(*args)
+        return self.write_back(out, self.donate) if self.donate else out
+
+    def write_back(self, out, n: int):
+        """``out`` with its leading ``n`` outputs written into the current
+        graph's leading static inputs and replaced by them (see
+        :meth:`stage`: outputs of another signature than those inputs,
+        such as the optimizer state that gains ``error_feedback`` after
+        ``--grad-compression``'s first step, are returned as they are)."""
+        return tuple(self.stage(*out[:n])) + tuple(out[n:])
+
+    def replay(self):
+        """Replay the current graph on its static inputs as they stand: a
+        retry of the last call on the inputs that call wrote."""
+        if self.current is None:
+            raise CaptureError(f"{self.name}: nothing captured to replay")
+        return self.current.replay()
+
+    def recapture(self) -> None:
+        """Capture the current call anew from its static inputs (a
+        demotion moved the routes, which a capture fixes), then free every
+        graph captured before it: the next call of any other signature
+        captures again, as a fresh ``jax.jit`` traces."""
+        if self.current is None:
+            raise CaptureError(f"{self.name}: nothing captured to re-capture")
+        old = self.current.inputs
+        fresh = CapturedCall(self.fn, old, device=self.device,
+                             name=self.name)
+        self.release()
+        self.captures += 1
+        self.calls[self._key(old)] = self.current = fresh
+
+    def stage(self, *args):
+        """Write ``args``, the leading inputs of the next call (a train
+        step's params and optimizer state), into the current graph's
+        static inputs and return them there, so the next call copies
+        nothing for them and a retry starts from them.  Inputs of another
+        signature than the current graph's are returned as they are: the
+        next call copies them, or captures anew."""
+        call = self.current
+        if call is None or signature(args) != signature(
+                call.inputs[:len(args)]):
+            return args
+        call._write(args)
+        return call.inputs[:len(args)]
+
+    def release(self) -> None:
+        """Free every graph: the next call captures again."""
+        for call in self.calls.values():
+            call.release()
+        self.calls.clear()
+        self.current = None
 
 
 class GraphSet:

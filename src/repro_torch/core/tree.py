@@ -5,9 +5,9 @@ state and checkpoints.  Dict keys are visited in sorted order, as
 its dicts were built."""
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
-__all__ = ["tree_map", "tree_leaves"]
+__all__ = ["tree_map", "tree_leaves", "tree_flatten", "tree_unflatten"]
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -35,3 +35,42 @@ def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, (list, tuple)):
         return [leaf for t in tree for leaf in tree_leaves(t)]
     return [tree]
+
+
+def tree_flatten(tree) -> Tuple[List[Any], Any]:
+    """``(leaves, treedef)``: the leaves in :func:`tree_map`'s order and a
+    hashable description of the structure (dict keys, list and tuple
+    arities), so two trees of one structure have equal treedefs.
+
+    >>> leaves, td = tree_flatten({"w": 1, "l": [2, (3,)]})
+    >>> leaves
+    [2, 3, 1]
+    >>> tree_unflatten(td, [20, 30, 10])
+    {'l': [20, (30,)], 'w': 10}
+    """
+    if isinstance(tree, dict):
+        keys = tuple(sorted(tree))
+        parts = [tree_flatten(tree[k]) for k in keys]
+        return ([leaf for ls, _ in parts for leaf in ls],
+                ("dict", keys, tuple(td for _, td in parts)))
+    if isinstance(tree, (list, tuple)):
+        parts = [tree_flatten(t) for t in tree]
+        return ([leaf for ls, _ in parts for leaf in ls],
+                (type(tree).__name__, tuple(td for _, td in parts)))
+    return [tree], None
+
+
+def tree_unflatten(treedef, leaves) -> Any:
+    """The tree of ``treedef`` (from :func:`tree_flatten`) holding
+    ``leaves`` in order."""
+    it = iter(leaves)
+
+    def build(td):
+        if td is None:
+            return next(it)
+        if td[0] == "dict":
+            return {k: build(t) for k, t in zip(td[1], td[2])}
+        out = [build(t) for t in td[1]]
+        return out if td[0] == "list" else tuple(out)
+
+    return build(treedef)

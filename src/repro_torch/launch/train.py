@@ -1,4 +1,5 @@
-"""Training launcher: square-routed training on the GPU, eager.
+"""Training launcher: square-routed training on the GPU, each step replayed
+from one CUDA graph.
 
     python -m repro_torch.launch.train --arch fairsquare-demo \\
         --matmul-mode square_pallas --steps 200 --global-batch 8 --seq 256 \\
@@ -10,11 +11,18 @@ own dtype and ``remat``) on the synthetic pipeline, with AdamW, periodic
 atomic checkpoints and the fault-tolerant :class:`Trainer`; it resumes
 from the newest valid checkpoint in ``--ckpt-dir``.  Under
 ``square_pallas`` every contraction, forward and both gradients, runs on
-K1 (projections, FFN, loss) or K2/K3 (attention).  ``--reduced`` trains
-the small smoke configuration; ``--device cpu`` runs the kernels' plain
-versions.  ``--metrics-file`` writes the trainer's registry snapshot (step
-counters and percentiles, checkpoint commits, the first step's
-contraction audit) as JSON and ``--trace-out`` a Chrome trace of the run.
+K1 (projections, FFN, loss) or K2/K3 (attention).  On CUDA the step is
+captured whole (forward, backward, AdamW) into a CUDA graph at its first
+call and replayed after (:func:`repro_torch.train.step.jit_train_step`,
+the JAX launcher's ``jax.jit(make_train_step(...), donate_argnums=(0,
+1))``); a new input signature captures again (``--grad-compression``
+does once, after its first step), and the count of captures is printed
+and returned under ``"captures"``.  ``--reduced`` trains the small smoke
+configuration; ``--device cpu`` runs the step eagerly on the kernels'
+plain versions, as the CPU has no graphs.  ``--metrics-file`` writes the
+trainer's registry snapshot (step counters and percentiles, checkpoint
+commits, the first step's contraction audit: on CUDA the compiled audit
+of its replay) as JSON and ``--trace-out`` a Chrome trace of the run.
 :func:`main` returns the trainer's result dict.
 """
 from __future__ import annotations
@@ -91,6 +99,8 @@ def _train(args):
         microbatch=args.microbatch,
         grad_compression=args.grad_compression)
     train_step = step_mod.make_train_step(model, tcfg)
+    if model.device.type == "cuda":
+        train_step = step_mod.jit_train_step(train_step, model.device)
     data = SyntheticLM(DataConfig(global_batch=args.global_batch,
                                   seq_len=args.seq, vocab=cfg.vocab), cfg,
                        device=model.device)
@@ -104,8 +114,9 @@ def _train(args):
     for m in out["metrics"][-5:]:
         print({k: round(v, 4) if isinstance(v, float) else v
                for k, v in m.items()})
-    print(f"done at step {out['final_step']} "
-          f"(stragglers observed: {len(out['stragglers'])})")
+    print(f"done at step {out['final_step']} (captures: "
+          f"{out['captures']}, stragglers observed: "
+          f"{len(out['stragglers'])})")
     if args.metrics_file:
         with open(args.metrics_file, "w") as f:
             json.dump(trainer.obs_snapshot(), f, indent=1, sort_keys=True)

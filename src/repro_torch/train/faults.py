@@ -142,7 +142,10 @@ class TrainFaultInjector:
 class FaultyTrainStep:
     """A train step that runs one injector's step schedule: ``step_fail``
     ordinals raise before the step runs; ``nan_grad`` ordinals let it run,
-    then return every float param as NaN (the loss untouched)."""
+    then return every float param as NaN (the loss untouched).  It wraps
+    an eager or a captured step alike: the poisoned params are fresh
+    tensors, never the graph's outputs, and any other attribute (a
+    captured step's ``stage`` and ``captures``) is the wrapped step's."""
 
     def __init__(self, step_fn, injector: TrainFaultInjector):
         self._fn = step_fn

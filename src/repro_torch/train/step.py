@@ -7,26 +7,38 @@ builder does: the inputs are never written (AdamW returns new tensors), so
 a retry or a rollback can run a step again on the same inputs.  The
 gradients come from ``torch.autograd`` through the ``fs_einsum`` VJP, so
 under a square mode both backward contractions of every forward one are
-square-routed, at the sites ``<site>.bwd_x`` and ``<site>.bwd_w``.  The
-step runs eagerly (JAX's ``GuardedStep(jit=False)`` regime); capturing it
-whole in a CUDA graph is ROADMAP Q1 step 5b.
+square-routed, at the sites ``<site>.bwd_x`` and ``<site>.bwd_w``.
+
+The step runs eagerly, or captured whole (forward, the backward from
+autograd's device thread, AdamW) into one CUDA graph and replayed, the
+port's ``jax.jit``: :func:`jit_train_step` is the launcher's
+``jax.jit(make_train_step(...), donate_argnums=(0, 1))``, and
+:class:`GuardedStep` captures by default on CUDA, as JAX's jits.  A
+captured step donates its params and optimizer state: it writes the new
+ones back into the graph's static inputs (which no replay writes) and
+returns them from there, so passed back they cost the next call no copy;
+its metrics are the graph's outputs, which the next replay overwrites
+(:class:`~repro_torch.core.graphs.CapturedFunction`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core import counting, guards
+from repro_torch.core import counting, graphs, guards
 from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.device import Device, resolve_device
+from repro_torch.kernels import routing
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw
 from repro_torch.train import loss as loss_mod
 
 __all__ = ["TrainConfig", "make_train_step", "make_prefill_step",
            "make_decode_step", "make_loss_fn", "value_and_grad", "audit_step",
-           "GuardedStep"]
+           "jit_train_step", "GuardedStep"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,39 +140,77 @@ def audit_step(step_fn, params, opt_state, batch):
     backward contractions of each (``<site>.bwd_x`` / ``<site>.bwd_w``), so
     ``ctr.fraction_square`` is the square-routed share of the step's whole
     contraction volume and ``ctr.fraction_square_bwd`` the backward's.  A
-    rematerialised recompute notes nothing: each contraction counts once."""
+    rematerialised recompute notes nothing: each contraction counts once.
+    Pass an eager step: a captured one notes nothing here (its warm-up and
+    capture are recorded, its replays run no Python) and warns
+    :class:`~repro_torch.core.counting.EmptyAuditWarning`; read it with
+    ``counting.compiled_audit()`` around its capture and
+    ``track_compiled_contractions()`` around its replays."""
     with counting.track_contractions() as ctr:
         out = step_fn(params, opt_state, batch)
     return out, ctr
 
 
+def jit_train_step(step_fn, device: Device = None
+                   ) -> graphs.CapturedFunction:
+    """The JAX launcher's ``jax.jit(make_train_step(model, tcfg),
+    donate_argnums=(0, 1))``: ``step_fn`` captured whole into one CUDA
+    graph at its first call (and at the first call of each new input
+    signature, as under ``--grad-compression``, whose optimizer state
+    gains ``error_feedback`` after the first step) and replayed after,
+    with no guard.  The :class:`~repro_torch.core.graphs.CapturedFunction`
+    is called as the eager step is.  Its params and optimizer state are
+    donated: each call writes the new ones back into the graph's static
+    inputs and returns them from there, so a caller that passes them back
+    has the next call copy nothing; the metrics are the graph's outputs,
+    overwritten by the next replay."""
+    return graphs.CapturedFunction(step_fn, device=resolve_device(device),
+                                   name="train_step", donate=2)
+
+
 class GuardedStep:
-    """A train step under the numerics guard, eager.
+    """A train step under the numerics guard, captured (the JAX default,
+    a jitted step) or eager.
 
-    Every call runs in a :func:`repro_torch.core.guards.guarded` scope, so
-    a square-routed contraction (forward or backward) whose output is not
-    finite trips its key and is recomputed on the standard route in line;
-    ``trip_limit`` trips demote the key.  The pending-trip drain after the
-    step is then a no-op, kept so that the counters
+    ``jit=None`` (the default) captures on CUDA and runs eagerly on the
+    CPU, which has no graphs; ``jit=True`` on the CPU is refused;
+    ``jit=False`` runs eagerly anywhere.  The device is the params'.
+
+    Captured, every call replays a CUDA graph whose square-routed
+    contractions (forward and backward) carry finite probes, then drains
+    the pending trips (one read):
+
+    - a clean step writes the new params and optimizer state back into
+      the graph's static inputs and returns them from there, with the
+      graph's metrics (JAX's launcher donates them; here the write-back
+      waits for the clean drain, so a retry still finds the inputs);
+    - a tripped step's output is suspect, so it is discarded and the step
+      replayed, from the graph's static inputs (the caller's params may
+      be the previous replay's outputs, which the tripped replay
+      overwrote).  Each drain records trips into ``RouteHealth``; once a
+      key demotes, the route epoch moves, and as the route is fixed at
+      capture the graph is captured anew from its static inputs (counted
+      in ``rejits``, the span ``train.rejit``), so the retry serves that
+      site on the standard route.  A step still tripping after
+      ``max_retries`` retries raises.
+
+    The retry is deterministic: the step is functional and replays on its
+    unchanged static inputs, so the recovered result equals an eagerly
+    guarded run's bit for bit.  Eagerly, a square-routed output that is
+    not finite trips its key and is recomputed on the standard route in
+    line, so the drain finds nothing; the counters
     (``train_guard_trips_total``, ``train_guard_rejits_total``,
-    ``train_guard_retries_total``) and the retry loop stay JAX's.  The
-    step must not write its inputs, since a retry reuses them.
-
-    ``jit=True`` (the JAX default: a jitted step whose probes are drained
-    after each call and whose demotions re-trace) is the captured train
-    step of ROADMAP Q1 step 5b and raises here rather than running eagerly
-    under another name.
+    ``train_guard_retries_total``) and the loop stay JAX's.  Do not pass
+    a step captured elsewhere: ``GuardedStep`` owns the capture.
     """
 
-    def __init__(self, step_fn, *, jit: bool = False,
+    def __init__(self, step_fn, *, jit: Optional[bool] = None,
                  trip_limit: int = guards.DEFAULT_TRIP_LIMIT,
                  max_retries: int = 8,
                  registry: obs_metrics.MetricsRegistry = None):
-        if jit:
-            raise NotImplementedError(
-                "GuardedStep(jit=True), a train step captured in a CUDA "
-                "graph, is ROADMAP Q1 step 5b; use jit=False (eager)")
-        self._fn = step_fn
+        self._raw = step_fn
+        self._jit = jit
+        self._fn = None               # the step or its capture, at call 1
         self.trip_limit = trip_limit
         self.max_retries = max_retries
         self.guard_trips = 0          # probe trips drained (all keys)
@@ -172,21 +222,67 @@ class GuardedStep:
         self._c_trips = reg.counter("train_guard_trips_total")
         self._c_rejits = reg.counter("train_guard_rejits_total")
         self._c_retries = reg.counter("train_guard_retries_total")
+        self._epoch = routing.route_epoch()
+
+    def _bind(self, params) -> None:
+        """Resolve ``jit`` on the params' device at the first call."""
+        device = tree_leaves(params)[0].device
+        if self._jit and device.type != "cuda":
+            raise ValueError(f"GuardedStep(jit=True) captures CUDA graphs; "
+                             f"its params are on {device} (use jit=None "
+                             f"or False)")
+        self._jit = (device.type == "cuda" if self._jit is None
+                     else bool(self._jit))
+        self._fn = (graphs.CapturedFunction(self._raw, device=device,
+                                            name="guarded_train_step",
+                                            epoch_keyed=True)
+                    if self._jit else self._raw)
+
+    @property
+    def captures(self) -> int:
+        """Captures so far, re-captures included (0 when eager)."""
+        return self._fn.captures if self._jit and self._fn is not None \
+            else 0
+
+    def stage(self, params, opt_state):
+        """Write the state into the captured step's static inputs (see
+        :meth:`repro_torch.core.graphs.CapturedFunction.stage`); eager,
+        the state as it is."""
+        if self._jit and self._fn is not None:
+            return self._fn.stage(params, opt_state)
+        return params, opt_state
 
     def stats(self) -> Dict[str, int]:
         return {"guard_trips": self.guard_trips, "rejits": self.rejits,
                 "retries": self.retries}
 
     def __call__(self, params, opt_state, batch):
-        for _ in range(self.max_retries + 1):
+        if self._fn is None:
+            self._bind(params)
+        for attempt in range(self.max_retries + 1):
             with guards.guarded(trip_limit=self.trip_limit):
-                out = self._fn(params, opt_state, batch)
+                if attempt and self._jit:
+                    out = self._fn.replay()       # the static inputs
+                else:
+                    out = self._fn(params, opt_state, batch)
                 trips = guards.drain_pending_trips(self.trip_limit)
             if not trips:
-                return out
+                return self._fn.write_back(out, 2) if self._jit else out
             n_trips = sum(trips.values())
             self.guard_trips += n_trips
             self._c_trips.inc(n_trips)
+            if routing.route_epoch() != self._epoch:
+                # a key demoted: the graph still serves the square route
+                # there, and only a fresh capture sees the demotion (under
+                # the guard, whose probes are a capture-time decision)
+                self._epoch = routing.route_epoch()
+                if self._jit:
+                    with guards.guarded(trip_limit=self.trip_limit), \
+                            obs_trace.span("train.rejit", cat="train",
+                                           attempt=attempt):
+                        self._fn.recapture()
+                    self.rejits += 1
+                    self._c_rejits.inc()
             self.retries += 1
             self._c_retries.inc()
         raise RuntimeError(

@@ -20,10 +20,23 @@
   ``launch/train.py --metrics-file`` writes.
 
 Restored trees come back on the device the initial params lie on.  The
-step is eager: its backward runs in autograd's device thread on CUDA, so
-the ``train.step`` span holds the host's forward, the wait for the
-backward and the optimizer's dispatch, not the backward's own spans or
-events (those land on that thread's track).
+step is eager or captured into a CUDA graph
+(:func:`repro_torch.train.step.jit_train_step`, a
+``GuardedStep(jit=True)``).  Eager, its backward runs in autograd's device
+thread on CUDA, so the ``train.step`` span holds the host's forward, the
+wait for the backward and the optimizer's dispatch, not the backward's own
+spans or events (those land on that thread's track); captured, it holds
+the launch of the replay, of the write-back below and (guarded) the
+drain.
+
+A captured step donates its params and optimizer state: it writes the new
+ones back into the graph's static inputs, which no replay writes, and
+returns them from there, so the state the trainer commits lives in those
+inputs and a retry of a raising call starts from it, never from a graph
+output that a replay overwrote.  A rollback or a resume writes the
+restored trees there too (the step's ``stage``).  Checkpoints copy to the
+host before ``save`` returns, so no write reads a buffer the next step's
+write-back overwrites.
 """
 from __future__ import annotations
 
@@ -38,6 +51,7 @@ from repro_torch.checkpoint.manager import (CheckpointCorruptError,
 from repro_torch.core import counting
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.kernels.build import KernelError
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.train.faults import (FaultyTrainStep, SimulatedKill,
@@ -103,8 +117,10 @@ class Trainer:
         self._preempted = False
         self._in_ckpt = False         # SIGTERM-handler reentrancy latch
         self._last_restored_step: Optional[int] = None
-        # the step-0 fallback of a rollback when no checkpoint restores;
-        # holding references is safe, since no step writes its inputs
+        # the step-0 fallback of a rollback when no checkpoint restores:
+        # the caller's own tensors, which no step writes (a captured step
+        # copies them into its static inputs at its capture), never a
+        # graph buffer
         self._init_snapshot = ({"params": params, "opt_state": opt_state},
                                {"step": 0, "data": data.state_dict(),
                                 "losses": []})
@@ -112,13 +128,21 @@ class Trainer:
     def _place(self, tree):
         return tree_map(lambda t: t.to(self._device), tree)
 
+    def _restore(self, trees) -> None:
+        """Adopt restored trees as the committed state: on the device, and
+        written into a captured step's static inputs (its ``stage``)."""
+        params = self._place(trees["params"])
+        opt_state = self._place(trees["opt_state"])
+        stage = getattr(self.train_step, "stage", None)
+        self.params, self.opt_state = ((params, opt_state) if stage is None
+                                       else stage(params, opt_state))
+
     # ------------------------------------------------------------- resume
     def maybe_resume(self) -> bool:
         if self.ckpt.latest_step() is None:
             return False
         trees, meta = self.ckpt.restore()     # the newest valid step
-        self.params = self._place(trees["params"])
-        self.opt_state = self._place(trees["opt_state"])
+        self._restore(trees)
         self.data.load_state_dict(meta["data"])
         self.step = int(meta["step"])
         self.loss_trajectory = [float(x) for x in meta.get("losses", [])]
@@ -153,19 +177,33 @@ class Trainer:
 
     # ----------------------------------------------------------- recovery
     def _attempt_step(self, batch, audit: bool):
-        """One logical step with bounded retries of raising calls."""
+        """One logical step with bounded retries of raising calls, each
+        from the committed state: the caller's or a restore's own tensors,
+        or a captured step's static inputs, none of which a replay
+        writes."""
         for attempt in range(self.cfg.max_step_retries + 1):
             try:
                 if audit and attempt == 0:
-                    with counting.track_contractions(allow_empty=True) as ctr:
+                    # eager, the step notes its contractions as it runs (as
+                    # JAX's first, tracing call does); captured, it notes
+                    # nothing (its warm-up and capture are recorded) and
+                    # the compiled audit, on at the capture, tallies its
+                    # replay
+                    with counting.compiled_audit(), \
+                            counting.track_compiled_contractions() as cctr, \
+                            counting.track_contractions(
+                                allow_empty=True) as ctr:
                         out = self.train_step(self.params, self.opt_state,
                                               batch)
-                    if ctr.records:
-                        self.contraction_audit = ctr.summary()
+                    got = ctr if ctr.records else cctr
+                    if got.records:
+                        self.contraction_audit = got.summary()
                     return out
                 return self.train_step(self.params, self.opt_state, batch)
-            except SimulatedKill:
-                raise                         # process death: no absorbing
+            except (SimulatedKill, KernelError):
+                # process death, or a kernel or capture fault (a capture
+                # that fails raises, never falls back): no absorbing
+                raise
             except Exception as e:
                 self.step_failures += 1
                 self._c_step_failures.inc()
@@ -195,8 +233,7 @@ class Trainer:
         except (FileNotFoundError, CheckpointCorruptError):
             trees, meta = self._init_snapshot
             meta = dict(meta, step=0)
-        self.params = self._place(trees["params"])
-        self.opt_state = self._place(trees["opt_state"])
+        self._restore(trees)
         self.data.load_state_dict(meta["data"])
         self.step = int(meta["step"])
         self._last_restored_step = self.step
@@ -273,6 +310,7 @@ class Trainer:
                   "ckpt_failures": self.ckpt_failures}
         if hasattr(self.train_step, "stats"):
             result["guard"] = self.train_step.stats()   # GuardedStep
+        result["captures"] = getattr(self.train_step, "captures", 0)
         self.publish_metrics()
         return result
 

@@ -1061,3 +1061,234 @@ def test_train_launcher_runs_on_card(cuda_device, tmp_path):
     assert out["final_step"] == 2
     assert np.isfinite(out["loss_trajectory"]).all()
     assert out["contraction_audit"]["fraction_square_bwd"] == 1.0
+
+
+# --------------------------------------------------- the captured train step
+def _tiny_train(cuda_device, remat="block"):
+    """The reduced fairsquare-demo under square_pallas (its own remat
+    "block", so the capture holds a rematerialised backward) with its
+    first state and two batches."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    cfg = dataclasses.replace(get_config("fairsquare-demo").reduced(),
+                              matmul_mode="square_pallas", remat=remat)
+    model = build_model(cfg, device=cuda_device, seed=0)
+    params = model.train_params()
+    step = step_mod.make_train_step(model, step_mod.TrainConfig())
+    batches = SyntheticLM(DataConfig(2, 32, cfg.vocab), cfg,
+                          device=cuda_device).take(2)
+    return step, params, adamw.adamw_init(params), batches
+
+
+def test_captured_train_step_bit_equal_to_eager_on_card(cuda_device):
+    """Two steps replayed from one CUDA graph (forward, the rematerialised
+    square-routed backward, AdamW) equal two eager steps bit for bit:
+    losses, params and optimizer state; one capture."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    step, params, opt, batches = _tiny_train(cuda_device)
+    jitted = step_mod.jit_train_step(step, cuda_device)
+    runs = {}
+    for name, fn in (("eager", step), ("graph", jitted)):
+        p, o, losses = params, opt, []
+        for b in batches:
+            p, o, met = fn(p, o, b)
+            losses.append(met["loss"].clone())
+        runs[name] = adamw.tree_fingerprint({"l": losses, "p": p, "o": o})
+    assert jitted.captures == 1 and jitted.current.replays == 2
+    assert runs["graph"] == runs["eager"]
+
+
+def test_train_ledger_launches_equal_the_profiler_on_card(cuda_device):
+    """The captured train step's ledger counts exactly the K1 and K2
+    kernels a profiler sees in its replays, forward, backward and
+    recompute (which launch from autograd's device thread at capture), and
+    each replay adds them to the wrappers' counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import step as step_mod
+    step, params, opt, batches = _tiny_train(cuda_device)
+    jitted = step_mod.jit_train_step(step, cuda_device)
+    jitted(params, opt, batches[0])
+    want = {k.__name__: n for k, n, _ in jitted.current.ledger.launches}
+    assert want.get("sq_matmul_k1", 0) > 0 and want.get("sq_matmul_k2", 0) > 0
+    k1, k2 = sq_matmul_k1.launches, sq_matmul_k2.launches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            jitted.replay()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert sum("sq_matmul_cluster_kernel" in n for n in names) \
+        == 2 * want["sq_matmul_k1"]
+    assert sum("sq_matmul_batched_kernel" in n for n in names) \
+        == 2 * want["sq_matmul_k2"]
+    assert sq_matmul_k1.launches == k1 + 2 * want["sq_matmul_k1"]
+    assert sq_matmul_k2.launches == k2 + 2 * want["sq_matmul_k2"]
+
+
+def test_capture_flags_seen_in_autograd_thread_on_card(cuda_device,
+                                                       monkeypatch):
+    """Autograd runs a captured backward in its own device thread: there
+    ``graphs.capturing()`` holds, ``current_ledger()`` is the capture's
+    ledger and the current stream captures; every K1 launch of the capture
+    (forward on the caller's thread, gradients on autograd's) is on a
+    capturing stream; and the ledger records the backward's runtime notes,
+    probes and K1 launches."""
+    import threading
+    from repro_torch.core import counting, graphs, guards
+    from repro_torch.core.einsum import fs_einsum
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import routing
+    from repro_torch.train import step as step_mod
+
+    seen, launched = [], []
+
+    class Spy(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, h):
+            return h.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            seen.append((threading.get_ident(), graphs.capturing(),
+                         graphs.current_ledger(),
+                         torch.cuda.is_current_stream_capturing()))
+            return g
+
+    k1 = kops.sq_matmul_k1
+
+    def spied_k1(*args):
+        launched.append((threading.get_ident(),
+                         torch.cuda.is_current_stream_capturing()))
+        return k1(*args)
+    monkeypatch.setattr(kops, "sq_matmul_k1", spied_k1)
+
+    def loss_fn(p, b):
+        h = Spy.apply(fs_einsum("tk,kn->tn", b["x"], p["w1"],
+                                mode="square_pallas", site="a"))
+        out = fs_einsum("tn,nm->tm", h, p["w2"], mode="square_pallas",
+                        site="b")
+        return torch.mean(out * out), {}
+
+    def step(params, opt_state, batch):
+        (loss, _), grads = step_mod.value_and_grad(loss_fn, params, batch)
+        new = {k: params[k] - 0.1 * grads[k] for k in params}
+        return new, opt_state, {"loss": loss}
+
+    gen = torch.Generator().manual_seed(0)
+    params = {"w1": torch.randn(96, 80, generator=gen).to(cuda_device),
+              "w2": torch.randn(80, 48, generator=gen).to(cuda_device)}
+    batch = {"x": torch.randn(64, 96, generator=gen).to(cuda_device)}
+    routing.reset_route_health()
+    main = threading.get_ident()
+    with counting.compiled_audit(), guards.guarded():
+        call = graphs.CapturedCall(step, (params, {}, batch),
+                                   device=cuda_device)
+    # warm-up and capture: one backward each, both recorded
+    assert len(seen) == 2 and seen[0][2] is not call.ledger
+    tid, capturing, ledger, stream_capturing = seen[1]
+    assert tid != main and capturing and ledger is call.ledger \
+        and stream_capturing
+    # the capture's 5 K1 launches: 2 forward (caller's thread), 3 backward
+    # (b's dL/dx and dL/dW, a's dL/dW; autograd's thread), all captured
+    cap = launched[5:]
+    assert len(cap) == 5 and all(c for _, c in cap)
+    assert [t == main for t, _ in cap] == [True, True, False, False, False]
+    sites = sorted(n[0] for n in call.ledger.notes)
+    assert sites == ["a", "a.bwd_w", "b", "b.bwd_w", "b.bwd_x"]
+    assert sorted(k.split("|")[0] for k, _ in call.ledger.probes) == sites
+    assert [(k.__name__, n) for k, n, _ in call.ledger.launches] == [
+        ("sq_matmul_k1", 5)]
+    call.replay()
+    assert guards.drain_pending_trips() == {}
+    torch.cuda.synchronize()
+
+
+def test_train_recapture_memory_on_card(cuda_device):
+    """A guarded captured step whose backward saturates on K1 re-captures
+    after the demotion; allocated memory after the re-capture (the old
+    outputs dropped) is within 1 MiB of before it.  The cycle runs twice
+    and the second is measured: the demoted route's first capture makes
+    cuBLAS allocate, once, its workspace for the capture stream in
+    autograd's thread."""
+    from repro_torch.core import graphs, guards
+    from repro_torch.core.einsum import fs_einsum
+    from repro_torch.kernels import routing
+    from repro_torch.train import step as step_mod
+
+    def loss_fn(p, b):
+        out = fs_einsum("mk,kn->mn", b["x"], p["w"], mode="square_pallas",
+                        site="chaos")
+        return torch.sum(out) * 1e22, {}
+
+    def step(params, opt_state, batch):
+        (loss, _), grads = step_mod.value_and_grad(loss_fn, params, batch)
+        return params, opt_state, {"loss": loss, "grads": grads}
+
+    gen = torch.Generator().manual_seed(23)
+    args = ({"w": torch.randn(64, 32, generator=gen).to(cuda_device)}, {},
+            {"x": torch.randn(64, 64, generator=gen).to(cuda_device)})
+
+    def mem():
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated(cuda_device)
+
+    for _ in range(2):
+        routing.reset_route_health()
+        guards.clear_pending_trips()
+        with guards.guarded(trip_limit=1):
+            cf = graphs.CapturedFunction(step, device=cuda_device,
+                                         epoch_keyed=True)
+            out = cf(*args)
+            assert list(guards.drain_pending_trips()) == [
+                routing.health_key("chaos.bwd_w", (1, 32, 64, 64),
+                                   torch.float32)]
+            del out
+            before = mem()
+            cf.recapture()
+            out = cf.replay()
+            assert guards.drain_pending_trips() == {}
+            assert bool(torch.isfinite(out[2]["grads"]["w"]).all())
+            del out
+            after = mem()
+            cf.release()
+    routing.reset_route_health()
+    assert abs(after - before) <= 2 ** 20
+
+
+def test_fault_schedule_over_captured_step_on_card(cuda_device, tmp_path):
+    """The trainer's fault schedule over the captured step (a raising call
+    retried, a poisoned update rolled back): the clean captured run's
+    losses and params bit for bit, one capture each."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.faults import TrainFaultInjector, TrainFaultPlan
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    step, params, opt, _ = _tiny_train(cuda_device)
+    vocab = get_config("fairsquare-demo").reduced().vocab
+
+    def run(name, faults=None):
+        data = SyntheticLM(DataConfig(2, 32, vocab), device=cuda_device)
+        tr = Trainer(TrainerConfig(total_steps=6, ckpt_every=2,
+                                   ckpt_dir=str(tmp_path / name), keep=3,
+                                   log_every=3, audit_contractions=False),
+                     step_mod.jit_train_step(step, cuda_device), params, opt,
+                     data, faults=faults)
+        return tr, tr.run()
+
+    clean, base = run("clean")
+    plan = TrainFaultPlan.of(step_fail=(1, 3), nan_grad=(2,))
+    tr, res = run("chaos", TrainFaultInjector(plan))
+    assert base["captures"] == res["captures"] == 1
+    assert res["step_failures"] == 2 and res["rollbacks"] >= 1
+    assert res["loss_trajectory"] == base["loss_trajectory"]
+    assert adamw.tree_fingerprint(tr.params) == \
+        adamw.tree_fingerprint(clean.params)

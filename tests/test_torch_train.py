@@ -29,8 +29,8 @@ that are bit-identical by construction (numpy ``default_rng((seed, t))``).
   differentiation, its backward noted outside ``count_scale``), equal to
   JAX's audit of the forward alone.
 - Microbatch accumulation, int8 gradient compression, the eager
-  ``GuardedStep``, inputs unchanged by a step, and the launcher on the
-  CPU.
+  ``GuardedStep`` (its CUDA-graph form refused on the CPU), inputs
+  unchanged by a step, and the launcher on the CPU.
 """
 import numpy as np
 import pytest
@@ -397,8 +397,11 @@ def test_guarded_step_eager_and_jit_refused(jax_state):
     assert guarded.stats() == {"guard_trips": 0, "rejits": 0, "retries": 0}
     assert {"train_guard_trips_total", "train_guard_rejits_total",
             "train_guard_retries_total"} <= set(reg.snapshot()["counters"])
-    with pytest.raises(NotImplementedError, match="step 5b"):
-        step_mod.GuardedStep(raw, jit=True)
+    # jit=None (the default) ran eagerly on the CPU above; jit=True asks
+    # for a CUDA graph, which the CPU has not
+    assert guarded.captures == 0
+    with pytest.raises(ValueError, match="jit=True"):
+        step_mod.GuardedStep(raw, jit=True)(p, o, b)
 
 
 def test_prefill_and_decode_step_builders():
