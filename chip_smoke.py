@@ -96,6 +96,23 @@ power sampled alongside), and the DFT path is driven as a user would: ``ops.cpm3
 1024 samples (seed 0) by ``transforms.dft_matrix(1024)`` -- one K5 and one
 K6 launch -- each result held to ``torch.fft.fft``.
 
+Last, MoE serving: moonshot-v1-16b-a3b at its published width (d 2048,
+16 heads of 128, 64 experts top-6, d_ff 1408, vocab 163840), 16 of its 48
+layers (48 prepared layers do not fit the card), bf16, prepared, weights
+from seed 0, in the paged engine under the square_gemms policy. K1 is held
+to its plain version at the router's, the attention projections' and the
+logits' shapes, K2 at the two expert shapes (64, 4, 2048) @ (64, 2048,
+1408) and (64, 4, 1408) @ (64, 1408, 2048) with the prepared expert stack
+equal to its raw source bit for bit, each timed with its weights cycled
+past the L2. The engine serves the launcher's 8 requests eagerly and with
+its three model calls captured: every request COMPLETED, the same tokens,
+per tick the K1/K2/K4 launches the routing rules give (by counter, by the
+capture ledger and in a profiled replay), the eager and the compiled audit
+equal to the analytic count site by site, ``moe_apply_local`` free of host
+syncs, eager and compiled runs timed in turns, and each layer's MoE held to
+``standard`` teacher-forced (an expert swap only inside the router's
+rounding bound).
+
     python3 chip_smoke.py
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -113,6 +130,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -152,8 +170,12 @@ from repro_torch.kernels.sq_paged_attn import (                 # noqa: E402
     k4_splits, sq_paged_attn_k4, sq_paged_attn_plain)
 from repro_torch.launch import serve as serve_launcher          # noqa: E402
 from repro_torch.launch.serve import make_requests              # noqa: E402
+from repro_torch.models import attention as attn_mod            # noqa: E402
+from repro_torch.models import blocks as blk                    # noqa: E402
 from repro_torch.models.attention import EMPTY_POS              # noqa: E402
 from repro_torch.models.lm import LM, build_model               # noqa: E402
+from repro_torch.models.moe import (                            # noqa: E402
+    moe_apply_local, moe_capacity, moe_dispatch, moe_route)
 from repro_torch.obs import check as obs_check                  # noqa: E402
 from repro_torch.serve.faults import FaultInjector, FaultPlan   # noqa: E402
 from repro_torch.serve.engine import (                          # noqa: E402
@@ -278,10 +300,14 @@ def copies_for(nbytes: int) -> int:
 
 
 # ------------------------------------------------------------------ K1
-def k1_phase(dev, gen, cases):
+def k1_phase(dev, gen, cases, per_step=None, step_rows=(8, DENSE_BATCH),
+             unit="decode step"):
     """K1 against its plain version at the main-path shapes, and bit for
     bit against K2 at nb = 1 and K3 on the same operands; each timed row
-    also times K2 at nb = 1."""
+    also times K2 at nb = 1.  ``per_step``: the launches of each (k, n) in
+    one ``unit`` (default: fairsquare-demo's decode step), summed for each
+    m of ``step_rows``."""
+    per_step = per_step or K1_PER_STEP
     print("K1 sq_matmul vs plain (f32 from bf16 inputs: |err| <= "
           "k * 2^-23 * (max|a| + max|b|)^2; int8: exact; K1 = K2 at nb=1 "
           "= K3, bit for bit)", flush=True)
@@ -357,11 +383,12 @@ def k1_phase(dev, gen, cases):
               f"{shape['cols']} tiles, {shape['warps']} warps a block",
               flush=True)
         del bws, sbs
-    for m in (8, DENSE_BATCH):
-        step = {key: sum(K1_PER_STEP[(r["k"], r["n"])] * r[key]
+    for m in step_rows:
+        step = {key: sum(per_step.get((r["k"], r["n"]), 0) * r[key]
                          for r in rows if r["m"] == m and "ms" in r)
                 for key in ("ms", "k2_ms", "library_ms")}
-        print(f"  per decode step at m={m} (85 GEMMs, graph replay): K1 "
+        print(f"  per {unit} at m={m} ({sum(per_step.values())} GEMMs, "
+              f"graph replay): K1 "
               f"{step['ms']:.4f} ms | K2 at nb=1 "
               f"{step['k2_ms']:.4f} ms ({step['k2_ms'] / step['ms']:.1f}x)"
               f" | torch.matmul {step['library_ms']:.4f} ms", flush=True)
@@ -655,47 +682,70 @@ def counts():
 def run_ticks(eng) -> list:
     """Step ``eng`` to its end.  Per tick: (K1 launches, K4 launches,
     decode steps, prefill chunks, first tokens, host wall in s, model
-    calls captured)."""
+    calls captured, K2 launches, K3 launches)."""
     ticks, pending = [], True
-    while pending:
+
+    def now():
         m = eng.metrics
-        before = (sq_matmul_k1.launches, sq_paged_attn_k4.launches,
-                  m.decode_steps, m.prefill_chunks, m.first_tokens)
+        return (sq_matmul_k1.launches, sq_paged_attn_k4.launches,
+                m.decode_steps, m.prefill_chunks, m.first_tokens,
+                sq_matmul_k2.launches, sq_matmul_k3.launches)
+
+    while pending:
+        before = now()
         graphs0 = set(eng._graph_set.calls)
         t_tick = time.perf_counter()
         pending = eng.step()            # ends on the sampled tokens' copy
         t_tick = time.perf_counter() - t_tick
-        ticks.append(tuple(a - b for a, b in zip(
-            (sq_matmul_k1.launches, sq_paged_attn_k4.launches,
-             m.decode_steps, m.prefill_chunks, m.first_tokens), before))
-            + (t_tick, frozenset(set(eng._graph_set.calls) - graphs0)))
+        d = tuple(a - b for a, b in zip(now(), before))
+        ticks.append(d[:5] + (t_tick, frozenset(
+            set(eng._graph_set.calls) - graphs0)) + d[5:])
     return ticks
+
+
+def call_launches(L: int) -> dict:
+    """{call: Counter(kernel: launches)} of the engine's model calls on
+    fairsquare-demo's L layers under square_gemms: a decode step (K1 on
+    every GEMM and the logits, K4 a layer), a prefill chunk (K1 on every
+    GEMM) and one row's logits (K1)."""
+    return {"_decode": collections.Counter(K1=L * GEMMS_PER_LAYER + 1, K4=L),
+            "_chunk": collections.Counter(K1=L * GEMMS_PER_LAYER),
+            "_logits_at": collections.Counter(K1=1)}
 
 
 def warmup_launches(captured, L: int):
     """(K1, K4) launches of the warm-up calls of the model calls captured
     (each capture runs its call once eagerly first)."""
-    per_call = {"_chunk": (L * GEMMS_PER_LAYER, 0),
-                "_decode": (L * GEMMS_PER_LAYER + 1, L),
-                "_logits_at": (1, 0)}
-    return tuple(sum(per_call[c][i] for c in captured) for i in (0, 1))
+    per_call = call_launches(L)
+    return tuple(sum(per_call[c][k] for c in captured) for k in ("K1", "K4"))
 
 
-def tick_walls(ticks, L: int) -> list:
-    """Check every tick's K1/K4 launches against its steps (and, for a
-    compiled engine, the warm-ups of its captures); returns the sorted
-    walls (s) of the decode-only ticks without a capture."""
-    per_step = (L * GEMMS_PER_LAYER + 1, L)
-    bad = [t for t in ticks
-           if t[0] != per_step[0] * t[2] + L * GEMMS_PER_LAYER * t[3] + t[4]
-           + warmup_launches(t[6], L)[0]
-           or t[1] != per_step[1] * t[2] + warmup_launches(t[6], L)[1]]
+def tick_walls(ticks, L: int, per_call=None, what: str = "every tick"
+               ) -> list:
+    """Check every tick's K1/K2/K3/K4 launches against its decode steps,
+    prefill chunks and first tokens (and, for a compiled engine, the
+    warm-up call of each capture), by ``per_call`` (default:
+    :func:`call_launches`); returns the sorted walls (s) of the
+    decode-only ticks without a capture."""
+    per_call = per_call or call_launches(L)
+    index = {"K1": 0, "K4": 1, "K2": 7, "K3": 8}
+    bad = []
+    for t in ticks:
+        for key, i in index.items():
+            want = (per_call["_decode"][key] * t[2]
+                    + per_call["_chunk"][key] * t[3]
+                    + per_call["_logits_at"][key] * t[4]
+                    + sum(per_call[c][key] for c in t[6]))
+            if t[i] != want:
+                bad.append((key, t[i], want, t[2:5], sorted(t[6])))
     decode_only = [t for t in ticks if t[2] and not t[3] and not t[6]]
     check(not bad and decode_only,
-          f"every tick: K1 +{per_step[0]} and K4 +{per_step[1]} per decode "
-          f"step (K1 +{L * GEMMS_PER_LAYER} per prefill chunk, +1 per first "
-          f"token; one call more for each capture's warm-up); "
-          f"{len(decode_only)} decode-only ticks")
+          f"{what}: each of {len(ticks)} ticks launches "
+          f"{dict(per_call['_decode'])} a decode step, "
+          f"{dict(per_call['_chunk'])} a prefill chunk, "
+          f"{dict(per_call['_logits_at'])} a first token (each capture's "
+          f"warm-up one call more); {len(decode_only)} decode-only ticks"
+          + (f"; off: {bad[:3]}" if bad else ""))
     return sorted(t[5] for t in decode_only)
 
 
@@ -887,6 +937,7 @@ def trace_steps(step, what: str, untraced_s: float,
             parts.append(f"other device work {ms:.3f} ms")
         else:
             stats[label] = len(mine) / n
+            stats[f"{label}_ms"] = ms
             if mine:
                 parts.append(f"{label} {len(mine) / n:.0f} launches "
                              f"{ms:.3f} ms")
@@ -914,11 +965,14 @@ def trace_steps(step, what: str, untraced_s: float,
 
 
 def trace_phase(model: LM, dev, untraced_tick_s: float,
-                guard: bool = False, jit: bool = False) -> dict:
+                guard: bool = False, jit: bool = False,
+                params=None) -> dict:
     """A trace of a few decode-only ticks of a fresh engine (same
     requests), with or without the numerics guard, eager or compiled
-    (then every model call is captured before the traced ticks)."""
-    eng = Engine(model, engine_cfg(jit=jit, guard=guard), device=dev)
+    (then every model call is captured before the traced ticks), serving
+    ``params`` (default: the model's own, prepared)."""
+    eng = Engine(model, engine_cfg(jit=jit, guard=guard), device=dev,
+                 params=params)
     eng.submit(make_requests(model.cfg, N_REQUESTS, seed=0))
     while eng.metrics.first_tokens < N_REQUESTS:
         if not eng.step():
@@ -940,12 +994,22 @@ def expected_audit(cfg, decode_steps: int, prefill_chunks: int,
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     rows = SLOTS * decode_steps + CHUNK * prefill_chunks
     attn = L * H * hd * BLOCKS_PER_SEQ * BLOCK * rows
-    return {"attn_qkv": L * d * (H + 2 * KV) * hd * rows,
-            "attn_out": L * H * hd * d * rows,
-            "ffn": L * 3 * d * ff * rows,
-            "attn_scores": attn, "attn_pv": attn,
-            "logits": d * cfg.padded_vocab * (SLOTS * decode_steps
-                                              + first_tokens)}
+    sites = {"attn_qkv": L * d * (H + 2 * KV) * hd * rows,
+             "attn_out": L * H * hd * d * rows,
+             "attn_scores": attn, "attn_pv": attn,
+             "logits": d * cfg.padded_vocab * (SLOTS * decode_steps
+                                               + first_tokens)}
+    if cfg.n_experts:
+        # a MoE layer routes every row of a call, padding included, and
+        # runs 3 expert GEMMs of (E, C, d, ff), C = moe_capacity(rows)
+        E = cfg.n_experts
+        slots = (moe_capacity(SLOTS, cfg) * decode_steps
+                 + moe_capacity(CHUNK, cfg) * prefill_chunks)
+        sites["moe_router"] = L * d * E * rows
+        sites["moe_expert"] = L * 3 * E * d * ff * slots
+    else:
+        sites["ffn"] = L * 3 * d * ff * rows
+    return sites
 
 
 def audit_ok(audit, cfg, decode_steps, prefill_chunks, first_tokens,
@@ -1217,13 +1281,15 @@ def guard_phase(dev) -> None:
 CARD = ""                       # nvidia-smi's name and power limit
 
 
-def _timed_run(eng, reqs, off: int, per_tick: bool = True) -> dict:
+def _timed_run(eng, reqs, off: int, per_tick: bool = True,
+               walls_of=None) -> dict:
     """Serve ``reqs`` on ``eng`` with their rids shifted by ``off`` (so one
     engine serves them again): the tokens by the original rid, the wall,
     tokens/s, mean TTFT, the decode-only tick walls (checked per tick by
-    :func:`tick_walls`, unless ``per_tick`` is off: a retried call
-    launches its kernels twice) and whether all COMPLETED with MAX_NEW
-    tokens."""
+    ``walls_of``, :func:`tick_walls` by default, unless ``per_tick`` is
+    off: a retried call launches its kernels twice) and whether all
+    COMPLETED with MAX_NEW tokens."""
+    walls_of = walls_of or (lambda t: tick_walls(t, eng.model.cfg.n_layers))
     eng.submit([Request(r.rid + off, r.tokens) for r in reqs])
     t0 = time.perf_counter()
     ticks = run_ticks(eng)
@@ -1235,8 +1301,7 @@ def _timed_run(eng, reqs, off: int, per_tick: bool = True) -> dict:
     return {"tokens": toks, "wall": wall,
             "tokens_per_s": sum(len(t) for t in toks.values()) / wall,
             "ttft_ms": 1e3 * sum(ttft) / len(ttft),
-            "walls": (tick_walls(ticks, eng.model.cfg.n_layers) if per_tick
-                      else None),
+            "walls": walls_of(ticks) if per_tick else None,
             "ok": all(eng.results[rid].ok
                       and len(eng.results[rid].tokens) == MAX_NEW
                       for rid in rids)}
@@ -3006,8 +3071,491 @@ def train_phases(dev, gen, compared) -> dict:
     return {"launches": launched, "rows": rows, "timing": timing}
 
 
+# ---------------------------------------------------------- MoE serving
+MOE_ARCH = "moonshot-v1-16b-a3b"
+# 16 of its 48 layers: prepared, a layer holds 1.14 GB of bf16 weights and
+# 2.28 GB of their f32 canon (3.42 GB); 48 layers (~166 GB with the
+# embedding and the prepared vocab table) do not fit one 80 GB card, 16
+# (~56.7 GB) leave room for the pools, graphs and transients.
+MOE_LAYERS = 16
+ROUTE_KERNEL = {"kernel": "K1", "batched": "K2", "fold": "K3",
+                "virtual": "virtual"}
+# the engine's model calls: a decode tick (SLOTS rows), a prefill chunk
+# (CHUNK rows), one row's logits a first token
+MOE_CALLS = ("_decode", "_chunk", "_logits_at")
+MOE_OUT_TOL = 2e-2          # rows of one expert set: |diff| / max|out|
+
+
+def moe_cfg(mode="square_pallas", policy=SQUARE_GEMMS_POLICY):
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS,
+                               matmul_mode=mode, contraction_policy=policy)
+
+
+def moe_layer_gemms(cfg, T: int) -> list:
+    """(B, m, k, n, dtype) of each GEMM one layer runs over T rows:
+    wq, wk, wv, wo on bf16 activations, the router in f32, and the three
+    expert GEMMs of C = moe_capacity(T) slots an expert."""
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.d_ff
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    C = moe_capacity(T, cfg)
+    bf = torch.bfloat16
+    return [(1, T, d, H * hd, bf), (1, T, d, KV * hd, bf),
+            (1, T, d, KV * hd, bf), (1, T, H * hd, d, bf),
+            (1, T, d, E, torch.float32),
+            (E, C, d, f, bf), (E, C, d, f, bf), (E, C, f, d, bf)]
+
+
+def moe_call_launches(cfg) -> dict:
+    """{call: Counter(kernel: launches)} of each engine model call, from
+    the routing rules (``select_matmul_route``, ``select_paged_attn_route``)
+    at the call's shapes.  Under SQUARE_GEMMS_POLICY the gathered softmax
+    path of a prefill chunk runs on the multiplier, so only K4 can carry
+    attention.  Call before a counted run: the selectors count their
+    decisions."""
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.padded_vocab
+    KV, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    out = {}
+    for call, T, S in (("_decode", SLOTS, 1), ("_chunk", CHUNK, CHUNK)):
+        n = collections.Counter()
+        for B, m, k, nn, dt in moe_layer_gemms(cfg, T):
+            route = routing.select_matmul_route(m, nn, k, batch=B, dtype=dt)
+            n[ROUTE_KERNEL[route.name]] += L
+        attn = routing.select_paged_attn_route(
+            S, BLOCKS_PER_SEQ * BLOCK, batch=T // S, kv_heads=KV,
+            group=cfg.n_heads // KV, hd=hd, dtype=torch.bfloat16)
+        if attn.name == "kernel":
+            n["K4"] += L
+        out[call] = n
+    for call, rows in (("_decode", SLOTS), ("_logits_at", 1)):
+        route = routing.select_matmul_route(rows, V, d, dtype=torch.float32)
+        out.setdefault(call, collections.Counter())[
+            ROUTE_KERNEL[route.name]] += 1
+    return out
+
+
+def moe_k1_cases(cfg) -> tuple:
+    """(cases, per_tick): K1's (m, k, n) on the MoE path -- the router
+    (d x E) and the attention projections (d x d) at a decode tick's 8
+    rows and a prefill chunk's 32, the logits at 8 rows and at one -- and
+    the launches of each (k, n) in one decode tick."""
+    d, E, V, L = cfg.d_model, cfg.n_experts, cfg.padded_vocab, cfg.n_layers
+    cases = [(m, d, n, True) for m in (SLOTS, CHUNK) for n in (E, d)]
+    cases += [(SLOTS, d, V, True), (1, d, V, True)]
+    per_tick = {(d, d): 4 * L, (d, E): L, (d, V): 1}
+    return cases, per_tick
+
+
+def moe_expert_phase(dev, gen, cfg) -> list:
+    """K2 (or K3, wherever the routing rule takes them) at the expert
+    GEMMs' shapes, (E, C, d) @ (E, d, f) and (E, C, f) @ (E, f, d) with C
+    = moe_capacity of a decode tick and of a prefill chunk: against the
+    batched plain version (f32 from bf16 inputs), the prepared expert stack
+    against its raw bf16 source bit for bit, and timed with the weights
+    cycled past the L2 (as the path streams them) beside torch.bmm and
+    the byte bound."""
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    caps = sorted({moe_capacity(SLOTS, cfg), moe_capacity(CHUNK, cfg)})
+    print(f"MoE expert GEMMs: K2/K3 vs plain at E={E}, C in {caps} "
+          f"(f32 |err| <= k * 2^-23 * (max|a| + max|b|)^2; prepared = raw "
+          f"bit for bit); weights cycled past the L2", flush=True)
+    rows = []
+    for C in caps:
+        for k, n in ((d, f), (f, d)):
+            route = routing.select_matmul_route(C, n, k, batch=E,
+                                                dtype=torch.bfloat16).name
+            name = ROUTE_KERNEL[route]
+            check(name in BATCHED, f"(E={E}, C={C}, k={k}, n={n}) routes "
+                                   f"to K2 or K3: {route}")
+            kern, launch_shape = BATCHED[name]
+            a = torch.randn(E, C, k, generator=gen).to(torch.bfloat16).to(dev)
+            w = (torch.randn(E, k, n, generator=gen) / math.sqrt(k)).to(
+                torch.bfloat16).to(dev)
+            prep = prepare_operand(w, site="moe_expert")
+            aw, bw, sb = a.float(), prep.canon, prep.corr
+            sa = -(aw * aw).sum(2)
+            out = kern(aw, bw, sa, sb)
+            ref = sq_matmul_batched_plain(aw, bw, sa, sb)
+            fold = name == "K3"
+            same = torch.equal(ops.sq_matmul_local(a, prep, fold=fold),
+                               ops.sq_matmul_local(a, w, fold=fold)) \
+                and torch.equal(ops.sq_matmul_local(a, prep, fold=fold), out)
+            torch.cuda.synchronize()
+            err = (out - ref).abs().max().item()
+            tol = k * 2.0 ** -23 * (aw.abs().max().item()
+                                    + bw.abs().max().item()) ** 2
+            check(bool(torch.isfinite(out).all()) and err <= tol,
+                  f"{name} f32 E={E} C={C} k={k} n={n}: max|err| {err:.3e} "
+                  f"<= {tol:.3e}")
+            check(same, f"{name} E={E} C={C} k={k} n={n}: the prepared "
+                        f"expert stack = its raw bf16 source = the direct "
+                        f"launch, bit for bit")
+            nc = copies_for(E * k * n * 4)
+            bws = [bw.clone() for _ in range(nc)]
+            sbs = [sb.clone() for _ in range(nc)]
+            ms = time_graph([lambda i=i: kern(aw, bws[i], sa, sbs[i])
+                             for i in range(nc)])
+            plain_ms = time_graph(
+                [lambda i=i: sq_matmul_batched_plain(aw, bws[i], sa, sbs[i])
+                 for i in range(nc)], reps=2, replays=1)
+            lib_ms = time_graph([lambda i=i: torch.bmm(aw, bws[i])
+                                 for i in range(nc)])
+            nbytes = 4 * E * (C * k + k * n + C + n + C * n)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * E * C * n * k / FP32_OPS_PER_S * 1e3
+            shape = launch_shape(E, C, n)
+            row = dict(kernel=name, shape=(E, C, k, n), ms=ms,
+                       plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=max(t_bytes, t_ops), t_bytes=t_bytes,
+                       t_ops=t_ops, grid=shape["grid"], max_abs_err=err,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations")
+            rows.append(row)
+            print(f"    {name} E={E} C={C} k={k:4d} n={n:4d}  {ms:.4f} ms | "
+                  f"plain {plain_ms:.3f} ms | torch.bmm {lib_ms:.4f} ms | "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}) | "
+                  f"{row['bound_ms'] / ms:.1%} of bound | grid "
+                  f"{shape['grid']} of {shape['rows']}x{shape['cols']} "
+                  f"tiles; card {CARD}", flush=True)
+            del bws, sbs, prep, w
+    L = cfg.n_layers
+    for C in caps:
+        mine = [r for r in rows if r["shape"][1] == C]
+        mult = {(d, f): 2 * L, (f, d): L}
+        tot = {key: sum(mult[r["shape"][2:]] * r[key] for r in mine)
+               for key in ("ms", "library_ms", "bound_ms")}
+        print(f"  per model call at C={C} ({3 * L} expert GEMMs over {L} "
+              f"layers, graph replay): {tot['ms']:.3f} ms | torch.bmm "
+              f"{tot['library_ms']:.3f} ms | bound {tot['bound_ms']:.3f} ms "
+              f"({tot['bound_ms'] / tot['ms']:.1%} of bound); card {CARD}",
+              flush=True)
+    return rows
+
+
+def moe_sync_free(params, cfg, dev, gen) -> None:
+    """``moe_apply_local`` of layer 0 at a decode tick's and a prefill
+    chunk's rows under ``torch.cuda.set_sync_debug_mode("error")``: the
+    dispatch reads nothing back to the host, so it can be captured."""
+    p = params["layers"][0]["ffn"]
+    x = torch.randn(CHUNK, cfg.d_model, generator=gen).to(
+        torch.bfloat16).to(dev)
+    outs = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            for T in (SLOTS, CHUNK):
+                outs.append(moe_apply_local(p, x[:T], cfg=cfg,
+                                            mode=cfg.matmul_mode,
+                                            policy=cfg.contraction_policy))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(all(bool(torch.isfinite(o).all()) and o.shape == (T, cfg.d_model)
+              for (o, _), T in zip(outs, (SLOTS, CHUNK))),
+          f"moe_apply_local at T={SLOTS} and T={CHUNK} ran under "
+          f"set_sync_debug_mode('error'): no host sync in the dispatch")
+
+
+def _kept_sets(idx, d):
+    """Each row's set of experts, and its set of kept ones."""
+    T, K = idx.shape
+    keep = torch.zeros(T * K, dtype=torch.bool, device=idx.device)
+    keep[d["order"]] = d["keep"]
+    keep = keep.reshape(T, K).cpu().numpy()
+    idx = idx.cpu().numpy()
+    return ([frozenset(r) for r in idx],
+            [frozenset(r[kp]) for r, kp in zip(idx, keep)])
+
+
+def moe_layer_check(model: LM, params, cfg, dev, prompts) -> None:
+    """Layer by layer against ``standard``, teacher-forced: each layer's
+    MoE input comes from a standard forward of the prompts (right-padded
+    with token 0; every row is routed, as in the forward), and that layer's
+    ``moe_apply_local`` runs in square_pallas (prepared) and in standard.
+    Rows with the same expert set and the same kept experts agree within
+    MOE_OUT_TOL * max|out|.  A row whose set differs must be explained by
+    rounding: for every expert e the square path took and f it did not,
+    standard's logits satisfy l_f - l_e <= 2 * delta, delta the router's
+    rounding bound a logit (K1's f32 bound k 2^-23 (max|x| + max|w|)^2,
+    plus standard's own k 2^-24 max|x| max|w|); in probabilities the
+    6th-7th margin p6 - p7 <= p7 (exp(2 delta) - 1).  A row whose kept
+    experts differ must share an expert with such a swap (the swap moved
+    the slots of that expert)."""
+    std = dataclasses.replace(cfg, matmul_mode="standard",
+                              contraction_policy=None)
+    raw = model.tree()
+    B, S = len(prompts), max(len(p) for p in prompts)
+    toks = np.zeros((B, S), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    toks = torch.as_tensor(toks, device=dev)
+    T, D, E, K = B * S, cfg.d_model, cfg.n_experts, cfg.topk
+    C = moe_capacity(T, cfg)
+    positions = torch.arange(S, device=dev)
+    print(f"  layer-wise vs standard, teacher-forced: {B} prompts padded to "
+          f"{S} tokens = {T} routed rows, C={C}", flush=True)
+    lines = []
+    with torch.no_grad():
+        x = model._embed_in(raw, toks)
+        for i, p in enumerate(raw["layers"]):
+            h = blk._norm_apply(std, p["ln1"], x)
+            out, _ = attn_mod.attn_forward(p["attn"], h, cfg=std,
+                                           positions=positions, causal=True,
+                                           window=std.window, mode="standard")
+            x = x + out
+            hf = blk._norm_apply(std, p["ln2"], x).reshape(T, D)
+            pq = params["layers"][i]["ffn"]
+            _, gq, iq = moe_route(pq, hf, cfg=cfg, mode=cfg.matmul_mode,
+                                  policy=cfg.contraction_policy)
+            ps, gs, is_ = moe_route(p["ffn"], hf, cfg=std, mode="standard")
+            setq, keptq = _kept_sets(iq, moe_dispatch(iq, gq, E, C))
+            sets, kepts = _kept_sets(is_, moe_dispatch(is_, gs, E, C))
+            yq, _ = moe_apply_local(pq, hf, cfg=cfg, mode=cfg.matmul_mode,
+                                    policy=cfg.contraction_policy)
+            ys, _ = moe_apply_local(p["ffn"], hf, cfg=std, mode="standard")
+            x = x + ys.reshape(B, S, D)          # teacher-forced: standard
+
+            xmax = hf.float().abs().amax(1)                       # (T,)
+            wmax = p["ffn"]["router"]["w"].abs().max()
+            delta = (D * 2.0 ** -23 * (xmax + wmax) ** 2
+                     + D * 2.0 ** -24 * xmax * wmax).cpu().numpy()
+            logits = torch.log(ps.double()).cpu().numpy()   # up to a shift
+            pr = torch.sort(ps, dim=1, descending=True).values.cpu().numpy()
+            swapped = [t for t in range(T) if setq[t] != sets[t]]
+            bad = []
+            for t in swapped:
+                gap = max(logits[t, f] - logits[t, e]
+                          for e in setq[t] - sets[t]
+                          for f in sets[t] - setq[t])
+                if gap > 2 * delta[t]:
+                    bad.append((t, gap, 2 * delta[t]))
+            moved = set().union(*[(setq[t] ^ sets[t]) for t in swapped]) \
+                if swapped else set()
+            keep_diff = [t for t in range(T) if setq[t] == sets[t]
+                         and keptq[t] != kepts[t]]
+            unexplained = [t for t in keep_diff if not (sets[t] & moved)]
+            same = [t for t in range(T) if setq[t] == sets[t]
+                    and keptq[t] == kepts[t]]
+            scale = ys.float().abs().max().item()
+            err = (yq.float()[same] - ys.float()[same]).abs().max().item() \
+                if same else 0.0
+            margins = [pr[t, K - 1] - pr[t, K] for t in swapped]
+            bounds = [pr[t, K] * math.expm1(2 * delta[t]) for t in swapped]
+            lines.append((i, len(swapped), len(keep_diff), err / scale))
+            check(not bad and not unexplained and err <= MOE_OUT_TOL * scale,
+                  f"layer {i:2d}: {len(swapped)} rows swapped an expert "
+                  f"(6th-7th margins {[f'{m:.2e}' for m in margins[:4]]} <= "
+                  f"bounds {[f'{b:.2e}' for b in bounds[:4]]}), "
+                  f"{len(keep_diff)} rows' kept experts moved by them, "
+                  f"{len(same)} rows max|diff| {err:.3e} <= "
+                  f"{MOE_OUT_TOL} * max|out| ({MOE_OUT_TOL * scale:.3e})"
+                  + (f"; unexplained {bad[:3]} {unexplained[:3]}"
+                     if bad or unexplained else ""))
+    print(f"  swaps per layer: {[n for _, n, _, _ in lines]}; kept sets "
+          f"moved per layer: {[n for _, _, n, _ in lines]}", flush=True)
+
+    # end to end, teacher-forced (printed, not gated)
+    valid = torch.as_tensor([[j < len(p) for j in range(S)]
+                             for p in prompts], device=dev)
+    with torch.no_grad():
+        hq, _, _ = model.forward(params, {"tokens": toks})
+        lq = model.logits(params, hq)[valid]
+        model.cfg = std
+        try:
+            hs, _, _ = model.forward(raw, {"tokens": toks})
+            ls = model.logits(raw, hs)[valid]
+        finally:
+            model.cfg = cfg
+    rel = ((lq - ls).abs().max() / ls.abs().max()).item()
+    agree = (lq.argmax(-1) == ls.argmax(-1)).float().mean().item()
+    print(f"  teacher-forced logits vs standard over {int(valid.sum())} "
+          f"prompt positions ({cfg.n_layers} layers, not gated): "
+          f"max|diff| / max|logits| {rel:.3e}, argmax agreement "
+          f"{agree:.3f}", flush=True)
+
+
+def _gib(nbytes: int) -> str:
+    return f"{nbytes / 2 ** 30:.2f} GiB"
+
+
+def moe_phase(dev, gen) -> dict:
+    """moonshot-v1-16b-a3b at its published width, MOE_LAYERS of its
+    layers, served by the paged engine eager and with its three model
+    calls captured (see the module docstring)."""
+    cfg = moe_cfg()
+    full = get_config(MOE_ARCH)
+    L = cfg.n_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    print(f"MoE serving: {cfg.name} at its published width (d={cfg.d_model}"
+          f" H={cfg.n_heads}x{cfg.resolved_head_dim} E={cfg.n_experts} "
+          f"top-{cfg.topk} ff={cfg.d_ff} V={cfg.vocab} cf "
+          f"{cfg.capacity_factor}) {cfg.dtype}, {L} of its {full.n_layers} "
+          f"layers (depth cut: {full.n_layers} prepared layers do not fit "
+          f"the card), square_pallas + square_gemms, prepared; allocated "
+          f"before {_gib(mem0)}; card {CARD}", flush=True)
+    per_call = moe_call_launches(cfg)
+    print(f"  launches by the routing rules: decode tick (T={SLOTS}, C="
+          f"{moe_capacity(SLOTS, cfg)}) {dict(per_call['_decode'])}, "
+          f"prefill chunk (T={CHUNK}, C={moe_capacity(CHUNK, cfg)}) "
+          f"{dict(per_call['_chunk'])}, first token "
+          f"{dict(per_call['_logits_at'])}", flush=True)
+    check(all(c["virtual"] == 0 for c in per_call.values()),
+          "no GEMM of the path routes to the virtual form")
+    k1_cases, per_tick = moe_k1_cases(cfg)
+    k1_rows = k1_phase(dev, gen, k1_cases, per_step=per_tick,
+                       step_rows=(SLOTS,), unit="MoE decode tick")
+    k2_rows = moe_expert_phase(dev, gen, cfg)
+    compared = {"K1": [(r["m"], r["k"], r["n"]) for r in k1_rows],
+                "K2": [r["shape"] for r in k2_rows if r["kernel"] == "K2"],
+                "K3": [r["shape"] for r in k2_rows if r["kernel"] == "K3"]}
+
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        params = model.prepare_params()
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    print(f"  model drawn (seed 0, on the host) and moved in {init_s:.1f} s,"
+          f" prepared in {prep_s:.2f} s; allocated "
+          f"{_gib(torch.cuda.memory_allocated())}", flush=True)
+    reqs = make_requests(cfg, N_REQUESTS, seed=0)
+
+    def walls_of(what):
+        return lambda ticks: tick_walls(ticks, L, per_call, what)
+
+    # warm-up engine: first-touch costs stay out of the measured run
+    Engine(model, engine_cfg(max_new=2), device=dev, params=params).run(
+        make_requests(cfg, 1, seed=1))
+    torch.cuda.synchronize()
+
+    eng = Engine(model, engine_cfg(), device=dev, params=params)
+    reset_counts()                      # counts of the main path's run only
+    with counting.track_contractions() as eager_audit:
+        eager = _timed_run(eng, reqs, 0, walls_of=walls_of("eager"))
+    m = eng.metrics
+    launched = {"eager": dict(zip(("K1", "K2", "K3", "K4"), counts()))}
+    taken = dict(routing.select_matmul_route.taken)
+    check(eager["ok"] and all(r.status is RequestStatus.COMPLETED
+                              for r in eng.results.values()),
+          f"{N_REQUESTS} requests COMPLETED with {MAX_NEW} tokens each")
+    check(taken.get("virtual", 0) == 0 and launched["eager"]["K2"] > 0,
+          f"no GEMM took the virtual route (routes taken: {taken})")
+    shapes_ok(compared)
+    audit_ok(eager_audit, cfg, m.decode_steps, m.prefill_chunks,
+             m.first_tokens, square_gemms=True)
+    eager_steps = (m.decode_steps, m.prefill_chunks, m.first_tokens)
+    del eng
+
+    geng = Engine(model, engine_cfg(jit=True), device=dev, params=params)
+    reset_counts()
+    with counting.compiled_audit(), \
+            counting.track_compiled_contractions() as audit:
+        first = _timed_run(geng, reqs, 0, walls_of=walls_of("compiled"))
+    gm = geng.metrics
+    launched["graph"] = dict(zip(("K1", "K2", "K3", "K4"), counts()))
+    check(first["ok"] and first["tokens"] == eager["tokens"],
+          f"compiled: {N_REQUESTS} requests COMPLETED, tokens equal the "
+          f"eager engine's")
+    check(geng.captures == 3 and sorted(geng._graph_set.calls) == sorted(
+        MOE_CALLS) and gm.guard_rejits == 0,
+        f"3 captures ({sorted(geng._graph_set.calls)}), 0 re-captures")
+    check((gm.decode_steps, gm.prefill_chunks, gm.first_tokens)
+          == eager_steps, f"compiled: the eager run's {eager_steps} decode "
+                          f"steps, prefill chunks and first tokens")
+    shapes_ok(compared)
+    audit_ok(audit, cfg, gm.decode_steps, gm.prefill_chunks,
+             gm.first_tokens, square_gemms=True)
+    moe_sync_free(params, cfg, dev, gen)
+
+    runs = {"eager": [], "graph": []}
+    for i, kind in enumerate(("eager", "graph", "graph", "eager")):
+        e = geng if kind == "graph" else Engine(model, engine_cfg(),
+                                                device=dev, params=params)
+        r = _timed_run(e, reqs, 100 * (i + 1), walls_of=walls_of(kind))
+        check(r["ok"] and r["tokens"] == eager["tokens"],
+              f"turn {i + 1} ({kind}): the eager run's tokens")
+        runs[kind].append(r)
+        print(f"  turn {i + 1} {kind}: {r['tokens_per_s']:.1f} tokens/s, "
+              f"mean TTFT {r['ttft_ms']:.2f} ms, decode-only tick "
+              f"{_walls_str(r['walls'])}; card {CARD}", flush=True)
+        del e
+    check(geng.captures == 3, "the reused compiled engine captured no more")
+    del geng
+    med = {k: sorted(w for r in v for w in r["walls"])[
+        len(v[0]["walls"] + v[1]["walls"]) // 2] for k, v in runs.items()}
+    stats = {k: trace_phase(model, dev, med[k], jit=(k == "graph"),
+                            params=params) for k in ("eager", "graph")}
+    want = per_call["_decode"]
+    got = {key: stats["graph"].get(key) for key in ("K1", "K2", "K3", "K4")}
+    check(all(got[key] == want[key] for key in got),
+          f"a profiled replayed tick holds {got} kernels (the rules give "
+          f"{dict(want)})")
+    for k in ("eager", "graph"):
+        st = stats[k]
+        print(f"  {k}: {runs[k][0]['tokens_per_s']:.1f} and "
+              f"{runs[k][1]['tokens_per_s']:.1f} tokens/s, mean TTFT "
+              f"{runs[k][0]['ttft_ms']:.2f} and {runs[k][1]['ttft_ms']:.2f} "
+              f"ms, median decode-only tick {med[k] * 1e3:.2f} ms; traced "
+              f"tick: {st['ops']:.0f} device operations, busy "
+              f"{st['busy_ms']:.3f} ms = {st['busy_share']:.1%} of the "
+              f"traced wall, K2 {st['K2_ms']:.3f} ms = "
+              f"{st['K2_ms'] / st['busy_ms']:.1%} of the busy time, K1 "
+              f"{st['K1_ms']:.3f} ms, K4 {st['K4_ms']:.3f} ms; card {CARD}",
+              flush=True)
+
+    moe_layer_check(model, params, cfg, dev,
+                    [r.tokens for r in reqs])
+    peak = torch.cuda.max_memory_allocated()
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  memory: allocated before {_gib(mem0)}, peak {_gib(peak)}, "
+          f"after {_gib(torch.cuda.memory_allocated())}; init {init_s:.1f} "
+          f"s, prepare {prep_s:.2f} s; card {CARD}", flush=True)
+    return {"per_call": per_call, "k1_rows": k1_rows, "k2_rows": k2_rows,
+            "per_tick": per_tick, "launches": launched,
+            "tick_ms": {k: v * 1e3 for k, v in med.items()},
+            "tokens_per_s": {k: [r["tokens_per_s"] for r in v]
+                             for k, v in runs.items()}}
+
+
+def moe_entries(k1, k2, k4, moe) -> None:
+    """Add the MoE path to the K1, K2 and K4 entries of the kernels line:
+    launches per decode tick, prefill chunk and first token by the routing
+    rules (which the MoE phase checked by counter, ledger and profiler),
+    and K1's and K2's times per decode tick at its shapes."""
+    pc, cfg = moe["per_call"], moe_cfg()
+    k2_mult = {(cfg.d_model, cfg.d_ff): 2 * cfg.n_layers,
+               (cfg.d_ff, cfg.d_model): cfg.n_layers}
+    tick = {"K1": ([r for r in moe["k1_rows"] if r["m"] == SLOTS],
+                   lambda r: moe["per_tick"][(r["k"], r["n"])]),
+            "K2": ([r for r in moe["k2_rows"]
+                    if r["shape"][1] == moe_capacity(SLOTS, cfg)],
+                   lambda r: k2_mult[r["shape"][2:]]),
+            "K4": ([], None)}
+    for kern, key in ((k1, "K1"), (k2, "K2"), (k4, "K4")):
+        rows, mult = tick[key]
+        kern["moe"] = {
+            "per": f"one decode tick of {MOE_ARCH} at its published width, "
+                   f"{cfg.n_layers} layers, {SLOTS} rows",
+            "launches_per_decode_tick": pc["_decode"][key],
+            "launches_per_prefill_chunk": pc["_chunk"][key],
+            "launches_per_first_token": pc["_logits_at"][key]}
+        if rows:
+            kern["moe"].update(
+                {k: sum(mult(r) * r[k] for r in rows)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+                max_abs_err=max(r["max_abs_err"] for r in rows))
+            kern["max_abs_err"] = max(kern["max_abs_err"],
+                                      kern["moe"]["max_abs_err"])
+
+
 def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
-                cpm_rows, launches, train):
+                cpm_rows, launches, train, moe):
     """The kernels line.  ``launches``: {kernel: {path: count}} read after
     each path's run.  K1's and K4's times are per decode step of the paged
     engine, K2's per paged prefill chunk, K3's per dense decode step, K7's
@@ -3096,6 +3644,7 @@ def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
             "max_abs_err": max(r["max_abs_err"] for r in mine)}
         kern["max_abs_err"] = max(kern["max_abs_err"],
                                   kern["train"]["max_abs_err"])
+    moe_entries(k1, k2, k4, moe)
     return json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8]})
 
 
@@ -3132,6 +3681,7 @@ def run(dev) -> str:
     guard_phase(dev)
     compiled_guard_phase(dev, plain)
     train = train_phases(dev, gen, compared)
+    moe = moe_phase(dev, gen)
     launches = {"K1": {"engine_square_gemms": k1_total,
                        "launcher": launcher["K1"],
                        "engine_graph": graph["K1"],
@@ -3139,18 +3689,24 @@ def run(dev) -> str:
                        "server_no_policy": dense["K1"],
                        "server_graph": dense_graph["K1"],
                        "conv_path": conv["K1"],
-                       "train": train["launches"]["K1"]},
+                       "train": train["launches"]["K1"],
+                       "moe_engine": moe["launches"]["eager"]["K1"],
+                       "moe_engine_graph": moe["launches"]["graph"]["K1"]},
                 "K2": {"engine_no_policy": none["K2"],
                        "server_no_policy": dense["K2"],
                        "server_graph": dense_graph["K2"],
-                       "train": train["launches"]["K2"]},
+                       "train": train["launches"]["K2"],
+                       "moe_engine": moe["launches"]["eager"]["K2"],
+                       "moe_engine_graph": moe["launches"]["graph"]["K2"]},
                 "K3": {"server_no_policy": dense["K3"],
                        "server_graph": dense_graph["K3"],
                        "train": train["launches"]["K3"]},
                 "K4": {"engine_square_gemms": k4_total,
                        "launcher": launcher["K4"],
                        "engine_graph": graph["K4"],
-                       "engine_no_policy": none["K4"]},
+                       "engine_no_policy": none["K4"],
+                       "moe_engine": moe["launches"]["eager"]["K4"],
+                       "moe_engine_graph": moe["launches"]["graph"]["K4"]},
                 "K7": {"conv_path": conv["K7"]},
                 "K5": {"dft_path": dft["K5"]},
                 "K6": {"dft_path": dft["K6"]},
@@ -3162,7 +3718,7 @@ def run(dev) -> str:
           f"m={DENSE_BATCH} {dense_k1:.3f} ms, K3 24 launches "
           f"{dense_k3:.3f} ms", flush=True)
     return kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
-                       cpm_rows, launches, train)
+                       cpm_rows, launches, train, moe)
 
 
 def main() -> int:
@@ -3190,7 +3746,10 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
 
-    print(run(dev), flush=True)
+    line = run(dev)
+    print(f"smoke total {time.perf_counter() - t0:.1f} s, the kernels' "
+          f"build included", flush=True)
+    print(line, flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -165,7 +165,9 @@ def _to_canonical(t: torch.Tensor, dims: str, target: str,
 
 def _batched_matmul(a: torch.Tensor, b, mode: str,
                     preferred: Optional[torch.dtype]) -> torch.Tensor:
-    """Canonical (B, M, K) @ (B, K, N) under a fair-square mode.
+    """Canonical (B, M, K) @ (B, K, N) under a fair-square mode.  ``b``
+    may be a batched PreparedOperand: the non-kernel modes use its raw
+    source, the kernels its prepared ``canon``/``corr``.
 
     ``square_pallas`` resolves its route with
     :func:`repro_torch.kernels.routing.select_matmul_route`: K2
@@ -185,8 +187,7 @@ def _batched_matmul(a: torch.Tensor, b, mode: str,
         route = routing.select_matmul_route(M, N, K, batch=B, dtype=a.dtype)
         if route.name == "virtual":
             return fsmm.pm_matmul_virtual(a, unwrap(b), preferred)
-        return kops.sq_matmul_local(a, unwrap(b),
-                                    fold=(route.name == "fold"))
+        return kops.sq_matmul_local(a, b, fold=(route.name == "fold"))
     raise ValueError(f"unknown matmul mode {mode!r}; expected one of "
                      f"{fsmm.MODES}")
 
@@ -264,24 +265,35 @@ def _execute(spec: str, plan: ContractionPlan, sizes: dict, bmkn, x, y,
         return _standard(spec, x, unwrap(y), preferred)
     B, M, K, N = bmkn
 
-    # A prepared y is used as prepared only when its (K, N) layout IS the
-    # spec's: nothing summed out, single k and n indices, no batch, and
-    # the transpose matching how it was prepared.  Otherwise its raw
-    # source is contracted (still correct, prepared per call).
+    # A prepared y is used as prepared only when its layout IS the spec's:
+    # nothing summed out, single k and n indices, and either no batch and
+    # the (K, N) transpose matching how it was prepared, or one batch
+    # index over an untransposed batched prep laid out (B, K, N) (the MoE
+    # expert stack).  Otherwise its raw source is contracted (still
+    # correct, prepared per call).
     p, yy = (y, None) if isinstance(y, PreparedOperand) else (None, y)
     if p is not None:
-        usable = (not plan.y_sum and not plan.batch and len(plan.k) == 1
-                  and len(plan.n) == 1
-                  and plan.y_dims == ((plan.n + plan.k) if p.transposed
-                                      else (plan.k + plan.n)))
+        usable = not plan.y_sum and len(plan.k) == 1 and len(plan.n) == 1
+        if plan.batch:
+            usable = (usable and p.kind == "matmul_batched"
+                      and not p.transposed and len(plan.batch) == 1
+                      and plan.y_dims == plan.batch + plan.k + plan.n)
+        else:
+            usable = (usable and p.kind == "matmul"
+                      and plan.y_dims == ((plan.n + plan.k) if p.transposed
+                                          else (plan.k + plan.n)))
         if not usable:
             yy, p = p.source, None
 
     xx, x_dims = _sum_out(x, plan.x_dims, plan.x_sum)
     if plan.batch:
-        yy, y_dims = _sum_out(yy, plan.y_dims, plan.y_sum)
         a = _to_canonical(xx, x_dims, plan.batch + plan.m + plan.k, (B, M, K))
-        b = _to_canonical(yy, y_dims, plan.batch + plan.k + plan.n, (B, K, N))
+        if p is None:
+            yy, y_dims = _sum_out(yy, plan.y_dims, plan.y_sum)
+            b = _to_canonical(yy, y_dims, plan.batch + plan.k + plan.n,
+                              (B, K, N))
+        else:
+            b = p
         out = _batched_matmul(a, b, mode, preferred)
     else:
         a = _to_canonical(xx, x_dims, plan.m + plan.k, (M, K))

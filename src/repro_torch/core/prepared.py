@@ -3,9 +3,12 @@
 
 A weight used by many calls has its constant half of the kernel prep done
 once: the widened weight in the canonical ``(K, N)`` layout and its column
-correction ``Sb_j = -sum_k b_kj^2``.  Raw-array dispatch runs the same prep
-function per call (:func:`repro_torch.kernels.ops.prepare_matmul_rhs`), so
-prepared and raw results are bit-identical by construction.
+correction ``Sb_j = -sum_k b_kj^2``.  A batched ``(B, K, N)`` weight (the
+MoE expert stack, ``kind="matmul_batched"``) keeps ``canon`` ``(B, K, N)``
+and ``corr`` ``(B, N)``, which K2/K3 stream.  Raw-array dispatch runs the
+same prep function per call
+(:func:`repro_torch.kernels.ops.prepare_matmul_rhs`), so prepared and raw
+results are bit-identical by construction.
 
 There is no tile padding: K1 masks ragged edges itself.  ``transposed``
 records that the call site contracts the weight's last axis (the tied
@@ -36,11 +39,11 @@ class PreparedOperand:
     """A constant matmul or conv2d operand with its kernel prep
     precomputed."""
     source: torch.Tensor            # original weight, caller layout
-    canon: torch.Tensor             # widened (K, N), contiguous
-    corr: torch.Tensor              # Sb (matmul) or Sw (conv2d), (N,)
+    canon: torch.Tensor             # widened (K, N) or (B, K, N), contiguous
+    corr: torch.Tensor              # Sb or Sw: (N,), batched (B, N)
     transposed: bool                # canon built from source.T
     site: Optional[str] = None
-    kind: str = "matmul"            # "matmul" | "conv2d"
+    kind: str = "matmul"            # "matmul" | "matmul_batched" | "conv2d"
     im2col: Optional[torch.Tensor] = None   # conv2d: (cin*kh*kw, cout)
     grad: Optional["PreparedOperand"] = None    # dL/dx layout (VJP)
 
@@ -54,12 +57,15 @@ class PreparedOperand:
 
     @property
     def kn_shape(self) -> Tuple[int, int]:
-        """The ``(K, N)`` shape the contraction sees."""
-        return tuple(self.canon.shape)
+        """The ``(K, N)`` shape the contraction sees (of each batch element
+        of a batched operand)."""
+        return tuple(self.canon.shape[-2:])
 
     def kn_source(self) -> torch.Tensor:
-        """The raw source in ``(K, N)`` orientation (non-kernel modes)."""
-        return self.source.T if self.transposed else self.source
+        """The raw source in ``(K, N)`` (or ``(B, K, N)``) orientation
+        (non-kernel modes)."""
+        return self.source.transpose(-1, -2) if self.transposed \
+            else self.source
 
 
 def unwrap(x):
@@ -73,9 +79,9 @@ def prepare_operand(w, *, for_: str = "matmul", transpose: bool = False,
     """Precompute the constant-operand half of the K1 or conv prep.
 
     ``for_="matmul"``: ``w`` is a 2D ``(K, N)`` weight (``(N, K)`` with
-    ``transpose=True``).  Batched ``(B, K, N)`` weights (the MoE experts)
-    are not prepared yet: attention's batched operands are activations,
-    prepared per call inside ``ops``.  ``for_="conv2d"``: ``w`` is a
+    ``transpose=True``), or a batched ``(B, K, N)`` one (the MoE expert
+    stack, ``kind="matmul_batched"``), each batch element prepared as a 2D
+    weight is.  ``for_="conv2d"``: ``w`` is a
     ``(cout, cin, kh, kw)`` filter bank, or a rank shorthand of
     :func:`repro_torch.core.conv.normalize_conv2d`.  Idempotent on an
     already-prepared operand.
@@ -88,6 +94,9 @@ def prepare_operand(w, *, for_: str = "matmul", transpose: bool = False,
     ...                      prepare_grads=True)
     >>> gp.grad.transposed, gp.grad.site, gp.grad.kn_shape
     (True, 'dense.bwd_x', (7, 5))
+    >>> ep = prepare_operand(torch.ones(3, 5, 7, dtype=torch.bfloat16))
+    >>> ep.kind, tuple(ep.canon.shape), ep.canon.dtype, tuple(ep.corr.shape)
+    ('matmul_batched', (3, 5, 7), torch.float32, (3, 7))
     """
     if isinstance(w, PreparedOperand):
         return w
@@ -101,16 +110,19 @@ def prepare_operand(w, *, for_: str = "matmul", transpose: bool = False,
     if for_ != "matmul":
         raise ValueError(f"unknown prepare target {for_!r}; expected "
                          f"'matmul' or 'conv2d'")
-    if w.ndim != 2:
-        raise NotImplementedError(
-            f"prepare_operand takes a 2D (K, N) weight, got {tuple(w.shape)}; "
-            f"the batched (B, K, N) prep of the MoE expert weights comes "
-            f"with the MoE slice (ROADMAP Q1, slice 5)")
+    if w.ndim not in (2, 3):
+        raise ValueError(f"prepare_operand takes a 2D (K, N) or batched "
+                         f"(B, K, N) weight, got {tuple(w.shape)}")
     from repro_torch.kernels import ops as kops          # lazy: import cycle
-    mat = w.T if transpose else w
+    batched = w.ndim == 3
+    mat = w.transpose(-1, -2) if transpose else w
     canon, corr = kops.prepare_matmul_rhs(mat)
+    # dL/dx of a batched prep contracts its raw source, as in the JAX
+    # package: the batched kernel route takes (B, K, N)-layout preps only
     gradp = None
-    if prepare_grads:
+    if prepare_grads and not batched:
         gradp = prepare_operand(w, transpose=not transpose,
                                 site=f"{site}.bwd_x" if site else None)
-    return PreparedOperand(w, canon, corr, transpose, site, grad=gradp)
+    return PreparedOperand(w, canon, corr, transpose, site,
+                           kind="matmul_batched" if batched else "matmul",
+                           grad=gradp)

@@ -73,6 +73,12 @@ def _sq_matmul_batched_exec(a: torch.Tensor, bw: torch.Tensor,
     return kernel(aw, bw, sq.row_correction(aw, dim=-1), sb)
 
 
+def _check_batched_shapes(a: torch.Tensor, b_shape) -> None:
+    if a.ndim != 3 or a.shape[0] != b_shape[0] or a.shape[2] != b_shape[1]:
+        raise ValueError(f"batched contraction mismatch: "
+                         f"{tuple(a.shape)} @ {tuple(b_shape)}")
+
+
 def sq_matmul_local(a: torch.Tensor,
                     b: Union[torch.Tensor, PreparedOperand], *,
                     fold: bool = False) -> torch.Tensor:
@@ -80,18 +86,24 @@ def sq_matmul_local(a: torch.Tensor,
     through K2 (K3 with ``fold``), on the device ``a`` lies on.
 
     Against a 2D ``b``, leading dims of ``a`` collapse to rows (the
-    dense-layer convention).  Returns the accumulator dtype (f32 for
-    floats, int32 for small ints).
+    dense-layer convention).  A batched ``b`` may be a ``matmul_batched``
+    PreparedOperand: its ``canon``/``corr`` are streamed as they are, which
+    is what a raw ``b`` is prepared into per call.  Returns the
+    accumulator dtype (f32 for floats, int32 for small ints).
     """
+    if isinstance(b, PreparedOperand) and b.kind == "matmul_batched":
+        _check_batched_shapes(a, (b.canon.shape[0],) + b.kn_shape)
+        acc = sq.accum_dtype(a.dtype)
+        if b.canon.dtype == acc:
+            return _sq_matmul_batched_exec(a, b.canon, b.corr, fold)
+        return _sq_matmul_batched_exec(
+            a, *prepare_matmul_rhs(b.kn_source(), acc), fold)
     if isinstance(b, PreparedOperand):
         if b.kind != "matmul":
             raise ValueError(f"sq_matmul got a {b.kind!r} PreparedOperand")
         k, n = b.kn_shape
     elif b.ndim == 3:
-        if a.ndim != 3 or a.shape[0] != b.shape[0] \
-                or a.shape[2] != b.shape[1]:
-            raise ValueError(f"batched contraction mismatch: "
-                             f"{tuple(a.shape)} @ {tuple(b.shape)}")
+        _check_batched_shapes(a, tuple(b.shape))
         return _sq_matmul_batched_exec(
             a, *prepare_matmul_rhs(b, sq.accum_dtype(a.dtype)), fold)
     else:
@@ -122,8 +134,8 @@ def sq_matmul(a, b, *, fold: bool = False,
     runs K2, or K3 with ``fold=True`` (the small-(m, n), large-B route of
     :mod:`repro_torch.kernels.routing`).  Runs on ``device`` (default:
     CUDA, which must be present); a CPU device runs the kernels' plain
-    version.  ``b`` may be a 2D PreparedOperand, which must already lie on
-    that device.
+    version.  ``b`` may be a PreparedOperand (2D, or batched for K2/K3),
+    which must already lie on that device.
 
     >>> a = torch.arange(6.0).reshape(2, 3)
     >>> b = torch.ones(3, 4)

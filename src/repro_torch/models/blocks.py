@@ -1,6 +1,8 @@
-"""Decoder blocks: the PyTorch port of ``repro/models/blocks.py``, ``attn``
-kind only (pre-norm attention + FFN): the full-sequence pass, dense and
-paged decode, and the empty caches."""
+"""Decoder blocks: the PyTorch port of ``repro/models/blocks.py``, the
+``attn`` kind (pre-norm attention + FFN) and the ``moe`` kind (pre-norm
+attention + a mixture of experts, :mod:`repro_torch.models.moe`): the
+full-sequence pass, dense and paged decode, and the empty caches.  The
+recurrent and cross-attention kinds come with ROADMAP Q1 step 6."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -10,13 +12,14 @@ import torch
 from repro_torch.layers import basic
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
+from repro_torch.models import moe as moe_mod
 
 __all__ = ["block_spec", "block_forward", "block_decode", "block_init_cache",
            "block_init_paged_cache", "PAGEABLE_KINDS"]
 
 # Block kinds whose decode cache is a paged KV pool.  The JAX package also
-# pages ``moe`` and ``lattn``; this port builds ``attn`` only so far.
-PAGEABLE_KINDS = ("attn",)
+# pages ``lattn``, which this port builds with the recurrent archs.
+PAGEABLE_KINDS = ("attn", "moe")
 
 
 def _norm_spec(cfg):
@@ -32,10 +35,11 @@ def _norm_apply(cfg, p, x):
 
 
 def _check_kind(kind: str) -> None:
-    if kind != "attn":
+    if kind not in ("attn", "moe"):
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet; this port builds plain "
-            f"dense attention blocks (ROADMAP Q1, slice 5 brings the rest)")
+            f"block kind {kind!r} is not ported yet; this port builds "
+            f"attention and MoE blocks (the recurrent and cross-attention "
+            f"kinds come with ROADMAP Q1 step 6)")
 
 
 def block_spec(kind: str, cfg) -> Dict[str, Any]:
@@ -43,16 +47,28 @@ def block_spec(kind: str, cfg) -> Dict[str, Any]:
     s: Dict[str, Any] = {"ln1": _norm_spec(cfg), "attn": attn.attn_spec(cfg)}
     if cfg.d_ff:
         s["ln2"] = _norm_spec(cfg)
-        s["ffn"] = ffn_mod.ffn_spec(cfg)
+        s["ffn"] = (moe_mod.moe_spec(cfg) if kind == "moe"
+                    else ffn_mod.ffn_spec(cfg))
     return s
 
 
-def _ffn_residual(cfg, p, x, mode, policy):
+def _ffn_residual(kind, cfg, p, x, mode, policy):
+    """``x`` plus the block's FFN (or MoE) of its normed input; returns
+    ``(x, aux_loss)``, the aux loss zero outside a MoE block."""
+    aux = torch.zeros((), device=x.device)
     if cfg.d_ff:
         h2 = _norm_apply(cfg, p["ln2"], x)
-        x = x + ffn_mod.ffn_apply(p["ffn"], h2, cfg=cfg, mode=mode,
-                                  policy=policy)
-    return x
+        if kind == "moe":
+            B, S, D = h2.shape
+            out, aux = moe_mod.moe_apply_local(
+                p["ffn"], h2.reshape(B * S, D), cfg=cfg, mode=mode,
+                policy=policy)
+            out = out.reshape(B, S, D)
+        else:
+            out = ffn_mod.ffn_apply(p["ffn"], h2, cfg=cfg, mode=mode,
+                                    policy=policy)
+        x = x + out
+    return x, aux
 
 
 def block_forward(kind: str, p, x, ctx):
@@ -67,8 +83,8 @@ def block_forward(kind: str, p, x, ctx):
                                     causal=ctx.get("causal", True),
                                     window=cfg.window, mode=mode,
                                     policy=policy)
-    x = _ffn_residual(cfg, p, x + out, mode, policy)
-    return x, {"k": k, "v": v}, torch.zeros((), device=x.device)
+    x, aux = _ffn_residual(kind, cfg, p, x + out, mode, policy)
+    return x, {"k": k, "v": v}, aux
 
 
 def block_decode(kind: str, p, x, cache, ctx):
@@ -90,7 +106,7 @@ def block_decode(kind: str, p, x, cache, ctx):
         out, _ = attn.attn_decode(p["attn"], h, cache, ctx["pos"], cfg=cfg,
                                   window=cfg.window, mode=mode,
                                   policy=policy)
-    return _ffn_residual(cfg, p, x + out, mode, policy)
+    return _ffn_residual(kind, cfg, p, x + out, mode, policy)[0]
 
 
 def block_init_cache(kind: str, cfg, batch: int, cache_len: int, device):

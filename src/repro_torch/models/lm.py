@@ -37,14 +37,14 @@ __all__ = ["LM", "build_model"]
 
 
 def _check_supported(cfg) -> None:
-    if cfg.encoder_layers or cfg.prefix_tokens or cfg.n_experts \
-            or any(k != "attn" for k in cfg.layer_kinds):
+    if cfg.encoder_layers or cfg.prefix_tokens \
+            or any(k not in ("attn", "moe") for k in cfg.layer_kinds):
         raise NotImplementedError(
             f"arch {cfg.name!r} (family {cfg.family!r}, blocks "
             f"{sorted(set(cfg.layer_kinds))}) is not ported yet: this port "
-            f"builds plain dense attention LMs; MoE, recurrent, "
+            f"builds decoder LMs of attention and MoE blocks; recurrent, "
             f"encoder-decoder and prefix-token archs come with ROADMAP Q1 "
-            f"slice 5")
+            f"step 6")
 
 
 def _as_tree(m: nn.Module):
@@ -56,7 +56,7 @@ def _as_tree(m: nn.Module):
 
 
 class LM(nn.Module):
-    """Dense decoder LM with tied embeddings."""
+    """Decoder LM (attention and MoE blocks) with tied embeddings."""
 
     def __init__(self, cfg, *, device: torch.device, seed: int = 0):
         super().__init__()
@@ -93,9 +93,10 @@ class LM(nn.Module):
     def prepare_params(self, params: Optional[Dict[str, Any]] = None
                        ) -> Dict[str, Any]:
         """Weight-stationary inference params (paper §4-§5): every
-        projection and FFN weight of every layer, and the transposed vocab
-        table (``logits_prep``), prepared once -- widened, ``Sb``
-        precomputed."""
+        projection and FFN weight of every layer -- of a MoE block the
+        router (site ``moe_router``) and the three batched ``(E, K, N)``
+        expert stacks (``moe_expert``) -- and the transposed vocab table
+        (``logits_prep``), prepared once: widened, ``Sb`` precomputed."""
         params = params if params is not None else self.tree()
         cfg = self.cfg
         hd = cfg.resolved_head_dim
@@ -112,7 +113,11 @@ class LM(nn.Module):
             a["wo"]["w"] = prepare_operand(wo.reshape(H * hd, wo.shape[-1]),
                                            site="attn_out")
             q["attn"] = a
-            if "ffn" in p:
+            if "ffn" in p and "router" in p["ffn"]:
+                q["ffn"] = {k: dict(v, w=prepare_operand(
+                    v["w"], site="moe_router" if k == "router"
+                    else "moe_expert")) for k, v in p["ffn"].items()}
+            elif "ffn" in p:
                 q["ffn"] = {k: dict(v, w=prepare_operand(v["w"], site="ffn"))
                             for k, v in p["ffn"].items()}
             return q

@@ -318,12 +318,16 @@ class Engine:
     already lie there).  ``faults``: a
     :class:`~repro_torch.serve.faults.FaultInjector`; ``registry``: the
     :class:`~repro_torch.obs.metrics.MetricsRegistry` to publish into (a
-    fresh one per engine by default)."""
+    fresh one per engine by default).  ``params``: the params tree to serve,
+    as the JAX engine takes it (default: the model's own, prepared at start
+    under ``cfg.prepared``); engines of one model can share one prepared
+    tree this way, where a tree each would not fit the card."""
 
     def __init__(self, model, cfg: EngineConfig, *, seed: int = 0,
                  device: Optional[Union[str, torch.device]] = None,
                  faults: Optional[FaultInjector] = None,
-                 registry: Optional[obs_metrics.MetricsRegistry] = None):
+                 registry: Optional[obs_metrics.MetricsRegistry] = None,
+                 params=None):
         dev = resolve_device(device)
         if model.device.type != dev.type or (
                 dev.index is not None and model.device != dev):
@@ -337,9 +341,11 @@ class Engine:
         self.cfg = cfg
         self.device = model.device
         self._faults = faults
-        with torch.no_grad():
-            self.params = (model.prepare_params() if cfg.prepared
-                           else model.tree())
+        if params is None:
+            with torch.no_grad():
+                params = (model.prepare_params() if cfg.prepared
+                          else model.tree())
+        self.params = params
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.allocator = paged_mod.BlockAllocator(cfg.num_blocks,
                                                   cfg.block_size)

@@ -1292,3 +1292,124 @@ def test_fault_schedule_over_captured_step_on_card(cuda_device, tmp_path):
     assert res["loss_trajectory"] == base["loss_trajectory"]
     assert adamw.tree_fingerprint(tr.params) == \
         adamw.tree_fingerprint(clean.params)
+
+
+# ------------------------------------------------------------ MoE serving
+# moonshot-v1-16b-a3b's expert GEMMs (C = 4 slots an expert), on K2, and a
+# small stack the fold rule sends to K3
+MOE_EXPERT_SHAPES = [(64, 4, 2048, 1408), (64, 4, 1408, 2048),
+                     (16, 2, 64, 32)]
+
+
+@pytest.mark.parametrize("E,C,k,n", MOE_EXPERT_SHAPES)
+def test_prepared_expert_stack_on_k2_k3_on_card(cuda_device, E, C, k, n):
+    """K2 or K3, wherever the routing rule takes the shape, against the
+    batched plain version; the prepared expert stack, its raw bf16 source
+    and ``fs_einsum`` on the square route give the direct launch's
+    bits."""
+    from repro_torch.core.einsum import fs_einsum
+    from repro_torch.core.prepared import prepare_operand
+    from repro_torch.kernels import routing
+    route = routing.select_matmul_route(C, n, k, batch=E,
+                                        dtype=torch.bfloat16).name
+    assert route in ("batched", "fold")
+    kern = sq_matmul_k3 if route == "fold" else sq_matmul_k2
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(E, C, k, generator=gen).to(torch.bfloat16).to(
+        cuda_device)
+    w = (torch.randn(E, k, n, generator=gen) / k ** 0.5).to(
+        torch.bfloat16).to(cuda_device)
+    prep = prepare_operand(w, site="moe_expert")
+    aw = a.float()
+    sa = sq.row_correction(aw)
+    before = kern.launches
+    out = kern(aw, prep.canon, sa, prep.corr)
+    assert kern.launches == before + 1
+    ref = sq_matmul_batched_plain(aw, prep.canon, sa, prep.corr)
+    tol = k * 2.0 ** -23 * (aw.abs().max() + prep.canon.abs().max()
+                            ).item() ** 2
+    assert (out - ref).abs().max().item() <= tol
+    fold = route == "fold"
+    assert torch.equal(ops.sq_matmul_local(a, prep, fold=fold), out)
+    assert torch.equal(ops.sq_matmul_local(a, w, fold=fold), out)
+    assert torch.equal(fs_einsum("ecd,edf->ecf", a, prep,
+                                 mode="square_pallas"), out)
+    assert kern.launches == before + 4
+
+
+@pytest.fixture(scope="module")
+def moe_layer():
+    """One moonshot-v1-16b-a3b layer at its published width (bf16,
+    prepared, square_pallas + square_gemms) and its LM."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SQUARE_GEMMS_POLICY
+    from repro_torch.models.lm import build_model
+    cfg = dataclasses.replace(get_config("moonshot-v1-16b-a3b"), n_layers=1,
+                              matmul_mode="square_pallas",
+                              contraction_policy=SQUARE_GEMMS_POLICY)
+    model = build_model(cfg, device="cuda", seed=0)
+    with torch.no_grad():
+        params = model.prepare_params()
+    yield cfg, params["layers"][0]
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def test_moe_apply_local_reads_nothing_back_on_card(cuda_device, moe_layer):
+    """The dispatch has no host sync (no ``.item()``, ``nonzero``, boolean
+    indexing or ``bincount``): it runs under
+    ``set_sync_debug_mode("error")`` at a decode tick's and a prefill
+    chunk's rows, launching K1 for the router and K2 for the experts."""
+    from repro_torch.models.moe import moe_apply_local
+    cfg, p = moe_layer
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(32, cfg.d_model, generator=gen).to(torch.bfloat16).to(
+        cuda_device)
+    k1, k2 = sq_matmul_k1.launches, sq_matmul_k2.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.no_grad():
+            outs = [moe_apply_local(p["ffn"], x[:T], cfg=cfg,
+                                    mode=cfg.matmul_mode,
+                                    policy=cfg.contraction_policy)
+                    for T in (8, 32)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert sq_matmul_k1.launches == k1 + 2
+    assert sq_matmul_k2.launches == k2 + 6
+    for (out, aux), T in zip(outs, (8, 32)):
+        assert out.shape == (T, cfg.d_model) and out.dtype == torch.bfloat16
+        assert bool(torch.isfinite(out).all()) and float(aux) > 0
+
+
+def test_captured_moe_block_equals_eager_on_card(cuda_device, moe_layer):
+    """A full-width moe block (attention + MoE over a prefill chunk's 32
+    rows) captured into a CUDA graph: each replay gives the eager pass's
+    bits, and the ledger re-emits its K1 and K2 launches."""
+    from repro_torch.core import graphs
+    from repro_torch.models import blocks as blk
+    cfg, p = moe_layer
+    ctx = {"cfg": cfg, "mode": cfg.matmul_mode,
+           "policy": cfg.contraction_policy,
+           "positions": torch.arange(32, device=cuda_device), "causal": True}
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(1, 32, cfg.d_model, generator=gen).to(
+        torch.bfloat16).to(cuda_device)
+
+    def fn(x):
+        return blk.block_forward("moe", p, x, ctx)[0]
+
+    with torch.no_grad():
+        eager = fn(x)
+        f = graphs.CapturedCall(fn, (x,), device=cuda_device)
+        k1, k2 = sq_matmul_k1.launches, sq_matmul_k2.launches
+        for _ in range(2):
+            out = f.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, eager)
+    assert sq_matmul_k1.launches == k1 + 2 * 5       # wq wk wv wo router
+    assert sq_matmul_k2.launches == k2 + 2 * 3       # gate, up, down

@@ -150,6 +150,6 @@ def test_serve_launcher_policy_none_on_cpu(capsys, legacy):
 def test_serve_launcher_refuses_to_page_an_unpageable_arch():
     with pytest.raises(ValueError, match="--legacy"):
         tserve.main(["--arch", "xlstm-350m", "--reduced", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="step 6"):
         tserve.main(["--arch", "xlstm-350m", "--reduced", "--device", "cpu",
                      "--legacy"])
