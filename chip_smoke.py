@@ -113,6 +113,30 @@ syncs, eager and compiled runs timed in turns, and each layer's MoE held to
 ``standard`` teacher-forced (an expert swap only inside the router's
 rounding bound).
 
+Last, MoE training: the same model at its published width, 3 of its 48
+layers (a captured step holds ~32 B a parameter: the caller's state, the
+graph's static inputs, its new state and the gradients), bf16, remat
+"block", 8 x 256 tokens, square_pallas with no policy. K1 is held to its
+plain version at the router's three GEMMs of a step and K2 at the expert
+GEMMs' four shapes (forward and dL/dx, and dL/dW over the C = 244 slots),
+each timed beside torch.matmul / torch.bmm, the bound and the FP32 slot
+floor. In f32 at 2 layers: one step's gradients of the loss x 2^14 against
+standard run on square_pallas's routing (every site square within 1e-1,
+the loss's vocab GEMM on standard within 1e-2; each layer's swapped
+experts reported with their margins) with every K1/K2 launch held to its
+exact product, and 3 steps' losses against standard's. In bf16 at 3
+layers: launches by forward, backward and recompute equal to the routing
+rules' (by counter, capture ledger and a profiled replay), an eager step
+under ``set_sync_debug_mode("error")`` whose audit is the analytic count,
+one layer's MoE backward eager twice and captured bit for bit, a captured
+and an eager fixed-seed 2-step run's fingerprints, eager and captured
+steps timed in turns and traced (K1, K2, the dispatch's ops, AdamW apart),
+the compiled audit of a replay, ``GuardedStep(jit=True)`` clean and the
+``Trainer`` over the captured step with its first-step audit (no
+checkpoint on the card). The training phases before it also run the
+captured launcher configuration 32 steps in square_pallas and in
+standard and print the loss gap at every step.
+
     python3 chip_smoke.py
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -129,10 +153,12 @@ samples their caller has just written and stay hot.
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -952,6 +978,7 @@ def trace_steps(step, what: str, untraced_s: float,
     print("  largest other device work per step: " + "; ".join(
         f"{name} {us / n / 1e3:.3f} ms" for name, us in other.most_common(3)),
         flush=True)
+    stats["other"] = {name: us / n / 1e3 for name, us in other.items()}
     # the host side: the operators and CUDA runtime calls that hold the
     # host longest (self time, so a wait lands on the call that waits)
     host = sorted((e for e in prof.key_averages()
@@ -2496,14 +2523,21 @@ def expected_train_audit(cfg) -> dict:
     """{site: mults} of one train step: each forward contraction's
     B*M*K*N, and the same again at <site>.bwd_x and <site>.bwd_w (the
     recompute notes nothing).  Attention spans the whole S x S block of one
-    q chunk and one kv chunk."""
+    q chunk and one kv chunk; a MoE layer's router is T*d*E and its three
+    expert GEMMs 3*E*C*d*f, C = moe_capacity(T), in place of the FFN."""
     L, d, ff, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.padded_vocab
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     T, S = TRAIN_T, TRAIN_S
     attn = L * TRAIN_B * H * S * S * hd
     fwd = {"attn_qkv": L * T * d * (H + 2 * KV) * hd,
-           "attn_out": L * T * H * hd * d, "ffn": L * T * 3 * d * ff,
+           "attn_out": L * T * H * hd * d,
            "attn_scores": attn, "attn_pv": attn, "loss": T * d * V}
+    if cfg.n_experts:
+        E = cfg.n_experts
+        fwd["moe_router"] = L * T * d * E
+        fwd["moe_expert"] = L * 3 * E * moe_capacity(T, cfg) * d * ff
+    else:
+        fwd["ffn"] = L * T * 3 * d * ff
     out = dict(fwd)
     for site, m in fwd.items():
         out[f"{site}.bwd_x"] = out[f"{site}.bwd_w"] = m
@@ -3050,6 +3084,49 @@ def train_timing_phase(dev) -> dict:
             "graph_trace": stats["graph"]}
 
 
+TRAIN_LONG_STEPS = 32
+
+
+def train_long_phase(dev) -> dict:
+    """The launcher's configuration (fairsquare-demo full width, bf16,
+    remat block, 8 x 256 tokens, AdamW as the launcher sets it for this
+    many steps: lr 3e-4, 10 warm-up steps), its step captured, trained
+    TRAIN_LONG_STEPS steps in square_pallas and in standard on the same
+    batches: finite losses at every step and the first 3 within
+    tests/test_train_square.py's 2e-3; the gap at every step is printed,
+    not gated."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    n = TRAIN_LONG_STEPS
+    tcfg = step_mod.TrainConfig(opt=adamw.AdamWConfig(
+        lr=3e-4, warmup_steps=max(10, n // 20), total_steps=n))
+    print(f"long training: the captured launcher configuration, {n} steps "
+          f"in square_pallas and in standard", flush=True)
+    losses = {}
+    for mode in ("square_pallas", "standard"):
+        t0 = time.perf_counter()
+        losses[mode], _, _ = _train_losses(train_cfg(mode), dev, n,
+                                           tcfg=tcfg, jit=True)
+        print(f"  {mode}: {n} captured steps in "
+              f"{time.perf_counter() - t0:.1f} s (the capture included); "
+              f"losses {[round(x, 5) for x in losses[mode]]}", flush=True)
+    sq, std = losses["square_pallas"], losses["standard"]
+    gap = [a - b for a, b in zip(sq, std)]
+    print(f"  loss gap square_pallas - standard by step: "
+          f"{[f'{g:.2e}' for g in gap]}; mean |gap| steps 1-8 "
+          f"{sum(abs(g) for g in gap[:8]) / 8:.2e}, steps 25-32 "
+          f"{sum(abs(g) for g in gap[-8:]) / 8:.2e}, largest "
+          f"{max(abs(g) for g in gap):.2e} at step "
+          f"{max(range(n), key=lambda i: abs(gap[i])) + 1}; card {CARD}",
+          flush=True)
+    check(all(math.isfinite(x) for x in sq + std)
+          and all(abs(a - b) <= 2e-3 + 2e-3 * abs(b)
+                  for a, b in zip(sq[:3], std[:3])),
+          f"{n} steps finite in both modes; the first 3 within rtol 2e-3, "
+          f"atol 2e-3 of standard's (the rest reported, not gated)")
+    return {"gap": gap}
+
+
 def train_phases(dev, gen, compared) -> dict:
     """The training path: its kernels at its shapes, the launcher
     (captured), parity, compiled against eager, timing in turns and the
@@ -3063,6 +3140,7 @@ def train_phases(dev, gen, compared) -> dict:
     train_compiled_equals_eager_phase(dev)
     timing = train_timing_phase(dev)
     train_guard_phase(dev)
+    train_long_phase(dev)
     calls = launched.pop("calls")
     check(tuple(launched[k] for k in ("K1", "K2"))
           == tuple(calls * n for n in timing["step"]),
@@ -3523,6 +3601,846 @@ def moe_phase(dev, gen) -> dict:
                              for k, v in runs.items()}}
 
 
+# ---------------------------------------------------------- MoE training
+# moonshot-v1-16b-a3b at its published width, trained in the launcher's
+# configuration (bf16, remat block, 8 x 256 tokens, no policy).  A layer
+# holds 570.6 M parameters and the tied vocab table 335.5 M.  At its
+# capture a captured step holds the caller's state, the graph's static
+# inputs and its new state (10 B a parameter each: bf16 weights, f32 m and
+# v) and the gradients: ~32 B a parameter, 66 GB at 3 layers, 84 GB at 4.
+MOE_TRAIN_LAYERS = 3
+# the f32 phases against standard: an eager f32 AdamW step holds ~28 B a
+# parameter, 41 GB at 2 layers
+MOE_TRAIN_F32_LAYERS = 2
+MOE_TRAINER_STEPS = 4
+MOE_TURN_STEPS = 6              # a timed turn: 1 warm step and 5 timed
+MOE_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+# device work of the dispatch and combine, by kernel name
+DISPATCH_OPS = ("sort", "scatter", "gather", "index", "cumsum", "Radix",
+                "radix", "cub")
+
+
+def moe_train_cfg(layers: int = MOE_TRAIN_LAYERS, mode="square_pallas",
+                  **kw):
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=layers,
+                               matmul_mode=mode, **kw)
+
+
+def moe_train_view(model: LM, cfg) -> LM:
+    """``model``'s forward under ``cfg``, holding none of its weights: a
+    train step reads the config and the forward from the model and takes
+    the weights as a params tree, so one draw of the weights serves every
+    depth, dtype and mode below."""
+    view = copy.copy(model)
+    view.cfg = cfg
+    object.__setattr__(view, "_modules", {})     # none of its weights
+    return view
+
+
+def moe_train_tree(tree, cfg):
+    """The first ``cfg.n_layers`` layers of a params ``tree`` drawn in f32,
+    each leaf cast to the dtype of ``cfg``'s spec: the weights
+    ``build_model(cfg, seed=0)`` draws (it draws in f32, casts, and draws
+    the layers in order), f32 leaves shared with ``tree``."""
+    from repro_torch.layers import basic
+    from repro_torch.layers.param import torch_dtype
+    norm = (basic.layernorm_spec if cfg.norm == "layernorm"
+            else basic.rmsnorm_spec)
+    spec = {"embed": basic.embed_spec(cfg.padded_vocab, cfg.d_model,
+                                      torch_dtype(cfg.dtype)),
+            "final_norm": norm(cfg.d_model),
+            "layers": [blk.block_spec(k, cfg) for k in cfg.layer_kinds]}
+
+    def cast(node, s):
+        if isinstance(node, dict):
+            return {k: cast(v, s[k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [cast(n, t) for n, t in zip(node, s)]
+        return node if node.dtype == s.dtype else node.to(s.dtype)
+    return cast(dict(tree, layers=tree["layers"][:cfg.n_layers]), spec)
+
+
+def moe_train_gemms(cfg) -> list:
+    """(B, m, k, n) of each forward GEMM of one train step, canonical (B,
+    m, k) @ (B, k, n): a layer's q, k, v, attention scores and PV (one q
+    and one kv chunk), o, the router and the three expert GEMMs of C =
+    moe_capacity(T) slots an expert; then the loss's vocab GEMM."""
+    d, f, E, V = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.padded_vocab
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    T, S = TRAIN_T, TRAIN_S
+    C = moe_capacity(T, cfg)
+    nb, gs = TRAIN_B * KV, H // KV * S
+    layer = [(1, T, d, H * hd), (1, T, d, KV * hd), (1, T, d, KV * hd),
+             (nb, gs, hd, S), (nb, gs, S, hd), (1, T, H * hd, d),
+             (1, T, d, E), (E, C, d, f), (E, C, d, f), (E, C, f, d)]
+    return layer * cfg.n_layers + [(1, T, d, V)]
+
+
+def grad_gemms(B, m, k, n) -> tuple:
+    """The canonical (dL/dx, dL/dW) GEMMs of a (B, m, k) @ (B, k, n) one:
+    (B, m, n) @ (B, n, k) and (B, n, m) @ (B, m, k)."""
+    return (B, m, n, k), (B, n, m, k)
+
+
+def gemm_kernel(B, m, k, n) -> str:
+    """The kernel ``select_matmul_route`` sends a GEMM to."""
+    return ROUTE_KERNEL[routing.select_matmul_route(m, n, k, batch=B).name]
+
+
+def moe_train_launches(cfg) -> dict:
+    """{part: Counter(kernel: launches)} of one train step by the routing
+    rules: the forward, the backward (dL/dx and dL/dW of each forward
+    GEMM) and the recompute (remat block: every layer GEMM again; the
+    loss's one chunk at either setting, as its chunk body is
+    rematerialised)."""
+    fwd = moe_train_gemms(cfg)
+    out = {p: collections.Counter()
+           for p in ("forward", "backward", "recompute")}
+    for g in fwd:
+        out["forward"][gemm_kernel(*g)] += 1
+        for h in grad_gemms(*g):
+            out["backward"][gemm_kernel(*h)] += 1
+    for g in fwd:
+        out["recompute"][gemm_kernel(*g)] += 1
+    return out
+
+
+def _event_ms(fn) -> float:
+    """Device ms of one eager call between CUDA events (a plain version
+    too large to capture)."""
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def _plain_batched(aw, bw, sa, sb, budget=2 ** 31):
+    """K2's plain version in blocks of batch elements, each block's
+    k_chunk-wide slab of squares within ``budget`` bytes."""
+    per = 16 * aw.shape[1] * bw.shape[2] * 4
+    nb = max(1, budget // per)
+    return torch.cat([sq_matmul_batched_plain(aw[i:i + nb], bw[i:i + nb],
+                                              sa[i:i + nb], sb[i:i + nb])
+                      for i in range(0, aw.shape[0], nb)])
+
+
+def moe_train_kernel_phase(dev, gen, cfg) -> list:
+    """K1 at the router's GEMMs of a train step (forward (T, d) @ (d, E),
+    dL/dx (T, E) @ (E, d), dL/dW (E, T) @ (T, d)) and K2 (or K3, where the
+    rule sends them) at the expert GEMMs' (forward and dL/dx (E, C, d) @
+    (E, d, f) and (E, C, f) @ (E, f, d); dL/dW (E, f, C) @ (E, C, d) and
+    (E, d, C) @ (E, C, f)), C = moe_capacity(T): against the plain version
+    (f32 from bf16-rounded operands), timed in graph replay with the
+    operands hot beside torch.matmul / torch.bmm (no TF32), the bound and
+    the FP32 slot floor (2 slots a term), the plain version once between
+    CUDA events."""
+    d, f, E, L = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.n_layers
+    C = moe_capacity(TRAIN_T, cfg)
+    router, up, down = (1, TRAIN_T, d, E), (E, C, d, f), (E, C, f, d)
+    # launches a step: forward, backward and the recompute
+    cases = collections.Counter({router: 2 * L, up: 2 * 2 * L,
+                                 down: 2 * L})
+    for g, times in ((router, L), (up, 2 * L), (down, L)):
+        for h in grad_gemms(*g):
+            cases[h] += times
+    print(f"MoE training shapes (T = {TRAIN_T}, C = {C}): K1 at the "
+          f"router's, K2/K3 at the experts', held to their plain versions "
+          f"(f32 |err| <= k * 2^-23 * (max|a| + max|b|)^2) and timed (graph "
+          f"replay, operands hot); card {CARD}", flush=True)
+    rows = []
+    for (B, m, k, n), per_step in sorted(cases.items()):
+        name = gemm_kernel(B, m, k, n)
+        check(name in ("K1", "K2", "K3"),
+              f"(B={B}, m={m}, k={k}, n={n}) routes to a kernel: {name}")
+        a = torch.randn(B, m, k, generator=gen).to(torch.bfloat16).to(dev)
+        b = (torch.randn(B, k, n, generator=gen) / math.sqrt(k)).to(
+            torch.bfloat16).to(dev)
+        aw, bw = a.float(), b.float()
+        sa, sb = -(aw * aw).sum(2), -(bw * bw).sum(1)
+        if name == "K1":
+            args = (aw[0], bw[0], sa[0], sb[0])
+            kern, lib = sq_matmul_k1, (lambda: torch.matmul(aw[0], bw[0]))
+            plain = lambda: _plain_rows(*args)                 # noqa: E731
+            grid = k1_launch_shape(m, n)["grid"]
+        else:
+            args = (aw, bw, sa, sb)
+            kern, lib = BATCHED[name][0], (lambda: torch.bmm(aw, bw))
+            plain = lambda: _plain_batched(*args)              # noqa: E731
+            grid = BATCHED[name][1](B, m, n)["grid"]
+        out = kern(*args)
+        ref = plain()
+        err = (out - ref).abs().max().item()
+        tol = k * 2.0 ** -23 * (aw.abs().max().item()
+                                + bw.abs().max().item()) ** 2
+        check(bool(torch.isfinite(out).all()) and err <= tol,
+              f"{name} f32 B={B} m={m} k={k} n={n}: max|err| {err:.3e} <= "
+              f"{tol:.3e}")
+        del out, ref
+        ms = time_graph([lambda: kern(*args)], reps=5, replays=2)
+        lib_ms = time_graph([lib], reps=5, replays=2)
+        plain_ms = _event_ms(plain)
+        terms = B * m * k * n
+        t_bytes = 4 * B * (m * k + k * n + m + n + m * n) \
+            / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * terms / FP32_OPS_PER_S * 1e3
+        row = dict(kernel=name, shape=(B, m, k, n), per_step=per_step,
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   floor_ms=2 * terms / FP32_SLOTS_PER_S * 1e3,
+                   bound_ms=max(t_bytes, t_ops), t_bytes=t_bytes,
+                   t_ops=t_ops, max_abs_err=err, grid=grid)
+        rows.append(row)
+        print(f"    {name} B={B:2d} m={m:4d} k={k:4d} n={n:4d} x{per_step:2d}"
+              f" a step: {ms:.4f} ms | plain {plain_ms:.2f} ms | "
+              f"{'torch.matmul' if name == 'K1' else 'torch.bmm'} "
+              f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x) | bound "
+              f"{row['bound_ms']:.4f} ms | slot floor {row['floor_ms']:.4f} "
+              f"ms ({row['floor_ms'] / ms:.1%} of it) | grid {grid}; card "
+              f"{CARD}", flush=True)
+        del a, b, aw, bw, sa, sb, args
+    for name in ("K1", "K2", "K3"):
+        mine = [r for r in rows if r["kernel"] == name]
+        if mine:
+            tot = {key: sum(r["per_step"] * r[key] for r in mine)
+                   for key in ("ms", "library_ms", "floor_ms", "bound_ms")}
+            print(f"  per train step ({L} layers, "
+                  f"{sum(r['per_step'] for r in mine)} launches at these "
+                  f"shapes): {name} {tot['ms']:.3f} ms | library "
+                  f"{tot['library_ms']:.3f} ms | slot floor "
+                  f"{tot['floor_ms']:.3f} ms | bound {tot['bound_ms']:.3f} "
+                  f"ms; card {CARD}", flush=True)
+    return rows
+
+
+def _routing_spy():
+    """Wrap ``moe_route`` and ``moe_dispatch`` as ``moe_apply_local`` calls
+    them: each call appends its router probabilities, experts, dispatch
+    and the largest |x| and |w| of the router GEMM.  Returns the list and
+    the function that unwraps them."""
+    from repro_torch.models import moe as moe_mod
+    seen, real = [], (moe_mod.moe_route, moe_mod.moe_dispatch)
+
+    def route(p, x, **kw):
+        probs, gates, idx = real[0](p, x, **kw)
+        w = p["router"]["w"]
+        seen.append({"probs": probs.detach(), "idx": idx,
+                     "amax": (x.abs().max().item(),
+                              w.abs().max().item())})
+        return probs, gates, idx
+
+    def dispatch(idx, gates, n_experts, capacity):
+        d = real[1](idx, gates, n_experts, capacity)
+        seen[-1].update(C=capacity, **{k: d[k] for k in ("st", "keep",
+                                                          "order")})
+        return d
+
+    moe_mod.moe_route, moe_mod.moe_dispatch = route, dispatch
+
+    def restore():
+        moe_mod.moe_route, moe_mod.moe_dispatch = real
+    return seen, restore
+
+
+def moe_routing_diff(sq, std, cfg) -> list:
+    """Per layer: the experts whose kept token set differs between the two
+    modes, and for each token whose expert set differs, the margin by
+    which standard preferred each expert the square path dropped (l_f -
+    l_e from standard's probabilities) against twice the router's
+    rounding bound a logit, delta = K1's f32 bound k 2^-23 (max|x| +
+    max|w|)^2 plus standard's own k 2^-24 max|x| max|w| (the MoE serving
+    phase's rule).  Upstream layers also differ by rounding, so a margin
+    above 2 delta is reported, not a fault."""
+    k = cfg.d_model
+    out = []
+    for a, b in zip(sq, std):
+        sets_a, kept_a = _kept_sets(a["idx"], a)
+        sets_b, kept_b = _kept_sets(b["idx"], b)
+        moved = set().union(*(x ^ y for x, y in zip(kept_a, kept_b)))
+        rows = [t for t, (x, y) in enumerate(zip(sets_a, sets_b)) if x != y]
+        lp = torch.log(b["probs"].double()).cpu()
+        margins = [(lp[t, f] - lp[t, e]).item() for t in rows
+                   for e in sets_a[t] - sets_b[t]
+                   for f in sets_b[t] - sets_a[t]]
+        xm, wm = b["amax"]
+        delta = k * 2.0 ** -23 * (xm + wm) ** 2 + k * 2.0 ** -24 * xm * wm
+        out.append({"same": [e for e in range(cfg.n_experts)
+                             if e not in moved],
+                    "rows": len(rows), "margins": margins,
+                    "bound": 2 * delta})
+    return out
+
+
+def _tree_leaves_named(tree) -> dict:
+    return dict(zip(_leaf_names(tree), tree_leaves(tree)))
+
+
+def _pinned_routes(routes):
+    """Make ``moe_route`` take each call's experts from ``routes`` (another
+    run's, in call order), with its own probabilities gathered there and
+    renormalised as the gates: the same function of the weights as that
+    run's, so the two differ by rounding alone.  Returns the function that
+    unwraps it."""
+    from repro_torch.models import moe as moe_mod
+    real, it = moe_mod.moe_route, iter(routes)
+
+    def route(p, x, **kw):
+        probs, _, _ = real(p, x, **kw)
+        idx = next(it)["idx"]
+        gates = torch.gather(probs, 1, idx)
+        return probs, gates / torch.clamp(
+            torch.sum(gates, dim=-1, keepdim=True), min=1e-9), idx
+
+    moe_mod.moe_route = route
+
+    def restore():
+        moe_mod.moe_route = real
+    return restore
+
+
+def _rel_slices(got, ref, experts=None) -> dict:
+    """{tensor: ||got - ref|| / ||ref||}, the expert stacks by expert
+    (``path[e]``), of every expert or of those in ``experts[layer]``."""
+    rel = {}
+
+    def one(a, b):
+        if b.norm() == 0 and a.norm() == 0:
+            return 0.0
+        return ((a.double() - b.double()).norm()
+                / b.double().norm().clamp_min(1e-300)).item()
+
+    for path, r in ref.items():
+        parts = path.split("/")
+        if len(parts) > 4 and parts[1] == "layers" \
+                and parts[4] in MOE_EXPERT_LEAVES:
+            keep = range(r.shape[0]) if experts is None else \
+                experts[int(parts[2])]
+            for e in keep:
+                rel[f"{path}[{e}]"] = one(got[path][e], r[e])
+        else:
+            rel[path] = one(got[path], r)
+    return rel
+
+
+def _rel_str(rel: dict) -> str:
+    worst = max(rel, key=rel.get)
+    return (f"{len(rel)} tensors and expert slices, ||diff|| / ||standard|| "
+            f"median {sorted(rel.values())[len(rel) // 2]:.3e}, worst "
+            f"{rel[worst]:.3e} ({worst})")
+
+
+def moe_grads(model: LM, params, batch, cfg, scale: float, pin=None):
+    """One step's gradients of ``cfg``'s loss times ``scale`` (divided by it
+    after) at ``params``, ``{leaf path: tensor}``, and each MoE layer's
+    routing (``_routing_spy``); with ``pin``, on those routes
+    (``_pinned_routes``)."""
+    from repro_torch.train import step as step_mod
+    loss_fn = step_mod.make_loss_fn(moe_train_view(model, cfg),
+                                    step_mod.TrainConfig())
+
+    def scaled(p, b):
+        loss, met = loss_fn(p, b)
+        return loss * scale, met
+
+    spy, unspy = _routing_spy()
+    unpin = _pinned_routes(pin) if pin is not None else None
+    try:
+        _, g = step_mod.value_and_grad(scaled, params, batch)
+    finally:
+        if unpin is not None:
+            unpin()
+        unspy()
+    return {k: t / scale for k, t in _tree_leaves_named(g).items()}, spy
+
+
+# The gradient gates of MoE training (f32, the loss x GRAD_SCALE, per
+# tensor in norm, each run on square_pallas's routing).  With every site
+# square, K1's dL/dx of the loss sums k = vocab = 163840 terms, in 8
+# partials of 20480 squares each added in sequence: the cotangent that
+# enters the network is then off standard's by ~1e-2 and every gradient
+# inherits it (scripts/train_grad_gap.py on an H100: worst 5.2e-2 at 2^14,
+# square_scan's chunked sums of the same squares 4.7e-3), though each
+# launch is within its f32 bound.  So the step with every site square is
+# held at MOE_GRAD_RTOL_ALL, above that and below a wrong, zero or missing
+# launch's ~1, and the step with the loss's GEMM on standard in both runs
+# at the dense gate, GRAD_RTOL["float32"] (worst 8.7e-4 there).
+MOE_GRAD_RTOL_ALL = 1e-1
+
+
+def moe_train_parity_phase(dev, model: LM) -> dict:
+    """f32 at MOE_TRAIN_F32_LAYERS layers, remat none, the model's own f32
+    weights: one step's gradients of the loss x GRAD_SCALE in
+    square_pallas against standard's (TF32 off), with every K1/K2 launch
+    of the square step held to the exact (float64) product of its
+    operands.  Each layer's routing is compared first: the experts whose
+    kept token set differs, and each swapped assignment's margin.  A swap
+    in one layer moves its token's cotangent, and through attention its
+    sequence's, in every layer below by more than rounding, so the gates
+    hold square_pallas to standard run on square_pallas's routing
+    (``_pinned_routes``), every tensor and every expert's slice of the
+    three expert stacks: within MOE_GRAD_RTOL_ALL with every site square,
+    within GRAD_RTOL["float32"] with the loss's vocab GEMM on standard in
+    both runs (see MOE_GRAD_RTOL_ALL).  Against standard's own routing the
+    non-expert tensors and the same-set experts' slices are reported.  Then
+    3 steps' losses against standard's at rtol = atol = 2e-3."""
+    from repro_torch.configs.base import ContractionPolicy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    L = MOE_TRAIN_F32_LAYERS
+    cfgs = {m: moe_train_cfg(L, m, dtype="float32", remat="none")
+            for m in ("square_pallas", "standard")}
+    params = moe_train_tree(model.tree(), cfgs["standard"])
+    batches = SyntheticLM(DataConfig(TRAIN_B, TRAIN_S, model.cfg.vocab),
+                          cfgs["standard"], device=dev).take(3)
+    print(f"MoE train parity: {MOE_ARCH} full width, {L} layers, f32, "
+          f"remat none, square_pallas vs standard (no TF32); one step's "
+          f"gradients of the loss x {GRAD_SCALE:g}, then 3 steps' losses",
+          flush=True)
+    want = moe_train_launches(cfgs["square_pallas"])
+
+    def grads(cfg, pin=None):
+        return moe_grads(model, params, batches[0], cfg, GRAD_SCALE, pin=pin)
+
+    seen, restore = _probed_kernels()
+    try:
+        sq, sq_routes = grads(cfgs["square_pallas"])
+    finally:
+        restore()
+    n_want = (sum(want["forward"].values())
+              + sum(want["backward"].values()) + 1)
+    bad = [r for r in seen if not r[2] <= r[3]]
+    worst = max(seen, key=lambda r: r[2] / r[3])
+    check(len(seen) == n_want and not bad
+          and want["forward"]["K3"] == want["backward"]["K3"] == 0,
+          f"one f32 step: all {len(seen)} K1/K2 launches (the rules give "
+          f"{n_want}, none on K3) within k * 2^-23 * (max|a| + max|b|)^2 of "
+          f"their exact products (worst {worst[0]} {worst[1]}: "
+          f"{worst[2]:.3e} <= {worst[3]:.3e})")
+    launched = {(r[0], r[1]) for r in seen}
+    std, std_routes = grads(cfgs["standard"])
+    pinned, _ = grads(cfgs["standard"], pin=sq_routes)
+    check(list(sq) == list(std) == list(pinned) and all(
+        bool(torch.isfinite(t).all()) for t in sq.values()),
+        f"f32 gradients: {len(sq)} finite tensors in each run")
+    diff = moe_routing_diff(sq_routes, std_routes, cfgs["standard"])
+    check(len(diff) == L, f"routing recorded in each of the {L} layers")
+    swapped = []
+    for li, dl in enumerate(diff):
+        n_diff = model.cfg.n_experts - len(dl["same"])
+        swapped.append(n_diff)
+        m = dl["margins"]
+        print(f"  layer {li}: {dl['rows']} of {TRAIN_T} tokens routed to "
+              f"another expert set, {n_diff} of {model.cfg.n_experts} "
+              f"experts with another kept token set; swap margins "
+              f"(standard's l_f - l_e) {'max %.3e' % max(m) if m else 'none'}"
+              f", {sum(x > dl['bound'] for x in m)} of {len(m)} above 2 delta "
+              f"= {dl['bound']:.3e} (reported: the layers' inputs differ "
+              f"too)", flush=True)
+    print(f"  against standard's own routing (reported): "
+          f"{_rel_str(_rel_slices(sq, std, [dl['same'] for dl in diff]))}",
+          flush=True)
+    rel = _rel_slices(sq, pinned)
+    check(max(rel.values()) <= MOE_GRAD_RTOL_ALL,
+          f"f32 gradients of the loss x {GRAD_SCALE:g}, every site square, "
+          f"vs standard on square_pallas's routing: {_rel_str(rel)} <= "
+          f"{MOE_GRAD_RTOL_ALL:g}")
+    grad_worst = {"all": max(rel.values())}
+    del sq, std, pinned, sq_routes, std_routes
+    pol = ContractionPolicy.of(loss="standard")
+    sq, sq_routes = grads(dataclasses.replace(cfgs["square_pallas"],
+                                              contraction_policy=pol))
+    pinned, _ = grads(dataclasses.replace(cfgs["standard"],
+                                          contraction_policy=pol),
+                      pin=sq_routes)
+    rel = _rel_slices(sq, pinned)
+    check(max(rel.values()) <= GRAD_RTOL["float32"],
+          f"f32 gradients of the loss x {GRAD_SCALE:g}, the loss's vocab GEMM "
+          f"on standard in both runs, vs standard on square_pallas's "
+          f"routing: {_rel_str(rel)} <= {GRAD_RTOL['float32']:g}")
+    grad_worst["loss_standard"] = max(rel.values())
+    del sq, pinned, sq_routes
+
+    losses = {}
+    for mode, cfg in cfgs.items():
+        step = step_mod.make_train_step(moe_train_view(model, cfg),
+                                        step_mod.TrainConfig())
+        p, o = params, adamw.adamw_init(params)
+        losses[mode] = []
+        for b in batches:
+            p, o, met = step(p, o, b)
+            losses[mode].append(float(met["loss"]))
+        del p, o, step
+        gc.collect()
+    diffs = [abs(a - b) for a, b in zip(losses["square_pallas"],
+                                        losses["standard"])]
+    check(all(math.isfinite(x) for x in losses["square_pallas"])
+          and all(d <= 2e-3 + 2e-3 * abs(b)
+                  for d, b in zip(diffs, losses["standard"])),
+          f"f32 losses at {L} layers: square_pallas "
+          f"{losses['square_pallas']} vs standard {losses['standard']} "
+          f"(|diff| {[f'{d:.2e}' for d in diffs]}; rtol 2e-3, atol 2e-3)")
+    return {"launched": launched, "swapped_experts": swapped,
+            "grad_worst": grad_worst}
+
+
+def moe_layer_backward_phase(dev, params, cfg, gen) -> None:
+    """One layer's MoE at a step's T = 2048 rows, its backward (dL/dx, the
+    router and the three expert stacks) run twice eagerly and once
+    captured into a CUDA graph: the three bit for bit."""
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    p = params["layers"][0]["ffn"]
+    x = torch.randn(TRAIN_T, cfg.d_model, generator=gen).to(
+        torch.bfloat16).to(dev)
+    ct = torch.randn(TRAIN_T, cfg.d_model, generator=gen).to(
+        torch.bfloat16).to(dev)
+
+    def grads_of(p, x, ct):
+        def fn(q, b):
+            out, aux = moe_apply_local(q["p"], q["x"], cfg=cfg,
+                                       mode=cfg.matmul_mode)
+            return (out.float() * b["ct"].float()).sum() + aux, {}
+        _, g = step_mod.value_and_grad(fn, {"p": p, "x": x}, {"ct": ct})
+        return g
+
+    runs = [grads_of(p, x, ct) for _ in range(2)]
+    graph = graphs.CapturedFunction(grads_of, device=dev, name="moe_bwd")
+    runs.append(graph(p, x, ct))
+    torch.cuda.synchronize()
+    fps = [adamw.tree_fingerprint(r) for r in runs]
+    names = sorted(_tree_leaves_named(runs[0]))
+    check(fps[0] == fps[1] == fps[2],
+          f"one layer's MoE backward at T = {TRAIN_T} ({', '.join(names)}): "
+          f"two eager runs and a captured one bit for bit")
+    graph.release()
+
+
+def moe_train_phase(dev, gen) -> dict:
+    """moonshot-v1-16b-a3b at its published width, trained: the kernels at
+    the router's and experts' training shapes, the f32 parity phase, then
+    MOE_TRAIN_LAYERS layers in the launcher's configuration (bf16, remat
+    block, square_pallas, no policy): launches by forward, backward and
+    recompute against the routing rules (by counter; the captured step's
+    by its ledger and a profiled replay), an eager step under
+    ``set_sync_debug_mode("error")`` whose audit is the analytic count,
+    one layer's MoE backward eager twice and captured, a captured and an
+    eager fixed-seed 2-step run's fingerprints, the eager and the captured
+    step timed in turns and traced, the compiled audit of a replay,
+    ``GuardedStep(jit=True)`` clean and the ``Trainer`` over the captured
+    step (MOE_TRAINER_STEPS steps, its first-step audit; no checkpoint is
+    written: the state is ~20 GB)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = moe_train_cfg()
+    full = get_config(MOE_ARCH)
+    L = cfg.n_layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"MoE training: {cfg.name} at its published width (d="
+          f"{cfg.d_model} H={cfg.n_heads}x{cfg.resolved_head_dim} E="
+          f"{cfg.n_experts} top-{cfg.topk} ff={cfg.d_ff} V={cfg.vocab} cf "
+          f"{cfg.capacity_factor}), {L} of its {full.n_layers} layers (depth "
+          f"cut: a captured step holds ~32 B a parameter), {cfg.dtype}, "
+          f"remat {cfg.remat}, {TRAIN_B} x {TRAIN_S} tokens, square_pallas, "
+          f"no policy; allocated before "
+          f"{_gib(torch.cuda.memory_allocated())}; card {CARD}", flush=True)
+    rules = moe_train_launches(cfg)
+    print(f"  launches a step by the routing rules: forward "
+          f"{dict(rules['forward'])}, backward {dict(rules['backward'])}, "
+          f"recompute {dict(rules['recompute'])}", flush=True)
+    check(all(c["virtual"] == 0 and c["K3"] == 0 for c in rules.values()),
+          "no GEMM of the step, forward or backward, routes to the virtual "
+          "form or to K3")
+    rows = moe_train_kernel_phase(dev, gen, cfg)
+
+    t0 = time.perf_counter()
+    model = build_model(moe_train_cfg(dtype="float32"), device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"  f32 weights of {L} layers drawn (seed 0, on the host) and moved "
+          f"in {init_s:.1f} s; allocated "
+          f"{_gib(torch.cuda.memory_allocated())}", flush=True)
+    parity = moe_train_parity_phase(dev, model)
+    params = moe_train_tree(model.tree(), cfg)
+    model = moe_train_view(model, cfg)     # the f32 weights go
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"  bf16 params: {n_params:,} ({n_params / 1e9:.3f} G), "
+          f"allocated {_gib(torch.cuda.memory_allocated())}", flush=True)
+    compared = {"K1": [], "K2": [], "K3": []}
+    for r in rows:
+        B, m, k, n = r["shape"]
+        compared[r["kernel"]].append((m, k, n) if B == 1 and r["kernel"]
+                                     == "K1" else (B, m, k, n))
+    for name, shape in parity["launched"]:
+        compared[name].append(shape)
+    data = SyntheticLM(DataConfig(TRAIN_B, TRAIN_S, cfg.vocab), cfg,
+                       device=dev)
+    batches = data.take(3)
+    tcfg = step_mod.TrainConfig()
+    step = step_mod.make_train_step(model, tcfg)
+    loss_fn = step_mod.make_loss_fn(model, tcfg)
+    moe_layer_backward_phase(dev, params, cfg, gen)
+
+    # launches: forward, a remat none step, a remat block step (eager,
+    # under set_sync_debug_mode("error"), audited)
+    split = {}
+    reset_counts()
+    with torch.no_grad():
+        loss_fn(params, batches[0])
+    split["forward"] = counts()[:3]
+    step_none = step_mod.make_train_step(
+        moe_train_view(model, dataclasses.replace(cfg, remat="none")), tcfg)
+    reset_counts()
+    step_none(params, adamw.adamw_init(params), batches[0])
+    torch.cuda.synchronize()
+    split["none"] = counts()[:3]
+    del step_none
+    gc.collect()
+    opt = adamw.adamw_init(params)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, eager_audit = step_mod.audit_step(step, params, opt,
+                                               batches[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    split["block"] = counts()[:3]
+    shapes_ok(compared)
+    del out, opt
+    kk = ("K1", "K2", "K3")
+    want = {p: tuple(rules[p][k] for k in kk) for p in rules}
+    print(f"  launches (K1, K2, K3): forward {split['forward']}, a remat "
+          f"none step {split['none']}, a remat block step {split['block']};"
+          f" the rules' forward {want['forward']}, backward "
+          f"{want['backward']}, recompute {want['recompute']}", flush=True)
+    check(split["forward"] == want["forward"]
+          and split["none"] == tuple(a + b + (k == "K1") for a, b, k in zip(
+              want["forward"], want["backward"], kk))
+          and split["block"] == tuple(a + b + c for a, b, c in zip(
+              want["forward"], want["backward"], want["recompute"])),
+          "launches a step = forward + 2 x backward + the recompute, as the "
+          "routing rules give them (the loss's chunk recomputed at either "
+          "setting)")
+    print(f"  [ok] one eager step ran under set_sync_debug_mode('error'): "
+          f"no host sync in the forward, the backward or AdamW; its peak "
+          f"allocation {eager_peak:.2f} GiB; card {CARD}", flush=True)
+    expected = expected_train_audit(cfg)
+    got = {s: v["mults"] for s, v in eager_audit.by_site().items()}
+    check(got == expected and eager_audit.fraction_square == 1.0
+          and eager_audit.fraction_square_bwd == 1.0,
+          f"eager audit of a step: per site the analytic count "
+          f"(moe_router {expected['moe_router']:,}, moe_expert "
+          f"{expected['moe_expert']:,}, each again at .bwd_x and .bwd_w), "
+          f"{eager_audit.total_mults:,} multiplies, fraction_square 1.0 and "
+          f"fraction_square_bwd 1.0")
+
+    # a captured and an eager fixed-seed 2-step run, bit for bit; the
+    # eager state goes on as the first eager turn
+    p, o, e_losses = params, adamw.adamw_init(params), []
+    for b in batches[:2]:
+        p, o, met = step(p, o, b)
+        e_losses.append(float(met["loss"]))
+    fp_eager = adamw.tree_fingerprint(
+        {"losses": torch.tensor(e_losses), "params": p, "opt": o})
+    walls = {"eager": [], "graph": []}
+
+    def turn(kind, fn, i):
+        times = []
+        for _ in range(MOE_TURN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        times = sorted(times[1:])
+        walls[kind] += times
+        print(f"  turn {i} {kind}: median {times[2] * 1e3:.1f} ms (min "
+              f"{times[0] * 1e3:.1f}, max {times[-1] * 1e3:.1f}), "
+              f"{TRAIN_T / times[2]:.0f} tokens/s; card {CARD}", flush=True)
+
+    state = {"eager": (p, o)}
+    b_fixed = batches[-1]
+
+    def one(kind):
+        p, o, met = fns[kind](*state[kind], b_fixed)
+        state[kind] = (p, o)
+        return met
+
+    graph = step_mod.jit_train_step(step, dev)
+    fns = {"eager": step, "graph": graph}
+    turn("eager", lambda: one("eager"), 1)
+    med_e1 = sorted(walls["eager"])[2]
+    stats = {"eager": trace_steps(lambda: float(one("eager")["loss"]),
+                                  "eager MoE train steps", med_e1, calls=2)}
+    del state["eager"], p, o
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    g_losses = []
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counting.compiled_audit():
+        p, o = params, adamw.adamw_init(params)
+        for b in batches[:2]:
+            p, o, met = graph(p, o, b)
+            g_losses.append(float(met["loss"]))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    graph_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fp_graph = adamw.tree_fingerprint(
+        {"losses": torch.tensor(g_losses), "params": p, "opt": o})
+    ledger = {kern.__name__: n for kern, n, _ in
+              graph.current.ledger.launches}
+    led = tuple(ledger.get(f"sq_matmul_{k.lower()}", 0) for k in kk)
+    print(f"  eager 2 steps {e_losses}, captured {g_losses}; the capture "
+          f"and 2 steps {first_s:.1f} s, peak allocation {graph_peak:.2f} "
+          f"GiB; card {CARD}", flush=True)
+    check(fp_eager == fp_graph,
+          f"captured and eager fixed-seed 2-step runs bit-identical: "
+          f"fingerprint {fp_eager[:16]}... twice (losses, params, AdamW "
+          f"state)")
+    check(graph.captures == 1 and led == split["block"]
+          and counts()[:3] == tuple(3 * n for n in led),
+          f"one capture; by its ledger K1 {led[0]}, K2 {led[1]}, K3 {led[2]}"
+          f" a replay (the eager step's), counted 3 times over the warm-up "
+          f"and 2 replays")
+    shapes_ok(compared)
+    state["graph"] = (p, o)
+    del p, o
+    turn("graph", lambda: one("graph"), 2)
+    turn("graph", lambda: one("graph"), 3)
+    med = {"eager": med_e1, "graph": sorted(walls["graph"])[
+        len(walls["graph"]) // 2]}
+    stats["graph"] = trace_steps(lambda: float(one("graph")["loss"]),
+                                 "replayed MoE train steps", med["graph"],
+                                 calls=2)
+    check(tuple(stats["graph"].get(k) for k in kk) == led,
+          f"a profiled replay holds {tuple(stats['graph'].get(k) for k in kk)}"
+          f" K1/K2/K3 kernels (the ledger's {led})")
+    with counting.track_compiled_contractions() as ctr:
+        graph.replay()
+    torch.cuda.synchronize()
+    audited = {s: v["mults"] for s, v in ctr.by_site().items()}
+    check(audited == expected and ctr.fraction_square_bwd == 1.0,
+          f"compiled audit of a replayed step: per site the analytic count, "
+          f"{ctr.total_mults:,} multiplies, fraction_square "
+          f"{ctr.fraction_square} and fraction_square_bwd "
+          f"{ctr.fraction_square_bwd}")
+    graph.release()
+    del state["graph"], graph, fns["graph"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    state["eager"] = (params, adamw.adamw_init(params))
+    turn("eager", lambda: one("eager"), 4)
+    med["eager"] = sorted(walls["eager"])[len(walls["eager"]) // 2]
+
+    # AdamW's device time over this state, apart (the params stand in for
+    # the gradients: one shape and dtype), the second of two calls
+    p, o = state.pop("eager")
+    adam_ms = [_event_ms(lambda: adamw.adamw_update(tcfg.opt, p, p, o))
+               for _ in range(2)][-1]
+    del p, o
+    gc.collect()
+    torch.cuda.empty_cache()
+    for k in ("eager", "graph"):
+        st = stats[k]
+        other = st.get("other", {})
+        disp = sum(ms for name, ms in other.items()
+                   if any(s in name for s in DISPATCH_OPS))
+        print(f"  {k}: median step {med[k] * 1e3:.1f} ms, "
+              f"{TRAIN_T / med[k]:.0f} tokens/s; traced step "
+              f"{st['ops']:.0f} device operations, busy {st['busy_ms']:.1f} "
+              f"ms = {st['busy_ms'] / (med[k] * 1e3):.1%} of the untraced "
+              f"median: K2 {st['K2_ms']:.1f} ms ({st['K2']:.0f}), K1 "
+              f"{st['K1_ms']:.1f} ms ({st['K1']:.0f}), the dispatch's sort, "
+              f"scatter, gather and index ops {disp:.1f} ms, AdamW alone "
+              f"{adam_ms:.1f} ms (between CUDA events), the rest "
+              f"{st['busy_ms'] - st['K1_ms'] - st['K2_ms'] - disp:.1f} ms "
+              f"(AdamW in it); card {CARD}", flush=True)
+
+    # GuardedStep(jit=True): clean
+    gs = step_mod.GuardedStep(step, jit=True, registry=MetricsRegistry())
+    p, o = params, adamw.adamw_init(params)
+    for i in range(2):
+        p, o, met = gs(p, o, batches[i])
+    torch.cuda.synchronize()
+    check(gs.stats() == {"guard_trips": 0, "rejits": 0, "retries": 0}
+          and gs.captures == 1 and math.isfinite(float(met["loss"])),
+          f"GuardedStep(jit=True) over the MoE step: 2 calls clean "
+          f"{gs.stats()}, {gs.captures} capture")
+    gs._fn.release()
+    del gs, p, o, met
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the Trainer over the captured step; no checkpoint is written on the
+    # card (the run's state would be ~20 GB), so its saves do nothing
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(TrainerConfig(total_steps=MOE_TRAINER_STEPS,
+                                        ckpt_every=10 ** 9, ckpt_dir=tmp,
+                                        log_every=1),
+                          step_mod.jit_train_step(step, dev), params,
+                          adamw.adamw_init(params),
+                          SyntheticLM(DataConfig(TRAIN_B, TRAIN_S,
+                                                 cfg.vocab), cfg,
+                                      device=dev))
+        trainer._save = lambda block=False: None
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res = trainer.run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launched = counts()[:3]
+        wrote = os.listdir(tmp)
+        trainer.train_step.release()
+    losses = res["loss_trajectory"]
+    audit = res["contraction_audit"]
+    got = {s: v["mults"] for s, v in audit["by_site"].items()}
+    calls = MOE_TRAINER_STEPS + res["captures"]
+    check(res["final_step"] == MOE_TRAINER_STEPS and res["captures"] == 1
+          and all(math.isfinite(x) for x in losses) and not wrote
+          and res["step_failures"] == 0,
+          f"Trainer: {MOE_TRAINER_STEPS} captured steps, losses {losses}, "
+          f"{res['captures']} capture, no checkpoint written, peak "
+          f"allocation {peak:.2f} GiB; card {CARD}")
+    check(got == expected and audit["fraction_square"] == 1.0
+          and audit["fraction_square_bwd"] == 1.0,
+          "the Trainer's first-step audit (the compiled audit of its first "
+          "replay): the analytic count, fraction_square and "
+          "fraction_square_bwd 1.0")
+    check(launched == tuple(calls * n for n in split["block"]),
+          f"the Trainer's launches {launched} = (steps + captures) {calls} "
+          f"x a step's {split['block']}")
+    del trainer, params, model, step, loss_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  memory: an eager step peaks at {eager_peak:.2f} GiB, the "
+          f"captured step's first call at {graph_peak:.2f} GiB, the "
+          f"Trainer at {peak:.2f} GiB; after "
+          f"{_gib(torch.cuda.memory_allocated())}; card {CARD}", flush=True)
+    return {"rows": rows, "rules": rules, "step": split["block"],
+            "trainer": dict(zip(kk, launched)),
+            "median_ms": {k: v * 1e3 for k, v in med.items()},
+            "trace": stats, "adamw_ms": adam_ms,
+            "peak_gib": {"eager": eager_peak, "graph": graph_peak,
+                         "trainer": peak}}
+
+
 def moe_entries(k1, k2, k4, moe) -> None:
     """Add the MoE path to the K1, K2 and K4 entries of the kernels line:
     launches per decode tick, prefill chunk and first token by the routing
@@ -3554,8 +4472,36 @@ def moe_entries(k1, k2, k4, moe) -> None:
                                       kern["moe"]["max_abs_err"])
 
 
+def moe_train_entries(k1, k2, mt) -> None:
+    """Add MoE training to the K1 and K2 entries of the kernels line: per
+    train step of the MoE phase's depth, the router's (K1) and the
+    experts' (K2) launches at the shapes timed there, their times, and
+    each kernel's launches a whole step by the routing rules (which the
+    phase checked by counter, ledger and profiler)."""
+    L = MOE_TRAIN_LAYERS
+    for kern, key in ((k1, "K1"), (k2, "K2")):
+        rows = [r for r in mt["rows"] if r["kernel"] == key]
+        t_bytes = sum(r["per_step"] * r["t_bytes"] for r in rows)
+        t_ops = sum(r["per_step"] * r["t_ops"] for r in rows)
+        kern["moe_train"] = {
+            "per": f"one train step of {MOE_ARCH} at its published width, "
+                   f"{L} layers, {TRAIN_B} x {TRAIN_S} tokens: the "
+                   f"{'router' if key == 'K1' else 'expert'} GEMMs, "
+                   f"forward, both gradients and the recompute",
+            "launches_at_these_shapes": sum(r["per_step"] for r in rows),
+            "launches_per_step": sum(mt["rules"][p][key]
+                                     for p in mt["rules"]),
+            **{k: sum(r["per_step"] * r[k] for r in rows)
+               for k in ("ms", "plain_ms", "library_ms", "floor_ms")},
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": max(r["max_abs_err"] for r in rows)}
+        kern["max_abs_err"] = max(kern["max_abs_err"],
+                                  kern["moe_train"]["max_abs_err"])
+
+
 def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
-                cpm_rows, launches, train, moe):
+                cpm_rows, launches, train, moe, moe_train):
     """The kernels line.  ``launches``: {kernel: {path: count}} read after
     each path's run.  K1's and K4's times are per decode step of the paged
     engine, K2's per paged prefill chunk, K3's per dense decode step, K7's
@@ -3645,6 +4591,7 @@ def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
         kern["max_abs_err"] = max(kern["max_abs_err"],
                                   kern["train"]["max_abs_err"])
     moe_entries(k1, k2, k4, moe)
+    moe_train_entries(k1, k2, moe_train)
     return json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8]})
 
 
@@ -3682,6 +4629,7 @@ def run(dev) -> str:
     compiled_guard_phase(dev, plain)
     train = train_phases(dev, gen, compared)
     moe = moe_phase(dev, gen)
+    moe_train = moe_train_phase(dev, gen)
     launches = {"K1": {"engine_square_gemms": k1_total,
                        "launcher": launcher["K1"],
                        "engine_graph": graph["K1"],
@@ -3691,13 +4639,15 @@ def run(dev) -> str:
                        "conv_path": conv["K1"],
                        "train": train["launches"]["K1"],
                        "moe_engine": moe["launches"]["eager"]["K1"],
-                       "moe_engine_graph": moe["launches"]["graph"]["K1"]},
+                       "moe_engine_graph": moe["launches"]["graph"]["K1"],
+                       "moe_train": moe_train["trainer"]["K1"]},
                 "K2": {"engine_no_policy": none["K2"],
                        "server_no_policy": dense["K2"],
                        "server_graph": dense_graph["K2"],
                        "train": train["launches"]["K2"],
                        "moe_engine": moe["launches"]["eager"]["K2"],
-                       "moe_engine_graph": moe["launches"]["graph"]["K2"]},
+                       "moe_engine_graph": moe["launches"]["graph"]["K2"],
+                       "moe_train": moe_train["trainer"]["K2"]},
                 "K3": {"server_no_policy": dense["K3"],
                        "server_graph": dense_graph["K3"],
                        "train": train["launches"]["K3"]},
@@ -3718,7 +4668,7 @@ def run(dev) -> str:
           f"m={DENSE_BATCH} {dense_k1:.3f} ms, K3 24 launches "
           f"{dense_k3:.3f} ms", flush=True)
     return kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
-                       cpm_rows, launches, train, moe)
+                       cpm_rows, launches, train, moe, moe_train)
 
 
 def main() -> int:

@@ -1413,3 +1413,40 @@ def test_captured_moe_block_equals_eager_on_card(cuda_device, moe_layer):
             assert torch.equal(out, eager)
     assert sq_matmul_k1.launches == k1 + 2 * 5       # wq wk wv wo router
     assert sq_matmul_k2.launches == k2 + 2 * 3       # gate, up, down
+
+
+def test_captured_moe_train_step_bit_equal_to_eager_on_card(cuda_device):
+    """A MoE train step (8 experts top-3 at capacity factor 0.5, so every
+    layer drops assignments; remat "block") replayed from one CUDA graph
+    equals the eager step bit for bit over two steps, with the experts'
+    forward and both gradients on K2."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    cfg = ModelConfig(name="tiny-moe-train", family="moe", n_layers=2,
+                      d_model=64, n_heads=2, n_kv_heads=2, d_ff=128,
+                      vocab=256, head_dim=32, n_experts=8, topk=3,
+                      capacity_factor=0.5, block_pattern=("moe",),
+                      dtype="bfloat16", matmul_mode="square_pallas",
+                      remat="block", loss_chunk=64, attn_chunk_q=32,
+                      attn_chunk_kv=32, max_seq=64)
+    model = build_model(cfg, device=cuda_device, seed=0)
+    params = model.train_params()
+    step = step_mod.make_train_step(model, step_mod.TrainConfig())
+    batches = SyntheticLM(DataConfig(4, 32, cfg.vocab), cfg,
+                          device=cuda_device).take(2)
+    jitted = step_mod.jit_train_step(step, cuda_device)
+    runs = {}
+    for name, fn in (("eager", step), ("graph", jitted)):
+        k2 = sq_matmul_k2.launches
+        p, o, losses = params, adamw.adamw_init(params), []
+        for b in batches:
+            p, o, met = fn(p, o, b)
+            losses.append(met["loss"].clone())
+        torch.cuda.synchronize()
+        assert sq_matmul_k2.launches > k2
+        runs[name] = adamw.tree_fingerprint({"l": losses, "p": p, "o": o})
+    assert jitted.captures == 1 and jitted.current.replays == 2
+    assert runs["graph"] == runs["eager"]
