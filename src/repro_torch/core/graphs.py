@@ -260,10 +260,14 @@ class CapturedCall:
     :meth:`replay` then runs the first call, and each later call is
     ``call(*args)``.  So ``fn`` must give the same result when run again
     on the same inputs, as a functional train step does, or a model call
-    that writes its caches in place at the positions of its inputs."""
+    that writes its caches in place at the positions of its inputs.  A
+    call that updates tensors in place from their own values (a recurrent
+    state) names them in ``state``: they are copied before the warm-up and
+    written back after it, so the first replay applies the call once."""
 
     def __init__(self, fn: Callable, args: Sequence[Any], *,
-                 device: torch.device, pool=None, name: str = "call"):
+                 device: torch.device, pool=None, name: str = "call",
+                 state: Sequence[torch.Tensor] = ()):
         device = torch.device(device)
         if device.type != "cuda":
             raise CaptureError(f"CUDA graphs need a CUDA device; {name} was "
@@ -278,6 +282,7 @@ class CapturedCall:
         self._write(args)
 
         stream = torch.cuda.current_stream(device)
+        saved = [t.clone() for t in state]
         side = _warmup_stream(device)
         side.wait_stream(stream)
         # builds, loads, sets attributes; recorded, so that it checks and
@@ -290,6 +295,9 @@ class CapturedCall:
             fn(*self.inputs)
         warm.count_launches()
         stream.wait_stream(side)
+        for t, t0 in zip(state, saved):
+            t.copy_(t0)
+        del saved
 
         self.ledger = CaptureLedger()
         self.graph = torch.cuda.CUDAGraph()
@@ -510,11 +518,13 @@ class GraphSet:
     pool.  ``fns``: name -> function of the static device buffers.
     ``set(name, *args)`` is one call; ``calls`` holds the graphs captured
     so far and ``captures`` counts every capture (re-captures included).
-    It holds no reference to its owner, so an owner that binds its calls
-    to it stays free of reference cycles."""
+    ``state``: tensors the calls update in place from their own values
+    (:class:`CapturedCall`'s).  It holds no reference to its owner, so an
+    owner that binds its calls to it stays free of reference cycles."""
 
-    def __init__(self, fns: Dict[str, Callable], device: torch.device):
-        self.fns, self.device = fns, device
+    def __init__(self, fns: Dict[str, Callable], device: torch.device,
+                 state: Sequence[torch.Tensor] = ()):
+        self.fns, self.device, self.state = fns, device, tuple(state)
         self.calls: Dict[str, CapturedCall] = {}
         self.captures = 0
         self._pool = None
@@ -528,7 +538,7 @@ class GraphSet:
         self.captures += 1
         graph = self.calls[name] = CapturedCall(
             self.fns[name], args, device=self.device, pool=self._pool,
-            name=name)
+            name=name, state=self.state)
         return graph.replay()
 
     def release(self) -> None:

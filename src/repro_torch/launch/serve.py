@@ -1,5 +1,7 @@
 """Serving launcher: the paged continuous-batching engine (default) or the
-dense reference Server (``--legacy``), on the GPU.
+dense reference Server (``--legacy``), on the GPU.  An arch with non-KV
+decode state (the recurrent ``recurrentgemma-2b`` and ``xlstm-350m``) falls
+back to the dense Server with the JAX launcher's note.
 
     python -m repro_torch.launch.serve --arch fairsquare-demo \\
         --matmul-mode square_pallas --prepared [--legacy --max-batch 4]
@@ -143,11 +145,12 @@ def _serve(args):
         cfg = dataclasses.replace(cfg, matmul_mode=args.matmul_mode)
     if args.policy == "square_gemms":
         cfg = dataclasses.replace(cfg, contraction_policy=SQUARE_GEMMS_POLICY)
-    if not args.legacy and any(k not in PAGEABLE_KINDS
-                               for k in cfg.layer_kinds):
-        raise ValueError(f"arch {cfg.name!r} has blocks the paged engine "
-                         f"cannot serve ({sorted(set(cfg.layer_kinds))}); "
-                         f"pass --legacy for the dense Server")
+    if not args.legacy and (cfg.encoder_layers or cfg.prefix_tokens
+                            or any(k not in PAGEABLE_KINDS
+                                   for k in cfg.layer_kinds)):
+        print(f"note: arch {cfg.name!r} has non-KV decode state; "
+              f"falling back to the dense reference Server")
+        args.legacy = True
     model = build_model(cfg, device=args.device, seed=args.seed)
     reqs = make_requests(cfg, args.requests, seed=args.seed)
     if args.legacy:

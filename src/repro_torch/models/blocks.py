@@ -1,8 +1,18 @@
-"""Decoder blocks: the PyTorch port of ``repro/models/blocks.py``, the
-``attn`` kind (pre-norm attention + FFN) and the ``moe`` kind (pre-norm
-attention + a mixture of experts, :mod:`repro_torch.models.moe`): the
+"""Decoder blocks: the PyTorch port of ``repro/models/blocks.py``.
+
+Every layer is a ``kind``: ``attn`` (pre-norm attention + FFN), ``moe``
+(attention + a mixture of experts, :mod:`repro_torch.models.moe`),
+``lattn`` (``attn`` at ``cfg.local_window``), ``rglru`` (the RG-LRU mix,
+:mod:`repro_torch.models.rglru`, + an optional FFN), ``mlstm`` and
+``slstm`` (the xLSTM mixes, :mod:`repro_torch.models.xlstm`): the
 full-sequence pass, dense and paged decode, and the empty caches.  The
-recurrent and cross-attention kinds come with ROADMAP Q1 step 6."""
+cross-attention kind (``xdec``, whisper) comes with ROADMAP Q1 step 6.
+
+A recurrent kind's cache is its state (a dict of ``(B, ...)`` tensors);
+decode writes the new state into those tensors in place, as attention
+writes its K/V ring, so a captured decode step carries it from replay to
+replay.
+"""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -13,13 +23,29 @@ from repro_torch.layers import basic
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import xlstm as xlstm_mod
 
 __all__ = ["block_spec", "block_forward", "block_decode", "block_init_cache",
-           "block_init_paged_cache", "PAGEABLE_KINDS"]
+           "block_init_paged_cache", "PAGEABLE_KINDS", "KINDS"]
 
-# Block kinds whose decode cache is a paged KV pool.  The JAX package also
-# pages ``lattn``, which this port builds with the recurrent archs.
-PAGEABLE_KINDS = ("attn", "moe")
+#: Block kinds this port builds.
+KINDS = ("attn", "moe", "lattn", "rglru", "mlstm", "slstm")
+#: Kinds whose layer runs attention (their cache is a K/V ring).
+ATTN_KINDS = ("attn", "moe", "lattn")
+#: Block kinds whose decode cache is a KV dict -- the kinds the paged
+#: serving engine supports (recurrent state is per slot, not positional,
+#: so paging does not apply to it).
+PAGEABLE_KINDS = ("attn", "moe", "lattn")
+
+_RECURRENT = {
+    "rglru": (rglru_mod.rglru_forward, rglru_mod.rglru_decode,
+              rglru_mod.rglru_init_state),
+    "mlstm": (xlstm_mod.mlstm_forward, xlstm_mod.mlstm_decode,
+              xlstm_mod.mlstm_init_state),
+    "slstm": (xlstm_mod.slstm_forward, xlstm_mod.slstm_decode,
+              xlstm_mod.slstm_init_state),
+}
 
 
 def _norm_spec(cfg):
@@ -35,17 +61,30 @@ def _norm_apply(cfg, p, x):
 
 
 def _check_kind(kind: str) -> None:
-    if kind not in ("attn", "moe"):
+    if kind == "xdec":
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet; this port builds "
-            f"attention and MoE blocks (the recurrent and cross-attention "
-            f"kinds come with ROADMAP Q1 step 6)")
+            "block kind 'xdec' (cross-attention) is not ported yet; it "
+            "comes with ROADMAP Q1 step 6")
+    if kind not in KINDS:
+        raise ValueError(f"unknown block kind {kind!r}")
+
+
+def _window_for(kind: str, cfg):
+    return cfg.local_window if kind == "lattn" else cfg.window
 
 
 def block_spec(kind: str, cfg) -> Dict[str, Any]:
     _check_kind(kind)
-    s: Dict[str, Any] = {"ln1": _norm_spec(cfg), "attn": attn.attn_spec(cfg)}
-    if cfg.d_ff:
+    s: Dict[str, Any] = {"ln1": _norm_spec(cfg)}
+    if kind in ATTN_KINDS:
+        s["attn"] = attn.attn_spec(cfg)
+    elif kind == "rglru":
+        s["mix"] = rglru_mod.rglru_spec(cfg)
+    elif kind == "mlstm":
+        s["mix"] = xlstm_mod.mlstm_spec(cfg)
+    else:
+        s["mix"] = xlstm_mod.slstm_spec(cfg)
+    if cfg.d_ff and kind in ATTN_KINDS + ("rglru",):
         s["ln2"] = _norm_spec(cfg)
         s["ffn"] = (moe_mod.moe_spec(cfg) if kind == "moe"
                     else ffn_mod.ffn_spec(cfg))
@@ -56,7 +95,7 @@ def _ffn_residual(kind, cfg, p, x, mode, policy):
     """``x`` plus the block's FFN (or MoE) of its normed input; returns
     ``(x, aux_loss)``, the aux loss zero outside a MoE block."""
     aux = torch.zeros((), device=x.device)
-    if cfg.d_ff:
+    if "ffn" in p:
         h2 = _norm_apply(cfg, p["ln2"], x)
         if kind == "moe":
             B, S, D = h2.shape
@@ -74,17 +113,23 @@ def _ffn_residual(kind, cfg, p, x, mode, policy):
 def block_forward(kind: str, p, x, ctx):
     """Full-sequence block pass.  ``ctx``: dict(cfg, mode, policy,
     positions (S,), causal).  Returns ``(x_out, cache_seed, aux_loss)``;
-    the seed is this layer's roped ``{"k", "v"}`` (B, S, KV, hd)."""
+    the seed is an attention layer's roped ``{"k", "v"}`` (B, S, KV, hd),
+    a recurrent layer's final state."""
     _check_kind(kind)
     cfg, mode, policy = ctx["cfg"], ctx["mode"], ctx.get("policy")
     h = _norm_apply(cfg, p["ln1"], x)
-    out, (k, v) = attn.attn_forward(p["attn"], h, cfg=cfg,
-                                    positions=ctx["positions"],
-                                    causal=ctx.get("causal", True),
-                                    window=cfg.window, mode=mode,
-                                    policy=policy)
+    if kind in ATTN_KINDS:
+        out, (k, v) = attn.attn_forward(p["attn"], h, cfg=cfg,
+                                        positions=ctx["positions"],
+                                        causal=ctx.get("causal", True),
+                                        window=_window_for(kind, cfg),
+                                        mode=mode, policy=policy)
+        seed = {"k": k, "v": v}
+    else:
+        out, seed = _RECURRENT[kind][0](p["mix"], h, cfg=cfg, mode=mode,
+                                        policy=policy)
     x, aux = _ffn_residual(kind, cfg, p, x + out, mode, policy)
-    return x, {"k": k, "v": v}, aux
+    return x, seed, aux
 
 
 def block_decode(kind: str, p, x, cache, ctx):
@@ -93,29 +138,47 @@ def block_decode(kind: str, p, x, cache, ctx):
 
     With ``ctx["paged"]`` (the engine) the cache is the layer's pool dict,
     S may be a prefill chunk and ``ctx["pos"]`` is (B, S); otherwise it is
-    the dense ``{"k", "v", "pos"}`` cache, S = 1 and ``ctx["pos"]`` is
-    (B,)."""
+    the dense ``{"k", "v", "pos"}`` cache or a recurrent layer's state, S =
+    1 and ``ctx["pos"]`` is (B,).  A recurrent layer's new state is copied
+    into the cache's own tensors."""
     _check_kind(kind)
     cfg, mode, policy = ctx["cfg"], ctx["mode"], ctx.get("policy")
     h = _norm_apply(cfg, p["ln1"], x)
-    if ctx.get("paged") is not None:
+    if kind not in ATTN_KINDS:
+        out, state = _RECURRENT[kind][1](p["mix"], h, cache, cfg=cfg,
+                                         mode=mode, policy=policy)
+        for key, t in state.items():
+            cache[key].copy_(t)
+    elif ctx.get("paged") is not None:
         out = attn._attn_paged_step(p["attn"], h, cache, ctx["pos"],
-                                    cfg=cfg, window=cfg.window, mode=mode,
-                                    policy=policy, paged=ctx["paged"])
+                                    cfg=cfg, window=_window_for(kind, cfg),
+                                    mode=mode, policy=policy,
+                                    paged=ctx["paged"])
     else:
         out, _ = attn.attn_decode(p["attn"], h, cache, ctx["pos"], cfg=cfg,
-                                  window=cfg.window, mode=mode,
+                                  window=_window_for(kind, cfg), mode=mode,
                                   policy=policy)
     return _ffn_residual(kind, cfg, p, x + out, mode, policy)[0]
 
 
 def block_init_cache(kind: str, cfg, batch: int, cache_len: int, device):
-    """Empty dense KV cache for one layer (a ring under ``cfg.window``)."""
+    """Empty dense decode cache for one layer: a K/V ring (``cache_len``
+    long, the window under a sliding window) or a recurrent kind's initial
+    state."""
     _check_kind(kind)
-    return attn.init_kv_cache(cfg, batch, cache_len, device, cfg.window)
+    if kind in ATTN_KINDS:
+        return attn.init_kv_cache(cfg, batch, cache_len, device,
+                                  _window_for(kind, cfg))
+    return _RECURRENT[kind][2](cfg, batch, device)
 
 
 def block_init_paged_cache(kind: str, cfg, pool_slots: int, device):
-    """Empty paged KV pool for one layer."""
+    """Empty paged KV pool for one layer; raises for a kind with non-KV
+    decode state, as the JAX package does."""
     _check_kind(kind)
+    if kind not in PAGEABLE_KINDS:
+        raise ValueError(
+            f"block kind {kind!r} has no paged decode cache; the paged "
+            f"serving engine supports {PAGEABLE_KINDS} (use the dense "
+            f"reference Server for recurrent / encoder-decoder archs)")
     return attn.init_paged_kv_cache(cfg, pool_slots, device)

@@ -8,8 +8,9 @@ stack).  The functional entry points take a params tree, as in the JAX
 package: :meth:`LM.tree` is the module's own weights (serving weights,
 ``requires_grad=False``), :meth:`LM.train_params` a copy of them as plain
 tensors for the functional train step, and :meth:`LM.prepare_params`
-returns the tree with every GEMM weight -- of every layer -- replaced by a
-:class:`~repro_torch.core.prepared.PreparedOperand`.
+returns the tree with every attention, FFN and expert weight -- of every
+layer -- replaced by a :class:`~repro_torch.core.prepared.PreparedOperand`
+(a recurrent block's ``mix`` weights stay raw, as in JAX).
 
 Under autograd, ``cfg.remat == "block"`` rematerialises each block in the
 backward (``torch.utils.checkpoint`` through
@@ -38,13 +39,13 @@ __all__ = ["LM", "build_model"]
 
 def _check_supported(cfg) -> None:
     if cfg.encoder_layers or cfg.prefix_tokens \
-            or any(k not in ("attn", "moe") for k in cfg.layer_kinds):
+            or any(k not in blk.KINDS for k in cfg.layer_kinds):
         raise NotImplementedError(
             f"arch {cfg.name!r} (family {cfg.family!r}, blocks "
             f"{sorted(set(cfg.layer_kinds))}) is not ported yet: this port "
-            f"builds decoder LMs of attention and MoE blocks; recurrent, "
-            f"encoder-decoder and prefix-token archs come with ROADMAP Q1 "
-            f"step 6")
+            f"builds decoder LMs of attention, MoE, local-attention and "
+            f"recurrent (RG-LRU, mLSTM, sLSTM) blocks; encoder-decoder and "
+            f"prefix-token archs come with ROADMAP Q1 step 6")
 
 
 def _as_tree(m: nn.Module):
@@ -56,7 +57,8 @@ def _as_tree(m: nn.Module):
 
 
 class LM(nn.Module):
-    """Decoder LM (attention and MoE blocks) with tied embeddings."""
+    """Decoder LM (attention, MoE, local-attention and recurrent blocks)
+    with tied embeddings."""
 
     def __init__(self, cfg, *, device: torch.device, seed: int = 0):
         super().__init__()
@@ -93,18 +95,19 @@ class LM(nn.Module):
     def prepare_params(self, params: Optional[Dict[str, Any]] = None
                        ) -> Dict[str, Any]:
         """Weight-stationary inference params (paper §4-§5): every
-        projection and FFN weight of every layer -- of a MoE block the
-        router (site ``moe_router``) and the three batched ``(E, K, N)``
-        expert stacks (``moe_expert``) -- and the transposed vocab table
-        (``logits_prep``), prepared once: widened, ``Sb`` precomputed."""
+        attention projection and FFN weight of every layer -- of a MoE
+        block the router (site ``moe_router``) and the three batched
+        ``(E, K, N)`` expert stacks (``moe_expert``) -- and the transposed
+        vocab table (``logits_prep``), prepared once: widened, ``Sb``
+        precomputed.  A recurrent block's ``mix`` subtree stays raw, as in
+        the JAX package."""
         params = params if params is not None else self.tree()
         cfg = self.cfg
         hd = cfg.resolved_head_dim
         H, KV = cfg.n_heads, cfg.n_kv_heads
 
-        def prep_layer(p):
-            q = dict(p)
-            a = {k: dict(v) for k, v in p["attn"].items()}
+        def prep_attn(p):
+            a = {k: dict(v) for k, v in p.items()}
             for nm, nh in (("wq", H), ("wk", KV), ("wv", KV)):
                 w = a[nm]["w"]
                 a[nm]["w"] = prepare_operand(w.reshape(w.shape[0], nh * hd),
@@ -112,7 +115,12 @@ class LM(nn.Module):
             wo = a["wo"]["w"]
             a["wo"]["w"] = prepare_operand(wo.reshape(H * hd, wo.shape[-1]),
                                            site="attn_out")
-            q["attn"] = a
+            return a
+
+        def prep_layer(p):
+            q = dict(p)
+            if "attn" in p:
+                q["attn"] = prep_attn(p["attn"])
             if "ffn" in p and "router" in p["ffn"]:
                 q["ffn"] = {k: dict(v, w=prepare_operand(
                     v["w"], site="moe_router" if k == "router"
@@ -146,8 +154,9 @@ class LM(nn.Module):
                 collect_cache: bool = False):
         """Teacher-forced full-sequence pass over ``batch["tokens"]``
         (B, S) -> ``(hidden (B, S, D), aux_loss, caches)``.  With
-        ``collect_cache`` (prefill), ``caches`` lists each layer's
-        ``{"k", "v"}`` seed; otherwise it is empty."""
+        ``collect_cache`` (prefill), ``caches`` lists each layer's seed --
+        an attention layer's ``{"k", "v"}``, a recurrent layer's final
+        state; otherwise it is empty."""
         cfg = self.cfg
         x = self._embed_in(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
@@ -171,15 +180,19 @@ class LM(nn.Module):
     # ------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, cache_len: int
                    ) -> List[Dict[str, torch.Tensor]]:
-        """One dense ``{"k", "v", "pos"}`` cache per layer, ``cache_len``
-        long (the window under SWA), every position EMPTY_POS."""
+        """One dense decode cache per layer: an attention layer's ``{"k",
+        "v", "pos"}`` ring, ``cache_len`` long (the window under a sliding
+        window), every position EMPTY_POS; a recurrent layer's initial
+        state (zeros, the xLSTM stabilizers at -1e30)."""
         return [blk.block_init_cache(k, self.cfg, batch_size, cache_len,
                                      self.device)
                 for k in self.cfg.layer_kinds]
 
     def init_paged_cache(self, pool_slots: int) -> List[Dict[str, torch.Tensor]]:
         """One ``(pool_slots, KV, hd)`` K/V pool per layer, shared by every
-        sequence through the engine's block tables."""
+        sequence through the engine's block tables.  Raises ValueError for
+        an arch with a recurrent layer, which serves through the dense
+        ``Server``."""
         return [blk.block_init_paged_cache(k, self.cfg, pool_slots,
                                            self.device)
                 for k in self.cfg.layer_kinds]
@@ -216,8 +229,10 @@ class LM(nn.Module):
     def decode_step(self, params, cache, tokens: torch.Tensor,
                     pos: torch.Tensor):
         """One decode step against the dense cache.  ``tokens`` (B, 1),
-        ``pos`` (B,) absolute.  The cache is updated IN PLACE (the JAX
-        version returns a new one).  Returns ``(logits (B, V), cache)``."""
+        ``pos`` (B,) absolute.  The cache is updated IN PLACE -- K/V rings
+        at each row's slot, recurrent states copied into their own tensors
+        (the JAX version returns a new cache) -- so a captured step carries
+        it from replay to replay.  Returns ``(logits (B, V), cache)``."""
         cfg = self.cfg
         x = self._embed_in(params, tokens)
         ctx = {"cfg": cfg, "mode": cfg.matmul_mode,
@@ -231,13 +246,18 @@ class LM(nn.Module):
     def prefill(self, params, batch: Dict[str, torch.Tensor],
                 cache_len: int):
         """Process a prompt; returns ``(hidden (B, S, D), cache)`` with the
-        cache ready for :meth:`decode_step`.  When the prompt fills the
-        cache (S >= T, a sliding-window ring), its last T entries roll in
-        at slot ``pos % T``."""
+        cache ready for :meth:`decode_step`.  When the prompt fills an
+        attention layer's cache (S >= T, a sliding-window ring), its last T
+        entries roll in at slot ``pos % T``; a recurrent layer's final
+        state is copied in as it is."""
         hidden, _, seeds = self.forward(params, batch, collect_cache=True)
         cache = self.init_cache(hidden.shape[0], cache_len)
         dev = hidden.device
         for dst, seed in zip(cache, seeds):
+            if "k" not in seed:                     # recurrent state
+                for key, t in seed.items():
+                    dst[key].copy_(t)
+                continue
             S, T = seed["k"].shape[1], dst["k"].shape[1]
             if S >= T:
                 ps = torch.arange(S - T, S, device=dev)

@@ -1,11 +1,12 @@
 """The dense reference serving loop: the PyTorch port of
 ``repro/serve/server.py``.
 
-- a fixed decode batch of ``max_batch`` slots over one dense KV cache per
-  layer, with slot recycling (a finished sequence's slot is refilled from
-  the queue);
+- a fixed decode batch of ``max_batch`` slots over one dense cache per
+  layer (a K/V ring, or a recurrent layer's state), with slot recycling
+  (a finished sequence's slot is refilled from the queue; an inactive
+  slot keeps stepping, as in JAX, and is overwritten on insert);
 - batch-of-one prefill (``LM.prefill``), whose cache is written into the
-  slot layer by layer;
+  slot layer by layer, every tensor of it;
 - slot-batched decode (``LM.decode_step``) at each slot's own position;
 - greedy or temperature sampling (from an explicit ``torch.Generator``);
 - per-request ``max_new_tokens`` / EOS termination.
@@ -14,11 +15,15 @@ On a CUDA device the decode step is captured once into a CUDA graph
 (:class:`~repro_torch.core.graphs.CapturedCall`, with static token and
 position buffers over the server's one dense cache) and replayed at every
 step after, as the JAX ``Server`` jits ``decode_step``; prefill varies in
-length and runs eagerly, as in JAX.  ``ServeConfig.jit`` has the engine's
-meaning: ``None`` captures on CUDA and runs eagerly on the CPU, ``True``
-on the CPU is refused, ``False`` runs eagerly anywhere.  The cache is the
-server's for its lifetime (a graph holds its address) and is reset at the
-start of every :meth:`Server.run`.
+length and runs eagerly, as in JAX.  The decode step updates the recurrent
+states in place from their own values, so the capture's warm-up call
+restores them after it runs (``GraphSet``'s ``state``).
+``ServeConfig.jit`` has the engine's meaning: ``None`` captures on CUDA
+and runs eagerly on the CPU, ``True`` on the CPU is refused, ``False``
+runs eagerly anywhere.  The cache is the
+server's for its lifetime (a graph holds its address) and is reset in
+place, every tensor to its initial value, at the start of every
+:meth:`Server.run`.
 
 The paged :class:`~repro_torch.serve.engine.Engine` is the production
 path; this loop is the plain reference it is compared with.
@@ -33,8 +38,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import graphs
+from repro_torch.core.tree import tree_leaves
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import EMPTY_POS
 
 __all__ = ["ServeConfig", "Request", "Server", "write_slot"]
 
@@ -63,12 +68,14 @@ class Request:
 
 def write_slot(cache, slot: int, one) -> None:
     """Copy a batch-of-one cache ``one`` (``LM.prefill``'s) into row
-    ``slot`` of the batched cache ``cache``, every layer and every entry
-    (the prefill cache's unwritten positions are EMPTY_POS, so the slot's
-    previous occupant leaves nothing behind)."""
+    ``slot`` of the batched cache ``cache``: every layer and every tensor
+    (K/V, positions, recurrent state; the batch is each tensor's first
+    axis), as JAX's ``slot_set`` does.  The prefill cache's unwritten
+    positions are EMPTY_POS, so the slot's previous occupant leaves
+    nothing behind."""
     for dst, src in zip(cache, one):
-        for key in ("k", "v", "pos"):
-            dst[key][slot] = src[key][0].to(dst[key].dtype)
+        for key, t in dst.items():
+            t[slot] = src[key][0].to(t.dtype)
 
 
 class Server:
@@ -94,6 +101,7 @@ class Server:
         self.device = model.device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.cache = cache = model.init_cache(cfg.max_batch, cfg.cache_len)
+        leaves = tree_leaves(cache)
         self.jit = (self.device.type == "cuda" if cfg.jit is None
                     else bool(cfg.jit))
         dev = self.device
@@ -104,7 +112,8 @@ class Server:
         # _decode(tokens (B, 1), pos (B,)) on host arrays -> logits (B, V);
         # compiled, the logits are the graph's, overwritten by the next
         # step.  Bound to locals, not self: no reference cycle.
-        self._graph_set = graphs.GraphSet({"decode_step": step}, dev)
+        self._graph_set = graphs.GraphSet({"decode_step": step}, dev,
+                                          state=leaves)
         self._decode = (
             functools.partial(self._graph_set, "decode_step") if self.jit
             else lambda tokens, pos: step(torch.as_tensor(tokens, device=dev),
@@ -143,10 +152,10 @@ class Server:
         last_tok = np.zeros(cfg.max_batch, np.int32)
         remaining = np.zeros(cfg.max_batch, np.int32)
         cache = self.cache
-        for layer in cache:                 # a fresh cache, in place
-            layer["k"].zero_()
-            layer["v"].zero_()
-            layer["pos"].fill_(EMPTY_POS)
+        fresh = self.model.init_cache(cfg.max_batch, cfg.cache_len)
+        for t, t0 in zip(tree_leaves(cache), tree_leaves(fresh)):
+            t.copy_(t0)                     # a fresh cache, in place
+        del fresh
 
         def insert(slot: int, req: Request) -> None:
             toks = torch.as_tensor(np.asarray(req.tokens, np.int32)[None, :],

@@ -417,7 +417,8 @@ class _StubCall:
     tripped key, or None for a clean call)."""
     schedule, calls, made = [], [], []
 
-    def __init__(self, fn, args, *, device, pool=None, name="call"):
+    def __init__(self, fn, args, *, device, pool=None, name="call",
+                 state=()):
         self.fn, self.name, self.args = fn, name, args
         _StubCall.made.append(name)
 

@@ -113,7 +113,8 @@ class _StubCall:
     own probe flags, as a graph writes its flag vector anew."""
     made = []
 
-    def __init__(self, fn, args, *, device, pool=None, name="call"):
+    def __init__(self, fn, args, *, device, pool=None, name="call",
+                 state=()):
         self.fn, self.name = fn, name
         leaves, self._treedef = tree_flatten(tuple(args))
         self._static = [a.clone() if isinstance(a, torch.Tensor)

@@ -1450,3 +1450,90 @@ def test_captured_moe_train_step_bit_equal_to_eager_on_card(cuda_device):
         runs[name] = adamw.tree_fingerprint({"l": losses, "p": p, "o": o})
     assert jitted.captures == 1 and jitted.current.replays == 2
     assert runs["graph"] == runs["eager"]
+
+
+# ------------------------------------------------------ recurrent serving
+# The batched GEMMs of a dense decode step of 4 rows: xlstm-350m's mLSTM
+# read-out (B*H, 1, hd, hd) and sLSTM recurrence (H, B, d/H, 4d/H),
+# recurrentgemma-2b's local attention scores and PV (B*KV, G, hd, 128) and
+# (B*KV, G, 128, hd)
+RECURRENT_DECODE_SHAPES = [(16, 1, 512, 512), (4, 4, 256, 1024),
+                           (4, 10, 256, 128), (4, 10, 128, 256)]
+
+
+@pytest.mark.parametrize("nb,m,k,n", RECURRENT_DECODE_SHAPES)
+def test_recurrent_decode_shapes_on_k2_k3_on_card(cuda_device, nb, m, k, n):
+    """K2 or K3, wherever the routing rule takes the shape, against the
+    batched plain version (f32 from bf16-rounded operands), and the
+    ``fs_einsum`` call that the block makes at that shape gives the direct
+    launch's bits."""
+    from repro_torch.core.einsum import fs_einsum
+    from repro_torch.kernels import routing
+    route = routing.select_matmul_route(m, n, k, batch=nb).name
+    assert route in ("batched", "fold")
+    kern = sq_matmul_k3 if route == "fold" else sq_matmul_k2
+    gen = torch.Generator().manual_seed(3)
+    a = torch.randn(nb, m, k, generator=gen).to(torch.bfloat16).float().to(
+        cuda_device)
+    b = (torch.randn(nb, k, n, generator=gen) / k ** 0.5).to(
+        torch.bfloat16).float().to(cuda_device)
+    sa, sb = sq.row_correction(a), sq.col_correction(b, dim=-2)
+    before = kern.launches
+    out = kern(a, b, sa, sb)
+    ref = sq_matmul_batched_plain(a, b, sa, sb)
+    tol = k * 2.0 ** -23 * (a.abs().max() + b.abs().max()).item() ** 2
+    assert (out - ref).abs().max().item() <= tol
+    via = fs_einsum("bmk,bkn->bmn", a, b, mode="square_pallas")
+    assert torch.equal(via, out)
+    assert kern.launches == before + 2
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "xlstm-350m"])
+def test_captured_recurrent_decode_step_equals_eager_on_card(cuda_device,
+                                                             arch):
+    """A full-width decode step (published width and depth, bf16, prepared,
+    square_pallas) of 4 prefilled slots, captured the way the Server
+    captures it (``GraphSet`` over the cache, its states restored after the
+    warm-up): three replays give the eager steps' logits and leave the
+    eager cache, bit for bit, from one capture."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import graphs
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve.server import write_slot
+    cfg = dataclasses.replace(get_config(arch), matmul_mode="square_pallas")
+    model = build_model(cfg, device=cuda_device, seed=0)
+    B, T = 4, 128
+    with torch.no_grad():
+        params = model.prepare_params()
+        caches = []
+        for _ in range(2):
+            cache = model.init_cache(B, T)
+            for i in range(B):
+                toks = (torch.arange(5 + 3 * i, dtype=torch.int32) * 7919
+                        % cfg.vocab)[None].to(cuda_device)
+                write_slot(cache, i, model.prefill(params, {"tokens": toks},
+                                                   T)[1])
+            caches.append(cache)
+        eager_cache, graph_cache = caches
+        gs = graphs.GraphSet(
+            {"decode_step": lambda tokens, pos: model.decode_step(
+                params, graph_cache, tokens, pos)[0]}, cuda_device,
+            state=tree_leaves(graph_cache))
+        tok = np.arange(1, B + 1, dtype=np.int32)[:, None]
+        pos = np.array([5 + 3 * i for i in range(B)], np.int32)
+        for _ in range(3):
+            want = model.decode_step(params, eager_cache,
+                                     torch.as_tensor(tok, device=cuda_device),
+                                     torch.as_tensor(pos, device=cuda_device))[0]
+            got = gs("decode_step", tok, pos)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            tok = want.argmax(-1).to(torch.int32).cpu().numpy()[:, None]
+            pos = pos + 1
+    assert gs.captures == 1
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(graph_cache),
+                                                 tree_leaves(eager_cache)))
+    del model, params, caches, eager_cache, graph_cache, gs
+    torch.cuda.empty_cache()

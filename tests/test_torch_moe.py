@@ -289,14 +289,18 @@ def test_moe_block_forward_and_dense_decode_match_jax(arch, mode):
 
 
 def test_moe_block_is_pageable_and_unported_kinds_name_step_6():
-    assert tblk.PAGEABLE_KINDS == ("attn", "moe")
+    assert tblk.PAGEABLE_KINDS == jblk.PAGEABLE_KINDS == ("attn", "moe",
+                                                          "lattn")
     tc = tget("moonshot-v1-16b-a3b").reduced()
     pool = tblk.block_init_paged_cache("moe", tc, 64, CPU)
     assert tuple(pool["k"].shape) == (64, tc.n_kv_heads,
                                       tc.resolved_head_dim)
-    for kind in ("rglru", "mlstm", "xdec", "lattn"):
-        with pytest.raises(NotImplementedError, match="step 6"):
-            tblk.block_spec(kind, tc)
+    # the recurrent kinds are ported but have no paged cache, as in JAX
+    for kind in ("rglru", "mlstm", "slstm"):
+        with pytest.raises(ValueError, match="no paged decode cache"):
+            tblk.block_init_paged_cache(kind, tc, 64, CPU)
+    with pytest.raises(NotImplementedError, match="step 6"):
+        tblk.block_spec("xdec", tc)
 
 
 # -------------------------------------------------------------- the LM

@@ -256,17 +256,24 @@ def test_trainer_resume_is_deterministic(tmp_path, baseline):
     _check_identical(t_b, res, baseline)
 
 
-def test_straggler_watchdog_logic(tmp_path):
+def test_straggler_watchdog_logic(tmp_path, monkeypatch):
+    """The trainer's clock is driven by the test: each step takes 1 s of
+    it and step 3 takes 10 s, 10x the EWMA that step 2 seeded (a straggler
+    past ``watchdog_factor`` 3x), whatever the host's own load."""
+    import types
+    from repro_torch.train import trainer as trainer_mod
+    clock = {"now": 0.0}
+    monkeypatch.setattr(trainer_mod, "time", types.SimpleNamespace(
+        monotonic=lambda: clock["now"]))
     t = _trainer(tmp_path, total=3, ckpt_every=100)
     slow = {"n": 0}
     orig = t.train_step
 
     def sometimes_slow(p, o, b):
-        import time
         slow["n"] += 1
-        if slow["n"] == 3:
-            time.sleep(1.0)             # a simulated straggler
-        return orig(p, o, b)
+        out = orig(p, o, b)
+        clock["now"] += 10.0 if slow["n"] == 3 else 1.0   # a straggler
+        return out
 
     t.train_step = sometimes_slow
     out = t.run()
