@@ -97,8 +97,9 @@ power sampled alongside), and the DFT path is driven as a user would: ``ops.cpm3
 K6 launch -- each result held to ``torch.fft.fft``.
 
 Last, MoE serving: moonshot-v1-16b-a3b at its published width (d 2048,
-16 heads of 128, 64 experts top-6, d_ff 1408, vocab 163840), 16 of its 48
-layers (48 prepared layers do not fit the card), bf16, prepared, weights
+16 heads of 128, 64 experts top-6, d_ff 1408, vocab 163840), 4 of its 48
+layers (48 prepared layers do not fit the card; 4 keep the smoke inside
+its time limit), bf16, prepared, weights
 from seed 0, in the paged engine under the square_gemms policy. K1 is held
 to its plain version at the router's, the attention projections' and the
 logits' shapes, K2 at the two expert shapes (64, 4, 2048) @ (64, 2048,
@@ -113,9 +114,10 @@ syncs, eager and compiled runs timed in turns, and each layer's MoE held to
 ``standard`` teacher-forced (an expert swap only inside the router's
 rounding bound).
 
-Last, MoE training: the same model at its published width, 3 of its 48
+Last, MoE training: the same model at its published width, 2 of its 48
 layers (a captured step holds ~32 B a parameter: the caller's state, the
-graph's static inputs, its new state and the gradients), bf16, remat
+graph's static inputs, its new state and the gradients; 2 keep the smoke
+inside its time limit), bf16, remat
 "block", 8 x 256 tokens, square_pallas with no policy. K1 is held to its
 plain version at the router's three GEMMs of a step and K2 at the expert
 GEMMs' four shapes (forward and dL/dx, and dL/dW over the C = 244 slots),
@@ -158,6 +160,28 @@ by layer with every launch against its exact product; a 1024-token prompt
 the JAX contract and square_pallas against standard; xlstm's mLSTM chunked
 = sequential).
 
+Last, in a process of its own too, recurrent training: recurrentgemma-2b
+at its published width and 18 of its 26 layers (6 of its 8 periods; a
+7th does not fit beside the eager comparison) and xlstm-350m whole, bf16,
+remat "block", square_pallas with no policy, 2048 tokens a step, weights
+from seed 0 drawn on the device.  K1/K2 at every training shape against
+their plain versions (past k = 32768 K1 against its own order of
+summation, with both against the exact product), timed beside
+torch.matmul / torch.bmm; f32 against standard (3 steps' losses, every
+launch of a step against its exact product, recurrentgemma's gradients at
+one period with the loss's vocab GEMM on standard, xlstm's blocks alone
+teacher-forced, each tensor past its gate held to it in a witness run
+with the site that sets its gap on standard, beside the bf16 control);
+launches by
+forward and by step against ``recurrent_train_launches``, an eager step
+free of host syncs whose audit is ``recurrent_train_audit`` and whose
+first launch at each shape is held to its plain version; a captured and
+an eager fixed-seed 2-step run bit for bit; the capture's time, nodes and
+pool; eager and replayed steps timed and traced; the compiled audit; the
+``Trainer`` over the captured step; ``GuardedStep(jit=True)``; the
+launcher for each arch (recurrentgemma at its first period), compiled,
+with its final checkpoint in a fresh directory.
+
     python3 chip_smoke.py
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -179,6 +203,7 @@ import copy
 import dataclasses
 import gc
 import io
+import itertools
 import json
 import math
 import os
@@ -305,6 +330,9 @@ def batched_cases(prompt_lens):
 K1_PER_STEP = {(768, 768): 48, (768, 3072): 24, (3072, 768): 12,
                (768, 32000): 1}
 TRACE_TICKS = 4
+# idle host time inside each profiler window, before the traced work and
+# after its last synchronisation (see padded_profile)
+TRACE_PAD_S = 0.2
 
 
 class SmokeFailure(RuntimeError):
@@ -931,6 +959,29 @@ def _union_us(spans) -> float:
     return busy
 
 
+@contextlib.contextmanager
+def padded_profile(cpu: bool = True):
+    """A torch.profiler window with TRACE_PAD_S of idle host time before
+    the work it traces and after that work's last synchronisation.  The
+    traces that lost CUPTI records on one H100 lost K1 kernels, which
+    open a step, and never a K2, which come later: a recurrentgemma
+    decode replay 198 of its 201 K1 in every try, with its 16 K2 all
+    there; MoE train traces 1-3 of a step's 64 K1 (or 2 of 44), with
+    every K2 there.  The profiler keeps only the device records that fall
+    inside its window, so work at the window's edge falls outside it
+    where the device's and the host's clocks disagree (``trace_steps``
+    prints how far they do).  The pad keeps the work away from both
+    edges."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        time.sleep(TRACE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+
+
 # device kernels by name in a trace
 TRACE_KERNELS = (("K1", "sq_matmul_cluster_kernel"),
                  ("K2", "sq_matmul_batched_kernel"),
@@ -940,23 +991,22 @@ TRACE_KERNELS = (("K1", "sq_matmul_cluster_kernel"),
 
 
 def trace_steps(step, what: str, untraced_s: float,
-                calls: int = TRACE_TICKS) -> dict:
+                calls: int = TRACE_TICKS, host: bool = True) -> dict:
     """torch.profiler trace of ``calls`` calls of ``step``: the
     device-busy share of their wall, and each kernel's and the other
     device work's time per call.  Profiling slows the host, so the busy
     share it reads is a lower bound for the untraced run.  Returns the
     per-call device operations, busy ms, busy share and launches of each
-    kernel (an empty dict when the trace recorded no device events)."""
+    kernel (an empty dict when the trace recorded no device events).
+    ``host=False`` leaves out the host's operators by self time (reading
+    them takes seconds in a trace of 10^5 operators)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with padded_profile() as prof:
         for _ in range(calls):
             with record_function("traced_step"):
                 step()
-        torch.cuda.synchronize()
     evs = prof.events()
     # record_function also leaves a device-side annotation of the same name
     ticks = [e.time_range for e in evs
@@ -972,6 +1022,19 @@ def trace_steps(step, what: str, untraced_s: float,
         print("  trace: no device events recorded; device-busy share not "
               "measured", flush=True)
         return {}
+    # the device's clock against the host's: a device record cannot start
+    # before the traced work began nor before the runtime call that
+    # launched it, so a negative lead is the clocks' disagreement
+    launch = {e.id: e.time_range.start for e in evs
+              if e.device_type == DeviceType.CPU and e.name.startswith("cuda")}
+    first = min(e.time_range.start for e in device)
+    lead_us = min((e.time_range.start - launch[e.id] for e in device
+                   if e.id in launch), default=math.nan)
+    print(f"  trace clocks: the first device record starts "
+          f"{first - min(t.start for t in ticks):.1f} us after the first "
+          f"traced call begins, and a device record at least {lead_us:.1f} "
+          f"us after its launch call (the pad is {TRACE_PAD_S * 1e6:.0f} "
+          f"us)", flush=True)
 
     def kernel(name):
         for label, sym in TRACE_KERNELS:
@@ -1008,6 +1071,8 @@ def trace_steps(step, what: str, untraced_s: float,
         f"{name} {us / n / 1e3:.3f} ms" for name, us in other.most_common(3)),
         flush=True)
     stats["other"] = {name: us / n / 1e3 for name, us in other.items()}
+    if not host:
+        return stats
     # the host side: the operators and CUDA runtime calls that hold the
     # host longest (self time, so a wait lands on the call that waits)
     host = sorted((e for e in prof.key_averages()
@@ -2700,31 +2765,40 @@ def _train_losses(cfg, dev, steps, tcfg=None, jit=False):
 
 
 def _probed_kernels():
-    """Wrap K1 and K2 as ``kernels.ops`` calls them, so that every launch
-    is also held to the exact (float64) product of its operands: returns
-    the list each launch appends (kernel, shape, max|err|, tolerance,
-    max|exact|) to, and the function that unwraps them."""
+    """Wrap K1, K2 and K3 as ``kernels.ops`` calls them, so that every
+    launch is also held to the exact (float64) product of its operands:
+    returns the list each launch's (kernel, shape, max|err|, tolerance,
+    max|exact|) joins when the wrap is undone, and the function that
+    unwraps them.  The step itself reads nothing back (xlstm's launches K2
+    ~5000 times)."""
     from repro_torch.kernels import ops as kops
-    seen, orig = [], (kops.sq_matmul_k1, kops.sq_matmul_k2)
+    seen, pending = [], []
+    orig = {"K1": kops.sq_matmul_k1, "K2": kops.sq_matmul_k2,
+            "K3": kops.sq_matmul_k3}
 
     def probe(name, kern):
         def run(aw, bw, sa, sb):
             out = kern(aw, bw, sa, sb)
             exact = torch.matmul(aw.double(), bw.double())
-            k = aw.shape[-1]
-            tol = k * 2.0 ** -23 * (aw.abs().max().item()
-                                    + bw.abs().max().item()) ** 2
-            seen.append((name, tuple(aw.shape) + (bw.shape[-1],),
-                         (out.double() - exact).abs().max().item(), tol,
-                         exact.abs().max().item()))
+            tol = aw.shape[-1] * 2.0 ** -23 * (
+                aw.abs().max() + bw.abs().max()).double() ** 2
+            pending.append((name, tuple(aw.shape) + (bw.shape[-1],),
+                            torch.stack([(out.double() - exact).abs().max(),
+                                         tol, exact.abs().max()])))
             return out
         return run
 
-    kops.sq_matmul_k1 = probe("K1", orig[0])
-    kops.sq_matmul_k2 = probe("K2", orig[1])
+    for name, kern in orig.items():
+        setattr(kops, f"sq_matmul_{name.lower()}", probe(name, kern))
 
     def restore():
-        kops.sq_matmul_k1, kops.sq_matmul_k2 = orig
+        for name, kern in orig.items():
+            setattr(kops, f"sq_matmul_{name.lower()}", kern)
+        if pending:
+            values = torch.stack([v for _, _, v in pending]).cpu().tolist()
+            seen.extend((name, shape, *v)
+                        for (name, shape, _), v in zip(pending, values))
+            pending.clear()
     return seen, restore
 
 
@@ -2776,9 +2850,7 @@ def _grads(cfg, dev, scale=1.0):
 
 def _norm_rel(got, ref):
     """Per tensor ||got - ref|| / ||ref||: (median, worst, its path)."""
-    rel = {k: ((got[k].double() - r.double()).norm()
-               / r.double().norm().clamp_min(1e-300)).item()
-           for k, r in ref.items()}
+    rel = _rel_tensors(got, ref)
     worst = max(rel, key=rel.get)
     return sorted(rel.values())[len(rel) // 2], rel[worst], worst
 
@@ -3084,15 +3156,12 @@ def train_timing_phase(dev) -> dict:
     # inputs: its device time from a profile of the copy of a distinct tree
     # of the same signature (the eager state), and its host time
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     nbytes = sum(t.numel() * t.element_size()
                  for t in tree_leaves(state["eager"]))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with padded_profile(cpu=False) as prof:
         t0 = time.perf_counter()
         graph.stage(*state["eager"])
         host_ms = (time.perf_counter() - t0) * 1e3
-        torch.cuda.synchronize()
     spans = [e.time_range for e in prof.events()
              if e.device_type == DeviceType.CUDA]
     copy_ms = sum(t.end - t.start for t in spans) / 1e3
@@ -3236,7 +3305,19 @@ def recurrent_contractions(cfg, B: int, S: int, cache_len: int = 0,
     min(cache_len, window) long, the logits of every row).  ``batched``:
     the spec has a batch index, so its kernel routes go to K2/K3, at nb = 1
     too."""
-    d, V = cfg.d_model, cfg.padded_vocab
+    out = [c for kind in cfg.layer_kinds
+           for c in layer_contractions(cfg, kind, B, S, cache_len)]
+    rows = B if cache_len > 0 else logit_rows
+    if rows:
+        out.append(("logits", False, 1, rows, cfg.d_model, cfg.padded_vocab))
+    return out
+
+
+def layer_contractions(cfg, kind: str, B: int, S: int,
+                       cache_len: int = 0) -> list:
+    """:func:`recurrent_contractions`' calls of one layer of ``kind``, in
+    the order the layer makes them."""
+    d = cfg.d_model
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     G = H // KV
     decode = cache_len > 0
@@ -3253,58 +3334,54 @@ def recurrent_contractions(cfg, B: int, S: int, cache_len: int = 0,
                 dense("ffn", d, cfg.d_ff)
             dense("ffn", cfg.d_ff, d)
 
-    for kind in cfg.layer_kinds:
-        if kind in ("attn", "lattn"):
-            for n in (H * hd, KV * hd, KV * hd):
-                dense("attn_qkv", d, n)
-            if decode:
-                win = cfg.local_window if kind == "lattn" else cfg.window
-                ring = min(cache_len, win) if win else cache_len
-                out.append(("attn_scores", True, B * KV, G, hd, ring))
-                out.append(("attn_pv", True, B * KV, G, ring, hd))
-            else:
-                cq, ck = min(cfg.attn_chunk_q, S), min(cfg.attn_chunk_kv, S)
-                for _ in range(-(-S // cq) * -(-S // ck)):
-                    out.append(("attn_scores", True, B * KV, cq * G, hd, ck))
-                    out.append(("attn_pv", True, B * KV, G * cq, ck, hd))
-            dense("attn_out", H * hd, d)
-            ffn()
-        elif kind == "rglru":
-            R = cfg.rnn_width or d
-            dense("recurrent_proj", d, R)               # w_x
-            dense("recurrent_proj", d, R)               # w_gate
-            dense("recurrent_gates", R, R)              # w_r
-            dense("recurrent_gates", R, R)              # w_i
-            dense("recurrent_proj", R, d)               # w_out
-            ffn()
-        elif kind == "mlstm":
-            di = int(cfg.inner_factor * d)
-            hm = di // H
-            dense("recurrent_proj", d, 2 * di)          # w_in
-            for _ in range(3):                          # wq, wk, wv
-                dense("recurrent_proj", di, di)
-            dense("recurrent_gates", di, 2)             # w_if
-            if decode:                                  # mlstm_seq_scan
-                out.append(("recurrent_mix", True, B * H, 1, hm, hm))
-                out.append(("recurrent_mix", True, B * H, 1, hm, 1))
-            else:                                       # mlstm_chunk_scan
-                c = min(MLSTM_CHUNK, S)
-                for _ in range(-(-S // c)):
-                    for m, k, n in ((c, hm, hm), (c, hm, 1), (c, hm, c),
-                                    (c, c, hm), (hm, c, hm), (hm, c, 1)):
-                        out.append(("recurrent_mix", True, B * H, m, k, n))
-            dense("recurrent_proj", di, d)              # w_out
-        elif kind == "slstm":
-            hs = d // H
-            dense("recurrent_proj", d, 4 * d)           # w_x
-            for _ in range(S):                          # the recurrence
-                out.append(("recurrent_mix", True, H, B, hs, 4 * hs))
-            dense("recurrent_proj", d, d)               # w_out
+    if kind in ("attn", "lattn"):
+        for n in (H * hd, KV * hd, KV * hd):
+            dense("attn_qkv", d, n)
+        if decode:
+            win = cfg.local_window if kind == "lattn" else cfg.window
+            ring = min(cache_len, win) if win else cache_len
+            out.append(("attn_scores", True, B * KV, G, hd, ring))
+            out.append(("attn_pv", True, B * KV, G, ring, hd))
         else:
-            raise ValueError(f"no recurrent-serving count for kind {kind!r}")
-    rows = B if decode else logit_rows
-    if rows:
-        dense("logits", d, V, rows=rows)
+            cq, ck = min(cfg.attn_chunk_q, S), min(cfg.attn_chunk_kv, S)
+            for _ in range(-(-S // cq) * -(-S // ck)):
+                out.append(("attn_scores", True, B * KV, cq * G, hd, ck))
+                out.append(("attn_pv", True, B * KV, G * cq, ck, hd))
+        dense("attn_out", H * hd, d)
+        ffn()
+    elif kind == "rglru":
+        R = cfg.rnn_width or d
+        dense("recurrent_proj", d, R)               # w_x
+        dense("recurrent_proj", d, R)               # w_gate
+        dense("recurrent_gates", R, R)              # w_r
+        dense("recurrent_gates", R, R)              # w_i
+        dense("recurrent_proj", R, d)               # w_out
+        ffn()
+    elif kind == "mlstm":
+        di = int(cfg.inner_factor * d)
+        hm = di // H
+        dense("recurrent_proj", d, 2 * di)          # w_in
+        for _ in range(3):                          # wq, wk, wv
+            dense("recurrent_proj", di, di)
+        dense("recurrent_gates", di, 2)             # w_if
+        if decode:                                  # mlstm_seq_scan
+            out.append(("recurrent_mix", True, B * H, 1, hm, hm))
+            out.append(("recurrent_mix", True, B * H, 1, hm, 1))
+        else:                                       # mlstm_chunk_scan
+            c = min(MLSTM_CHUNK, S)
+            for _ in range(-(-S // c)):
+                for m, k, n in ((c, hm, hm), (c, hm, 1), (c, hm, c),
+                                (c, c, hm), (hm, c, hm), (hm, c, 1)):
+                    out.append(("recurrent_mix", True, B * H, m, k, n))
+        dense("recurrent_proj", di, d)              # w_out
+    elif kind == "slstm":
+        hs = d // H
+        dense("recurrent_proj", d, 4 * d)           # w_x
+        for _ in range(S):                          # the recurrence
+            out.append(("recurrent_mix", True, H, B, hs, 4 * hs))
+        dense("recurrent_proj", d, d)               # w_out
+    else:
+        raise ValueError(f"no recurrent-serving count for kind {kind!r}")
     return out
 
 
@@ -3369,11 +3446,14 @@ def recurrent_audit(cfg, prompt_lens, decode_steps: int, batch: int,
 def _plain_probe(seen: dict):
     """Wrap K1/K2/K3 as ``kernels.ops`` calls them, so that the first launch
     at each shape is also held to its plain version on the very operands
-    the path gave it (f32: |err| <= k * 2^-23 * (max|a| + max|b|)^2, the
-    plain version in blocks of rows or batch elements); ``seen`` gets
-    (kernel, shape) -> (max|err|, tolerance).  Returns the function that
-    unwraps them.  Plain calls launch no kernel, so the counts stay the
-    path's."""
+    the path gave it (:func:`k1_share`; the plain version in blocks of rows
+    or batch elements, past K1_LINEAR_MAX_K :func:`k1_ordered`, on
+    PROBE_ROWS of K1's output rows where the whole product has more than
+    PROBE_TERMS terms).  ``seen`` gets (kernel,
+    shape) -> the share of its tolerance, a device scalar: nothing is read
+    back, so a probed step also runs under ``set_sync_debug_mode("error")``.
+    Returns the function that unwraps them.  Plain calls launch no kernel,
+    so the counts stay the path's."""
     from repro_torch.kernels import ops as kops
     orig = {"K1": kops.sq_matmul_k1, "K2": kops.sq_matmul_k2,
             "K3": kops.sq_matmul_k3}
@@ -3383,13 +3463,16 @@ def _plain_probe(seen: dict):
             out = kern(aw, bw, sa, sb)
             shape = tuple(aw.shape) + (bw.shape[-1],)
             if (name, shape) not in seen:
-                plain = (_plain_rows if name == "K1"
-                         else _plain_batched)(aw, bw, sa, sb)
-                tol = aw.shape[-1] * 2.0 ** -23 * (
-                    aw.abs().max().item() + bw.abs().max().item()) ** 2
-                err = (out - plain).abs().max().item()
-                seen[(name, shape)] = (
-                    err if bool(torch.isfinite(out).all()) else math.inf, tol)
+                got = out
+                if name == "K1" and math.prod(shape) > PROBE_TERMS:
+                    m, h = aw.shape[0], PROBE_ROWS // 2
+                    rows = torch.cat([torch.arange(h, device=aw.device),
+                                      torch.arange(m - h, m,
+                                                   device=aw.device)])
+                    got, aw, sa = out[rows], aw[rows], sa[rows]
+                ref = k1_reference(aw, bw, sa, sb, _plain_rows
+                                   if name == "K1" else _plain_batched)
+                seen[(name, shape)] = k1_share(got, ref, aw, bw, sa, sb)
             return out
         return run
 
@@ -3405,16 +3488,18 @@ def _plain_probe(seen: dict):
 def probe_ok(seen: dict, what: str) -> dict:
     """Check the probed launches of :func:`_plain_probe`; returns the shapes
     held to the plain version, by kernel."""
-    bad = {k: v for k, v in seen.items() if not v[0] <= v[1]}
-    worst = max(seen.items(), key=lambda kv: kv[1][0] / max(kv[1][1], 1e-300))
-    check(seen and not bad,
-          f"{what}: the first launch at each of {len(seen)} shapes held to "
+    shares = {k: v.item() for k, v in seen.items()}
+    bad = {k: v for k, v in shares.items() if not v <= 1.0}
+    worst = max(shares, key=shares.get)
+    check(shares and not bad,
+          f"{what}: the first launch at each of {len(shares)} shapes held to "
           f"its plain version on the path's own operands (f32 |err| <= k * "
-          f"2^-23 * (max|a| + max|b|)^2); worst {worst[0]} max|err| "
-          f"{worst[1][0]:.3e} of {worst[1][1]:.3e}" + (f"; off: {bad}"
-                                                      if bad else ""))
+          f"2^-23 * (max|a| + max|b|)^2; past k = {K1_LINEAR_MAX_K} K1's "
+          f"own order, k1_ordered, within 2^-20 * (|Sa| + |Sb| + |ref|)); "
+          f"worst {worst} at {shares[worst]:.1%} of its "
+          f"bound" + (f"; off: {bad}" if bad else ""))
     shapes = {"K1": set(), "K2": set(), "K3": set()}
-    for name, shape in seen:
+    for name, shape in shares:
         shapes[name].add(shape)
     return shapes
 
@@ -3684,19 +3769,15 @@ def recurrent_op_times(model: LM, params, dev) -> dict:
     raw ``mix`` weights (widening and corrections, ``prepare_matmul_rhs``)
     alone, timed by graph replay."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     prompts = [np.asarray(r.tokens, np.int32)
                for r in make_requests(model.cfg, DENSE_BATCH, seed=0)]
     cache, pos = _dense_prefilled(model, params, prompts, dev)
     toks = torch.zeros((DENSE_BATCH, 1), dtype=torch.int32, device=dev)
     with torch.no_grad():
         model.decode_step(params, cache, toks, pos)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with padded_profile() as prof:
             for _ in range(2):
                 model.decode_step(params, cache, toks, pos)
-            torch.cuda.synchronize()
     ops_ms = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CPU or not e.key.startswith("aten::"):
@@ -3732,14 +3813,10 @@ def _replay_kernel_counts(replay, want: dict, tries: int = 4) -> list:
     the same kernels every time: a fault in the graph misses in every
     try."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     seen = []
     for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with padded_profile() as prof:
             replay()
-            torch.cuda.synchronize()
         names = [e.name for e in prof.events()
                  if e.device_type == DeviceType.CUDA]
         seen.append({label: sum(sym in n for n in names)
@@ -4011,25 +4088,25 @@ def recurrent_phase(dev, gen) -> dict:
 RECURRENT_FLAG = "--recurrent-phase"
 
 
-def recurrent_phase_isolated() -> dict:
-    """:func:`recurrent_phase` in a process of its own, which writes its
-    results to a file under ``build/``: a fresh CUDA context and profiler.
-    In one long process the later traces lose a few CUPTI records (on one
-    H100, a replay traced 198 of its 201 K1 kernels, every try, after the
-    MoE phases, while its tokens and ledger were
-    exact), and the recurrent phase's traces before the MoE phases cost
-    the MoE training check its records."""
-    out = Path(__file__).resolve().parent / "build" / "recurrent_phase.json"
+def phase_isolated(flag: str, what: str) -> dict:
+    """A phase run in a process of its own (``chip_smoke.py FLAG FILE``),
+    which writes its results to a JSON file under ``build/``: a fresh CUDA
+    context and profiler.  In one long process the later traces lose a
+    few CUPTI records (on one H100, a replay traced 198 of its 201 K1
+    kernels, every try, after the MoE phases, and a MoE train replay 63
+    of its 64 in four single-replay traces after the MoE serving phase),
+    while tokens and ledgers stay exact."""
+    out = Path(__file__).resolve().parent / "build" / \
+        f"{flag.strip('-')}.json"
     out.parent.mkdir(exist_ok=True)
     out.unlink(missing_ok=True)
     gc.collect()
     torch.cuda.empty_cache()
     sys.stdout.flush()
     rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                         RECURRENT_FLAG, str(out)], timeout=900).returncode
+                         flag, str(out)], timeout=900).returncode
     check(rc == 0 and out.exists(),
-          f"the recurrent phase, in a process of its own, ran to its end "
-          f"(exit {rc})")
+          f"{what}, in a process of its own, ran to its end (exit {rc})")
     return json.loads(out.read_text())
 
 
@@ -4060,13 +4137,1176 @@ def recurrent_entries(k1, k2, k3, rec) -> None:
             kern["recurrent"][arch] = entry
 
 
+# ---------------------------------------------------- recurrent training
+# (B, S) of a train step: 2048 tokens, as the dense and MoE phases take.
+# recurrentgemma's 1024 tokens stay within its 2048-token local window;
+# xlstm's 512 span two 256-token mLSTM chunks and 512 sLSTM steps.
+RECURRENT_TRAIN_BS = {"recurrentgemma-2b": (2, 1024), "xlstm-350m": (4, 512)}
+GRADS = ("x", "w")
+
+
+def recurrent_train_contractions(cfg, B: int, S: int) -> list:
+    """(site, batched, nb, m, k, n, grads) of each forward contraction of
+    one train step of B sequences of S tokens (the layers', then the
+    chunked loss's vocab GEMMs), in the canonical (nb, m, k, n) the
+    dispatch plans.  ``grads``: the gradients autograd computes of it,
+    ``"x"`` (dL/dx, canonical (nb, m, n, k)) and ``"w"`` (dL/dW, (nb, n, m,
+    k)); each has the forward's multiplies.  Three kinds of contraction
+    have fewer than two:
+
+    - the first mLSTM chunk contracts ``q`` with the zero initial state
+      ``C`` and ``n``, which ask for no gradient: its ``h_inter`` and
+      ``n_inter`` have dL/dx only;
+    - the last mLSTM chunk carries ``C`` and ``n`` into the final state,
+      which training drops: those two reach no loss, and autograd runs
+      neither of their gradients;
+    - the sLSTM's step 0 contracts the zero initial ``h``: dL/dW only."""
+    out = []
+    for kind in cfg.layer_kinds:
+        calls = layer_contractions(cfg, kind, B, S)
+        grads = [GRADS] * len(calls)
+        if kind == "mlstm":
+            nc = -(-S // min(MLSTM_CHUNK, S))
+            first = 5                        # w_in, wq, wk, wv, w_if
+            for i in (0, 1):
+                grads[first + i] = ("x",)
+            for i in (4, 5):
+                grads[first + 6 * (nc - 1) + i] = ()
+        elif kind == "slstm":
+            grads[1] = ("w",)
+        out += [c + (g,) for c, g in zip(calls, grads)]
+    c = min(cfg.loss_chunk, S)
+    for _ in range(-(-S // c)):
+        out.append(("loss", False, 1, B * c, cfg.d_model, cfg.padded_vocab,
+                    GRADS))
+    return out
+
+
+def grad_shape(grad: str, nb: int, m: int, k: int, n: int) -> tuple:
+    """The canonical (nb, m, k, n) of a forward contraction's dL/dx
+    (``"x"``) or dL/dW (``"w"``): ``einsum(out, y -> x)`` and ``einsum(out,
+    x -> y)`` in the VJP."""
+    return (nb, m, n, k) if grad == "x" else (nb, n, m, k)
+
+
+def recurrent_train_audit(cfg, B: int, S: int) -> dict:
+    """{site: mults} of one train step, the analytic count: each forward
+    contraction's nb*m*k*n at its site, and again at ``<site>.bwd_x`` /
+    ``<site>.bwd_w`` for each gradient autograd computes of it
+    (:func:`recurrent_train_contractions`); a rematerialised recompute
+    notes nothing.  So it is 3 x the forward's multiplies less the
+    gradients never computed."""
+    sites = collections.Counter()
+    for site, _, nb, m, k, n, grads in recurrent_train_contractions(cfg, B,
+                                                                    S):
+        sites[site] += nb * m * k * n
+        for g in grads:
+            sites[f"{site}.bwd_{g}"] += nb * m * k * n
+    return dict(sites)
+
+
+def recurrent_train_launches(cfg, B: int, S: int) -> dict:
+    """{part: Counter(kernel: launches)} of one square_pallas train step by
+    the routing rules, ``virtual`` counting the calls on the virtual route:
+    the forward; the backward (each gradient autograd computes); the
+    recompute (under remat "block" every layer contraction again; the
+    loss's chunks at either setting, as its chunk body is rematerialised).
+    Also ``shapes``: {kernel: Counter(shape: launches a step)}, the shape a
+    wrapper's key ((m, k, n) for K1, (nb, m, k, n) for K2/K3)."""
+    out = {p: collections.Counter() for p in
+           ("forward", "backward", "recompute")}
+    shapes = {k: collections.Counter() for k in ("K1", "K2", "K3")}
+
+    def add(part, batched, nb, m, k, n):
+        kern = contraction_kernel(batched, nb, m, k, n)
+        out[part][kern or "virtual"] += 1
+        if kern:
+            shapes[kern][(m, k, n) if kern == "K1" else (nb, m, k, n)] += 1
+
+    with _uncounted_routes():
+        for site, batched, nb, m, k, n, grads in \
+                recurrent_train_contractions(cfg, B, S):
+            add("forward", batched, nb, m, k, n)
+            for g in grads:
+                add("backward", batched, *grad_shape(g, nb, m, k, n))
+            if site == "loss" or cfg.remat == "block":
+                add("recompute", batched, nb, m, k, n)
+    out["shapes"] = shapes
+    return out
+
+
+# Depth of the bf16 main path: recurrentgemma's whole captured step (~32 B
+# a parameter, 2.89 G parameters) does not fit the card, so it trains the
+# first 6 of its 8 (rglru, rglru, lattn) periods (and not its 2-layer
+# tail): at 7 the eager steps beside the captured one ran out of the
+# card's memory (measured on one H100); xlstm trains whole.
+RECURRENT_TRAIN_LAYERS = {"recurrentgemma-2b": 18, "xlstm-350m": 24}
+# the f32 parity against standard: recurrentgemma at one period, xlstm
+# whole
+RECURRENT_F32_LAYERS = {"recurrentgemma-2b": 3, "xlstm-350m": 24}
+# the archs whose eager step is traced: xlstm's holds 2.7e5 device
+# operations beside as many host ones, and reading its trace took ~2 min
+# of the smoke (measured on one H100: busy 1397.8 ms, 9.3 % of the traced
+# step's wall)
+EAGER_TRACED = ("recurrentgemma-2b",)
+RECURRENT_TRAINER_STEPS = 2
+# the launcher on the card: recurrentgemma at its first (rglru, rglru,
+# lattn) period (the host draw and the final checkpoint of its 655 M-parameter
+# tied table set its time at any depth), xlstm whole
+RECURRENT_LAUNCHER_LAYERS = {"recurrentgemma-2b": 3, "xlstm-350m": 0}
+RECURRENT_LAUNCHER_STEPS = 2
+# xlstm's gradient control: every f32 parameter times (1 + 2^-20)
+GRAD_BUMP = 2.0 ** -20
+# a probed launch at more terms than this is held to the plain version
+# on PROBE_ROWS of its output rows (the first and the last half)
+PROBE_TERMS = 2 ** 33
+# a kernel row times the plain version up to this many terms (the plain
+# version of one of recurrentgemma's 1.34e12-term vocab GEMMs takes ~9 s)
+PLAIN_TIMED_TERMS = 2 ** 38
+# recurrentgemma's f32 gradients of the loss x 2^14 against standard's,
+# the loss's vocab GEMM on standard in both runs (PR 27's rule for
+# moonshot: K1's dL/dx of the loss sums V terms in 8 sequential partials),
+# each tensor within RECURRENT_GRAD_RTOL.  A tensor past it is held to
+# RECURRENT_GRAD_RTOL in a witness run that moves one more site to
+# standard in both runs (:func:`site_witness`): the site whose square form
+# sets that gap.  Every tensor with the loss alone on standard stays
+# within RECURRENT_GRAD_CATCH, so a wrong, zero or missing gradient
+# through the witnessed site (off by ~1) fails all the same.
+RECURRENT_GRAD_RTOL = 1e-2
+RECURRENT_GRAD_CATCH = 5e-2
+# xlstm's blocks alone, teacher-forced (f32, a unit cotangent): each
+# gradient of square_pallas within max(XLSTM_BLOCK_RTOL, 4 x its control,
+# standard's at the block's params x (1 + 2^-20)) of standard's, or past
+# that within it in a witness run with one site (or two) on standard, and
+# within XLSTM_BLOCK_CATCH with every site square.
+XLSTM_BLOCK_RTOL = 1e-2
+XLSTM_BLOCK_CATCH = 1e-1
+PROBE_ROWS = 64
+RECURRENT_TRAIN_FLAG = "--recurrent-train-phase"
+# K1 against its plain version: past this k the two orders of summation,
+# not the kernel, set the gap, and the stated f32 bound k * 2^-23 *
+# (max|a| + max|b|)^2 no longer holds (measured on one H100: 4.3 against
+# its 1.02 at the 256000-term dL/dx of recurrentgemma's loss on
+# N(0, 1) x N(0, 1/k) operands).  K1's partial 0 starts at Sa_i + Sb_j
+# (~ -k there) and adds k/8 single squares to it; at that magnitude a
+# square below half a unit in the last place is lost, and chi-square
+# terms lose more often than they gain, so the partial drifts with k
+# where the plain version's slabs of 16 do not.  There each launch is held to
+# :func:`k1_ordered`, K1's own order in plain PyTorch, within
+# 2^-20 * (|Sa_i| + |Sb_j| + |ref_ij|) (8 units in the last place of the
+# largest partial), so a zero or wrong output fails, and its distance from
+# the exact product is reported beside the plain version's.
+K1_LINEAR_MAX_K = 32768
+K1_ORDER_STEPS = 16                     # k1_ordered's steps a chunk
+
+
+def k1_ordered(aw, bw, sa, sb) -> torch.Tensor:
+    """K1's arithmetic in K1's own order (``csrc/sq_matmul.cu``), for
+    (m, k) @ (k, n) or (B, m, k) @ (B, k, n): per output 8 partials,
+    partial p over k = p, p + 8, ... in increasing k, each term an f32 add
+    s = a + b and fmaf(s, s, acc) (here s^2 and the sum in float64,
+    rounded to f32 once, as the fma rounds), partial 0 from Sa_i + Sb_j
+    and the others from 0, summed 0..7 and halved."""
+    one = aw.dim() == 2
+    if one:
+        aw, bw, sa, sb = aw[None], bw[None], sa[None], sb[None]
+    nb, m, k = aw.shape
+    n = bw.shape[-1]
+    pad = -k % 8
+    a8 = torch.nn.functional.pad(aw, (0, pad)).view(nb, m, -1, 8)
+    b8 = torch.nn.functional.pad(bw, (0, 0, 0, pad)).view(nb, -1, 8, n)
+    acc = torch.zeros(nb, m, 8, n, dtype=torch.float32, device=aw.device)
+    acc[:, :, 0] = sa[:, :, None] + sb[:, None, :]
+    for j0 in range(0, a8.shape[2], K1_ORDER_STEPS):
+        s = (a8[:, :, j0:j0 + K1_ORDER_STEPS, :, None]
+             + b8[:, None, j0:j0 + K1_ORDER_STEPS])       # f32 a + b
+        sq = s.double().square_()
+        for j in range(sq.shape[2]):
+            torch.add(acc, sq[:, :, j], out=acc)          # one f32 rounding
+    v = acc[:, :, 0]
+    for q in range(1, 8):
+        v = v + acc[:, :, q]
+    v = v * 0.5
+    return v[0] if one else v
+
+
+def k1_tol(ref, aw, bw, sa, sb):
+    """The tolerance of a K1/K2/K3 output against ``ref``: k * 2^-23 *
+    (max|a| + max|b|)^2 against the plain version, or past
+    K1_LINEAR_MAX_K 2^-20 * (|Sa_i| + |Sb_j| + |ref_ij|) against
+    :func:`k1_ordered`."""
+    if aw.shape[-1] <= K1_LINEAR_MAX_K:
+        return aw.shape[-1] * 2.0 ** -23 * (
+            aw.abs().max() + bw.abs().max()) ** 2
+    return 2.0 ** -20 * (sa.abs().unsqueeze(-1) + sb.abs().unsqueeze(-2)
+                         + ref.abs())
+
+
+def k1_reference(aw, bw, sa, sb, plain):
+    """What a launch on these operands is held to: ``plain(aw, bw, sa,
+    sb)``, or past K1_LINEAR_MAX_K :func:`k1_ordered`."""
+    return (k1_ordered if aw.shape[-1] > K1_LINEAR_MAX_K else plain)(
+        aw, bw, sa, sb)
+
+
+def k1_share(out, ref, aw, bw, sa, sb) -> torch.Tensor:
+    """The largest share of its tolerance (:func:`k1_tol`) that K1 (or
+    K2/K3) ``out`` leaves against ``ref`` (:func:`k1_reference`), on the
+    device (inf where ``out`` is not finite; nothing read back)."""
+    err = (out - ref).abs()
+    tol = torch.as_tensor(k1_tol(ref, aw, bw, sa, sb))
+    # a zero bound (zeros contracted with zeros) leaves a share of 0
+    share = (err / tol.clamp_min(1e-30)).max()
+    return torch.where(torch.isfinite(out).all(), share,
+                       torch.full_like(share, math.inf))
+
+
+def k1_error(out, ref, aw, bw, sa, sb) -> tuple:
+    """(max|out - ref|, the largest tolerance, the worst share of it): see
+    :func:`k1_share`."""
+    share = k1_share(out, ref, aw, bw, sa, sb).item()
+    tol = torch.as_tensor(k1_tol(ref, aw, bw, sa, sb)).max().item()
+    return (out - ref).abs().max().item(), tol, share
+
+
+def recurrent_train_cfg(arch, layers: int = 0, mode="square_pallas", **kw):
+    return dataclasses.replace(
+        get_config(arch), n_layers=layers or RECURRENT_TRAIN_LAYERS[arch],
+        matmul_mode=mode, contraction_policy=None, **kw)
+
+
+def device_tree(cfg, dev, seed: int = 0):
+    """``cfg``'s params tree in f32, drawn on the device by a CUDA
+    generator seeded with ``seed``: ``layers/param.py``'s distributions
+    (scaled normal 1 / sqrt(fan_in), ones, zeros) in spec order.  A host
+    draw of recurrentgemma's 2.2 G parameters takes tens of seconds, as
+    ``build_model`` draws them; these weights are random all the same."""
+    from repro_torch.layers.param import ParamSpec
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(node):
+        if isinstance(node, ParamSpec):
+            if node.init in ("zeros", "ones"):
+                return (torch.zeros if node.init == "zeros"
+                        else torch.ones)(node.shape, device=dev)
+            fan = node.fan_in or (node.shape[0] if node.shape else 1)
+            return torch.randn(node.shape, generator=g, device=dev) \
+                / math.sqrt(max(1, fan))
+        if isinstance(node, dict):
+            return {k: draw(v) for k, v in node.items()}
+        return [draw(n) for n in node]
+    return draw(train_spec(cfg))
+
+
+def recurrent_train_kernel_rows(dev, gen, cfg, rules) -> list:
+    """K1/K2/K3 at every distinct shape of a train step of ``cfg`` (the
+    forward's, both gradients' and the recompute's, as
+    :func:`recurrent_train_launches` gives them) on random bf16-rounded
+    operands: against the plain version (past K1_LINEAR_MAX_K against
+    :func:`k1_ordered` on PROBE_ROWS rows, with the distance of each from
+    the exact product), timed in graph replay with the operands hot beside
+    torch.matmul / torch.bmm (no TF32), the bound and the FP32 slot floor,
+    the plain version once between CUDA events."""
+    print(f"{cfg.name} training shapes: K1/K2/K3 held to their plain "
+          f"versions (f32 |err| <= k * 2^-23 * (max|a| + max|b|)^2; past "
+          f"k = {K1_LINEAR_MAX_K} to K1's own order) and timed (graph "
+          f"replay, operands hot); card {CARD}", flush=True)
+    rows = []
+    for name in ("K1", "K2", "K3"):
+        for shape, per_step in sorted(rules["shapes"][name].items()):
+            B, m, k, n = (1,) + shape if name == "K1" else shape
+            # drawn on the device: the vocab GEMMs' operands hold up to
+            # 655 M entries
+            a = torch.randn(B, m, k, generator=gen, device=dev).to(
+                torch.bfloat16)
+            b = (torch.randn(B, k, n, generator=gen, device=dev)
+                 / math.sqrt(k)).to(torch.bfloat16)
+            aw, bw = a.float(), b.float()
+            del a, b
+            sa, sb = -(aw * aw).sum(2), -(bw * bw).sum(1)
+            if name == "K1":
+                args = (aw[0], bw[0], sa[0], sb[0])
+                kern, lib = sq_matmul_k1, (lambda: torch.matmul(aw[0], bw[0]))
+                plain = lambda: _plain_rows(*args, budget=2 ** 30)  # noqa
+                grid = k1_launch_shape(m, n)["grid"]
+            else:
+                args = (aw, bw, sa, sb)
+                kern, lib = BATCHED[name][0], (lambda: torch.bmm(aw, bw))
+                plain = lambda: _plain_batched(*args)               # noqa
+                grid = BATCHED[name][1](B, m, n)["grid"]
+            out = kern(*args)
+            terms = B * m * k * n
+            ref, cut, plain_ms, vs_exact = None, args, None, {}
+            if terms <= PLAIN_TIMED_TERMS or name != "K1":
+                held = []
+                plain_ms = _event_ms(lambda: held.append(plain()))
+                ref = held[0]
+            if name == "K1" and (ref is None or k > K1_LINEAR_MAX_K):
+                # held on PROBE_ROWS output rows (the plain version not
+                # timed past PLAIN_TIMED_TERMS)
+                h = PROBE_ROWS // 2
+                idx = torch.cat([torch.arange(h, device=dev),
+                                 torch.arange(m - h, m, device=dev)])
+                cut = (args[0][idx], args[1], args[2][idx], args[3])
+                out = out[idx]
+                ref = _plain_rows(*cut) if ref is None else ref[idx]
+            if k > K1_LINEAR_MAX_K:
+                exact = torch.matmul(cut[0].double(), cut[1].double())
+                vs_exact = {"err_exact": (out.double() - exact).abs().max(),
+                            "plain_err_exact": (ref.double()
+                                                - exact).abs().max(),
+                            "max_exact": exact.abs().max()}
+                vs_exact = {key: v.item() for key, v in vs_exact.items()}
+                del exact
+                ref = k1_ordered(*cut)
+                zero = k1_share(torch.zeros_like(out), ref, *cut).item()
+            err, tol, share = k1_error(out, ref, *cut)
+            check(bool(torch.isfinite(out).all()) and share <= 1.0
+                  and (k <= K1_LINEAR_MAX_K or zero > 1.0),
+                  f"{name} f32 B={B} m={m} k={k} n={n}: max|err| {err:.3e}, "
+                  f"{share:.1%} of its bound"
+                  + (f" against K1's own order (k1_ordered; at most "
+                     f"{tol:.3e}, a zero output at {zero:.0%} of it); "
+                     f"against the exact product {vs_exact['err_exact']:.3e}"
+                     f" = {vs_exact['err_exact'] / vs_exact['max_exact']:.1%}"
+                     f" of max|exact| {vs_exact['max_exact']:.3e}, the plain "
+                     f"version's {vs_exact['plain_err_exact']:.3e}"
+                     if k > K1_LINEAR_MAX_K else f" {tol:.3e}"))
+            del out, ref
+            reps = 5 if terms < 2 ** 36 else 1        # a vocab GEMM: ~0.2 s
+            ms = time_graph([lambda: kern(*args)], reps=reps, replays=2)
+            lib_ms = time_graph([lib], reps=reps, replays=2)
+            t_bytes = 4 * B * (m * k + k * n + m + n + m * n) \
+                / HBM_BYTES_PER_S * 1e3
+            t_ops = 2 * terms / FP32_OPS_PER_S * 1e3
+            row = dict(kernel=name, shape=(B, m, k, n), per_step=per_step,
+                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       floor_ms=2 * terms / FP32_SLOTS_PER_S * 1e3,
+                       bound_ms=max(t_bytes, t_ops), t_bytes=t_bytes,
+                       t_ops=t_ops, max_abs_err=err, grid=grid, **vs_exact)
+            rows.append(row)
+            plain_s = ("not timed" if plain_ms is None
+                       else f"{plain_ms:.2f} ms")
+            print(f"    {name} B={B:2d} m={m:6d} k={k:6d} n={n:6d} "
+                  f"x{per_step:4d} a step: {ms:.4f} ms | plain {plain_s} | "
+                  f"{'torch.matmul' if name == 'K1' else 'torch.bmm'} "
+                  f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x) | bound "
+                  f"{row['bound_ms']:.4f} ms | slot floor "
+                  f"{row['floor_ms']:.4f} ms | grid {grid}", flush=True)
+            del aw, bw, sa, sb, args
+    for name in ("K1", "K2", "K3"):
+        mine = [r for r in rows if r["kernel"] == name]
+        if mine:
+            tot = {key: sum(r["per_step"] * (r[key] or 0) for r in mine)
+                   for key in ("ms", "plain_ms", "library_ms", "floor_ms",
+                               "bound_ms")}
+            untimed = sum(r["per_step"] for r in mine
+                          if r["plain_ms"] is None)
+            print(f"  per train step ({cfg.n_layers} layers, "
+                  f"{sum(r['per_step'] for r in mine)} launches): {name} "
+                  f"{tot['ms']:.3f} ms | plain {tot['plain_ms']:.1f} ms"
+                  f"{f' (not timed at {untimed} launches)' * bool(untimed)}"
+                  f" | "
+                  f"library {tot['library_ms']:.3f} ms | slot floor "
+                  f"{tot['floor_ms']:.3f} ms | bound {tot['bound_ms']:.3f} "
+                  f"ms; card {CARD}", flush=True)
+    return rows
+
+
+def state_digest(tree) -> str:
+    """A bit-level digest of a tree of tensors, computed where they lie:
+    per leaf, the 64-bit wrapping sums of its raw words and of each word
+    times its position (mod 2^31 - 1, plus 1), read back once and hashed.
+    Two trees with one bit apart differ in it; ``tree_fingerprint`` of a
+    22 GB train state reads it all back and hashes it on the host, ~40 s
+    on the card's host."""
+    import hashlib
+    words = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    sums, chunk = [], 1 << 26
+    for leaf in tree_leaves(tree):
+        w = leaf.detach().contiguous().reshape(-1)
+        w = w.view(words[w.element_size()])
+        total = torch.zeros(2, dtype=torch.int64, device=w.device)
+        for i in range(0, w.numel(), chunk):
+            c = w[i:i + chunk].long()
+            pos = torch.arange(i, i + c.numel(), device=c.device) \
+                % 2147483647 + 1
+            total += torch.stack([c.sum(), (c * pos).sum()])
+        sums.append(total.cpu())
+    return hashlib.sha256(torch.stack(sums).numpy().tobytes()).hexdigest()
+
+
+def train_grads(model: LM, params, batch, cfg, scale: float) -> dict:
+    """One step's gradients of ``cfg``'s loss times ``scale`` (divided by
+    it after) at ``params``: {leaf path: tensor}."""
+    from repro_torch.train import step as step_mod
+    loss_fn = step_mod.make_loss_fn(moe_train_view(model, cfg),
+                                    step_mod.TrainConfig())
+
+    def scaled(p, b):
+        loss, met = loss_fn(p, b)
+        return loss * scale, met
+
+    _, g = step_mod.value_and_grad(scaled, params, batch)
+    return {k: t / scale for k, t in _tree_leaves_named(g).items()}
+
+
+def _rel_tensors(got: dict, ref: dict) -> dict:
+    return {k: ((got[k].double() - r.double()).norm()
+                / r.double().norm().clamp_min(1e-300)).item()
+            for k, r in ref.items()}
+
+
+def site_witness(rel_with, excess: dict, sites) -> dict:
+    """For each tensor of ``excess`` ({name: its gate}), past its gate with
+    every site square: the first of ``sites`` (then of their pairs) whose
+    move to standard in both runs brings it within its gate, {name: (the
+    sites moved, its gap there)}.  ``rel_with(sites)`` runs the square side
+    with ``sites`` on standard and gives every tensor's gap."""
+    found = {}
+    groups = [(x,) for x in sites] + list(itertools.combinations(sites, 2))
+    for group in groups:
+        left = [t for t in excess if t not in found]
+        if not left:
+            break
+        rel = rel_with(group)
+        for t in left:
+            if rel[t] <= excess[t]:
+                found[t] = (group, rel[t])
+    return found
+
+
+def _policy(sites, **more):
+    from repro_torch.configs.base import ContractionPolicy
+    return ContractionPolicy.of(**{x: "standard" for x in sites}, **more)
+
+
+def block_parity(model: LM, params, batch, cfgs) -> dict:
+    """Each layer alone, teacher-forced: its input from standard's f32
+    forward of ``batch``, a random unit cotangent on its output, and the
+    gradients of the block's params and input in square_pallas against
+    standard's.  Each tensor within max(XLSTM_BLOCK_RTOL, 4 x its control,
+    standard's at the block's params x (1 + 2^-20)); a tensor past that is
+    held to it in a witness run with one site (or two) on standard
+    (:func:`site_witness`), and beside it stands the bf16 control,
+    standard computed in bf16; every tensor within XLSTM_BLOCK_CATCH with
+    every site square.  A block's backward alone is as well conditioned as
+    its operands, where the whole LM's compounds 24 of them."""
+    from repro_torch.train import step as step_mod
+    cfg = cfgs["standard"]
+    cfg_bf = dataclasses.replace(cfg, dtype="bfloat16")
+    params_bf = moe_train_tree(params, cfg_bf)
+    inputs, real = [], blk.block_forward
+
+    def spy(kind, p, x, ctx):
+        inputs.append(x.detach())
+        return real(kind, p, x, ctx)
+
+    blk.block_forward = spy
+    try:
+        with torch.no_grad():
+            moe_train_view(model, cfg).forward(
+                params, {"tokens": batch["tokens"][:, :-1]})
+    finally:
+        blk.block_forward = real
+    B, S = inputs[0].shape[:2]
+    sites = sorted(x for x in recurrent_train_audit(cfg, B, S)
+                   if "." not in x and x != "loss")
+    g = torch.Generator(device=inputs[0].device).manual_seed(3)
+    worst, worst_ctl, n_tensors, past = 0.0, 0.0, 0, []
+    for i, (kind, x) in enumerate(zip(cfg.layer_kinds, inputs)):
+        ct = torch.randn(x.shape, generator=g, device=x.device)
+
+        def grads(mode, p, xin=x, c=cfg, policy=None):
+            ctx = {"cfg": c, "mode": mode, "policy": policy,
+                   "positions": torch.arange(S, device=x.device),
+                   "causal": True}
+
+            def fn(q, b):
+                y = real(kind, q["p"], q["x"], ctx)[0]
+                return (y.float() * b["ct"]).sum(), {}
+            _, gr = step_mod.value_and_grad(fn, {"p": p, "x": xin},
+                                            {"ct": ct})
+            return _tree_leaves_named(gr)
+
+        p = params["layers"][i]
+        std = grads("standard", p)
+        rel = _rel_tensors(grads("square_pallas", p), std)
+        ctl = _rel_tensors(grads("standard", tree_map(
+            lambda t: t * (1 + GRAD_BUMP), p)), std)
+        gate = {n: max(XLSTM_BLOCK_RTOL, 4 * ctl[n]) for n in rel}
+        excess = {n: gate[n] for n in rel if rel[n] > gate[n]}
+        if excess:
+            found = site_witness(lambda group: _rel_tensors(grads(
+                "square_pallas", p, policy=_policy(group)), std),
+                excess, sites)
+            bf = _rel_tensors(grads("standard", params_bf["layers"][i],
+                                    x.to(torch.bfloat16), cfg_bf), std)
+            past += [(rel[n], f"layer {i} {kind} {n}", gate[n],
+                      found.get(n), bf[n]) for n in excess]
+        n_tensors += len(rel)
+        worst = max(worst, max(rel.values()))
+        worst_ctl = max(worst_ctl, max(ctl.values()))
+    past.sort(key=lambda r: r[0], reverse=True)
+    by_site = collections.Counter("+".join(r[3][0]) if r[3] else "none"
+                                  for r in past)
+    print(f"  xlstm blocks: {len(past)} of {n_tensors} tensors past "
+          f"max({XLSTM_BLOCK_RTOL:g}, 4 x the control) with every site "
+          f"square; the site whose move to standard brings each within it: "
+          f"{dict(by_site)}", flush=True)
+    for gap, name, gt, fnd, bf in past[:12]:
+        print(f"    {name}: {gap:.3e} (gate {gt:.3e}); "
+              + (f"{fnd[1]:.3e} with {'+'.join(fnd[0])} on standard"
+                 if fnd else "no site's move brings it within its gate")
+              + f"; the bf16 control {bf:.3e}", flush=True)
+    check(worst <= XLSTM_BLOCK_CATCH and all(r[3] for r in past),
+          f"each of the {len(inputs)} blocks alone (teacher-forced on "
+          f"standard's f32 layer inputs, a unit cotangent): the gradients of "
+          f"its params and input in square_pallas within max("
+          f"{XLSTM_BLOCK_RTOL:g}, 4 x the control) of standard's, "
+          f"{len(past)} of {n_tensors} only with the witnessed site on "
+          f"standard too; with every site square each within "
+          f"{XLSTM_BLOCK_CATCH:g} (worst {worst:.3e}, control worst "
+          f"{worst_ctl:.3e})")
+    return {"block_worst": worst, "block_control_worst": worst_ctl,
+            "block_past": [(r[1], r[0], r[3] and "+".join(r[3][0]),
+                            r[3] and r[3][1], r[4]) for r in past],
+            "block_tensors": n_tensors}
+
+
+def recurrent_train_parity(dev, arch, model: LM, tree) -> dict:
+    """f32, remat none, RECURRENT_F32_LAYERS[arch] layers of the drawn
+    weights, square_pallas against standard (TF32 off), at the main path's
+    tokens.  One square step's gradients of the loss x GRAD_SCALE with
+    every K1/K2/K3 launch held to the exact (float64) product of its
+    operands and its launches counted (the forward, both gradients and the
+    loss's recompute, by the routing rules), then 3 steps' losses against
+    standard's at rtol = atol = 2e-3.
+
+    recurrentgemma: each tensor within RECURRENT_GRAD_RTOL with the loss's
+    vocab GEMM on standard in both runs, or past it within it in a witness
+    run with one more site on standard (:func:`site_witness`), and every
+    tensor within RECURRENT_GRAD_CATCH; every site square and the bf16 control
+    are reported.
+    xlstm: the whole LM's gap is reported: at its published width
+    standard's own gradients move by 2.0e-2 (median; 1.96e-1 worst) when
+    every f32 parameter is multiplied by (1 + 2^-20), within one mLSTM
+    chunk too (1.6e-2; measured on one H100), so no gate on the whole LM
+    can tell a fault from the reference's conditioning
+    (tests/test_torch_recurrent_train_xlstm.py); each block alone is gated
+    instead (:func:`block_parity`)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    L = RECURRENT_F32_LAYERS[arch]
+    B, S = RECURRENT_TRAIN_BS[arch]
+    cfgs = {m: recurrent_train_cfg(arch, L, m, dtype="float32", remat="none")
+            for m in ("square_pallas", "standard")}
+    params = moe_train_tree(tree, cfgs["standard"])
+
+    def data(b, s, n=1):
+        return SyntheticLM(DataConfig(b, s, cfgs["standard"].vocab),
+                           cfgs["standard"], device=dev).take(n)
+
+    batches = data(B, S, 3)
+    print(f"{arch} train parity: published width, {L} layers, f32, remat "
+          f"none, {B} x {S} tokens, square_pallas vs standard (no TF32); one "
+          f"step's gradients of the loss x {GRAD_SCALE:g}, then 3 steps' "
+          f"losses; card {CARD}", flush=True)
+
+    def grads(cfg, p=params, batch=batches[0]):
+        return train_grads(model, p, batch, cfg, GRAD_SCALE)
+
+    def launches_ok(batch, what):
+        """One square step's gradients, every launch probed and counted."""
+        b, s = batch["tokens"].shape[0], batch["tokens"].shape[1] - 1
+        rules = recurrent_train_launches(cfgs["square_pallas"], b, s)
+        want = tuple(sum(rules[p][k] for p in ("forward", "backward",
+                                               "recompute"))
+                     for k in ("K1", "K2", "K3"))
+        seen, restore = _probed_kernels()
+        reset_counts()
+        try:
+            sq = grads(cfgs["square_pallas"], batch=batch)
+        finally:
+            restore()
+        launched = counts()[:3]
+        # the first mLSTM chunk contracts zeros with zeros: a bound of 0
+        shares = [r[2] / r[3] if r[3] else (0.0 if r[2] == 0 else math.inf)
+                  for r in seen]
+        worst = max(range(len(seen)), key=shares.__getitem__)
+        check(launched == want and len(seen) == sum(launched)
+              and shares[worst] <= 1.0
+              and all(bool(torch.isfinite(t).all()) for t in sq.values()),
+              f"{what}: one f32 step launches K1/K2/K3 {launched} (the "
+              f"rules' forward, backward and the loss's recompute: {want}),"
+              f" each within k * 2^-23 * (max|a| + max|b|)^2 of its exact "
+              f"product (worst {seen[worst][0]} {seen[worst][1]} at "
+              f"{shares[worst]:.1%} of it); {len(sq)} finite gradients")
+        return sq, {(r[0], r[1]) for r in seen}
+
+    def median(rel):
+        return sorted(rel.values())[len(rel) // 2]
+
+    out = {}
+    if arch == "recurrentgemma-2b":
+        sq, launched = launches_ok(batches[0], f"{arch} {B} x {S}")
+        std = grads(cfgs["standard"])
+        rel = _rel_tensors(sq, std)
+        del sq
+        w = max(rel, key=rel.get)
+        print(f"  every site square (reported): ||diff|| / ||standard|| "
+              f"median {median(rel):.3e}, worst {rel[w]:.3e} ({w})",
+              flush=True)
+
+        def rel_with(sites=()):
+            return _rel_tensors(grads(dataclasses.replace(
+                cfgs["square_pallas"],
+                contraction_policy=_policy(sites, loss="standard"))), std)
+
+        rel2 = rel_with()
+        w2 = max(rel2, key=rel2.get)
+        excess = {t: RECURRENT_GRAD_RTOL for t, r in rel2.items()
+                  if r > RECURRENT_GRAD_RTOL}
+        sites = sorted(x for x in recurrent_train_audit(cfgs["standard"], B, S)
+                       if "." not in x and x != "loss")
+        found = site_witness(rel_with, excess, sites)
+        cfg_bf = dataclasses.replace(cfgs["standard"], dtype="bfloat16")
+        bf = _rel_tensors(grads(cfg_bf, moe_train_tree(tree, cfg_bf)), std)
+        print(f"  the bf16 control (standard computed in bf16): "
+              f"||diff|| / ||standard|| median {median(bf):.3e}, worst "
+              f"{max(bf.values()):.3e}", flush=True)
+        for t in sorted(excess, key=rel2.get, reverse=True):
+            print(f"    {t}: {rel2[t]:.3e} with the loss alone on standard; "
+                  + (f"{found[t][1]:.3e} with {'+'.join(found[t][0])} on "
+                     f"standard too" if t in found else
+                     "no site's move brings it within the gate")
+                  + f"; the bf16 control {bf[t]:.3e}", flush=True)
+        check(rel2[w2] <= RECURRENT_GRAD_CATCH and len(found) == len(excess),
+              f"f32 gradients of the loss x {GRAD_SCALE:g}, the loss's vocab "
+              f"GEMM on standard in both runs: {len(rel2)} tensors, "
+              f"||diff|| / ||standard|| median {median(rel2):.3e}, worst "
+              f"{rel2[w2]:.3e} ({w2}) <= {RECURRENT_GRAD_CATCH:g}; "
+              f"{len(rel2) - len(excess)} within {RECURRENT_GRAD_RTOL:g}, the "
+              f"other {len(excess)} within it with the witnessed site on "
+              f"standard too")
+        out.update(all_square=rel[w], loss_standard=rel2[w2],
+                   past={t: (rel2[t], found.get(t), bf[t]) for t in excess},
+                   bf16_median=median(bf), bf16_worst=max(bf.values()))
+        del std
+    else:
+        sq, launched = launches_ok(batches[0], f"{arch} {B} x {S}")
+        std = grads(cfgs["standard"])
+        rel = _rel_tensors(sq, std)
+        print(f"  the whole LM's gradients (reported): square_pallas's gap "
+              f"median {median(rel):.3e}, worst {max(rel.values()):.3e}",
+              flush=True)
+        del sq, std
+        out.update(gap_median=median(rel), gap_worst=max(rel.values()))
+        out.update(block_parity(model, params, batches[0], cfgs))
+    out["launched"] = sorted(launched)
+    losses = {}
+    for mode, cfg in cfgs.items():
+        step = step_mod.make_train_step(moe_train_view(model, cfg),
+                                        step_mod.TrainConfig())
+        p, o = params, adamw.adamw_init(params)
+        losses[mode] = []
+        for b in batches:
+            p, o, met = step(p, o, b)
+            losses[mode].append(float(met["loss"]))
+        del p, o, step
+        gc.collect()
+    diffs = [abs(a - b) for a, b in zip(losses["square_pallas"],
+                                        losses["standard"])]
+    check(all(math.isfinite(x) for x in losses["square_pallas"])
+          and all(d <= 2e-3 + 2e-3 * abs(b)
+                  for d, b in zip(diffs, losses["standard"])),
+          f"f32 losses at {L} layers: square_pallas "
+          f"{losses['square_pallas']} vs standard {losses['standard']} "
+          f"(|diff| {[f'{d:.2e}' for d in diffs]}; rtol 2e-3, atol 2e-3)")
+    out["losses"] = losses
+    return out
+
+
+def slstm_block_ms(model: LM, params, cfg, dev, gen, B: int, S: int
+                   ) -> float:
+    """Device ms of one sLSTM block at the step's shapes under autograd as
+    the step runs it (its forward, the rematerialised recompute and the
+    backward: the S-step loop thrice), captured alone and replayed between
+    CUDA events."""
+    from repro_torch.train import step as step_mod
+    i = cfg.layer_kinds.index("slstm")
+    ctx = {"cfg": cfg, "mode": cfg.matmul_mode, "policy": None,
+           "positions": torch.arange(S, device=dev), "causal": True}
+    x = torch.randn(B, S, cfg.d_model, generator=gen).to(
+        torch.bfloat16).to(dev)
+    ct = torch.randn(B, S, cfg.d_model, generator=gen).to(
+        torch.bfloat16).to(dev)
+
+    def fn(q, b):
+        y = counting.remat(lambda h: blk.block_forward(
+            "slstm", q["p"], h, ctx)[0])(q["x"])
+        return (y.float() * b["ct"].float()).sum(), {}
+
+    def grads_of(p, x, ct):
+        return step_mod.value_and_grad(fn, {"p": p, "x": x}, {"ct": ct})[1]
+
+    graph = graphs.CapturedFunction(grads_of, device=dev, name="slstm_block")
+    graph(params["layers"][i], x, ct)
+    ms = _event_ms(lambda: [graph.replay() for _ in range(3)]) / 3
+    graph.release()
+    return ms
+
+
+def recurrent_train_arch_phase(dev, gen, arch) -> dict:
+    """``arch`` trained at its published width, bf16, remat "block",
+    square_pallas with no policy, RECURRENT_TRAIN_BS[arch] tokens a step,
+    RECURRENT_TRAIN_LAYERS[arch] layers (weights drawn on the device,
+    :func:`device_tree`): the kernels at every training shape
+    (:func:`recurrent_train_kernel_rows`), the f32 parity
+    (:func:`recurrent_train_parity`), launches by forward and by step
+    against the routing rules (the parity step's split the backward off),
+    an eager step under ``set_sync_debug_mode("error")`` whose audit is
+    :func:`recurrent_train_audit` and whose first launch at each shape is
+    held to its plain version on its own operands, a captured and an
+    eager fixed-seed 2-step run (:func:`state_digest`), the capture's
+    time, nodes and memory, the eager and the replayed step in turns
+    (eager, graph, graph) and traced, a profiled replay's kernels against
+    the ledger, the compiled audit of a replay, xlstm's sLSTM blocks'
+    share, the ``Trainer`` over the captured step and the launcher
+    (:func:`recurrent_launcher_run`).  The captured step is
+    ``GuardedStep(jit=True)``'s, the ``Trainer``'s default on CUDA."""
+    import tempfile
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t_phase = time.perf_counter()
+    laps = [t_phase]
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        print(f"  ({what}: {laps[-1] - laps[-2]:.1f} s)", flush=True)
+
+    cfg = recurrent_train_cfg(arch)
+    full = get_config(arch)
+    B, S = RECURRENT_TRAIN_BS[arch]
+    T, L = B * S, cfg.n_layers
+    kk = ("K1", "K2", "K3")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"recurrent training: {arch} ({full.source}) at its published "
+          f"width (d={cfg.d_model} H={cfg.n_heads} V={cfg.vocab}), {L} of "
+          f"its {full.n_layers} layers "
+          f"{dict(collections.Counter(cfg.layer_kinds))}, {cfg.dtype}, "
+          f"remat {cfg.remat}, {B} x {S} tokens, square_pallas, no policy; "
+          f"card {CARD}", flush=True)
+    rules = recurrent_train_launches(cfg, B, S)
+    want = {p: tuple(rules[p][k] for k in kk) for p in
+            ("forward", "backward", "recompute")}
+    step_want = tuple(sum(w[i] for w in want.values()) for i in range(3))
+    print(f"  launches a step by the routing rules (K1, K2, K3): forward "
+          f"{want['forward']}, backward {want['backward']}, recompute "
+          f"{want['recompute']}", flush=True)
+    check(all(rules[p]["virtual"] == 0 for p in want),
+          "no contraction of the step, forward or backward, routes to the "
+          "virtual form")
+    rows = recurrent_train_kernel_rows(
+        dev, torch.Generator(device=dev).manual_seed(1), cfg, rules)
+    lap("the kernels at the training shapes")
+
+    t0 = time.perf_counter()
+    view = moe_train_view(build_model(cfg.reduced(), device=dev), cfg)
+    tree = device_tree(dataclasses.replace(cfg, dtype="float32"), dev)
+    torch.cuda.synchronize()
+    print(f"  f32 weights of {L} layers drawn on the device (seed 0) in "
+          f"{time.perf_counter() - t0:.2f} s; allocated "
+          f"{_gib(torch.cuda.memory_allocated())}", flush=True)
+    parity = recurrent_train_parity(dev, arch, view, tree)
+    lap("the f32 parity")
+    params = moe_train_tree(tree, cfg)
+    del tree
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    f32 = sum(t.numel() for t in tree_leaves(params)
+              if t.dtype == torch.float32)
+    print(f"  bf16 params: {n_params:,} ({n_params / 1e9:.3f} G; {f32:,} "
+          f"kept f32 as the spec has them), allocated "
+          f"{_gib(torch.cuda.memory_allocated())}", flush=True)
+    batches = SyntheticLM(DataConfig(B, S, cfg.vocab), cfg,
+                          device=dev).take(3)
+    tcfg = step_mod.TrainConfig()
+    step = step_mod.make_train_step(view, tcfg)
+    loss_fn = step_mod.make_loss_fn(view, tcfg)
+
+    reset_counts()
+    with torch.no_grad():
+        loss_fn(params, batches[0])
+    torch.cuda.synchronize()
+    fwd = counts()[:3]
+    # an eager step under set_sync_debug_mode("error"), audited, the first
+    # launch at each shape held to its plain version on its own operands
+    seen = {}
+    restore = _plain_probe(seen)
+    opt = adamw.adamw_init(params)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, eager_audit = step_mod.audit_step(step, params, opt, batches[0])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        restore()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    block = counts()[:3]
+    del out, opt
+    check(fwd == want["forward"] and block == step_want,
+          f"launches (K1, K2, K3): a forward {fwd}, a remat block step "
+          f"{block} = the rules' forward + backward + recompute "
+          f"{step_want}")
+    print(f"  [ok] one eager step ({first_s:.1f} s, its probes included) "
+          f"ran under set_sync_debug_mode('error'): no host sync in the "
+          f"forward, the scans, the sLSTM loop, the backward or AdamW; its "
+          f"peak allocation {eager_peak:.2f} GiB; card {CARD}", flush=True)
+    probed = probe_ok(seen, f"that {arch} step")
+    check(all(probed[k] == set(rules["shapes"][k]) for k in kk),
+          f"the probed shapes are the rules' "
+          f"{[len(rules['shapes'][k]) for k in kk]} K1/K2/K3 shapes")
+    expected = recurrent_train_audit(cfg, B, S)
+    got = {s: v["mults"] for s, v in eager_audit.by_site().items()}
+    fwd_mults = sum(m for s, m in expected.items() if ".bwd_" not in s)
+    check(got == expected and eager_audit.fraction_square == 1.0
+          and eager_audit.fraction_square_bwd == 1.0,
+          f"eager audit of a step: per site the analytic count "
+          f"({eager_audit.total_mults:,} multiplies, "
+          f"{eager_audit.total_mults / fwd_mults:.6f} x the forward's "
+          f"{fwd_mults:,}), fraction_square and fraction_square_bwd 1.0")
+    for site in sorted(s for s in expected if ".bwd_" not in s):
+        print(f"    {site}: forward {expected[site]:,}, .bwd_x "
+              f"{expected.get(site + '.bwd_x', 0):,}, .bwd_w "
+              f"{expected.get(site + '.bwd_w', 0):,}", flush=True)
+    lap("launches, the eager audit and the probes")
+
+    # a fixed-seed eager 2-step run (its second step the first eager
+    # turn); then the same captured
+    walls = {"eager": [], "graph": []}
+    p, o, e_losses = params, adamw.adamw_init(params), []
+    for i, b in enumerate(batches[:2]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, met = step(p, o, b)
+        e_losses.append(float(met["loss"]))
+        if i:
+            walls["eager"].append(time.perf_counter() - t0)
+    print(f"  turn 1 eager: {walls['eager'][0] * 1e3:.1f} ms, "
+          f"{T / walls['eager'][0]:.0f} tokens/s; card {CARD}", flush=True)
+    fp_eager = state_digest(
+        {"losses": torch.tensor(e_losses), "params": p, "opt": o})
+    lap("the eager 2-step run")
+
+    def turn(kind, i):
+        """One step timed (the path is warm: the eager one has run, the
+        graph replayed)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, _ = fns[kind](*state[kind], b_fixed)
+        torch.cuda.synchronize()
+        walls[kind].append(time.perf_counter() - t0)
+        state[kind] = (p, o)
+        print(f"  turn {i} {kind}: {walls[kind][-1] * 1e3:.1f} ms, "
+              f"{T / walls[kind][-1]:.0f} tokens/s; card {CARD}", flush=True)
+
+    def one(kind):
+        p, o, met = fns[kind](*state[kind], b_fixed)
+        state[kind] = (p, o)
+        return met
+
+    state = {"eager": (p, o)}
+    b_fixed = batches[-1]
+    # the captured step under the compiled guard (the Trainer's default on
+    # CUDA): its probes ride in the graph, and each call drains them
+    graph = step_mod.GuardedStep(step, jit=True, registry=MetricsRegistry())
+    fns = {"eager": step, "graph": graph}
+    stats = {"eager": trace_steps(lambda: float(one("eager")["loss"]),
+                                  f"eager {arch} train steps",
+                                  min(walls["eager"]), calls=1, host=False)
+             if arch in EAGER_TRACED else {}}
+    del state["eager"], p, o
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    g_losses = []
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counting.compiled_audit():
+        p, o = params, adamw.adamw_init(params)
+        for b in batches[:2]:
+            p, o, met = graph(p, o, b)
+            g_losses.append(float(met["loss"]))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    graph_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    call = graph._fn.current
+    fp_graph = state_digest(
+        {"losses": torch.tensor(g_losses), "params": p, "opt": o})
+    ledger = {kern.__name__: n for kern, n, _ in call.ledger.launches}
+    led = tuple(ledger.get(f"sq_matmul_{k.lower()}", 0) for k in kk)
+    capture = {"capture_s": call.capture_s, "nodes": call.nodes,
+               "pool_gib": call.pool_bytes / 2 ** 30, "first_s": first_s,
+               "peak_gib": graph_peak}
+    print(f"  eager 2 steps {e_losses}, captured {g_losses}; the capture "
+          f"took {call.capture_s:.2f} s (recorded and instantiated), the "
+          f"graph holds {call.nodes} nodes and its pool "
+          f"{capture['pool_gib']:.2f} GiB; warm-up, capture and 2 replays "
+          f"{first_s:.1f} s, peak allocation {graph_peak:.2f} GiB of the "
+          f"card's {_gib(torch.cuda.get_device_properties(dev).total_memory)}"
+          f"; card {CARD}", flush=True)
+    check(fp_eager == fp_graph,
+          f"captured and eager fixed-seed 2-step runs bit-identical: "
+          f"state_digest {fp_eager[:16]}... twice (losses, params, AdamW "
+          f"state)")
+    check(graph.captures == 1 and led == block
+          and graph.stats() == {"guard_trips": 0, "rejits": 0,
+                                "retries": 0}
+          and counts()[:3] == tuple(3 * n for n in led),
+          f"GuardedStep(jit=True): one capture, no re-capture, the guard "
+          f"clean {graph.stats()}; by its ledger K1 {led[0]}, K2 {led[1]}, "
+          f"K3 {led[2]} a replay (the eager step's), counted 3 times over "
+          f"the warm-up and 2 replays")
+    state["graph"] = (p, o)
+    del p, o
+    turn("graph", 2)
+    turn("graph", 3)
+    stats["graph"] = trace_steps(lambda: float(one("graph")["loss"]),
+                                 f"replayed {arch} train steps",
+                                 min(walls["graph"]), calls=1, host=False)
+    traced = {k: stats["graph"].get(k) for k in kk}
+    check(traced == dict(zip(kk, led)),
+          f"a profiled replay holds K1/K2/K3 {traced} (the ledger's {led})")
+    with counting.track_compiled_contractions() as ctr:
+        graph._fn.replay()
+    torch.cuda.synchronize()
+    audited = {s: v["mults"] for s, v in ctr.by_site().items()}
+    check(audited == expected and ctr.fraction_square_bwd == 1.0,
+          f"compiled audit of a replayed step: per site the analytic count, "
+          f"{ctr.total_mults:,} multiplies, fraction_square "
+          f"{ctr.fraction_square} and fraction_square_bwd "
+          f"{ctr.fraction_square_bwd}")
+    lap("capture, turns, traces and the compiled audit")
+
+    # the Trainer over the captured step; its final state is not written
+    # here (recurrentgemma's ~22 GB): the launcher's Trainer below writes
+    # its own in a fresh directory
+    del state["graph"]
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(TrainerConfig(total_steps=RECURRENT_TRAINER_STEPS,
+                                        ckpt_every=10 ** 9, ckpt_dir=tmp,
+                                        log_every=1),
+                          graph, params, adamw.adamw_init(params),
+                          SyntheticLM(DataConfig(B, S, cfg.vocab), cfg,
+                                      device=dev))
+        trainer._save = lambda block=False: None
+        reset_counts()
+        t0 = time.perf_counter()
+        res = trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launched = counts()[:3]
+        wrote = sorted(os.listdir(tmp))
+    losses = res["loss_trajectory"]
+    audit = res["contraction_audit"]
+    check(res["final_step"] == RECURRENT_TRAINER_STEPS
+          and res["captures"] == 1 and res["step_failures"] == 0
+          and res["guard"] == {"guard_trips": 0, "rejits": 0, "retries": 0}
+          and all(math.isfinite(x) for x in losses) and not wrote,
+          f"Trainer over the captured step: {RECURRENT_TRAINER_STEPS} "
+          f"replays in {run_s:.1f} s, losses {losses}, no new capture, the "
+          f"guard clean")
+    check({s: v["mults"] for s, v in audit["by_site"].items()} == expected
+          and audit["fraction_square"] == 1.0
+          and audit["fraction_square_bwd"] == 1.0,
+          "the Trainer's first-step audit (the compiled audit of its first "
+          "replay): the analytic count, fraction_square and "
+          "fraction_square_bwd 1.0")
+    check(launched == tuple(RECURRENT_TRAINER_STEPS * n for n in block),
+          f"the Trainer's launches {launched} = its "
+          f"{RECURRENT_TRAINER_STEPS} replays x a step's {block}")
+    graph._fn.release()
+    del trainer, graph, fns["graph"], call
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("the Trainer")
+    best = {k: min(v) for k, v in walls.items()}
+    slstm_ms = None
+    if "slstm" in cfg.layer_kinds:
+        slstm_ms = slstm_block_ms(view, params, cfg, dev, gen, B, S)
+    for k in ("eager", "graph"):
+        st = stats[k]
+        share = ""
+        if slstm_ms is not None and st:
+            n_s = cfg.layer_kinds.count("slstm")
+            share = (f", the {n_s} sLSTM blocks {n_s * slstm_ms:.1f} ms "
+                     f"({n_s * slstm_ms / st['busy_ms']:.1%} of the busy "
+                     f"time; one block's forward, recompute and backward "
+                     f"captured alone: {slstm_ms:.2f} ms)")
+        busy = (f"traced step {st['ops']:.0f} device operations, busy "
+                f"{st['busy_ms']:.1f} ms = "
+                f"{st['busy_ms'] / (best[k] * 1e3):.1%} of the untraced "
+                f"step: K1 {st['K1_ms']:.1f} ms ({st['K1']:.0f}), K2 "
+                f"{st['K2_ms']:.1f} ms ({st['K2']:.0f}), the rest "
+                f"{st['busy_ms'] - st['K1_ms'] - st['K2_ms']:.1f} ms{share}"
+                if st else "not traced")
+        print(f"  {k}: fastest step {best[k] * 1e3:.1f} ms, "
+              f"{T / best[k]:.0f} tokens/s; {busy}; card {CARD}",
+              flush=True)
+    del view, step, loss_fn, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launcher = recurrent_launcher_run(dev, arch)
+    lap("the launcher")
+
+    print(f"  {arch} training phase {time.perf_counter() - t_phase:.1f} s; "
+          f"allocated after {_gib(torch.cuda.memory_allocated())}; card "
+          f"{CARD}", flush=True)
+    return {"rows": rows, "rules": {p: dict(rules[p]) for p in want},
+            "step": block, "trainer": dict(zip(kk, launched)),
+            "parity": parity,
+            "capture": capture, "eager_peak_gib": eager_peak,
+            "best_ms": {k: v * 1e3 for k, v in best.items()},
+            "trace": {k: {n: v for n, v in st.items() if n != "other"}
+                      for k, st in stats.items()},
+            "slstm_ms": slstm_ms, "launcher": launcher}
+
+
+def recurrent_launcher_run(dev, arch) -> dict:
+    """``python -m repro_torch.launch.train --arch <arch>`` on the card:
+    square_pallas, the config's bf16 and remat "block", the launcher's
+    own 8 x 256 tokens a step, RECURRENT_LAUNCHER_STEPS steps replayed
+    from one CUDA graph, ``--layers`` RECURRENT_LAUNCHER_LAYERS
+    (recurrentgemma: its first period; xlstm whole), a fresh
+    ``--ckpt-dir``: finite losses, one
+    capture, the final checkpoint committed, the first step's compiled
+    audit equal to :func:`recurrent_train_audit` and the launches (the
+    capture's warm-up and the replays) a step's by the routing rules."""
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.obs.metrics import MetricsRegistry
+    B, S = 8, 256                       # the launcher's defaults
+    layers = RECURRENT_LAUNCHER_LAYERS[arch]
+    steps = RECURRENT_LAUNCHER_STEPS
+    cfg = recurrent_train_cfg(arch, layers or get_config(arch).n_layers)
+    cut = ["--layers", str(layers)] if layers else []
+    print(f"  train launcher: python -m repro_torch.launch.train --arch "
+          f"{arch} {' '.join(cut)} ({cfg.n_layers} layers), square_pallas, "
+          f"{cfg.dtype}, remat {cfg.remat}, {B} x {S} tokens, {steps} "
+          f"steps, a fresh --ckpt-dir", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--arch", arch, *cut, "--matmul-mode", "square_pallas",
+                "--steps", str(steps), "--ckpt-dir", f"{tmp}/ckpt",
+                "--device", str(dev)]
+        reset_counts()
+        t0 = time.perf_counter()
+        res = train_launcher.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()[:3]
+        committed = CheckpointManager(f"{tmp}/ckpt",
+                                      registry=MetricsRegistry()).steps()
+    losses = res["loss_trajectory"]
+    rules = recurrent_train_launches(cfg, B, S)
+    per_step = tuple(sum(rules[p][k] for p in ("forward", "backward",
+                                               "recompute"))
+                     for k in ("K1", "K2", "K3"))
+    calls = steps + res["captures"]
+    check(res["captures"] == 1 and res["final_step"] == steps
+          and len(losses) == steps and res["step_failures"] == 0
+          and all(math.isfinite(x) for x in losses) and committed == [steps],
+          f"the {arch} launcher: {steps} steps in {wall:.1f} s (the host "
+          f"draw, the capture, the steps and the final checkpoint), losses "
+          f"{losses}, {res['captures']} capture, checkpoint {committed} "
+          f"committed in its fresh directory; card {CARD}")
+    audit = res["contraction_audit"]
+    check({s: v["mults"] for s, v in audit["by_site"].items()}
+          == recurrent_train_audit(cfg, B, S)
+          and audit["fraction_square"] == 1.0
+          and audit["fraction_square_bwd"] == 1.0,
+          f"the {arch} launcher's first-step audit (the compiled audit of "
+          f"its replay): the analytic count, {audit['total_mults']:,} "
+          f"multiplies, fraction_square and fraction_square_bwd 1.0")
+    check(launched == tuple(calls * n for n in per_step),
+          f"the {arch} launcher's launches (K1, K2, K3) {launched} = "
+          f"{calls} steps (the capture's warm-up and {steps} replays) x the "
+          f"rules' {per_step}")
+    return dict(zip(("K1", "K2", "K3"), launched), wall_s=wall,
+                layers=cfg.n_layers, losses=losses)
+
+
+def recurrent_train_phase(dev, gen, archs=RECURRENT_ARCHS) -> dict:
+    """Both archs (or ``archs``) trained, then what the kernels line takes
+    from them: the K1-K3 entries (:func:`recurrent_train_entries`) and each
+    kernel's launches by path."""
+    rt = {arch: recurrent_train_arch_phase(dev, gen, arch)
+          for arch in archs}
+    k1, k2, k3 = ({"max_abs_err": 0.0} for _ in range(3))
+    recurrent_train_entries(k1, k2, k3, rt)
+    launches = {kern: {**{f"recurrent_train_{arch}": r["trainer"][kern]
+                          for arch, r in rt.items()},
+                       **{f"recurrent_train_launcher_{arch}":
+                          r["launcher"][kern] for arch, r in rt.items()}}
+                for kern in ("K1", "K2", "K3")}
+    return {"entries": {"K1": k1, "K2": k2, "K3": k3}, "launches": launches}
+
+
+def recurrent_train_entries(k1, k2, k3, rt) -> None:
+    """Add recurrent training to the K1, K2 and K3 entries of the kernels
+    line: per train step of each arch at the phase's depth, the launches
+    by the routing rules (checked by counter, ledger and profiler) and the
+    times at their shapes."""
+    for kern, key in ((k1, "K1"), (k2, "K2"), (k3, "K3")):
+        kern["recurrent_train"] = {}
+        for arch, r in rt.items():
+            mine = [row for row in r["rows"] if row["kernel"] == key]
+            B, S = RECURRENT_TRAIN_BS[arch]
+            entry = {"per": f"one train step of {arch} at its published "
+                            f"width, {RECURRENT_TRAIN_LAYERS[arch]} layers, "
+                            f"{B} x {S} tokens: forward, both gradients "
+                            f"and the recompute",
+                     "launches_per_step": sum(r["rules"][p].get(key, 0)
+                                              for p in r["rules"])}
+            if mine:
+                t_bytes = sum(x["per_step"] * x["t_bytes"] for x in mine)
+                t_ops = sum(x["per_step"] * x["t_ops"] for x in mine)
+                entry.update(
+                    {k: sum(x["per_step"] * (x[k] or 0) for x in mine)
+                     for k in ("ms", "plain_ms", "library_ms", "floor_ms")},
+                    plain_untimed_launches=sum(
+                        x["per_step"] for x in mine if x["plain_ms"] is None),
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    max_abs_err=max(x["max_abs_err"] for x in mine))
+                kern["max_abs_err"] = max(kern["max_abs_err"],
+                                          entry["max_abs_err"])
+            kern["recurrent_train"][arch] = entry
+
+
 # ---------------------------------------------------------- MoE serving
 MOE_ARCH = "moonshot-v1-16b-a3b"
-# 16 of its 48 layers: prepared, a layer holds 1.14 GB of bf16 weights and
+# 4 of its 48 layers: prepared, a layer holds 1.14 GB of bf16 weights and
 # 2.28 GB of their f32 canon (3.42 GB); 48 layers (~166 GB with the
 # embedding and the prepared vocab table) do not fit one 80 GB card, 16
-# (~56.7 GB) leave room for the pools, graphs and transients.
-MOE_LAYERS = 16
+# (~56.7 GB) leave room for the pools, graphs and transients; 4 keep the
+# whole smoke inside its time limit beside the recurrent training phase
+# and its launchers (the host draws a layer's 0.55 G weights in ~5 s).
+MOE_LAYERS = 4
 ROUTE_KERNEL = {"kernel": "K1", "batched": "K2", "fold": "K3",
                 "virtual": "virtual"}
 # the engine's model calls: a decode tick (SLOTS rows), a prefill chunk
@@ -4519,7 +5759,10 @@ def moe_phase(dev, gen) -> dict:
 # capture a captured step holds the caller's state, the graph's static
 # inputs and its new state (10 B a parameter each: bf16 weights, f32 m and
 # v) and the gradients: ~32 B a parameter, 66 GB at 3 layers, 84 GB at 4.
-MOE_TRAIN_LAYERS = 3
+# 2 (3 until the recurrent training phase gained its launchers) keep the
+# whole smoke inside its time limit.
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_FLAG = "--moe-train-phase"
 # the f32 phases against standard: an eager f32 AdamW step holds ~28 B a
 # parameter, 41 GB at 2 layers
 MOE_TRAIN_F32_LAYERS = 2
@@ -4548,19 +5791,24 @@ def moe_train_view(model: LM, cfg) -> LM:
     return view
 
 
+def train_spec(cfg) -> dict:
+    """The spec tree of ``cfg``'s params, in ``LM.tree``'s layout."""
+    from repro_torch.layers import basic
+    from repro_torch.layers.param import torch_dtype
+    norm = (basic.layernorm_spec if cfg.norm == "layernorm"
+            else basic.rmsnorm_spec)
+    return {"embed": basic.embed_spec(cfg.padded_vocab, cfg.d_model,
+                                      torch_dtype(cfg.dtype)),
+            "final_norm": norm(cfg.d_model),
+            "layers": [blk.block_spec(k, cfg) for k in cfg.layer_kinds]}
+
+
 def moe_train_tree(tree, cfg):
     """The first ``cfg.n_layers`` layers of a params ``tree`` drawn in f32,
     each leaf cast to the dtype of ``cfg``'s spec: the weights
     ``build_model(cfg, seed=0)`` draws (it draws in f32, casts, and draws
     the layers in order), f32 leaves shared with ``tree``."""
-    from repro_torch.layers import basic
-    from repro_torch.layers.param import torch_dtype
-    norm = (basic.layernorm_spec if cfg.norm == "layernorm"
-            else basic.rmsnorm_spec)
-    spec = {"embed": basic.embed_spec(cfg.padded_vocab, cfg.d_model,
-                                      torch_dtype(cfg.dtype)),
-            "final_norm": norm(cfg.d_model),
-            "layers": [blk.block_spec(k, cfg) for k in cfg.layer_kinds]}
+    spec = train_spec(cfg)
 
     def cast(node, s):
         if isinstance(node, dict):
@@ -5239,9 +6487,10 @@ def moe_train_phase(dev, gen) -> dict:
     stats["graph"] = trace_steps(lambda: float(one("graph")["loss"]),
                                  "replayed MoE train steps", med["graph"],
                                  calls=2)
-    check(tuple(stats["graph"].get(k) for k in kk) == led,
-          f"a profiled replay holds {tuple(stats['graph'].get(k) for k in kk)}"
-          f" K1/K2/K3 kernels (the ledger's {led})")
+    traced = tuple(stats["graph"].get(k) for k in kk)
+    check(traced == led,
+          f"a profiled replay holds {traced} K1/K2/K3 kernels (the "
+          f"ledger's {led})")
     with counting.track_compiled_contractions() as ctr:
         graph.replay()
     torch.cuda.synchronize()
@@ -5412,7 +6661,7 @@ def moe_train_entries(k1, k2, mt) -> None:
 
 
 def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
-                cpm_rows, launches, train, moe, moe_train, rec):
+                cpm_rows, launches, train, moe, moe_train, rec, rec_train):
     """The kernels line.  ``launches``: {kernel: {path: count}} read after
     each path's run.  K1's and K4's times are per decode step of the paged
     engine, K2's per paged prefill chunk, K3's per dense decode step, K7's
@@ -5504,14 +6753,22 @@ def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
     moe_entries(k1, k2, k4, moe)
     moe_train_entries(k1, k2, moe_train)
     for kern, key in ((k1, "K1"), (k2, "K2"), (k3, "K3")):
-        entry = rec["entries"][key]
-        kern["recurrent"] = entry["recurrent"]
-        kern["max_abs_err"] = max(kern["max_abs_err"], entry["max_abs_err"])
+        for part, name in ((rec, "recurrent"), (rec_train, "recurrent_train")):
+            entry = part["entries"][key]
+            kern[name] = entry[name]
+            kern["max_abs_err"] = max(kern["max_abs_err"],
+                                      entry["max_abs_err"])
     return json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8]})
 
 
 def run(dev) -> str:
     """Every phase after the build; returns the kernels line."""
+    t_run = time.perf_counter()
+
+    def mark(what):
+        print(f"({what} done at {time.perf_counter() - t_run:.1f} s of the "
+              f"smoke's phases)", flush=True)
+
     gen = torch.Generator().manual_seed(0)
     prompt_lens = [len(r.tokens) for r in make_requests(
         serve_cfg(), N_REQUESTS, seed=0)]
@@ -5525,6 +6782,7 @@ def run(dev) -> str:
     k8_rows = k8_phase(dev, gen)
     z, w = dft_signals(), transforms.dft_matrix(DFT_POINTS, device=dev)
     cpm_rows = cpm_phase(dev, gen, z, w)
+    mark("the kernel phases")
     compared = {"K1": [(r["m"], r["k"], r["n"]) for r in k1_rows],
                 "K2": cases["K2"], "K3": cases["K3"]}
     plain = engine_phase(dev, compared)
@@ -5542,10 +6800,18 @@ def run(dev) -> str:
     fault_phase(dev, jit=True)
     guard_phase(dev)
     compiled_guard_phase(dev, plain)
+    mark("the serving, conv, FIR, DFT, fault and guard phases")
     train = train_phases(dev, gen, compared)
+    mark("the dense training phases")
     moe = moe_phase(dev, gen)
-    moe_train = moe_train_phase(dev, gen)
-    rec = recurrent_phase_isolated()
+    mark("MoE serving")
+    moe_train = phase_isolated(MOE_TRAIN_FLAG, "the MoE training phase")
+    mark("MoE training")
+    rec = phase_isolated(RECURRENT_FLAG, "the recurrent phase")
+    mark("recurrent serving")
+    rec_train = phase_isolated(RECURRENT_TRAIN_FLAG,
+                               "the recurrent training phase")
+    mark("recurrent training")
     launches = {"K1": {"engine_square_gemms": k1_total,
                        "launcher": launcher["K1"],
                        "engine_graph": graph["K1"],
@@ -5577,7 +6843,8 @@ def run(dev) -> str:
                 "K5": {"dft_path": dft["K5"]},
                 "K6": {"dft_path": dft["K6"]},
                 "K8": {"fir_path": fir["K8"]}}
-    for kern, paths in rec["launches"].items():
+    for kern, paths in list(rec["launches"].items()) + list(
+            rec_train["launches"].items()):
         launches[kern].update(paths)
     dense_k1 = sum(K1_PER_STEP[(r["k"], r["n"])] * r["ms"] for r in k1_rows
                    if r["m"] == DENSE_BATCH and "ms" in r)
@@ -5586,14 +6853,17 @@ def run(dev) -> str:
           f"m={DENSE_BATCH} {dense_k1:.3f} ms, K3 24 launches "
           f"{dense_k3:.3f} ms", flush=True)
     return kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
-                       cpm_rows, launches, train, moe, moe_train, rec)
+                       cpm_rows, launches, train, moe, moe_train, rec,
+                       rec_train)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    child = sys.argv[1:2] == [RECURRENT_FLAG]
+    child = {MOE_TRAIN_FLAG: moe_train_phase, RECURRENT_FLAG: recurrent_phase,
+             RECURRENT_TRAIN_FLAG: recurrent_train_phase}.get(
+                 sys.argv[1] if len(sys.argv) > 1 else None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -5615,8 +6885,10 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
 
-    if child:                          # recurrent_phase_isolated's process
-        out = recurrent_phase(dev, torch.Generator().manual_seed(0))
+    if child:                          # a phase_isolated's process
+        # by hand: python3 chip_smoke.py --recurrent-train-phase FILE [arch]
+        out = child(dev, torch.Generator().manual_seed(0),
+                    *([tuple(sys.argv[3:])] if sys.argv[3:] else []))
         Path(sys.argv[2]).write_text(json.dumps(out))
         return 0
     line = run(dev)

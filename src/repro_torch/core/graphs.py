@@ -59,13 +59,20 @@ execute and stay counted.
 
 A capture that fails raises :class:`CaptureError`; nothing here falls
 back to eager execution, and a CPU device is refused.
+
+Each :class:`CapturedCall` records what its capture cost: ``capture_s``
+(the capture and the graph's instantiation, host wall), ``nodes`` (the
+graph's node count, read from the driver) and ``pool_bytes`` (the device
+memory the capture reserved, its private pool's new segments).
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import gc
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -77,7 +84,7 @@ from repro_torch.kernels.build import KernelError
 
 __all__ = ["CaptureError", "CaptureLedger", "CapturedCall",
            "CapturedFunction", "GraphSet", "recording", "current_ledger",
-           "capturing", "counted_kernels", "signature"]
+           "capturing", "counted_kernels", "graph_nodes", "signature"]
 
 
 class CaptureError(KernelError):
@@ -98,6 +105,19 @@ def counted_kernels() -> List[Callable]:
     from repro_torch.kernels.sq_paged_attn import sq_paged_attn_k4
     return [sq_matmul_k1, sq_matmul_k2, sq_matmul_k3, sq_paged_attn_k4,
             cpm3_matmul_k5, cpm4_matmul_k6, sq_conv2d_k7, sq_conv_k8]
+
+
+def graph_nodes(graph: "torch.cuda.CUDAGraph") -> Optional[int]:
+    """The node count of a captured graph kept by torch (``keep_graph``),
+    from the driver's ``cuGraphGetNodes``; None where it cannot be read."""
+    try:
+        raw = graph.raw_cuda_graph()
+        count = ctypes.c_size_t(0)
+        rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+            ctypes.c_void_p(raw), None, ctypes.byref(count))
+    except (AttributeError, OSError, RuntimeError, TypeError):
+        return None
+    return int(count.value) if rc == 0 else None
 
 
 @dataclasses.dataclass
@@ -300,7 +320,14 @@ class CapturedCall:
         del saved
 
         self.ledger = CaptureLedger()
-        self.graph = torch.cuda.CUDAGraph()
+        # kept (not destroyed at instantiation), so its nodes can be read
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        # torch.cuda.graph empties the cache before it captures: from there
+        # the pool's segments are what the capture reserves
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        t0 = time.perf_counter()
         # A graph that the cyclic garbage collector frees while this one
         # captures resets itself, a CUDA call a capture does not permit,
         # and the capture is lost: no collection during a capture.
@@ -310,6 +337,7 @@ class CapturedCall:
             with torch.cuda.graph(self.graph, pool=pool), \
                     recording(self.ledger):
                 self.outputs = fn(*self.inputs)
+            self.graph.instantiate()
         except KernelError:
             raise
         except RuntimeError as e:            # torch's capture and CUDA errors
@@ -318,6 +346,9 @@ class CapturedCall:
         finally:
             if collecting:
                 gc.enable()
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.nodes = graph_nodes(self.graph)
         self.replays = 0
 
     def _write(self, args: Sequence[Any]) -> None:

@@ -11,14 +11,17 @@ own dtype and ``remat``) on the synthetic pipeline, with AdamW, periodic
 atomic checkpoints and the fault-tolerant :class:`Trainer`; it resumes
 from the newest valid checkpoint in ``--ckpt-dir``.  Under
 ``square_pallas`` every contraction, forward and both gradients, runs on
-K1 (projections, FFN, loss) or K2/K3 (attention).  On CUDA the step is
+K1 (projections, FFN, gates, loss) or K2/K3 (attention, the xLSTM state
+mixes).  On CUDA the step is
 captured whole (forward, backward, AdamW) into a CUDA graph at its first
 call and replayed after (:func:`repro_torch.train.step.jit_train_step`,
 the JAX launcher's ``jax.jit(make_train_step(...), donate_argnums=(0,
 1))``); a new input signature captures again (``--grad-compression``
 does once, after its first step), and the count of captures is printed
 and returned under ``"captures"``.  ``--reduced`` trains the small smoke
-configuration; ``--device cpu`` runs the step eagerly on the kernels'
+configuration and ``--layers N`` the first N layers of the arch at its
+width (recurrentgemma-2b's whole captured step does not fit one 80 GB
+card); ``--device cpu`` runs the step eagerly on the kernels'
 plain versions, as the CPU has no graphs.  ``--metrics-file`` writes the
 trainer's registry snapshot (step counters and percentiles, checkpoint
 commits, the first step's contraction audit: on CUDA the compiled audit
@@ -57,6 +60,10 @@ def main(argv: Optional[List[str]] = None):
     ap.add_argument("--matmul-mode", default=None)
     ap.add_argument("--reduced", action="store_true",
                     help="use the smoke-scale reduction of --arch")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="train only the first N layers of --arch, at its "
+                         "width (a depth cut, for an arch whose whole "
+                         "captured step does not fit the card)")
     ap.add_argument("--microbatch", type=int, default=0)
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--device", default=None,
@@ -86,11 +93,14 @@ def _train(args):
         cfg = cfg.reduced()
     if args.matmul_mode:
         cfg = dataclasses.replace(cfg, matmul_mode=args.matmul_mode)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg, device=args.device, seed=0)
     params = model.train_params()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"arch={cfg.name} params={n_params:,} mode={cfg.matmul_mode} "
-          f"dtype={cfg.dtype} remat={cfg.remat} device={model.device}")
+    print(f"arch={cfg.name} layers={cfg.n_layers} params={n_params:,} "
+          f"mode={cfg.matmul_mode} dtype={cfg.dtype} remat={cfg.remat} "
+          f"device={model.device}")
     opt_state = adamw.adamw_init(params)
     tcfg = step_mod.TrainConfig(
         opt=adamw.AdamWConfig(lr=args.lr,

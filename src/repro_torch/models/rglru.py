@@ -81,8 +81,9 @@ def _gates(p, xb: torch.Tensor, mode=None, policy=None):
     softplus = torch.logaddexp(lam, torch.zeros_like(lam))
     log_a = -_C * softplus * r                               # (B, S, R), <= 0
     a = torch.exp(log_a)
-    gated_x = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (
-        i * xb.float())
+    # jnp.maximum's gradient (half to each side at a tie), not clamp's
+    gated_x = torch.sqrt(torch.maximum(1.0 - a * a, a.new_full((), 1e-12))) \
+        * (i * xb.float())
     return a, gated_x
 
 

@@ -72,6 +72,25 @@ def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
     return x.reshape(*x.shape[:-1], h, x.shape[-1] // h)
 
 
+def _cummax(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive running max along the last axis, as ``jax.lax.cummax``
+    differentiates it: the recursion of ``jax.lax.associative_scan`` with
+    ``max`` (pair adjacent entries, scan the pairs, fill in the even
+    entries), so a tie splits its gradient evenly, as ``lax.max``'s does.
+    ``torch.cummax`` sends it all to one index, with a scatter whose
+    atomic adds make the backward vary from run to run on CUDA."""
+    n = x.shape[-1]
+    if n < 2:
+        return x
+    odd = _cummax(torch.maximum(x[..., 0:-1:2], x[..., 1::2]))
+    even = torch.maximum(odd[..., :n // 2 - (n + 1) % 2], x[..., 2::2])
+    even = torch.cat([x[..., :1], even], dim=-1)
+    out = x.new_empty(x.shape)
+    out[..., 0::2] = even
+    out[..., 1::2] = odd
+    return out
+
+
 def mlstm_chunk_scan(q, k, v, it, ft, state, chunk: int, *, mode=None,
                      policy=None):
     """Chunkwise-parallel stabilized mLSTM.
@@ -104,7 +123,7 @@ def mlstm_chunk_scan(q, k, v, it, ft, state, chunk: int, *, mode=None,
         b = torch.cumsum(fc, dim=-1)                         # (B,H,c)
         g = b[..., -1]                                       # total decay
         # stabilizers
-        cmax = torch.cummax(ic - b, dim=-1).values     # max_j<=t (i_j - b_j)
+        cmax = _cummax(ic - b)                         # max_j<=t (i_j - b_j)
         m_loc = b + cmax
         m_new = torch.maximum(m[..., None] + b, m_loc)       # (B,H,c)
         # inter-chunk

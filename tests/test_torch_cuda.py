@@ -1537,3 +1537,128 @@ def test_captured_recurrent_decode_step_equals_eager_on_card(cuda_device,
                                                  tree_leaves(eager_cache)))
     del model, params, caches, eager_cache, graph_cache, gs
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------- recurrent training
+# xlstm-350m's sLSTM step (H = 4 heads of hd = 256, B = 4 rows) under
+# autograd: dL/dh "bhy,hxy->bhx", canonical (H, B, 4 hd, hd), and dL/dR
+# "bhy,bhx->hxy", canonical (H, 4 hd, B, hd)
+SLSTM_BACKWARD = [("bhy,hxy->bhx", (4, 4, 1024), (4, 256, 1024),
+                   (4, 4, 1024, 256)),
+                  ("bhy,bhx->hxy", (4, 4, 1024), (4, 4, 256),
+                   (4, 1024, 4, 256))]
+
+
+@pytest.mark.parametrize("spec,xs,ys,canon", SLSTM_BACKWARD)
+def test_slstm_backward_shapes_on_k2_on_card(cuda_device, spec, xs, ys,
+                                             canon):
+    """K2 at the sLSTM's two backward shapes against the batched plain
+    version (f32 from bf16-rounded operands), and the backward's own
+    ``fs_einsum`` spec on those operands gives the direct launch's bits,
+    on K2's route."""
+    from repro_torch.core.einsum import fs_einsum
+    from repro_torch.kernels import routing
+    nb, m, k, n = canon
+    assert routing.select_matmul_route(m, n, k, batch=nb).name == "batched"
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(*xs, generator=gen).to(torch.bfloat16).float().to(
+        cuda_device)
+    y = (torch.randn(*ys, generator=gen) / k ** 0.5).to(
+        torch.bfloat16).float().to(cuda_device)
+    before = sq_matmul_k2.launches
+    via = fs_einsum(spec, x, y, mode="square_pallas")
+    # the dispatch's canonical operands: the batch index h first
+    lhs, out_dims = spec.split("->")
+    xd, yd = lhs.split(",")
+    m_dims = "".join(d for d in xd if d not in yd and d in out_dims)
+    k_dims = "".join(d for d in xd if d in yd and d not in out_dims)
+    n_dims = "".join(d for d in yd if d not in xd and d in out_dims)
+    a = torch.einsum(f"{xd}->h{m_dims}{k_dims}", x).reshape(
+        nb, m, k).contiguous()
+    b = torch.einsum(f"{yd}->h{k_dims}{n_dims}", y).reshape(
+        nb, k, n).contiguous()
+    sa, sb = sq.row_correction(a), sq.col_correction(b, dim=-2)
+    out = sq_matmul_k2(a, b, sa, sb)
+    ref = sq_matmul_batched_plain(a, b, sa, sb)
+    tol = k * 2.0 ** -23 * (a.abs().max() + b.abs().max()).item() ** 2
+    assert (out - ref).abs().max().item() <= tol
+    want = torch.einsum(f"h{m_dims}{n_dims}->{out_dims}",
+                        out.reshape(nb, *(x.shape[xd.index(d)]
+                                          for d in m_dims),
+                                    *(y.shape[yd.index(d)] for d in n_dims)))
+    assert torch.equal(via, want)
+    assert sq_matmul_k2.launches == before + 2
+
+
+@pytest.mark.parametrize("kind,S", [("rglru", 256), ("mlstm", 512),
+                                    ("slstm", 64)])
+def test_captured_recurrent_block_backward_equals_eager_on_card(
+        cuda_device, kind, S):
+    """One full-width block (recurrentgemma's rglru with its FFN; xlstm's
+    mlstm over two 256-token chunks; xlstm's slstm loop), bf16,
+    square_pallas, rematerialised as the train step runs it: its forward
+    and backward (the gradients of every weight and of the input) twice
+    eagerly and once captured into a CUDA graph, bit for bit."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.core import counting, graphs
+    from repro_torch.layers.param import init_module
+    from repro_torch.models import blocks as blk
+    from repro_torch.models.lm import _as_tree
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    arch = "recurrentgemma-2b" if kind == "rglru" else "xlstm-350m"
+    cfg = dataclasses.replace(get_config(arch), matmul_mode="square_pallas")
+    gen = torch.Generator().manual_seed(7)
+    p = _as_tree(init_module(blk.block_spec(kind, cfg), gen, cuda_device))
+    B = 2
+    x = torch.randn(B, S, cfg.d_model, generator=gen).to(
+        torch.bfloat16).to(cuda_device)
+    ct = torch.randn(B, S, cfg.d_model, generator=gen).to(
+        torch.bfloat16).to(cuda_device)
+    ctx = {"cfg": cfg, "mode": cfg.matmul_mode, "policy": None,
+           "positions": torch.arange(S, device=cuda_device), "causal": True}
+
+    def fn(q, b):
+        y = counting.remat(lambda h: blk.block_forward(
+            kind, q["p"], h, ctx)[0])(q["x"])
+        return (y.float() * b["ct"].float()).sum(), {}
+
+    def grads_of(p, x, ct):
+        return step_mod.value_and_grad(fn, {"p": p, "x": x}, {"ct": ct})[1]
+
+    k2 = sq_matmul_k2.launches
+    runs = [grads_of(p, x, ct) for _ in range(2)]
+    graph = graphs.CapturedFunction(grads_of, device=cuda_device,
+                                    name=f"{kind}_block")
+    runs.append(graph(p, x, ct))
+    torch.cuda.synchronize()
+    assert graph.captures == 1 and graph.current.nodes
+    assert (sq_matmul_k2.launches > k2) == (kind != "rglru")
+    fps = [adamw.tree_fingerprint(r) for r in runs]
+    assert fps[0] == fps[1] == fps[2]
+    graph.release()
+
+
+def test_xlstm_step_gradients_repeat_bit_for_bit_on_card(cuda_device):
+    """The gradients of an xlstm-350m step at its published width (8 of
+    its 24 layers: 7 mLSTM and an sLSTM), 4 x 512 tokens, bf16,
+    square_pallas, remat "block", computed twice eagerly: bit for bit.
+    The mLSTM stabilizer's running max is a scan of ``torch.maximum``; a
+    ``torch.cummax`` there scattered its gradient with atomic adds, and
+    two runs' gradients differed in most leaves."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.lm import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    cfg = dataclasses.replace(get_config("xlstm-350m"), n_layers=8,
+                              matmul_mode="square_pallas")
+    model = build_model(cfg, device=cuda_device, seed=0)
+    batch = SyntheticLM(DataConfig(4, 512, cfg.vocab), cfg,
+                        device=cuda_device).next_batch()
+    loss_fn = step_mod.make_loss_fn(model, step_mod.TrainConfig())
+    fps = [adamw.tree_fingerprint(step_mod.value_and_grad(
+        loss_fn, model.train_params(), batch)[1]) for _ in range(2)]
+    assert fps[0] == fps[1]
