@@ -100,7 +100,8 @@ Last, MoE serving: moonshot-v1-16b-a3b at its published width (d 2048,
 16 heads of 128, 64 experts top-6, d_ff 1408, vocab 163840), 4 of its 48
 layers (48 prepared layers do not fit the card; 4 keep the smoke inside
 its time limit), bf16, prepared, weights
-from seed 0, in the paged engine under the square_gemms policy. K1 is held
+from seed 0 drawn on the device, in the paged engine under the
+square_gemms policy. K1 is held
 to its plain version at the router's, the attention projections' and the
 logits' shapes, K2 at the two expert shapes (64, 4, 2048) @ (64, 2048,
 1408) and (64, 4, 1408) @ (64, 1408, 2048) with the prepared expert stack
@@ -143,12 +144,14 @@ Last of all, in a process of its own (a fresh CUDA context and profiler),
 recurrent serving: recurrentgemma-2b
 (RG-LRU + local attention) and xlstm-350m (mLSTM + sLSTM) at their
 published width and full depth, bf16, prepared, square_pallas with every
-contraction square, weights from seed 0. K1 and K2/K3 are held to their
-plain versions at a dense decode step's shapes and timed; a warm-up Server
-run holds the first launch at each shape of the path to the plain version
-on its own operands; the launcher without ``--legacy`` falls back to the
-dense Server with the JAX launcher's note and serves the 8 requests
-compiled; then the Server eager and with its decode step captured, twice:
+contraction square. K1 and K2/K3 are held to their plain versions at a
+dense decode step's shapes and timed; the launcher without ``--legacy``
+falls back to the dense Server with the JAX launcher's note and serves
+the 8 requests compiled, and the phase serves the model it built (its
+weights drawn from seed 0 on the host) after it; a warm-up Server run
+holds the first launch at each shape of the path to the plain version on
+its own operands and gives the launcher's tokens; then the Server eager
+and with its decode step captured, twice:
 the same tokens, one capture, K1/K2/K3 a decode step and a prefill as the
 routing rules give them (by counter, capture ledger and a profiled
 replay), the eager and compiled audits equal to ``recurrent_audit``
@@ -161,8 +164,9 @@ the JAX contract and square_pallas against standard; xlstm's mLSTM chunked
 = sequential).
 
 Last, in a process of its own too, recurrent training: recurrentgemma-2b
-at its published width and 18 of its 26 layers (6 of its 8 periods; a
-7th does not fit beside the eager comparison) and xlstm-350m whole, bf16,
+at its published width and 9 of its 26 layers (3 of its 8 periods; the
+whole step does not fit the card) and xlstm-350m at its first
+(mlstm x 7, slstm) period, 8 of its 24 layers, bf16,
 remat "block", square_pallas with no policy, 2048 tokens a step, weights
 from seed 0 drawn on the device.  K1/K2 at every training shape against
 their plain versions (past k = 32768 K1 against its own order of
@@ -179,8 +183,27 @@ first launch at each shape is held to its plain version; a captured and
 an eager fixed-seed 2-step run bit for bit; the capture's time, nodes and
 pool; eager and replayed steps timed and traced; the compiled audit; the
 ``Trainer`` over the captured step; ``GuardedStep(jit=True)``; the
-launcher for each arch (recurrentgemma at its first period), compiled,
+launcher for each arch at its first period, compiled,
 with its final checkpoint in a fresh directory.
+
+Last, in a process of its own too, encoder-decoder serving:
+whisper-large-v3 at its published width and full depth (32 encoder
+layers over 1500 frames, 32 ``xdec`` layers, d 1280, 20 heads of 64, d_ff
+5120 gelu, vocab 51866), bf16, prepared, square_pallas with every
+contraction square, as the recurrent phase serves its archs: K1 and K2/K3
+at a decode step's shapes (the cross-attention's (80, 1, 64) @ (80, 64,
+1500) and back) and at the prefill's encoder and cross K/V shapes (K1 at
+m = 1500, K2 on (20, 1500, 64) @ (20, 64, 1024) and back) held to their
+plain versions and timed; the launcher's fallback, its 8 requests with
+their frames, its model served after it; a warm-up Server run probing
+every first launch; the Server eager and captured, twice (4 inserts
+after the capture replace a slot's encoder K/V in the cache the graph
+reads), by counter, ledger and a profiled replay, the audits equal to
+``encdec_audit``; turns and traces, TTFT and the cross K/V's f32
+widening; decode-step logits against standard (bf16); in f32
+teacher-forced, every encoder and decoder layer against standard with
+every launch against its exact product, and the encoder's output and the
+decode-step logits end to end.
 
     python3 chip_smoke.py
 
@@ -248,7 +271,8 @@ from repro_torch.launch.serve import make_requests              # noqa: E402
 from repro_torch.models import attention as attn_mod            # noqa: E402
 from repro_torch.models import blocks as blk                    # noqa: E402
 from repro_torch.models.attention import EMPTY_POS              # noqa: E402
-from repro_torch.models.lm import LM, build_model               # noqa: E402
+from repro_torch.models.lm import (                             # noqa: E402
+    LM, build_model, decoder_kinds)
 from repro_torch.models.moe import (                            # noqa: E402
     moe_apply_local, moe_capacity, moe_dispatch, moe_route)
 from repro_torch.obs import check as obs_check                  # noqa: E402
@@ -256,7 +280,7 @@ from repro_torch.serve.faults import FaultInjector, FaultPlan   # noqa: E402
 from repro_torch.serve.engine import (                          # noqa: E402
     Engine, EngineConfig, RequestStatus)
 from repro_torch.serve.server import (                          # noqa: E402
-    Request, ServeConfig, Server, write_slot)
+    Request, ServeConfig, Server, request_batch, write_slot)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 rate and the CUDA-core FP32 rate
 # outside the tensor cores.  The squares run on the CUDA cores.
@@ -1428,6 +1452,17 @@ def _timed_run(eng, reqs, off: int, per_tick: bool = True,
                       for rid in rids)}
 
 
+def lapper():
+    """A function that prints the seconds since its previous call (or since
+    this one) beside ``what`` was done."""
+    laps = [time.perf_counter()]
+
+    def lap(what):
+        laps.append(time.perf_counter())
+        print(f"  ({what}: {laps[-1] - laps[-2]:.1f} s)", flush=True)
+    return lap
+
+
 def _walls_str(walls) -> str:
     return (f"median {walls[len(walls) // 2] * 1e3:.2f} ms (min "
             f"{walls[0] * 1e3:.2f}, max {walls[-1] * 1e3:.2f}, "
@@ -1839,16 +1874,25 @@ def dense_graph_phase(model: LM, dev, compared, dense):
     return total
 
 
+def _one_batch(prompt, dev) -> dict:
+    """The batch of one prompt, a token array or a Request with its extras
+    (an encoder-decoder arch's frames), as the Server's prefill takes
+    it."""
+    return request_batch(prompt if isinstance(prompt, Request)
+                         else Request(-1, prompt), dev)
+
+
 def _dense_prefilled(model: LM, params, prompts, dev):
-    """A dense cache with each prompt prefilled into its slot, and the
-    slots' next positions."""
+    """A dense cache with each prompt (token array or Request) prefilled
+    into its slot, and the slots' next positions."""
     cache = model.init_cache(len(prompts), DENSE_CACHE)
     with torch.no_grad():
         for i, p in enumerate(prompts):
-            _, one = model.prefill(params, {"tokens": torch.as_tensor(
-                p[None], device=dev)}, DENSE_CACHE)
+            _, one = model.prefill(params, _one_batch(p, dev), DENSE_CACHE)
             write_slot(cache, i, one)
-    return cache, torch.as_tensor([len(p) for p in prompts], device=dev)
+    return cache, torch.as_tensor(
+        [len(p.tokens if isinstance(p, Request) else p) for p in prompts],
+        device=dev)
 
 
 def _dense_decode_logits(model: LM, params, prompts, first, dev):
@@ -1869,12 +1913,11 @@ def dense_logits_phase(model: LM, params, dev, tol: float = 2e-2) -> dict:
     it."""
     std = _view(model, matmul_mode="standard")     # the same weights
     virt = _view(model, matmul_mode="square_virtual")
-    prompts = [np.asarray(r.tokens, np.int32)
-               for r in make_requests(model.cfg, DENSE_BATCH, seed=0)]
+    prompts = make_requests(model.cfg, DENSE_BATCH, seed=0)
     with torch.no_grad():
         first = torch.stack([torch.argmax(std.logits(std.tree(), std.forward(
-            std.tree(), {"tokens": torch.as_tensor(p[None], device=dev)})[0][
-                :, -1:])[0, 0]) for p in prompts])
+            std.tree(), _one_batch(p, dev))[0][:, -1:])[0, 0])
+            for p in prompts])
         sq_logits = _dense_decode_logits(model, params, prompts, first, dev)
         std_logits = _dense_decode_logits(std, std.tree(), prompts, first,
                                           dev)
@@ -3298,15 +3341,21 @@ def recurrent_cfg(arch, mode="square_pallas", dtype=None):
 def recurrent_contractions(cfg, B: int, S: int, cache_len: int = 0,
                            logit_rows: int = 1) -> list:
     """(site, batched, nb, m, k, n) of every ``fs_einsum`` call of one model
-    call, in the canonical (nb, m, k, n) the dispatch plans: a forward of B
-    sequences of S tokens (``cache_len`` 0: the prefill; then the logits of
+    call of a dense-Server arch (recurrent or encoder-decoder), in the
+    canonical (nb, m, k, n) the dispatch plans: a forward of B sequences of
+    S tokens (``cache_len`` 0: the prefill, an encoder-decoder arch's
+    encoder over ``cfg.encoder_seq`` frames first; then the logits of
     ``logit_rows`` rows, none at 0) or a decode step of B rows against the
     dense cache (``cache_len`` > 0: S = 1, each attention ring
     min(cache_len, window) long, the logits of every row).  ``batched``:
     the spec has a batch index, so its kernel routes go to K2/K3, at nb = 1
     too."""
-    out = [c for kind in cfg.layer_kinds
-           for c in layer_contractions(cfg, kind, B, S, cache_len)]
+    out = []
+    if cfg.encoder_layers and not cache_len:
+        out += layer_contractions(cfg, "attn", B, cfg.encoder_seq) \
+            * cfg.encoder_layers
+    out += [c for kind in decoder_kinds(cfg)
+            for c in layer_contractions(cfg, kind, B, S, cache_len)]
     rows = B if cache_len > 0 else logit_rows
     if rows:
         out.append(("logits", False, 1, rows, cfg.d_model, cfg.padded_vocab))
@@ -3327,6 +3376,20 @@ def layer_contractions(cfg, kind: str, B: int, S: int,
     def dense(site, k, n, rows=T):
         out.append((site, False, 1, rows, k, n))
 
+    def attend(n_kv, window=None):
+        """The scores and PV of S queries a row over ``n_kv`` keys: one
+        decode step's against the ring (or the encoder's K/V), a forward's
+        q chunks x kv chunks."""
+        if decode:
+            ring = min(n_kv, window) if window else n_kv
+            out.append(("attn_scores", True, B * KV, G, hd, ring))
+            out.append(("attn_pv", True, B * KV, G, ring, hd))
+        else:
+            cq, ck = min(cfg.attn_chunk_q, S), min(cfg.attn_chunk_kv, n_kv)
+            for _ in range(-(-S // cq) * -(-n_kv // ck)):
+                out.append(("attn_scores", True, B * KV, cq * G, hd, ck))
+                out.append(("attn_pv", True, B * KV, G * cq, ck, hd))
+
     def ffn():
         if cfg.d_ff:
             gated = cfg.activation in ("swiglu", "geglu")
@@ -3334,20 +3397,20 @@ def layer_contractions(cfg, kind: str, B: int, S: int,
                 dense("ffn", d, cfg.d_ff)
             dense("ffn", cfg.d_ff, d)
 
-    if kind in ("attn", "lattn"):
+    if kind in ("attn", "lattn", "xdec"):
         for n in (H * hd, KV * hd, KV * hd):
             dense("attn_qkv", d, n)
-        if decode:
-            win = cfg.local_window if kind == "lattn" else cfg.window
-            ring = min(cache_len, win) if win else cache_len
-            out.append(("attn_scores", True, B * KV, G, hd, ring))
-            out.append(("attn_pv", True, B * KV, G, ring, hd))
-        else:
-            cq, ck = min(cfg.attn_chunk_q, S), min(cfg.attn_chunk_kv, S)
-            for _ in range(-(-S // cq) * -(-S // ck)):
-                out.append(("attn_scores", True, B * KV, cq * G, hd, ck))
-                out.append(("attn_pv", True, B * KV, G * cq, ck, hd))
+        attend(cache_len if decode else S,
+               cfg.local_window if kind == "lattn" else cfg.window)
         dense("attn_out", H * hd, d)
+        if kind == "xdec":                  # cross-attention
+            Te = cfg.encoder_seq
+            dense("attn_qkv", d, H * hd)
+            if not decode:                  # K/V of the encoder's output
+                dense("attn_qkv", d, KV * hd, rows=B * Te)
+                dense("attn_qkv", d, KV * hd, rows=B * Te)
+            attend(Te)
+            dense("attn_out", H * hd, d)
         ffn()
     elif kind == "rglru":
         R = cfg.rnn_width or d
@@ -3443,7 +3506,33 @@ def recurrent_audit(cfg, prompt_lens, decode_steps: int, batch: int,
     return dict(sites)
 
 
-def _plain_probe(seen: dict):
+def encdec_audit(cfg, prompt_lens, decode_steps: int, batch: int,
+                 cache_len: int) -> dict:
+    """{site: mults} of an encoder-decoder dense-Server run: each prompt's
+    prefill (the encoder over ``cfg.encoder_seq`` frames, the cross K/V
+    projected from its output, the decoder over the prompt) and its first
+    token's logits, and ``decode_steps`` decode steps of ``batch`` rows,
+    each attending to the ``cfg.encoder_seq`` cross entries of its slot:
+    :func:`recurrent_audit`'s count, whose contractions
+    (:func:`recurrent_contractions`) carry the encoder and the
+    cross-attention."""
+    return recurrent_audit(cfg, prompt_lens, decode_steps, batch, cache_len)
+
+
+def _probe_rows(out, aw, bw, sa, sb, rows: int = 0):
+    """``out`` and its operands cut to ``rows`` (default PROBE_ROWS) output
+    rows (the first and the last half) of each batch element, where there
+    are more."""
+    rows = rows or PROBE_ROWS
+    m, h = aw.shape[-2], rows // 2
+    if m <= rows:
+        return out, (aw, bw, sa, sb)
+    rows = torch.cat([torch.arange(h, device=aw.device),
+                      torch.arange(m - h, m, device=aw.device)])
+    return out[..., rows, :], (aw[..., rows, :], bw, sa[..., rows], sb)
+
+
+def _plain_probe(seen: dict, ordered: dict = None):
     """Wrap K1/K2/K3 as ``kernels.ops`` calls them, so that the first launch
     at each shape is also held to its plain version on the very operands
     the path gave it (:func:`k1_share`; the plain version in blocks of rows
@@ -3452,6 +3541,13 @@ def _plain_probe(seen: dict):
     PROBE_TERMS terms).  ``seen`` gets (kernel,
     shape) -> the share of its tolerance, a device scalar: nothing is read
     back, so a probed step also runs under ``set_sync_debug_mode("error")``.
+    With ``ordered`` (a dict) every first launch is held to
+    :func:`k1_ordered`, K1's own order, within 2^-20 * (|Sa| + |Sb| +
+    |ref|), on PROBE_ROWS rows of each batch element (:func:`_probe_rows`),
+    and ``ordered`` gets, per (kernel, shape), on those rows: the share of
+    the linear bound the plain version leaves against the launch, the
+    launch's and the plain version's largest distance from the exact
+    (float64) product, and max|exact|.
     Returns the function that unwraps them.  Plain calls launch no kernel,
     so the counts stay the path's."""
     from repro_torch.kernels import ops as kops
@@ -3462,14 +3558,22 @@ def _plain_probe(seen: dict):
         def run(aw, bw, sa, sb):
             out = kern(aw, bw, sa, sb)
             shape = tuple(aw.shape) + (bw.shape[-1],)
-            if (name, shape) not in seen:
+            if (name, shape) not in seen and ordered is not None:
+                got, cut = _probe_rows(out, aw, bw, sa, sb)
+                seen[(name, shape)] = k1_share(got, k1_ordered(*cut), *cut,
+                                               ordered=True)
+                plain = (_plain_rows if name == "K1" else _plain_batched)(
+                    *cut)
+                exact = torch.matmul(cut[0].double(), cut[1].double())
+                ordered[(name, shape)] = torch.stack([
+                    k1_share(got, plain, *cut, ordered=False),
+                    (got.double() - exact).abs().max(),
+                    (plain.double() - exact).abs().max(),
+                    exact.abs().max()])
+            elif (name, shape) not in seen:
                 got = out
                 if name == "K1" and math.prod(shape) > PROBE_TERMS:
-                    m, h = aw.shape[0], PROBE_ROWS // 2
-                    rows = torch.cat([torch.arange(h, device=aw.device),
-                                      torch.arange(m - h, m,
-                                                   device=aw.device)])
-                    got, aw, sa = out[rows], aw[rows], sa[rows]
+                    got, (aw, bw, sa, sb) = _probe_rows(out, aw, bw, sa, sb)
                 ref = k1_reference(aw, bw, sa, sb, _plain_rows
                                    if name == "K1" else _plain_batched)
                 seen[(name, shape)] = k1_share(got, ref, aw, bw, sa, sb)
@@ -3485,17 +3589,21 @@ def _plain_probe(seen: dict):
     return restore
 
 
-def probe_ok(seen: dict, what: str) -> dict:
-    """Check the probed launches of :func:`_plain_probe`; returns the shapes
-    held to the plain version, by kernel."""
+def probe_ok(seen: dict, what: str, ordered: bool = False) -> dict:
+    """Check the probed launches of :func:`_plain_probe` (``ordered``: each
+    held to K1's own order); returns the shapes held to the plain version,
+    by kernel."""
     shares = {k: v.item() for k, v in seen.items()}
     bad = {k: v for k, v in shares.items() if not v <= 1.0}
     worst = max(shares, key=shares.get)
+    rule = ("K1's own order, k1_ordered, on up to 64 rows of each batch "
+            "element, within 2^-20 * (|Sa| + |Sb| + |ref|)" if ordered else
+            f"f32 |err| <= k * 2^-23 * (max|a| + max|b|)^2; past k = "
+            f"{K1_LINEAR_MAX_K} K1's own order, k1_ordered, within 2^-20 * "
+            f"(|Sa| + |Sb| + |ref|)")
     check(shares and not bad,
           f"{what}: the first launch at each of {len(shares)} shapes held to "
-          f"its plain version on the path's own operands (f32 |err| <= k * "
-          f"2^-23 * (max|a| + max|b|)^2; past k = {K1_LINEAR_MAX_K} K1's "
-          f"own order, k1_ordered, within 2^-20 * (|Sa| + |Sb| + |ref|)); "
+          f"its plain version on the path's own operands ({rule}); "
           f"worst {worst} at {shares[worst]:.1%} of its "
           f"bound" + (f"; off: {bad}" if bad else ""))
     shapes = {"K1": set(), "K2": set(), "K3": set()}
@@ -3830,6 +3938,7 @@ def recurrent_arch_phase(dev, gen, arch) -> dict:
     """One recurrent arch at full width (see the module docstring)."""
     cfg = recurrent_cfg(arch)
     L = cfg.n_layers
+    lap = lapper()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3853,16 +3962,10 @@ def recurrent_arch_phase(dev, gen, arch) -> dict:
           f"{[recurrent_launches(recurrent_contractions(cfg, 1, s))[0] for s in sorted(set(lens))]}",
           flush=True)
     kern = recurrent_kernel_phase(dev, gen, cfg)
-
-    t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    lap("the kernels at a decode step's shapes")
+    launched, l_run, model = launcher_serve(arch)
     with torch.no_grad():
         params = model.prepare_params()
-    print(f"  model drawn (seed 0, on the host) and moved in {init_s:.1f} s, "
-          f"prepared; allocated {_gib(torch.cuda.memory_allocated())}",
-          flush=True)
 
     # a warm-up run that also holds the first launch at each shape of the
     # path to its plain version on the path's own operands
@@ -3877,32 +3980,12 @@ def recurrent_arch_phase(dev, gen, arch) -> dict:
     compared = probe_ok(seen, f"{arch} Server, eager")
     for key, held in kern["shapes"].items():    # held by the kernel phase
         compared[key] |= set(held)
-
-    # the launcher, compiled (its default on CUDA), as a user runs it
-    reset_counts()
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with counting.compiled_audit(), \
-            counting.track_compiled_contractions() as l_audit, \
-            counting.track_contractions() as l_eager, \
-            contextlib.redirect_stdout(buf):
-        launched = serve_launcher.main(["--arch", arch, "--matmul-mode",
-                                        "square_pallas", "--prepared"])
-    torch.cuda.synchronize()
-    l_wall = time.perf_counter() - t0
-    print("\n".join("  | " + s for s in buf.getvalue().splitlines()),
-          flush=True)
-    l_counts = dict(zip(("K1", "K2", "K3", "K4"), counts()))
-    check(f"note: arch {arch!r} has non-KV decode state; falling back to "
-          f"the dense reference Server" in buf.getvalue(),
-          "the launcher without --legacy falls back to the dense Server "
-          "with the JAX launcher's note")
-    check(sorted(launched) == list(range(N_REQUESTS))
-          and all(len(t) == MAX_NEW for t in launched.values()),
-          f"launcher: {N_REQUESTS} requests with {MAX_NEW} tokens each")
-    check(launched == warm, "launcher tokens = the eager Server's (the same "
-                            "seed-0 weights and prompts)")
+    check(launched == warm, "launcher tokens = the eager Server's (the "
+                            "launcher's own seed-0 weights and prompts)")
     shapes_ok(compared)
+    l_counts, l_audit, l_eager, l_wall = l_run
+
+    lap("the launcher and the probed warm-up run")
 
     # the Server eager, counted and audited
     server = Server(model, params, ServeConfig(
@@ -3975,6 +4058,8 @@ def recurrent_arch_phase(dev, gen, arch) -> dict:
           f"(no re-capture), {gserver.graph.replays} replays, its cache "
           f"tensors where they were")
 
+    lap("the Server eager and captured, twice")
+
     # eager and replayed in turns
     runs = {"eager": [], "graph": []}
     for i, kind in enumerate(("eager", "graph", "graph", "eager")):
@@ -4016,12 +4101,14 @@ def recurrent_arch_phase(dev, gen, arch) -> dict:
     with torch.no_grad():
         stats["eager"] = trace_steps(
             lambda: model.decode_step(params, cache, toks, pos),
-            f"eager {arch} decode steps", med["eager"])
+            f"eager {arch} decode steps", med["eager"], calls=2)
     del cache
-
+    lap("turns and traces")
     std = dense_logits_phase(model, params, dev,
                              tol=RECURRENT_STD_TOL[arch])
+    lap("bf16 logits against standard")
     layers = recurrent_layer_check(model, dev)
+    lap("the f32 layer check")
     op_times = recurrent_op_times(model, params, dev)
     # the long prompt's bf16 prefill wall, then its f32 checks
     ltoks = torch.randint(0, cfg.vocab, (1, LONG_PROMPT), generator=gen) \
@@ -4037,7 +4124,9 @@ def recurrent_arch_phase(dev, gen, arch) -> dict:
     print(f"  bf16 prefill of {LONG_PROMPT} tokens (prepared, square_pallas):"
           f" {', '.join(f'{w * 1e3:.1f}' for w in pw)} ms; card {CARD}",
           flush=True)
+    lap("operator times and the bf16 long prefill")
     long = recurrent_long_phase(model, dev, gen)
+    lap("the f32 long prompt")
     peak = torch.cuda.max_memory_allocated()
     del model, params, server, gserver
     gc.collect()
@@ -4066,6 +4155,61 @@ def recurrent_arch_phase(dev, gen, arch) -> dict:
             "prefill_long_ms": [w * 1e3 for w in pw], "std": std,
             "layers": layers, "op_times": op_times, "long": long,
             "trace": stats}
+
+
+@contextlib.contextmanager
+def _kept_model(built: list):
+    """Keep the model ``repro_torch.launch.serve`` builds (appended to
+    ``built``), so that the phase serves the launcher's own weights after
+    it and draws none of its own."""
+    make = serve_launcher.build_model
+
+    def keep(*args, **kw):
+        built.append(make(*args, **kw))
+        return built[-1]
+    serve_launcher.build_model = keep
+    try:
+        yield
+    finally:
+        serve_launcher.build_model = make
+
+
+def launcher_serve(arch) -> tuple:
+    """``python -m repro_torch.launch.serve --arch <arch> --matmul-mode
+    square_pallas --prepared`` on the card, compiled (its default on
+    CUDA), under the compiled and the eager audit: the JAX launcher's
+    fallback note, every request's MAX_NEW tokens.  Returns its tokens,
+    (its K1-K4 launches, the compiled audit, the eager audit, its wall s)
+    and the model it built (weights drawn from seed 0 on the host), which
+    the phase serves after it."""
+    built = []
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with counting.compiled_audit(), \
+            counting.track_compiled_contractions() as l_audit, \
+            counting.track_contractions() as l_eager, \
+            contextlib.redirect_stdout(buf), _kept_model(built):
+        launched = serve_launcher.main(["--arch", arch, "--matmul-mode",
+                                        "square_pallas", "--prepared"])
+    torch.cuda.synchronize()
+    l_wall = time.perf_counter() - t0
+    print("\n".join("  | " + s for s in buf.getvalue().splitlines()),
+          flush=True)
+    l_counts = dict(zip(("K1", "K2", "K3", "K4"), counts()))
+    check(f"note: arch {arch!r} has non-KV decode state; falling back to "
+          f"the dense reference Server" in buf.getvalue(),
+          "the launcher without --legacy falls back to the dense Server "
+          "with the JAX launcher's note")
+    check(sorted(launched) == list(range(N_REQUESTS))
+          and all(len(t) == MAX_NEW for t in launched.values()),
+          f"launcher: {N_REQUESTS} requests with {MAX_NEW} tokens each")
+    check(len(built) == 1, "the launcher built one model")
+    print(f"  the launcher (its weights drawn from seed 0 on the host, "
+          f"prepared, served) took {l_wall:.1f} s; the phase serves its "
+          f"model after it; allocated {_gib(torch.cuda.memory_allocated())}"
+          f"; card {CARD}", flush=True)
+    return launched, (l_counts, l_audit, l_eager, l_wall), built[0]
 
 
 def recurrent_phase(dev, gen) -> dict:
@@ -4135,6 +4279,510 @@ def recurrent_entries(k1, k2, k3, rec) -> None:
                 kern["max_abs_err"] = max(kern["max_abs_err"],
                                           entry["max_abs_err"])
             kern["recurrent"][arch] = entry
+
+
+# ------------------------------------------------------ encoder-decoder
+ENCDEC_ARCH = "whisper-large-v3"
+ENCDEC_FLAG = "--encdec-phase"
+# decode-step logits against standard mode (bf16): the dense LM's bound
+ENCDEC_STD_TOL = 2e-2
+# ENCDEC_PROBE_NOTE: the first launch at each shape of the Server run is
+# held to K1's own order (k1_ordered), not to the plain version's linear
+# bound.  On the path's own operands the plain version left up to 1.65 x
+# k * 2^-23 * (max|a| + max|b|)^2 against K2 at the cross-attention's PV
+# (softmax weights x the encoder's V, k = 1024 and 1500; measured on one
+# H100): there Sb = -sum v^2 dwarfs the result sum p v, and K1's partial 0,
+# seeded with Sa + Sb, drifts as it does past K1_LINEAR_MAX_K.  The kernel
+# rows on random operands still hold the linear bound at every shape.
+
+
+def probe_linear_report(linear: dict) -> dict:
+    """Print what the plain version (slabs of 16 added to one accumulator)
+    leaves against each probed launch, as a share of the linear bound k *
+    2^-23 * (max|a| + max|b|)^2, and both outputs' distance from the exact
+    product, for the shapes past that bound (:func:`_plain_probe`'s
+    ``ordered``); returns them by shape."""
+    vals = {k: v.tolist() for k, v in linear.items()}
+    over = {k: v for k, v in vals.items() if v[0] > 1.0}
+    worst = max(vals, key=lambda k: vals[k][0])
+    print(f"  (reported) the plain version against the same launches: worst "
+          f"{worst} at {vals[worst][0]:.1%} of the linear bound; "
+          f"{len(over)} of {len(vals)} shapes past it" + "".join(
+              f"; {k}: {v[0]:.1%}, from the exact product the launch "
+              f"{v[1]:.3e} and the plain version {v[2]:.3e} (max|exact| "
+              f"{v[3]:.3e})" for k, v in sorted(over.items())), flush=True)
+    return {str(k): v for k, v in vals.items()}
+
+
+def _ordered_kernels():
+    """Wrap K1, K2 and K3 as ``kernels.ops`` calls them, so that every
+    launch is held to :func:`k1_ordered` (K1's own order) on PROBE_ROWS // 8
+    output rows of each batch element (:func:`_probe_rows`), within 2^-20 *
+    (|Sa| + |Sb| + |ref|), and its distance from the exact (float64)
+    product on those rows is measured beside the linear bound k * 2^-23 *
+    (max|a| + max|b|)^2: returns the list each launch's (kernel, shape,
+    share of the ordered tolerance, |err| from the exact product, the
+    linear bound, max|exact|) joins when the wrap is undone, and the
+    function that unwraps them.  Nothing is read back before then."""
+    from repro_torch.kernels import ops as kops
+    seen, pending = [], []
+    orig = {"K1": kops.sq_matmul_k1, "K2": kops.sq_matmul_k2,
+            "K3": kops.sq_matmul_k3}
+
+    def probe(name, kern):
+        def run(aw, bw, sa, sb):
+            out = kern(aw, bw, sa, sb)
+            got, cut = _probe_rows(out, aw, bw, sa, sb, PROBE_ROWS // 8)
+            exact = torch.matmul(cut[0].double(), cut[1].double())
+            pending.append((name, tuple(aw.shape) + (bw.shape[-1],),
+                            torch.stack([
+                                k1_share(got, k1_ordered(*cut), *cut,
+                                         ordered=True).double(),
+                                (got.double() - exact).abs().max(),
+                                torch.as_tensor(k1_tol(exact, *cut,
+                                                       ordered=False)
+                                                ).double(),
+                                exact.abs().max()])))
+            return out
+        return run
+
+    for name, kern in orig.items():
+        setattr(kops, f"sq_matmul_{name.lower()}", probe(name, kern))
+
+    def restore():
+        for name, kern in orig.items():
+            setattr(kops, f"sq_matmul_{name.lower()}", kern)
+        if pending:
+            values = torch.stack([v for _, _, v in pending]).cpu().tolist()
+            seen.extend((name, shape, *v)
+                        for (name, shape, _), v in zip(pending, values))
+            pending.clear()
+    return seen, restore
+
+
+def encdec_prefill_shapes(cfg) -> dict:
+    """{kernel: Counter(shape: launches a prefill)} of the prefill's
+    contractions that do not depend on the prompt: the encoder's layers
+    over ``cfg.encoder_seq`` frames and the cross K/V projected from its
+    output, by the routing rules (the decoder's, at the prompt's length,
+    are held at their first launch on the path's own operands)."""
+    Te, d = cfg.encoder_seq, cfg.d_model
+    kv = cfg.n_kv_heads * cfg.resolved_head_dim
+    calls = layer_contractions(cfg, "attn", 1, Te) * cfg.encoder_layers
+    calls += [("attn_qkv", False, 1, Te, d, kv)] * (2 * cfg.n_layers)
+    return recurrent_launches(calls)[1]
+
+
+def encdec_layer_check(model: LM, dev) -> dict:
+    """f32 (the model's weights, cast), teacher-forced, against standard
+    mode: the encoder over DENSE_BATCH requests' frames layer by layer,
+    each layer run in square_pallas and standard on standard's input (its
+    increment's |diff| / max), and the encoder's output end to end; then
+    one decode step of DENSE_BATCH slots prefilled in standard mode (fed
+    standard's first tokens), each decoder layer likewise on standard's
+    input and cache, and the logits GEMM on standard's final hidden
+    state.  Every K1/K2/K3 launch of the
+    teacher-forced runs is held to the exact (float64) product of its
+    operands.  Last, the decode-step logits of square_pallas against
+    standard end to end (not teacher-forced)."""
+    cfg = model.cfg
+    p32 = tree_map(lambda t: t.float(), model.tree())
+    std = _view(model, matmul_mode="standard", dtype="float32")
+    sq_m = _view(model, matmul_mode="square_pallas", dtype="float32")
+    reqs = make_requests(cfg, DENSE_BATCH, seed=0)
+    frames = torch.as_tensor(np.stack([r.extras["frames"] for r in reqs]),
+                             device=dev)
+    T = frames.shape[1]
+    ectx = {m: {"cfg": v.cfg, "mode": m, "policy": None, "causal": False,
+                "positions": torch.arange(T, device=dev)}
+            for m, v in (("standard", std), ("square_pallas", sq_m))}
+    enc_rows, dec_rows = [], []
+    with torch.no_grad():
+        enc_sq, enc_std = sq_m.encode(p32, frames), std.encode(p32, frames)
+        cache, first = std.init_cache(DENSE_BATCH, DENSE_CACHE), []
+        for i, r in enumerate(reqs):           # standard's prefills
+            hidden, one = std.prefill(p32, _one_batch(r, dev), DENSE_CACHE)
+            first.append(std.logits(p32, hidden[:, -1:])[0, 0].argmax())
+            write_slot(cache, i, one)
+        first = torch.stack(first)
+        pos = torch.as_tensor([len(r.tokens) for r in reqs], device=dev)
+        dctx = {m: {"cfg": v.cfg, "mode": m, "policy": None, "pos": pos}
+                for m, v in (("standard", std), ("square_pallas", sq_m))}
+        seen, restore = _ordered_kernels()
+        try:
+            x = frames
+            for p in p32["encoder"]["layers"]:
+                y_sq = blk.block_forward("attn", p, x, ectx["square_pallas"])[0]
+                y = blk.block_forward("attn", p, x, ectx["standard"])[0]
+                enc_rows.append(_rel_max(y_sq - x, y - x))
+                x = y
+            x = std._embed_in(p32, first.to(torch.int32)[:, None])
+            for kind, p, c in zip(std.kinds, p32["layers"], cache):
+                c_sq = {k: t.clone() for k, t in c.items()}
+                y_sq = blk.block_decode(kind, p, x, c_sq,
+                                        dctx["square_pallas"])
+                y = blk.block_decode(kind, p, x, c, dctx["standard"])
+                dec_rows.append(_rel_max(y_sq - x, y - x))
+                x = y
+            h = std._final_norm(p32, x)
+            l_std = std.logits(p32, h)[:, 0]
+            l_sq = sq_m.logits(p32, h)[:, 0]
+        finally:
+            restore()
+        e2e_sq = _dense_decode_logits(sq_m, p32, reqs, first, dev)
+    e2e_std = l_std        # standard's step end to end: its own inputs
+    bad = [r for r in seen if not r[2] <= 1.0]
+    worst = max(seen, key=lambda r: r[2])
+    far = max(seen, key=lambda r: r[3] / r[4])
+    check(seen and not bad,
+          f"f32 teacher-forced encoder and decode step: each of {len(seen)} "
+          f"K1/K2/K3 launches held to K1's own order (k1_ordered) on 8 rows "
+          f"of each batch element, within 2^-20 * (|Sa| + |Sb| + |ref|); "
+          f"worst {worst[0]} {worst[1]} at {worst[2]:.1%}")
+    print(f"  (reported) their distance from the exact product: "
+          f"{sum(r[3] > r[4] for r in seen)} of {len(seen)} launches past the "
+          f"linear bound k * 2^-23 * (max|a| + max|b|)^2, the farthest "
+          f"{far[0]} {far[1]} |err| {far[3]:.3e} = {far[3] / far[4]:.1%} of "
+          f"it (max|exact| {far[5]:.3e})", flush=True)
+    enc_e2e = _rel_max(enc_sq, enc_std)
+    tf = _rel_max(l_sq, l_std)
+    e2e = _rel_max(e2e_sq, e2e_std)
+    agree = (e2e_sq.argmax(-1) == e2e_std.argmax(-1)).float().mean().item()
+    for what, rows in (("encoder attn", enc_rows), ("decoder xdec",
+                                                    dec_rows)):
+        srt = sorted(rows)
+        print(f"  f32 teacher-forced {what} x{len(rows)}: block increment "
+              f"|diff| / max: median {srt[len(srt) // 2]:.3e}, worst "
+              f"{srt[-1]:.3e}; per layer {[f'{r:.1e}' for r in rows]}",
+              flush=True)
+    print(f"  f32 encoder output end to end (4 x {T} frames), square_pallas "
+          f"vs standard: |diff| / max {enc_e2e:.3e}; logits GEMM "
+          f"teacher-forced {tf:.3e}; decode-step logits end to end "
+          f"{e2e:.3e}, argmax agreement {agree:.3f}; card {CARD}",
+          flush=True)
+    worst_layer = max(enc_rows + dec_rows + [tf])
+    check(worst_layer <= RECURRENT_LAYER_TOL,
+          f"f32 teacher-forced: every encoder and decoder layer's increment "
+          f"and the logits GEMM within {RECURRENT_LAYER_TOL:g} of "
+          f"standard's (worst {worst_layer:.3e})")
+    check(enc_e2e <= RECURRENT_F32_TOL and e2e <= RECURRENT_F32_TOL
+          and agree == 1.0,
+          f"f32 end to end: the encoder's output {enc_e2e:.3e} and the "
+          f"decode-step logits {e2e:.3e} <= {RECURRENT_F32_TOL:g} * max, the "
+          f"same argmax on every row")
+    del p32, cache, enc_sq, enc_std
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"encoder": enc_rows, "decoder": dec_rows, "logits_tf": tf,
+            "encoder_e2e": enc_e2e, "e2e": e2e, "agree": agree,
+            "launches": len(seen), "worst_launch": worst[2],
+            "farthest_linear": far[3] / far[4]}
+
+
+def encdec_times(model: LM, params, server, dev) -> dict:
+    """TTFT of one request on an idle Server (its prefill, its first
+    token's logits and the sample, synchronized; median of 3) and the
+    cross-attention's f32 widening of the encoder's K/V in a decode step
+    alone (``attention.attn_decode``'s ``k.float()``, ``v.float()`` over
+    every layer's cross cache), by graph replay."""
+    req = make_requests(model.cfg, 1, seed=0)[0]
+    walls = []
+    with torch.no_grad():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hidden, _ = model.prefill(params, _one_batch(req, dev),
+                                      DENSE_CACHE)
+            int(model.logits(params, hidden[:, -1:])[0, 0].argmax())
+            walls.append(time.perf_counter() - t0)
+    cross = [t for layer in server.cache for key, t in layer.items()
+             if key in ("xk", "xv")]
+    widen_ms = time_graph([lambda: [t.float() for t in cross]], reps=2,
+                          replays=3)
+    n = sum(t.numel() for t in cross)
+    print(f"  TTFT of one request on an idle Server ({len(req.tokens)} "
+          f"tokens, {model.cfg.encoder_seq} frames): "
+          f"{', '.join(f'{w * 1e3:.1f}' for w in walls)} ms; the cross "
+          f"K/V's f32 widening a decode step ({len(cross)} tensors, "
+          f"{n / 1e6:.1f} M bf16 entries, {6 * n / 2 ** 30:.2f} GiB moved) "
+          f"alone {widen_ms:.3f} ms by graph replay; card {CARD}",
+          flush=True)
+    return {"ttft_ms": sorted(walls)[1] * 1e3, "widen_ms": widen_ms,
+            "widen_entries": n}
+
+
+def encdec_phase(dev, gen) -> dict:
+    """whisper-large-v3 at its published width and full depth, served by
+    the dense Server eager and with its decode step replayed (see the
+    module docstring); returns what the kernels line takes from it."""
+    arch = ENCDEC_ARCH
+    cfg = recurrent_cfg(arch)
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"encoder-decoder serving: {arch} ({cfg.source}) at its published "
+          f"width and depth ({cfg.encoder_layers} encoder layers over "
+          f"{cfg.encoder_seq} frames, {cfg.n_layers} xdec layers, d="
+          f"{cfg.d_model} H={cfg.n_heads}x{cfg.resolved_head_dim} ff="
+          f"{cfg.d_ff} {cfg.activation} {cfg.norm} V={cfg.vocab}), "
+          f"{cfg.dtype}, prepared, square_pallas with every contraction "
+          f"square, dense Server max_batch {DENSE_BATCH} cache_len "
+          f"{DENSE_CACHE}; card {CARD}", flush=True)
+    reqs = make_requests(cfg, N_REQUESTS, seed=0)
+    lens = [len(r.tokens) for r in reqs]
+    dec_calls = recurrent_contractions(cfg, DENSE_BATCH, 1, DENSE_CACHE)
+    dec = recurrent_launches(dec_calls)[0]
+    pre = {s: recurrent_launches(recurrent_contractions(
+        cfg, 1, s, logit_rows=0))[0] for s in sorted(set(lens))}
+    print(f"  launches by the routing rules: a decode step of {DENSE_BATCH} "
+          f"rows {dec}; a prefill of {sorted(pre)} tokens (the first "
+          f"token's logits apart) {list(pre.values())}", flush=True)
+    L = cfg.n_layers
+    check(dec["virtual"] == 0 and dec["K1"] == L * 8 + 1
+          and dec["K2"] + dec["K3"] == L * 4,
+          f"a decode step: K1 {dec['K1']} = {L} x (4 self + 2 cross + 2 "
+          f"FFN) + the logits, {dec['K2'] + dec['K3']} batched launches = "
+          f"{L} x (self scores, self PV, cross scores, cross PV), none "
+          f"virtual")
+    kern = recurrent_kernel_phase(dev, gen, cfg)
+    pre_shapes = encdec_prefill_shapes(cfg)
+    pre_rows = recurrent_train_kernel_rows(
+        dev, torch.Generator(device=dev).manual_seed(1), cfg,
+        {"shapes": pre_shapes}, unit="prefill")
+    lap_kern = time.perf_counter() - t_phase
+
+    launched, l_run, model = launcher_serve(arch)
+    lap_launcher = time.perf_counter() - t_phase - lap_kern
+    with torch.no_grad():
+        params = model.prepare_params()
+    scfg = dict(max_batch=DENSE_BATCH, cache_len=DENSE_CACHE,
+                max_new_tokens=MAX_NEW)
+    # the Server eager: counted, audited, and the first launch at each
+    # shape held to K1's own order (ENCDEC_PROBE_NOTE; the probes launch
+    # no kernel and note no contraction)
+    server = Server(model, params, ServeConfig(**scfg, jit=False),
+                    device=dev)
+    calls = []
+    _server_calls(server, calls)
+    seen, linear = {}, {}
+    reset_counts()
+    restore = _plain_probe(seen, linear)
+    try:
+        with counting.track_contractions() as audit:
+            eager = server.run(reqs)
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    launches = {"eager": dict(zip(("K1", "K2", "K3", "K4"), counts()))}
+    compared = probe_ok(seen, f"{arch} Server, eager", ordered=True)
+    probe_linear_report(linear)
+    for held in (kern["shapes"], pre_shapes):   # held by the kernel rows
+        for key, shapes in held.items():
+            compared[key] |= set(shapes)
+    check(launched == eager, "launcher tokens = the eager Server's (the "
+                             "launcher's own seed-0 weights and requests)")
+    l_counts, l_audit, l_eager, l_wall = l_run
+    steps = recurrent_calls_ok(calls, cfg, "eager Server")
+    shapes_ok(compared)
+    want = encdec_audit(cfg, lens, steps, DENSE_BATCH, DENSE_CACHE)
+    recurrent_audit_ok(audit, want, "eager Server audit (encdec_audit)")
+    check(launches["eager"]["K4"] == 0, "no K4 on the dense Server's path")
+    lw = sum(d["mults"] for d in l_audit.by_site().values()) + \
+        sum(d["mults"] for d in l_eager.by_site().values())
+    l_pre = encdec_audit(cfg, lens, 0, DENSE_BATCH, DENSE_CACHE)
+    check({s: d["mults"] for s, d in l_eager.by_site().items()} == l_pre
+          and lw == sum(want.values()),
+          f"launcher audit: eager prefills {sum(l_pre.values())} + compiled "
+          f"replays = the analytic {sum(want.values())} multiplies")
+    recurrent_audit_ok(l_audit, encdec_audit(cfg, [], steps, DENSE_BATCH,
+                                             DENSE_CACHE),
+                       "launcher compiled audit (its replays)")
+    l_want = collections.Counter()
+    for s_len in lens:
+        l_want.update(recurrent_launches(recurrent_contractions(
+            cfg, 1, s_len))[0])
+    for key in ("K1", "K2", "K3"):
+        l_want[key] += dec[key] * (steps + 1)
+    check(all(l_counts[k] == l_want[k] for k in ("K1", "K2", "K3"))
+          and l_counts["K4"] == 0,
+          f"launcher launches {l_counts}: the prefills' and first tokens' by "
+          f"the rules, {steps} replayed decode steps and the capture's "
+          f"warm-up at {dec}")
+
+    # the Server with its decode step captured: 8 requests over 4 slots,
+    # so 4 inserts after the capture replace a slot's encoder K/V in the
+    # cache the graph reads; twice, the same tokens
+    gserver = Server(model, params, ServeConfig(**scfg), device=dev)
+    check(gserver.jit, "the Server captures its decode step by default on "
+                       "CUDA")
+    gcalls = []
+    _server_calls(gserver, gcalls)
+    ptrs = [t.data_ptr() for t in tree_leaves(gserver.cache)]
+    reset_counts()
+    with counting.compiled_audit(), \
+            counting.track_compiled_contractions() as g_audit:
+        graph = gserver.run(reqs)
+    torch.cuda.synchronize()
+    launches["graph"] = dict(zip(("K1", "K2", "K3", "K4"), counts()))
+    inserts = sum(c[0] == "prefill" for c in gcalls)
+    check(graph == eager,
+          f"replayed tokens = eager tokens ({inserts} inserts over "
+          f"{DENSE_BATCH} slots, {inserts - DENSE_BATCH} of them after the "
+          f"capture, each writing its slot's encoder K/V into the cache the "
+          f"graph reads)")
+    gsteps = recurrent_calls_ok(gcalls, cfg, "captured Server (by the "
+                                             "ledger)", compiled=True)
+    recurrent_audit_ok(g_audit, encdec_audit(cfg, [], gsteps, DENSE_BATCH,
+                                             DENSE_CACHE),
+                       "captured Server compiled audit (its replays)")
+    shapes_ok(compared)
+
+    # eager and replayed in turns, the replayed turn the captured Server's
+    # second run: the runs above (the eager one probed and audited, the
+    # replayed one capturing) are not timed
+    runs = {}
+    for i, kind in enumerate(("eager", "graph")):
+        s = gserver if kind == "graph" else Server(
+            model, params, ServeConfig(**scfg, jit=False), device=dev)
+        tcalls = []
+        _server_calls(s, tcalls)
+        t0 = time.perf_counter()
+        got = s.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(got == eager, f"turn {i + 1} ({kind}): the eager tokens")
+        walls = sorted(c[3] for c in tcalls if c[0] == "decode")
+        pw = sorted(c[3] for c in tcalls if c[0] == "prefill")
+        runs[kind] = {"wall": wall, "walls": walls,
+                      "tokens_per_s": N_REQUESTS * MAX_NEW / wall,
+                      "prefill_s": pw[len(pw) // 2]}
+        print(f"  turn {i + 1} {kind}: {N_REQUESTS * MAX_NEW / wall:.1f} "
+              f"tokens/s, decode step {_walls_str(walls)}, prefill median "
+              f"{pw[len(pw) // 2] * 1e3:.2f} ms; card {CARD}", flush=True)
+    check(gserver._graph_set.captures == 1
+          and gserver.graph.replays == 2 * gsteps
+          and [t.data_ptr() for t in tree_leaves(gserver.cache)] == ptrs,
+          f"the captured Server's second run (turn 2): the same tokens, 1 "
+          f"capture (no re-capture), {gserver.graph.replays} replays, its "
+          f"cache tensors where they were")
+    med = {k: r["walls"][len(r["walls"]) // 2] for k, r in runs.items()}
+    stats = {"graph": trace_steps(gserver.graph.replay,
+                                  f"replayed {arch} decode steps",
+                                  med["graph"])}
+    want_dec = {k: dec[k] for k in ("K1", "K2", "K3")}
+    want_dec["K4"] = 0
+    seen_counts = _replay_kernel_counts(gserver.graph.replay, want_dec)
+    check(seen_counts[-1] == want_dec,
+          f"a profiled replay holds {seen_counts[-1]} kernels, the rules' "
+          f"{want_dec} (replays profiled one at a time, up to 4, until one "
+          f"holds them: {seen_counts})")
+    cache, pos = _dense_prefilled(model, params, reqs[:DENSE_BATCH], dev)
+    toks = torch.zeros((DENSE_BATCH, 1), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        stats["eager"] = trace_steps(
+            lambda: model.decode_step(params, cache, toks, pos),
+            f"eager {arch} decode steps", med["eager"], calls=2)
+    del cache
+    times = encdec_times(model, params, gserver, dev)
+    lap_serve = time.perf_counter() - t_phase - lap_kern - lap_launcher
+
+    std = dense_logits_phase(model, params, dev, tol=ENCDEC_STD_TOL)
+    del server, gserver
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers = encdec_layer_check(model, dev)
+    peak = torch.cuda.max_memory_allocated()
+    for k in ("eager", "graph"):
+        st = stats[k]
+        if not st:
+            continue
+        kk = st["K1_ms"] + st["K2_ms"] + st["K3_ms"]
+        print(f"  {arch} {k}: {runs[k]['tokens_per_s']:.1f} tokens/s, "
+              f"median decode step {med[k] * 1e3:.2f} ms (untraced, "
+              f"synchronized); traced step: {st['ops']:.0f} device "
+              f"operations, busy {st['busy_ms']:.3f} ms = "
+              f"{st['busy_ms'] / (med[k] * 1e3):.1%} of the untraced step, "
+              f"K1 {st['K1_ms']:.3f} ms, K2 {st['K2_ms']:.3f} ms, K3 "
+              f"{st['K3_ms']:.3f} ms ({kk:.3f} ms = "
+              f"{kk / st['busy_ms']:.1%} of busy), the cross K/V's widening "
+              f"alone {times['widen_ms']:.3f} ms, other "
+              f"{st['busy_ms'] - kk:.3f} ms; card {CARD}", flush=True)
+    print(f"  phase {time.perf_counter() - t_phase:.1f} s: kernels "
+          f"{lap_kern:.1f} s, the launcher {lap_launcher:.1f} s ({l_wall:.1f}"
+          f" s its run), the Server runs, turns and traces {lap_serve:.1f} "
+          f"s, the numerics the rest; peak allocation {_gib(peak)}; card "
+          f"{CARD}", flush=True)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"dec": dec, "pre": {str(k): v for k, v in pre.items()},
+           "kern": kern, "pre_rows": pre_rows,
+           "pre_shapes": {k: {str(s): n for s, n in v.items()}
+                          for k, v in pre_shapes.items()},
+           "steps": steps, "launches": dict(launches, launcher=l_counts),
+           "step_ms": {k: v * 1e3 for k, v in med.items()},
+           "tokens_per_s": {k: r["tokens_per_s"] for k, r in runs.items()},
+           "prefill_ms": {k: r["prefill_s"] * 1e3 for k, r in runs.items()},
+           "times": times, "std": std, "layers": layers,
+           "trace": {k: {n: v for n, v in st.items() if n != "other"}
+                     for k, st in stats.items()},
+           "phase_s": time.perf_counter() - t_phase,
+           "encoder_seq": cfg.encoder_seq}
+    k1, k2, k3 = ({"max_abs_err": 0.0} for _ in range(3))
+    encdec_entries(k1, k2, k3, res)
+    return {"entries": {"K1": k1, "K2": k2, "K3": k3},
+            "launches": {kern_: {f"encdec_{path}": res["launches"][key][kern_]
+                                 for path, key in (
+                                     ("launcher", "launcher"),
+                                     ("server", "eager"),
+                                     ("server_graph", "graph"))}
+                         for kern_ in ("K1", "K2", "K3")},
+           "summary": {k: res[k] for k in ("dec", "pre", "steps", "step_ms",
+                                           "tokens_per_s", "prefill_ms",
+                                           "times", "std", "layers",
+                                           "trace", "phase_s")}}
+
+
+def encdec_entries(k1, k2, k3, res) -> None:
+    """Add encoder-decoder serving to the K1, K2 and K3 entries of the
+    kernels line: per dense decode step of whisper-large-v3 (4 rows) and
+    per prefill's prompt-independent part (the encoder and the cross
+    K/V), the launches by the routing rules (checked by counter, ledger
+    and profiler) and the time at their shapes."""
+    for kern, key in ((k1, "K1"), (k2, "K2"), (k3, "K3")):
+        rows = res["kern"]["rows"].get(key, [])
+        shapes = res["kern"]["shapes"][key]
+        mult = ((lambda row: sum(c for (m, k, n), c in shapes.items()
+                                 if m == DENSE_BATCH
+                                 and (k, n) == (row["k"], row["n"])))
+                if key == "K1" else (lambda row: shapes[row["shape"]]))
+        entry = {"per": f"one dense decode step of {ENCDEC_ARCH} at its "
+                        f"published width and depth, {DENSE_BATCH} rows",
+                 "launches_per_decode_step": res["dec"][key]}
+        if rows:
+            entry.update({k: sum(mult(row) * row[k] for row in rows)
+                          for k in ("ms", "plain_ms", "library_ms",
+                                    "bound_ms")},
+                         max_abs_err=max(row["max_abs_err"] for row in rows))
+        mine = [r for r in res["pre_rows"] if r["kernel"] == key]
+        if mine:
+            t_bytes = sum(x["per_step"] * x["t_bytes"] for x in mine)
+            t_ops = sum(x["per_step"] * x["t_ops"] for x in mine)
+            entry["prefill"] = {
+                "per": f"one prefill's encoder over {res['encoder_seq']} "
+                       f"frames and its cross K/V (the prompt's own "
+                       f"contractions apart)",
+                "launches": sum(x["per_step"] for x in mine),
+                **{k: sum(x["per_step"] * (x[k] or 0) for x in mine)
+                   for k in ("ms", "plain_ms", "library_ms")},
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "max_abs_err": max(x["max_abs_err"] for x in mine)}
+        errs = [entry.get("max_abs_err", 0.0),
+                entry.get("prefill", {}).get("max_abs_err", 0.0)]
+        kern["max_abs_err"] = max([kern["max_abs_err"]] + errs)
+        kern["encdec"] = entry
 
 
 # ---------------------------------------------------- recurrent training
@@ -4236,24 +4884,29 @@ def recurrent_train_launches(cfg, B: int, S: int) -> dict:
 
 
 # Depth of the bf16 main path: recurrentgemma's whole captured step (~32 B
-# a parameter, 2.89 G parameters) does not fit the card, so it trains the
-# first 6 of its 8 (rglru, rglru, lattn) periods (and not its 2-layer
-# tail): at 7 the eager steps beside the captured one ran out of the
-# card's memory (measured on one H100); xlstm trains whole.
-RECURRENT_TRAIN_LAYERS = {"recurrentgemma-2b": 18, "xlstm-350m": 24}
-# the f32 parity against standard: recurrentgemma at one period, xlstm
-# whole
-RECURRENT_F32_LAYERS = {"recurrentgemma-2b": 3, "xlstm-350m": 24}
+# a parameter, 2.89 G parameters) does not fit the card (at 7 of its 8
+# (rglru, rglru, lattn) periods the eager steps beside the captured one
+# ran out of the card's memory, measured on one H100); it trains its first
+# 3 periods, where every kind, shape and kernel of the step runs, in the
+# smoke's time limit.  xlstm
+# trains its first (mlstm x 7, slstm) period of three: every kind, shape
+# and kernel of its step at a third of the host-bound work (its eager
+# step, its 2.8e5-node capture and trace, its f32 parity took ~260 s of
+# the smoke at 24 layers).
+RECURRENT_TRAIN_LAYERS = {"recurrentgemma-2b": 9, "xlstm-350m": 8}
+# the f32 parity against standard: each at one period
+RECURRENT_F32_LAYERS = {"recurrentgemma-2b": 3, "xlstm-350m": 8}
 # the archs whose eager step is traced: xlstm's holds 2.7e5 device
 # operations beside as many host ones, and reading its trace took ~2 min
 # of the smoke (measured on one H100: busy 1397.8 ms, 9.3 % of the traced
 # step's wall)
 EAGER_TRACED = ("recurrentgemma-2b",)
 RECURRENT_TRAINER_STEPS = 2
-# the launcher on the card: recurrentgemma at its first (rglru, rglru,
-# lattn) period (the host draw and the final checkpoint of its 655 M-parameter
-# tied table set its time at any depth), xlstm whole
-RECURRENT_LAUNCHER_LAYERS = {"recurrentgemma-2b": 3, "xlstm-350m": 0}
+# the launcher on the card, each arch at its first period: recurrentgemma's
+# (rglru, rglru, lattn) (the host draw and the final checkpoint of its
+# 655 M-parameter tied table set its time at any depth), xlstm's (mlstm x
+# 7, slstm)
+RECURRENT_LAUNCHER_LAYERS = {"recurrentgemma-2b": 3, "xlstm-350m": 8}
 RECURRENT_LAUNCHER_STEPS = 2
 # xlstm's gradient control: every f32 parameter times (1 + 2^-20)
 GRAD_BUMP = 2.0 ** -20
@@ -4330,12 +4983,14 @@ def k1_ordered(aw, bw, sa, sb) -> torch.Tensor:
     return v[0] if one else v
 
 
-def k1_tol(ref, aw, bw, sa, sb):
+def k1_tol(ref, aw, bw, sa, sb, ordered=None):
     """The tolerance of a K1/K2/K3 output against ``ref``: k * 2^-23 *
     (max|a| + max|b|)^2 against the plain version, or past
-    K1_LINEAR_MAX_K 2^-20 * (|Sa_i| + |Sb_j| + |ref_ij|) against
-    :func:`k1_ordered`."""
-    if aw.shape[-1] <= K1_LINEAR_MAX_K:
+    K1_LINEAR_MAX_K (or where ``ordered``) 2^-20 * (|Sa_i| + |Sb_j| +
+    |ref_ij|) against :func:`k1_ordered`."""
+    if ordered is None:
+        ordered = aw.shape[-1] > K1_LINEAR_MAX_K
+    if not ordered:
         return aw.shape[-1] * 2.0 ** -23 * (
             aw.abs().max() + bw.abs().max()) ** 2
     return 2.0 ** -20 * (sa.abs().unsqueeze(-1) + sb.abs().unsqueeze(-2)
@@ -4349,12 +5004,12 @@ def k1_reference(aw, bw, sa, sb, plain):
         aw, bw, sa, sb)
 
 
-def k1_share(out, ref, aw, bw, sa, sb) -> torch.Tensor:
+def k1_share(out, ref, aw, bw, sa, sb, ordered=None) -> torch.Tensor:
     """The largest share of its tolerance (:func:`k1_tol`) that K1 (or
     K2/K3) ``out`` leaves against ``ref`` (:func:`k1_reference`), on the
     device (inf where ``out`` is not finite; nothing read back)."""
     err = (out - ref).abs()
-    tol = torch.as_tensor(k1_tol(ref, aw, bw, sa, sb))
+    tol = torch.as_tensor(k1_tol(ref, aw, bw, sa, sb, ordered))
     # a zero bound (zeros contracted with zeros) leaves a share of 0
     share = (err / tol.clamp_min(1e-30)).max()
     return torch.where(torch.isfinite(out).all(), share,
@@ -4398,7 +5053,8 @@ def device_tree(cfg, dev, seed: int = 0):
     return draw(train_spec(cfg))
 
 
-def recurrent_train_kernel_rows(dev, gen, cfg, rules) -> list:
+def recurrent_train_kernel_rows(dev, gen, cfg, rules,
+                                unit: str = "train step") -> list:
     """K1/K2/K3 at every distinct shape of a train step of ``cfg`` (the
     forward's, both gradients' and the recompute's, as
     :func:`recurrent_train_launches` gives them) on random bf16-rounded
@@ -4406,8 +5062,9 @@ def recurrent_train_kernel_rows(dev, gen, cfg, rules) -> list:
     :func:`k1_ordered` on PROBE_ROWS rows, with the distance of each from
     the exact product), timed in graph replay with the operands hot beside
     torch.matmul / torch.bmm (no TF32), the bound and the FP32 slot floor,
-    the plain version once between CUDA events."""
-    print(f"{cfg.name} training shapes: K1/K2/K3 held to their plain "
+    the plain version once between CUDA events.  ``unit``: what
+    ``rules``' launch counts are counted over."""
+    print(f"{cfg.name} {unit} shapes: K1/K2/K3 held to their plain "
           f"versions (f32 |err| <= k * 2^-23 * (max|a| + max|b|)^2; past "
           f"k = {K1_LINEAR_MAX_K} to K1's own order) and timed (graph "
           f"replay, operands hot); card {CARD}", flush=True)
@@ -4488,7 +5145,7 @@ def recurrent_train_kernel_rows(dev, gen, cfg, rules) -> list:
             plain_s = ("not timed" if plain_ms is None
                        else f"{plain_ms:.2f} ms")
             print(f"    {name} B={B:2d} m={m:6d} k={k:6d} n={n:6d} "
-                  f"x{per_step:4d} a step: {ms:.4f} ms | plain {plain_s} | "
+                  f"x{per_step:4d} a {unit}: {ms:.4f} ms | plain {plain_s} | "
                   f"{'torch.matmul' if name == 'K1' else 'torch.bmm'} "
                   f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x) | bound "
                   f"{row['bound_ms']:.4f} ms | slot floor "
@@ -4502,7 +5159,7 @@ def recurrent_train_kernel_rows(dev, gen, cfg, rules) -> list:
                                "bound_ms")}
             untimed = sum(r["per_step"] for r in mine
                           if r["plain_ms"] is None)
-            print(f"  per train step ({cfg.n_layers} layers, "
+            print(f"  per {unit} ({cfg.n_layers} layers, "
                   f"{sum(r['per_step'] for r in mine)} launches): {name} "
                   f"{tot['ms']:.3f} ms | plain {tot['plain_ms']:.1f} ms"
                   f"{f' (not timed at {untimed} launches)' * bool(untimed)}"
@@ -4883,12 +5540,7 @@ def recurrent_train_arch_phase(dev, gen, arch) -> dict:
     from repro_torch.train import step as step_mod
     from repro_torch.train.trainer import Trainer, TrainerConfig
     t_phase = time.perf_counter()
-    laps = [t_phase]
-
-    def lap(what):
-        laps.append(time.perf_counter())
-        print(f"  ({what}: {laps[-1] - laps[-2]:.1f} s)", flush=True)
-
+    lap = lapper()
     cfg = recurrent_train_cfg(arch)
     full = get_config(arch)
     B, S = RECURRENT_TRAIN_BS[arch]
@@ -5191,7 +5843,7 @@ def recurrent_launcher_run(dev, arch) -> dict:
     square_pallas, the config's bf16 and remat "block", the launcher's
     own 8 x 256 tokens a step, RECURRENT_LAUNCHER_STEPS steps replayed
     from one CUDA graph, ``--layers`` RECURRENT_LAUNCHER_LAYERS
-    (recurrentgemma: its first period; xlstm whole), a fresh
+    (each arch's first period), a fresh
     ``--ckpt-dir``: finite losses, one
     capture, the final checkpoint committed, the first step's compiled
     audit equal to :func:`recurrent_train_audit` and the launches (the
@@ -5640,7 +6292,7 @@ def moe_phase(dev, gen) -> dict:
                 "K3": [r["shape"] for r in k2_rows if r["kernel"] == "K3"]}
 
     t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, seed=0)
+    model = device_model(cfg, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -5648,8 +6300,8 @@ def moe_phase(dev, gen) -> dict:
         params = model.prepare_params()
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
-    print(f"  model drawn (seed 0, on the host) and moved in {init_s:.1f} s,"
-          f" prepared in {prep_s:.2f} s; allocated "
+    print(f"  model drawn on the device (seed 0) in {init_s:.2f} s, "
+          f"prepared in {prep_s:.2f} s; allocated "
           f"{_gib(torch.cuda.memory_allocated())}", flush=True)
     reqs = make_requests(cfg, N_REQUESTS, seed=0)
 
@@ -5797,10 +6449,14 @@ def train_spec(cfg) -> dict:
     from repro_torch.layers.param import torch_dtype
     norm = (basic.layernorm_spec if cfg.norm == "layernorm"
             else basic.rmsnorm_spec)
-    return {"embed": basic.embed_spec(cfg.padded_vocab, cfg.d_model,
+    spec = {"embed": basic.embed_spec(cfg.padded_vocab, cfg.d_model,
                                       torch_dtype(cfg.dtype)),
             "final_norm": norm(cfg.d_model),
-            "layers": [blk.block_spec(k, cfg) for k in cfg.layer_kinds]}
+            "layers": [blk.block_spec(k, cfg) for k in decoder_kinds(cfg)]}
+    if cfg.encoder_layers:
+        spec["encoder"] = {"layers": [blk.block_spec("attn", cfg)] *
+                           cfg.encoder_layers, "norm": norm(cfg.d_model)}
+    return spec
 
 
 def moe_train_tree(tree, cfg):
@@ -5817,6 +6473,33 @@ def moe_train_tree(tree, cfg):
             return [cast(n, t) for n, t in zip(node, s)]
         return node if node.dtype == s.dtype else node.to(s.dtype)
     return cast(dict(tree, layers=tree["layers"][:cfg.n_layers]), spec)
+
+
+def _module(node) -> torch.nn.Module:
+    """A params tree as the LM's modules: a dict of tensors becomes an
+    ``nn.ParameterDict`` of serving weights, a list an ``nn.ModuleList``,
+    a dict of subtrees an ``nn.ModuleDict``."""
+    if isinstance(node, list):
+        return torch.nn.ModuleList(_module(n) for n in node)
+    if all(isinstance(v, torch.Tensor) for v in node.values()):
+        return torch.nn.ParameterDict({
+            k: torch.nn.Parameter(v, requires_grad=False)
+            for k, v in node.items()})
+    return torch.nn.ModuleDict({k: _module(v) for k, v in node.items()})
+
+
+def device_model(cfg, dev, seed: int = 0) -> LM:
+    """An LM of ``cfg`` whose weights are drawn on the device
+    (:func:`device_tree`, each leaf cast to its spec's dtype as
+    ``build_model`` casts): the distributions ``build_model(cfg,
+    seed=seed)`` draws from, other bits, in well under a second where a
+    host draw of a few G parameters took tens of seconds."""
+    tree = moe_train_tree(device_tree(dataclasses.replace(
+        cfg, dtype="float32"), dev, seed), cfg)
+    model = moe_train_view(build_model(cfg.reduced(), device=dev), cfg)
+    for name, sub in tree.items():
+        setattr(model, name, _module(sub))
+    return model
 
 
 def moe_train_gemms(cfg) -> list:
@@ -6296,6 +6979,7 @@ def moe_train_phase(dev, gen) -> dict:
     from repro_torch.optim import adamw
     from repro_torch.train import step as step_mod
     from repro_torch.train.trainer import Trainer, TrainerConfig
+    lap = lapper()
     cfg = moe_train_cfg()
     full = get_config(MOE_ARCH)
     L = cfg.n_layers
@@ -6317,15 +7001,17 @@ def moe_train_phase(dev, gen) -> dict:
           "no GEMM of the step, forward or backward, routes to the virtual "
           "form or to K3")
     rows = moe_train_kernel_phase(dev, gen, cfg)
+    lap("the kernels at the training shapes")
 
     t0 = time.perf_counter()
-    model = build_model(moe_train_cfg(dtype="float32"), device=dev, seed=0)
+    model = device_model(moe_train_cfg(dtype="float32"), dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    print(f"  f32 weights of {L} layers drawn (seed 0, on the host) and moved "
-          f"in {init_s:.1f} s; allocated "
+    print(f"  f32 weights of {L} layers drawn on the device (seed 0) in "
+          f"{init_s:.2f} s; allocated "
           f"{_gib(torch.cuda.memory_allocated())}", flush=True)
     parity = moe_train_parity_phase(dev, model)
+    lap("the weights' draw and the f32 parity")
     params = moe_train_tree(model.tree(), cfg)
     model = moe_train_view(model, cfg)     # the f32 weights go
     gc.collect()
@@ -6405,6 +7091,7 @@ def moe_train_phase(dev, gen) -> dict:
           f"{eager_audit.total_mults:,} multiplies, fraction_square 1.0 and "
           f"fraction_square_bwd 1.0")
 
+    lap("the layer backward, launches and the eager audit")
     # a captured and an eager fixed-seed 2-step run, bit for bit; the
     # eager state goes on as the first eager turn
     p, o, e_losses = params, adamw.adamw_init(params), []
@@ -6532,6 +7219,7 @@ def moe_train_phase(dev, gen) -> dict:
               f"{st['busy_ms'] - st['K1_ms'] - st['K2_ms'] - disp:.1f} ms "
               f"(AdamW in it); card {CARD}", flush=True)
 
+    lap("the captured and eager runs, turns, traces and the compiled audit")
     # GuardedStep(jit=True): clean
     gs = step_mod.GuardedStep(step, jit=True, registry=MetricsRegistry())
     p, o = params, adamw.adamw_init(params)
@@ -6589,6 +7277,7 @@ def moe_train_phase(dev, gen) -> dict:
     del trainer, params, model, step, loss_fn
     gc.collect()
     torch.cuda.empty_cache()
+    lap("GuardedStep and the Trainer")
     print(f"  memory: an eager step peaks at {eager_peak:.2f} GiB, the "
           f"captured step's first call at {graph_peak:.2f} GiB, the "
           f"Trainer at {peak:.2f} GiB; after "
@@ -6661,7 +7350,8 @@ def moe_train_entries(k1, k2, mt) -> None:
 
 
 def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
-                cpm_rows, launches, train, moe, moe_train, rec, rec_train):
+                cpm_rows, launches, train, moe, moe_train, rec, rec_train,
+                enc):
     """The kernels line.  ``launches``: {kernel: {path: count}} read after
     each path's run.  K1's and K4's times are per decode step of the paged
     engine, K2's per paged prefill chunk, K3's per dense decode step, K7's
@@ -6753,7 +7443,8 @@ def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
     moe_entries(k1, k2, k4, moe)
     moe_train_entries(k1, k2, moe_train)
     for kern, key in ((k1, "K1"), (k2, "K2"), (k3, "K3")):
-        for part, name in ((rec, "recurrent"), (rec_train, "recurrent_train")):
+        for part, name in ((rec, "recurrent"), (rec_train, "recurrent_train"),
+                           (enc, "encdec")):
             entry = part["entries"][key]
             kern[name] = entry[name]
             kern["max_abs_err"] = max(kern["max_abs_err"],
@@ -6812,6 +7503,8 @@ def run(dev) -> str:
     rec_train = phase_isolated(RECURRENT_TRAIN_FLAG,
                                "the recurrent training phase")
     mark("recurrent training")
+    enc = phase_isolated(ENCDEC_FLAG, "the encoder-decoder phase")
+    mark("encoder-decoder serving")
     launches = {"K1": {"engine_square_gemms": k1_total,
                        "launcher": launcher["K1"],
                        "engine_graph": graph["K1"],
@@ -6843,9 +7536,9 @@ def run(dev) -> str:
                 "K5": {"dft_path": dft["K5"]},
                 "K6": {"dft_path": dft["K6"]},
                 "K8": {"fir_path": fir["K8"]}}
-    for kern, paths in list(rec["launches"].items()) + list(
-            rec_train["launches"].items()):
-        launches[kern].update(paths)
+    for part in (rec, rec_train, enc):
+        for kern, paths in part["launches"].items():
+            launches[kern].update(paths)
     dense_k1 = sum(K1_PER_STEP[(r["k"], r["n"])] * r["ms"] for r in k1_rows
                    if r["m"] == DENSE_BATCH and "ms" in r)
     dense_k3 = sum(LAYERS * r["ms"] for r in k3_rows if r["shape"][1] == 1)
@@ -6854,7 +7547,7 @@ def run(dev) -> str:
           f"{dense_k3:.3f} ms", flush=True)
     return kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
                        cpm_rows, launches, train, moe, moe_train, rec,
-                       rec_train)
+                       rec_train, enc)
 
 
 def main() -> int:
@@ -6862,7 +7555,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
     child = {MOE_TRAIN_FLAG: moe_train_phase, RECURRENT_FLAG: recurrent_phase,
-             RECURRENT_TRAIN_FLAG: recurrent_train_phase}.get(
+             RECURRENT_TRAIN_FLAG: recurrent_train_phase,
+             ENCDEC_FLAG: encdec_phase}.get(
                  sys.argv[1] if len(sys.argv) > 1 else None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -5,8 +5,11 @@ numpy arrays (``jax.tree.map(np.asarray, params)``) and returns a state
 dict for :class:`repro_torch.models.lm.LM`.  Layer ``i`` comes from the
 scan stack (``params["scan"]["pos{j}"]``, leading period axis) or the
 unrolled tail (``params["tail"]["layer{t}"]``) exactly as the JAX model
-orders them.  Tensor layouts are kept: wq/wk/wv (d, heads, hd), wo
-(heads, hd, d), dense weights (d_in, d_out).
+orders them.  An encoder-decoder tree's encoder (``encoder.blocks.pos0``,
+stacked with a leading ``encoder_layers`` axis, and ``encoder.norm``)
+becomes ``encoder.layers.{i}`` and ``encoder.norm``.  Tensor layouts are
+kept: wq/wk/wv (d, heads, hd), wo (heads, hd, d), dense weights (d_in,
+d_out).
 
 :func:`train_state_from_jax` takes a JAX params tree and AdamW state and
 returns the port's functional params tree and optimizer state (the
@@ -66,12 +69,21 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     for i, layer in enumerate(layers):
         for k, v in layer.items():
             flat[f"layers.{i}.{k}"] = v
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        stacked: Dict[str, np.ndarray] = {}
+        _flatten(enc["blocks"]["pos0"], "", stacked)
+        for k, v in stacked.items():
+            for i in range(v.shape[0]):
+                flat[f"encoder.layers.{i}.{k}"] = v[i]
+        _flatten(enc["norm"], "encoder.norm.", flat)
     return {k: _to_torch(v) for k, v in flat.items()}
 
 
 def tree_from_state_dict(flat: Mapping[str, torch.Tensor]) -> Dict:
-    """The LM's params tree (``{"embed", "final_norm", "layers": [...]}``)
-    from a state dict of dotted names."""
+    """The LM's params tree (``{"embed", "final_norm", "layers": [...]}``,
+    and ``"encoder": {"layers": [...], "norm"}`` where present) from a
+    state dict of dotted names."""
     root: Dict = {}
     for name, t in flat.items():
         node = root
@@ -79,8 +91,9 @@ def tree_from_state_dict(flat: Mapping[str, torch.Tensor]) -> Dict:
         for part in path:
             node = node.setdefault(part, {})
         node[leaf] = t
-    layers = root.get("layers", {})
-    root["layers"] = [layers[str(i)] for i in range(len(layers))]
+    for node in (root, root.get("encoder", {})):
+        layers = node.get("layers", {})
+        node["layers"] = [layers[str(i)] for i in range(len(layers))]
     return root
 
 

@@ -1,7 +1,8 @@
 """Serving launcher: the paged continuous-batching engine (default) or the
 dense reference Server (``--legacy``), on the GPU.  An arch with non-KV
-decode state (the recurrent ``recurrentgemma-2b`` and ``xlstm-350m``) falls
-back to the dense Server with the JAX launcher's note.
+decode state (the recurrent ``recurrentgemma-2b`` and ``xlstm-350m``, the
+encoder-decoder ``whisper-large-v3``) falls back to the dense Server with
+the JAX launcher's note.
 
     python -m repro_torch.launch.serve --arch fairsquare-demo \\
         --matmul-mode square_pallas --prepared [--legacy --max-batch 4]
@@ -60,14 +61,24 @@ __all__ = ["make_requests", "main"]
 
 def make_requests(cfg, n: int, seed: int = 0, lo: int = 4,
                   hi: int = 24) -> List[Request]:
-    """``n`` ragged prompts from a numpy seed (the JAX launcher's draws, so
-    both packages serve the same prompts)."""
+    """``n`` ragged prompts from a numpy seed, each with its extras (a
+    prefix arch's ``patches``, an encoder-decoder arch's ``frames``, both
+    N(0, 1) f32): the JAX launcher's draws in its order, so both packages
+    serve the same requests."""
     rng = np.random.default_rng(seed)
     reqs = []
     for rid in range(n):
         plen = int(rng.integers(lo, hi))
+        extras = {}
+        if cfg.prefix_tokens:
+            extras["patches"] = rng.normal(
+                size=(cfg.prefix_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.encoder_layers:
+            extras["frames"] = rng.normal(
+                size=(cfg.encoder_seq, cfg.d_model)).astype(np.float32)
         reqs.append(Request(rid, rng.integers(0, cfg.vocab, plen,
-                                              dtype=np.int32)))
+                                              dtype=np.int32),
+                            extras or None))
     return reqs
 
 

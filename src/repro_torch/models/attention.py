@@ -1,10 +1,13 @@
-"""Attention: the PyTorch port of ``repro/models/attention.py`` (self
-attention; cross-attention comes with the encoder-decoder slice).
+"""Attention: the PyTorch port of ``repro/models/attention.py`` (self and
+cross-attention).
 
 - Full sequence (train / prefill): :func:`attn_forward` over
-  :func:`chunked_attention`, an online softmax over q chunks x kv chunks.
+  :func:`chunked_attention`, an online softmax over q chunks x kv chunks;
+  with ``cross_x`` K/V come from the encoder stream (no rope, no causal
+  mask, no window).
 - Dense decode: :func:`attn_decode` against a ``(B, T, KV, hd)`` cache
-  (a ring under a sliding window) with per-row ``(B,)`` positions.
+  (a ring under a sliding window) with per-row ``(B,)`` positions, or,
+  with ``cross_cache``, against the encoder's K/V, which it only reads.
 - Paged decode and chunked prefill (the engine): :func:`_attn_paged_step`
   over ``(P, KV, hd)`` pools with P = num_blocks * block_size physical
   token slots; its softmax read takes one of two routes
@@ -162,23 +165,31 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
 
 
 def attn_forward(p, x, *, cfg, positions, causal: bool = True,
-                 window: Optional[int] = None, mode: Optional[str] = None,
+                 window: Optional[int] = None, cross_x=None,
+                 cross_positions=None, mode: Optional[str] = None,
                  policy=None):
-    """Full-sequence self attention (train / prefill).  ``positions``:
-    (S,) absolute.  Returns ``(out, (k, v))``, the roped k and v in the
-    config's dtype, so callers can seed KV caches."""
+    """Full-sequence attention (train / prefill).  ``positions``: (S,)
+    absolute.  Returns ``(out, (k, v))``, k and v in the config's dtype,
+    so callers can seed KV caches.  ``cross_x`` (B, T, D) switches to
+    cross-attention: K/V are projected from it at ``cross_positions``
+    (T,), with no rope on q or k, no causal mask and no window."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     dt = torch_dtype(cfg.dtype)
+    kv_src = x if cross_x is None else cross_x
     q = _proj_in(p["wq"], x, H, hd, mode, policy)
-    k = _proj_in(p["wk"], x, KV, hd, mode, policy).to(dt)
-    v = _proj_in(p["wv"], x, KV, hd, mode, policy).to(dt)
+    k = _proj_in(p["wk"], kv_src, KV, hd, mode, policy).to(dt)
+    v = _proj_in(p["wv"], kv_src, KV, hd, mode, policy).to(dt)
     q = q.to(dt)
-    q = basic.rope(q, positions, cfg.rope_theta)
-    k = basic.rope(k, positions, cfg.rope_theta)
+    if cross_x is None:
+        q = basic.rope(q, positions, cfg.rope_theta)
+        k = basic.rope(k, positions, cfg.rope_theta)
+        kv_pos = positions
+    else:
+        kv_pos, causal, window = cross_positions, False, None
     out = chunked_attention(q.reshape(B, S, KV, H // KV, hd), k, v,
-                            positions, positions, causal=causal,
+                            positions, kv_pos, causal=causal,
                             window=window, chunk_q=cfg.attn_chunk_q,
                             chunk_kv=cfg.attn_chunk_kv,
                             softcap=cfg.attn_logit_softcap, mode=mode,
@@ -188,7 +199,7 @@ def attn_forward(p, x, *, cfg, positions, causal: bool = True,
 
 
 def attn_decode(p, x, cache, pos, *, cfg, window: Optional[int] = None,
-                mode: Optional[str] = None, policy=None):
+                cross_cache=None, mode: Optional[str] = None, policy=None):
     """Single-token decode against a dense cache ``{"k", "v": (B, T, KV,
     hd), "pos": (B, T) int32}`` (a ring buffer under ``window``).
 
@@ -196,7 +207,10 @@ def attn_decode(p, x, cache, pos, *, cfg, window: Optional[int] = None,
     are written IN PLACE (the JAX version returns a new cache) at slot
     ``pos % T`` under a window, else ``min(pos, T - 1)``; a row attends to
     every cache entry whose position is at most its own (and inside the
-    window).  Returns ``(out (B, 1, D), cache)``.
+    window).  With ``cross_cache`` ``{"k", "v": (B, T, KV, hd)}`` (the
+    encoder's K/V) q is not roped, every one of the T entries is attended
+    and nothing is written; ``cache`` is then unused.  Returns ``(out (B,
+    1, D), cache)``.
     """
     B = x.shape[0]
     hd = cfg.resolved_head_dim
@@ -206,29 +220,33 @@ def attn_decode(p, x, cache, pos, *, cfg, window: Optional[int] = None,
     pos = pos.long()
 
     q = _proj_in(p["wq"], x, H, hd, mode, policy).to(dt)
-    k1 = _proj_in(p["wk"], x, KV, hd, mode, policy).to(dt)
-    v1 = _proj_in(p["wv"], x, KV, hd, mode, policy).to(dt)
-    qr = basic.rope(q, pos[:, None], cfg.rope_theta)
-    k1 = basic.rope(k1, pos[:, None], cfg.rope_theta)
+    if cross_cache is not None:
+        k, v, valid, qr = cross_cache["k"], cross_cache["v"], None, q
+    else:
+        k1 = _proj_in(p["wk"], x, KV, hd, mode, policy).to(dt)
+        v1 = _proj_in(p["wv"], x, KV, hd, mode, policy).to(dt)
+        qr = basic.rope(q, pos[:, None], cfg.rope_theta)
+        k1 = basic.rope(k1, pos[:, None], cfg.rope_theta)
 
-    T = cache["k"].shape[1]
-    slot = pos % T if window is not None else torch.clamp(pos, max=T - 1)
-    bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, slot] = k1[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, slot] = v1[:, 0].to(cache["v"].dtype)
-    cache["pos"][bidx, slot] = pos.to(cache["pos"].dtype)
-    kv_abs = cache["pos"]
-    valid = kv_abs <= pos[:, None]
-    if window is not None:
-        valid &= (pos[:, None] - kv_abs) < window
+        T = cache["k"].shape[1]
+        slot = pos % T if window is not None else torch.clamp(pos, max=T - 1)
+        bidx = torch.arange(B, device=x.device)
+        cache["k"][bidx, slot] = k1[:, 0].to(cache["k"].dtype)
+        cache["v"][bidx, slot] = v1[:, 0].to(cache["v"].dtype)
+        cache["pos"][bidx, slot] = pos.to(cache["pos"].dtype)
+        k, v, kv_abs = cache["k"], cache["v"], cache["pos"]
+        valid = kv_abs <= pos[:, None]
+        if window is not None:
+            valid &= (pos[:, None] - kv_abs) < window
 
     qf = qr.reshape(B, 1, KV, G, hd).float() * hd ** -0.5
-    s = fs_einsum("bqkgh,btkh->bkgqt", qf, cache["k"].float(), mode=mode,
+    s = fs_einsum("bqkgh,btkh->bkgqt", qf, k.float(), mode=mode,
                   policy=policy, site="attn_scores")
     s = _softcap(s, cfg.attn_logit_softcap)
-    s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    if valid is not None:
+        s = s.masked_fill(~valid[:, None, None, None, :], NEG_INF)
     w = torch.softmax(s, dim=-1)
-    out = fs_einsum("bkgqt,btkh->bqkgh", w, cache["v"].float(), mode=mode,
+    out = fs_einsum("bkgqt,btkh->bqkgh", w, v.float(), mode=mode,
                     policy=policy, site="attn_pv")
     out = out.reshape(B, 1, H, hd).to(dt)
     return _proj_out(p["wo"], out, mode, x.dtype, policy=policy), cache

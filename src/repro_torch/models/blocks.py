@@ -4,9 +4,12 @@ Every layer is a ``kind``: ``attn`` (pre-norm attention + FFN), ``moe``
 (attention + a mixture of experts, :mod:`repro_torch.models.moe`),
 ``lattn`` (``attn`` at ``cfg.local_window``), ``rglru`` (the RG-LRU mix,
 :mod:`repro_torch.models.rglru`, + an optional FFN), ``mlstm`` and
-``slstm`` (the xLSTM mixes, :mod:`repro_torch.models.xlstm`): the
-full-sequence pass, dense and paged decode, and the empty caches.  The
-cross-attention kind (``xdec``, whisper) comes with ROADMAP Q1 step 6.
+``slstm`` (the xLSTM mixes, :mod:`repro_torch.models.xlstm`) and ``xdec``
+(the whisper-style decoder block: self-attention, cross-attention over the
+encoder stream, FFN): the full-sequence pass, dense and paged decode, and
+the empty caches.  An ``xdec`` cache holds the encoder's K/V (``xk``,
+``xv``) beside its self-attention ring; decode reads them and never
+writes them.
 
 A recurrent kind's cache is its state (a dict of ``(B, ...)`` tensors);
 decode writes the new state into those tensors in place, as attention
@@ -30,12 +33,12 @@ __all__ = ["block_spec", "block_forward", "block_decode", "block_init_cache",
            "block_init_paged_cache", "PAGEABLE_KINDS", "KINDS"]
 
 #: Block kinds this port builds.
-KINDS = ("attn", "moe", "lattn", "rglru", "mlstm", "slstm")
+KINDS = ("attn", "moe", "lattn", "rglru", "mlstm", "slstm", "xdec")
 #: Kinds whose layer runs attention (their cache is a K/V ring).
-ATTN_KINDS = ("attn", "moe", "lattn")
+ATTN_KINDS = ("attn", "moe", "lattn", "xdec")
 #: Block kinds whose decode cache is a KV dict -- the kinds the paged
-#: serving engine supports (recurrent state is per slot, not positional,
-#: so paging does not apply to it).
+#: serving engine supports (recurrent state and the encoder's K/V are per
+#: slot, not positional, so paging does not apply to them).
 PAGEABLE_KINDS = ("attn", "moe", "lattn")
 
 _RECURRENT = {
@@ -61,10 +64,6 @@ def _norm_apply(cfg, p, x):
 
 
 def _check_kind(kind: str) -> None:
-    if kind == "xdec":
-        raise NotImplementedError(
-            "block kind 'xdec' (cross-attention) is not ported yet; it "
-            "comes with ROADMAP Q1 step 6")
     if kind not in KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
 
@@ -78,6 +77,9 @@ def block_spec(kind: str, cfg) -> Dict[str, Any]:
     s: Dict[str, Any] = {"ln1": _norm_spec(cfg)}
     if kind in ATTN_KINDS:
         s["attn"] = attn.attn_spec(cfg)
+        if kind == "xdec":
+            s["lnx"] = _norm_spec(cfg)
+            s["xattn"] = attn.attn_spec(cfg)
     elif kind == "rglru":
         s["mix"] = rglru_mod.rglru_spec(cfg)
     elif kind == "mlstm":
@@ -112,9 +114,11 @@ def _ffn_residual(kind, cfg, p, x, mode, policy):
 
 def block_forward(kind: str, p, x, ctx):
     """Full-sequence block pass.  ``ctx``: dict(cfg, mode, policy,
-    positions (S,), causal).  Returns ``(x_out, cache_seed, aux_loss)``;
-    the seed is an attention layer's roped ``{"k", "v"}`` (B, S, KV, hd),
-    a recurrent layer's final state."""
+    positions (S,), causal; for ``xdec`` cross_x (B, T, D), the encoder's
+    output, and cross_positions (T,)).  Returns ``(x_out, cache_seed,
+    aux_loss)``; the seed is an attention layer's roped ``{"k", "v"}`` (B,
+    S, KV, hd) -- an ``xdec`` layer's also its cross K/V ``"xk"``, ``"xv"``
+    (B, T, KV, hd) --, a recurrent layer's final state."""
     _check_kind(kind)
     cfg, mode, policy = ctx["cfg"], ctx["mode"], ctx.get("policy")
     h = _norm_apply(cfg, p["ln1"], x)
@@ -125,6 +129,13 @@ def block_forward(kind: str, p, x, ctx):
                                         window=_window_for(kind, cfg),
                                         mode=mode, policy=policy)
         seed = {"k": k, "v": v}
+        if kind == "xdec":
+            x = x + out
+            out, (seed["xk"], seed["xv"]) = attn.attn_forward(
+                p["xattn"], _norm_apply(cfg, p["lnx"], x), cfg=cfg,
+                positions=ctx["positions"], cross_x=ctx["cross_x"],
+                cross_positions=ctx["cross_positions"], mode=mode,
+                policy=policy)
     else:
         out, seed = _RECURRENT[kind][0](p["mix"], h, cfg=cfg, mode=mode,
                                         policy=policy)
@@ -140,7 +151,8 @@ def block_decode(kind: str, p, x, cache, ctx):
     S may be a prefill chunk and ``ctx["pos"]`` is (B, S); otherwise it is
     the dense ``{"k", "v", "pos"}`` cache or a recurrent layer's state, S =
     1 and ``ctx["pos"]`` is (B,).  A recurrent layer's new state is copied
-    into the cache's own tensors."""
+    into the cache's own tensors.  An ``xdec`` layer attends to its
+    cache's ``xk``/``xv`` after its self-attention (dense decode only)."""
     _check_kind(kind)
     cfg, mode, policy = ctx["cfg"], ctx["mode"], ctx.get("policy")
     h = _norm_apply(cfg, p["ln1"], x)
@@ -158,17 +170,31 @@ def block_decode(kind: str, p, x, cache, ctx):
         out, _ = attn.attn_decode(p["attn"], h, cache, ctx["pos"], cfg=cfg,
                                   window=_window_for(kind, cfg), mode=mode,
                                   policy=policy)
+        if kind == "xdec":
+            x = x + out
+            out, _ = attn.attn_decode(
+                p["xattn"], _norm_apply(cfg, p["lnx"], x), None, ctx["pos"],
+                cfg=cfg, cross_cache={"k": cache["xk"], "v": cache["xv"]},
+                mode=mode, policy=policy)
     return _ffn_residual(kind, cfg, p, x + out, mode, policy)[0]
 
 
-def block_init_cache(kind: str, cfg, batch: int, cache_len: int, device):
+def block_init_cache(kind: str, cfg, batch: int, cache_len: int, device,
+                     enc_len: int = 0):
     """Empty dense decode cache for one layer: a K/V ring (``cache_len``
-    long, the window under a sliding window) or a recurrent kind's initial
-    state."""
+    long, the window under a sliding window; an ``xdec`` layer's also
+    zero ``xk``/``xv`` of ``(batch, enc_len, KV, hd)`` in the config's
+    dtype) or a recurrent kind's initial state."""
     _check_kind(kind)
     if kind in ATTN_KINDS:
-        return attn.init_kv_cache(cfg, batch, cache_len, device,
-                                  _window_for(kind, cfg))
+        c = attn.init_kv_cache(cfg, batch, cache_len, device,
+                               _window_for(kind, cfg))
+        if kind == "xdec":
+            for key in ("xk", "xv"):
+                c[key] = torch.zeros(
+                    (batch, enc_len, cfg.n_kv_heads, cfg.resolved_head_dim),
+                    dtype=c["k"].dtype, device=device)
+        return c
     return _RECURRENT[kind][2](cfg, batch, device)
 
 

@@ -1,6 +1,6 @@
-"""The decoder LM: the PyTorch port of ``repro/models/lm.py`` (the
-full-sequence forward and prefill, dense and paged decode, logits,
-prepared weights).
+"""The LM: the PyTorch port of ``repro/models/lm.py`` (the full-sequence
+forward and prefill, dense and paged decode, logits, prepared weights) for
+decoder LMs and the whisper-style encoder-decoder.
 
 ``LM`` is an ``nn.Module`` whose layers are a Python loop over a
 ``ModuleList`` (the JAX package scans stacked layers; the port has no scan
@@ -11,6 +11,14 @@ tensors for the functional train step, and :meth:`LM.prepare_params`
 returns the tree with every attention, FFN and expert weight -- of every
 layer -- replaced by a :class:`~repro_torch.core.prepared.PreparedOperand`
 (a recurrent block's ``mix`` weights stay raw, as in JAX).
+
+An encoder-decoder arch (``cfg.encoder_layers``, whisper) also holds an
+``encoder``: ``encoder_layers`` non-causal ``attn`` blocks over the
+request's precomputed frame embeddings (``batch["frames"]``; the conv
+frontend is a stub, as in JAX) and a norm.  Its decoder layers are
+``xdec`` blocks (an ``attn`` of the pattern becomes ``xdec``), whose
+cross-attention reads the encoder's output; their decode caches carry the
+encoder's K/V per slot.
 
 Under autograd, ``cfg.remat == "block"`` rematerialises each block in the
 backward (``torch.utils.checkpoint`` through
@@ -34,18 +42,26 @@ from repro_torch.layers.param import init_module, torch_dtype
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
 
-__all__ = ["LM", "build_model"]
+__all__ = ["LM", "build_model", "decoder_kinds"]
 
 
 def _check_supported(cfg) -> None:
-    if cfg.encoder_layers or cfg.prefix_tokens \
+    if cfg.prefix_tokens \
             or any(k not in blk.KINDS for k in cfg.layer_kinds):
         raise NotImplementedError(
             f"arch {cfg.name!r} (family {cfg.family!r}, blocks "
             f"{sorted(set(cfg.layer_kinds))}) is not ported yet: this port "
             f"builds decoder LMs of attention, MoE, local-attention and "
-            f"recurrent (RG-LRU, mLSTM, sLSTM) blocks; encoder-decoder and "
-            f"prefix-token archs come with ROADMAP Q1 step 6")
+            f"recurrent (RG-LRU, mLSTM, sLSTM) blocks and encoder-decoder "
+            f"LMs (whisper); prefix-token archs come with ROADMAP Q1 step 6")
+
+
+def decoder_kinds(cfg) -> tuple:
+    """The block kind of each decoder layer: ``cfg.layer_kinds``, with
+    ``attn`` as ``xdec`` in an encoder-decoder arch (JAX's ``dec_kind``)."""
+    if not cfg.encoder_layers:
+        return cfg.layer_kinds
+    return tuple("xdec" if k == "attn" else k for k in cfg.layer_kinds)
 
 
 def _as_tree(m: nn.Module):
@@ -57,8 +73,8 @@ def _as_tree(m: nn.Module):
 
 
 class LM(nn.Module):
-    """Decoder LM (attention, MoE, local-attention and recurrent blocks)
-    with tied embeddings."""
+    """Decoder LM (attention, MoE, local-attention and recurrent blocks),
+    or encoder-decoder LM, with tied embeddings."""
 
     def __init__(self, cfg, *, device: torch.device, seed: int = 0):
         super().__init__()
@@ -73,7 +89,18 @@ class LM(nn.Module):
         self.final_norm = init_module(norm(cfg.d_model), gen, device)
         self.layers = nn.ModuleList(
             init_module(blk.block_spec(k, cfg), gen, device)
-            for k in cfg.layer_kinds)
+            for k in self.kinds)
+        if cfg.encoder_layers:
+            self.encoder = nn.ModuleDict({
+                "layers": nn.ModuleList(
+                    init_module(blk.block_spec("attn", cfg), gen, device)
+                    for _ in range(cfg.encoder_layers)),
+                "norm": init_module(norm(cfg.d_model), gen, device)})
+
+    @property
+    def kinds(self) -> tuple:
+        """Each decoder layer's block kind (:func:`decoder_kinds`)."""
+        return decoder_kinds(self.cfg)
 
     @property
     def device(self) -> torch.device:
@@ -81,10 +108,16 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------ params
     def tree(self) -> Dict[str, Any]:
-        """The module's weights as a params tree."""
-        return {"embed": _as_tree(self.embed),
+        """The module's weights as a params tree (with ``"encoder":
+        {"layers": [...], "norm"}`` in an encoder-decoder arch)."""
+        tree = {"embed": _as_tree(self.embed),
                 "final_norm": _as_tree(self.final_norm),
                 "layers": [_as_tree(layer) for layer in self.layers]}
+        if self.cfg.encoder_layers:
+            tree["encoder"] = {
+                "layers": [_as_tree(p) for p in self.encoder["layers"]],
+                "norm": _as_tree(self.encoder["norm"])}
+        return tree
 
     def train_params(self) -> Dict[str, Any]:
         """A copy of the module's weights as plain tensors: the functional
@@ -95,12 +128,13 @@ class LM(nn.Module):
     def prepare_params(self, params: Optional[Dict[str, Any]] = None
                        ) -> Dict[str, Any]:
         """Weight-stationary inference params (paper §4-§5): every
-        attention projection and FFN weight of every layer -- of a MoE
-        block the router (site ``moe_router``) and the three batched
-        ``(E, K, N)`` expert stacks (``moe_expert``) -- and the transposed
-        vocab table (``logits_prep``), prepared once: widened, ``Sb``
-        precomputed.  A recurrent block's ``mix`` subtree stays raw, as in
-        the JAX package."""
+        attention projection (cross-attention's too) and FFN weight of
+        every layer, the encoder's included -- of a MoE block the router
+        (site ``moe_router``) and the three batched ``(E, K, N)`` expert
+        stacks (``moe_expert``) -- and the transposed vocab table
+        (``logits_prep``), prepared once: widened, ``Sb`` precomputed.  A
+        recurrent block's ``mix`` subtree stays raw, as in the JAX
+        package."""
         params = params if params is not None else self.tree()
         cfg = self.cfg
         hd = cfg.resolved_head_dim
@@ -119,8 +153,9 @@ class LM(nn.Module):
 
         def prep_layer(p):
             q = dict(p)
-            if "attn" in p:
-                q["attn"] = prep_attn(p["attn"])
+            for key in ("attn", "xattn"):
+                if key in p:
+                    q[key] = prep_attn(p[key])
             if "ffn" in p and "router" in p["ffn"]:
                 q["ffn"] = {k: dict(v, w=prepare_operand(
                     v["w"], site="moe_router" if k == "router"
@@ -132,6 +167,9 @@ class LM(nn.Module):
 
         new = dict(params)
         new["layers"] = [prep_layer(p) for p in params["layers"]]
+        if "encoder" in params:
+            new["encoder"] = dict(params["encoder"], layers=[
+                prep_layer(p) for p in params["encoder"]["layers"]])
         new["logits_prep"] = prepare_operand(
             params["embed"]["table"].float(), transpose=True, site="logits")
         return new
@@ -144,18 +182,57 @@ class LM(nn.Module):
         scale = float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
         return (x * scale).to(torch_dtype(cfg.dtype))
 
-    def _final_norm(self, params, x: torch.Tensor) -> torch.Tensor:
+    def _norm(self, p, x: torch.Tensor) -> torch.Tensor:
         norm = (basic.layernorm_apply if self.cfg.norm == "layernorm"
                 else basic.rmsnorm_apply)
-        return norm(params["final_norm"], x)
+        return norm(p, x)
+
+    def _final_norm(self, params, x: torch.Tensor) -> torch.Tensor:
+        return self._norm(params["final_norm"], x)
+
+    def _blocks(self, kinds, layers, x, ctx, collect: Optional[list]):
+        """``x`` through the blocks ``layers`` of ``kinds``; each layer's
+        cache seed goes to ``collect`` (prefill), else under autograd
+        ``cfg.remat == "block"`` rematerialises each block.  Returns ``(x,
+        the summed aux loss)``."""
+        aux_total = torch.zeros((), device=x.device)
+        for kind, p in zip(kinds, layers):
+            if self.cfg.remat != "none" and collect is None:
+                x, aux = counting.remat(
+                    lambda x, kind=kind, p=p:
+                    blk.block_forward(kind, p, x, ctx)[::2])(x)
+            else:
+                x, seed, aux = blk.block_forward(kind, p, x, ctx)
+                if collect is not None:
+                    collect.append(seed)
+            aux_total = aux_total + aux
+        return x, aux_total
+
+    def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """The encoder over precomputed frame embeddings ``frames`` (B, T,
+        D) (the conv frontend is a stub, as in JAX): cast to the config's
+        dtype, ``encoder_layers`` non-causal ``attn`` blocks at positions
+        ``arange(T)``, then the encoder's norm."""
+        cfg = self.cfg
+        x = frames.to(torch_dtype(cfg.dtype))
+        ctx = {"cfg": cfg, "mode": cfg.matmul_mode,
+               "policy": cfg.contraction_policy,
+               "positions": torch.arange(x.shape[1], device=x.device),
+               "causal": False}
+        enc = params["encoder"]
+        x, _ = self._blocks(("attn",) * len(enc["layers"]), enc["layers"],
+                            x, ctx, None)
+        return self._norm(enc["norm"], x)
 
     # ----------------------------------------------------- full forward
     def forward(self, params, batch: Dict[str, torch.Tensor], *,
                 collect_cache: bool = False):
         """Teacher-forced full-sequence pass over ``batch["tokens"]``
-        (B, S) -> ``(hidden (B, S, D), aux_loss, caches)``.  With
-        ``collect_cache`` (prefill), ``caches`` lists each layer's seed --
-        an attention layer's ``{"k", "v"}``, a recurrent layer's final
+        (B, S) -> ``(hidden (B, S, D), aux_loss, caches)``; an
+        encoder-decoder arch first encodes ``batch["frames"]`` (B, T, D).
+        With ``collect_cache`` (prefill), ``caches`` lists each layer's
+        seed -- an attention layer's ``{"k", "v"}`` (an ``xdec`` layer's
+        with its cross ``"xk"``, ``"xv"``), a recurrent layer's final
         state; otherwise it is empty."""
         cfg = self.cfg
         x = self._embed_in(params, batch["tokens"])
@@ -163,39 +240,41 @@ class LM(nn.Module):
         ctx = {"cfg": cfg, "mode": cfg.matmul_mode,
                "policy": cfg.contraction_policy, "positions": positions,
                "causal": True}
-        aux_total = torch.zeros((), device=x.device)
-        caches = []
-        for kind, p in zip(cfg.layer_kinds, params["layers"]):
-            if cfg.remat != "none" and not collect_cache:
-                x, aux = counting.remat(
-                    lambda x, kind=kind, p=p:
-                    blk.block_forward(kind, p, x, ctx)[::2])(x)
-            else:
-                x, seed, aux = blk.block_forward(kind, p, x, ctx)
-                if collect_cache:
-                    caches.append(seed)
-            aux_total = aux_total + aux
-        return self._final_norm(params, x), aux_total, caches
+        if cfg.encoder_layers:
+            enc = self.encode(params, batch["frames"])
+            ctx["cross_x"] = enc
+            ctx["cross_positions"] = torch.arange(enc.shape[1],
+                                                  device=x.device)
+        caches = [] if collect_cache else None
+        x, aux_total = self._blocks(self.kinds, params["layers"], x, ctx,
+                                    caches)
+        return self._final_norm(params, x), aux_total, caches or []
 
     # ------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, cache_len: int
                    ) -> List[Dict[str, torch.Tensor]]:
         """One dense decode cache per layer: an attention layer's ``{"k",
         "v", "pos"}`` ring, ``cache_len`` long (the window under a sliding
-        window), every position EMPTY_POS; a recurrent layer's initial
-        state (zeros, the xLSTM stabilizers at -1e30)."""
+        window), every position EMPTY_POS, an ``xdec`` layer's with zero
+        ``"xk"``, ``"xv"`` of ``cfg.encoder_seq`` entries; a recurrent
+        layer's initial state (zeros, the xLSTM stabilizers at -1e30)."""
         return [blk.block_init_cache(k, self.cfg, batch_size, cache_len,
-                                     self.device)
-                for k in self.cfg.layer_kinds]
+                                     self.device,
+                                     enc_len=self.cfg.encoder_seq)
+                for k in self.kinds]
 
     def init_paged_cache(self, pool_slots: int) -> List[Dict[str, torch.Tensor]]:
         """One ``(pool_slots, KV, hd)`` K/V pool per layer, shared by every
         sequence through the engine's block tables.  Raises ValueError for
-        an arch with a recurrent layer, which serves through the dense
-        ``Server``."""
+        an encoder-decoder arch and an arch with a recurrent layer, which
+        serve through the dense ``Server``, as the JAX package does."""
+        if self.cfg.encoder_layers or self.cfg.prefix_tokens:
+            raise ValueError(
+                "paged serving supports plain decoder LMs; encoder-decoder "
+                "and prefix-token archs use the dense reference Server")
         return [blk.block_init_paged_cache(k, self.cfg, pool_slots,
                                            self.device)
-                for k in self.cfg.layer_kinds]
+                for k in self.kinds]
 
     # ------------------------------------------------------ paged decode
     def decode_paged(self, params, cache, tokens: torch.Tensor,
@@ -221,7 +300,7 @@ class LM(nn.Module):
                "policy": cfg.contraction_policy, "pos": positions,
                "paged": {"tables": tables, "pos_pool": pos_pool,
                          "phys": phys, "block_size": block_size}}
-        for kind, p, c in zip(cfg.layer_kinds, params["layers"], cache):
+        for kind, p, c in zip(self.kinds, params["layers"], cache):
             x = blk.block_decode(kind, p, x, c, ctx)
         return self._final_norm(params, x)
 
@@ -232,12 +311,13 @@ class LM(nn.Module):
         ``pos`` (B,) absolute.  The cache is updated IN PLACE -- K/V rings
         at each row's slot, recurrent states copied into their own tensors
         (the JAX version returns a new cache) -- so a captured step carries
-        it from replay to replay.  Returns ``(logits (B, V), cache)``."""
+        it from replay to replay; an ``xdec`` layer reads its slot's
+        encoder K/V there.  Returns ``(logits (B, V), cache)``."""
         cfg = self.cfg
         x = self._embed_in(params, tokens)
         ctx = {"cfg": cfg, "mode": cfg.matmul_mode,
                "policy": cfg.contraction_policy, "pos": pos}
-        for kind, p, c in zip(cfg.layer_kinds, params["layers"], cache):
+        for kind, p, c in zip(self.kinds, params["layers"], cache):
             x = blk.block_decode(kind, p, x, c, ctx)
         x = self._final_norm(params, x)
         return self.logits(params, x)[:, 0], cache
@@ -248,8 +328,9 @@ class LM(nn.Module):
         """Process a prompt; returns ``(hidden (B, S, D), cache)`` with the
         cache ready for :meth:`decode_step`.  When the prompt fills an
         attention layer's cache (S >= T, a sliding-window ring), its last T
-        entries roll in at slot ``pos % T``; a recurrent layer's final
-        state is copied in as it is."""
+        entries roll in at slot ``pos % T``; an ``xdec`` layer's encoder
+        K/V and a recurrent layer's final state are copied in as they
+        are."""
         hidden, _, seeds = self.forward(params, batch, collect_cache=True)
         cache = self.init_cache(hidden.shape[0], cache_len)
         dev = hidden.device
@@ -270,6 +351,9 @@ class LM(nn.Module):
                 dst["v"][:, :S] = seed["v"]
                 dst["pos"][:, :S] = torch.arange(S, dtype=torch.int32,
                                                  device=dev)
+            if "xk" in dst:
+                dst["xk"].copy_(seed["xk"])
+                dst["xv"].copy_(seed["xv"])
         return hidden, cache
 
     # ------------------------------------------------------------ logits

@@ -5,8 +5,10 @@
   layer (a K/V ring, or a recurrent layer's state), with slot recycling
   (a finished sequence's slot is refilled from the queue; an inactive
   slot keeps stepping, as in JAX, and is overwritten on insert);
-- batch-of-one prefill (``LM.prefill``), whose cache is written into the
-  slot layer by layer, every tensor of it;
+- batch-of-one prefill (``LM.prefill``) of the prompt and its extras
+  (``Request.extras``: an encoder-decoder arch's ``frames``), whose cache
+  is written into the slot layer by layer, every tensor of it (an ``xdec``
+  layer's encoder K/V too);
 - slot-batched decode (``LM.decode_step``) at each slot's own position;
 - greedy or temperature sampling (from an explicit ``torch.Generator``);
 - per-request ``max_new_tokens`` / EOS termination.
@@ -15,9 +17,11 @@ On a CUDA device the decode step is captured once into a CUDA graph
 (:class:`~repro_torch.core.graphs.CapturedCall`, with static token and
 position buffers over the server's one dense cache) and replayed at every
 step after, as the JAX ``Server`` jits ``decode_step``; prefill varies in
-length and runs eagerly, as in JAX.  The decode step updates the recurrent
-states in place from their own values, so the capture's warm-up call
-restores them after it runs (``GraphSet``'s ``state``).
+length and runs eagerly, as in JAX.  The graph reads every slot's
+encoder K/V from that cache too, so a replay after an insert sees the new
+slot's.  The decode step updates the recurrent states in place from
+their own values, so the capture's warm-up call restores them after it
+runs (``GraphSet``'s ``state``).
 ``ServeConfig.jit`` has the engine's meaning: ``None`` captures on CUDA
 and runs eagerly on the CPU, ``True`` on the CPU is refused, ``False``
 runs eagerly anywhere.  The cache is the
@@ -41,7 +45,8 @@ from repro_torch.core import graphs
 from repro_torch.core.tree import tree_leaves
 from repro_torch.device import resolve_device
 
-__all__ = ["ServeConfig", "Request", "Server", "write_slot"]
+__all__ = ["ServeConfig", "Request", "Server", "request_batch",
+           "write_slot"]
 
 
 @dataclasses.dataclass
@@ -60,10 +65,23 @@ class ServeConfig:
 class Request:
     rid: int
     tokens: np.ndarray            # (prompt_len,) int32
+    extras: Optional[Dict[str, np.ndarray]] = None    # model inputs beside
+                                  # the tokens (an encoder-decoder's frames)
     out: Optional[List[int]] = None
     deadline_s: Optional[float] = None    # per-request wall budget from
                                           # submit (engine only; overrides
                                           # EngineConfig.deadline_s)
+
+
+def request_batch(req: Request, device) -> Dict[str, torch.Tensor]:
+    """The batch of one request as ``LM.prefill`` takes it: its tokens as
+    (1, S) int32 and each of its extras with a batch axis of 1, on
+    ``device``."""
+    batch = {"tokens": torch.as_tensor(
+        np.asarray(req.tokens, np.int32)[None, :], device=device)}
+    for key, val in (req.extras or {}).items():
+        batch[key] = torch.as_tensor(np.asarray(val)[None], device=device)
+    return batch
 
 
 def write_slot(cache, slot: int, one) -> None:
@@ -158,10 +176,8 @@ class Server:
         del fresh
 
         def insert(slot: int, req: Request) -> None:
-            toks = torch.as_tensor(np.asarray(req.tokens, np.int32)[None, :],
-                                   device=dev)
-            hidden, pcache = self._prefill(self.params, {"tokens": toks},
-                                           cfg.cache_len)
+            hidden, pcache = self._prefill(
+                self.params, request_batch(req, dev), cfg.cache_len)
             logits = self.model.logits(self.params, hidden[:, -1:])[:, 0]
             tok = int(self._sample(logits)[0])
             req.out = [tok]
@@ -171,7 +187,7 @@ class Server:
                 return
             write_slot(cache, slot, pcache)
             active[slot] = req
-            pos[slot] = len(req.tokens)
+            pos[slot] = len(req.tokens) + (self.model.cfg.prefix_tokens or 0)
             last_tok[slot] = tok
             remaining[slot] = cfg.max_new_tokens - 1
 

@@ -1662,3 +1662,44 @@ def test_xlstm_step_gradients_repeat_bit_for_bit_on_card(cuda_device):
     fps = [adamw.tree_fingerprint(step_mod.value_and_grad(
         loss_fn, model.train_params(), batch)[1]) for _ in range(2)]
     assert fps[0] == fps[1]
+
+
+# ------------------------------------------------ encoder-decoder serving
+def test_captured_encdec_server_equals_eager_across_inserts_on_card(
+        cuda_device):
+    """whisper-large-v3 ``.reduced()`` (f32, square_pallas, prepared) in the
+    dense Server, 5 requests over 2 slots: with its decode step captured,
+    the eager Server's tokens, token for token, from one capture, while
+    the 3 inserts after the capture replace the encoder K/V that a slot's
+    previous occupant left in the cache the graph reads."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve.server import ServeConfig, Server
+    cfg = dataclasses.replace(get_config("whisper-large-v3").reduced(),
+                              matmul_mode="square_pallas")
+    model = build_model(cfg, device=cuda_device, seed=0)
+    with torch.no_grad():
+        params = model.prepare_params()
+    reqs = make_requests(cfg, 5, seed=4)
+    scfg = dict(max_batch=2, cache_len=40, max_new_tokens=6)
+    eager = Server(model, params, ServeConfig(**scfg, jit=False),
+                   device=cuda_device).run(reqs)
+    server = Server(model, params, ServeConfig(**scfg), device=cuda_device)
+    replaced = []
+    prefill = server._prefill
+
+    def insert(*args):
+        if server.graph is not None:      # captured: record the slot swap
+            replaced.append([layer["xk"].clone() for layer in server.cache])
+        return prefill(*args)
+    server._prefill = insert
+    got = server.run(reqs)
+    assert got == eager and all(len(t) == 6 for t in got.values())
+    assert server._graph_set.captures == 1 and server.graph.replays > 0
+    assert len(replaced) == 3
+    assert all(any(bool(t.abs().sum()) for t in before)
+               for before in replaced)
+    del model, params, server
+    torch.cuda.empty_cache()

@@ -299,8 +299,13 @@ def test_moe_block_is_pageable_and_unported_kinds_name_step_6():
     for kind in ("rglru", "mlstm", "slstm"):
         with pytest.raises(ValueError, match="no paged decode cache"):
             tblk.block_init_paged_cache(kind, tc, 64, CPU)
+    # xdec (whisper) is ported and not pageable either; paligemma's
+    # prefix tokens still name step 6
+    assert {"lnx", "xattn"} <= set(tblk.block_spec("xdec", tc))
+    with pytest.raises(ValueError, match="no paged decode cache"):
+        tblk.block_init_paged_cache("xdec", tc, 64, CPU)
     with pytest.raises(NotImplementedError, match="step 6"):
-        tblk.block_spec("xdec", tc)
+        LM(tget("paligemma-3b").reduced(), device=CPU)
 
 
 # -------------------------------------------------------------- the LM

@@ -149,14 +149,21 @@ def test_serve_launcher_policy_none_on_cpu(capsys, legacy):
 
 def test_serve_launcher_refuses_to_page_an_unpageable_arch(capsys):
     """An arch with non-KV decode state is not paged: the launcher falls
-    back to the dense Server with the JAX launcher's note; an arch the
-    port does not build yet names its step."""
+    back to the dense Server with the JAX launcher's note (whisper's
+    encoder-decoder too); an arch the port does not build yet
+    (paligemma's prefix tokens) names its step."""
     res = tserve.main(["--arch", "xlstm-350m", "--reduced", "--device",
                        "cpu", "--requests", "2", "--max-new", "2"])
     assert "falling back to the dense reference Server" in \
         capsys.readouterr().out
     assert sorted(res) == [0, 1] and all(
         isinstance(t, list) and len(t) == 2 for t in res.values())
+    res = tserve.main(["--arch", "whisper-large-v3", "--reduced",
+                       "--device", "cpu", "--requests", "2", "--max-new",
+                       "2"])
+    assert "falling back to the dense reference Server" in \
+        capsys.readouterr().out
+    assert sorted(res) == [0, 1] and all(len(t) == 2 for t in res.values())
     with pytest.raises(NotImplementedError, match="step 6"):
-        tserve.main(["--arch", "whisper-large-v3", "--reduced", "--device",
+        tserve.main(["--arch", "paligemma-3b", "--reduced", "--device",
                      "cpu", "--legacy"])
