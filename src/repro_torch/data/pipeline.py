@@ -4,9 +4,11 @@ PyTorch port of ``repro/data/pipeline.py``.
 Batch ``t`` is numpy's ``default_rng((seed, t))``, exactly as the JAX
 package draws it, so both packages train on bit-identical token streams,
 and a restart or a rollback regenerates the same batches from the saved
-``(seed, step)``.  The prefix-patch and encoder-frame stubs of the JAX
-pipeline belong to archs the port does not build yet (ROADMAP Q1 step 6);
-a config that needs them is refused.
+``(seed, step)``.  The JAX pipeline's two frontend stubs come with them:
+a prefix arch's ``patches`` (B, P, D), drawn from ``default_rng((seed,
+step, 7))``, and an encoder-decoder arch's ``frames`` (B, encoder_seq, D),
+from ``default_rng((seed, step, 11))``, each N(0, 1) f32 times 0.02, drawn
+on the host in JAX's order and then moved to the device.
 """
 from __future__ import annotations
 
@@ -33,16 +35,11 @@ class DataConfig:
 
 class SyntheticLM:
     """Stateful iterator: ``next_batch()`` -> ``{"tokens": (B, S+1) int32}``
-    on ``device`` (default: CUDA, which must be present)."""
+    (with ``model_cfg``'s ``patches`` or ``frames``, f32) on ``device``
+    (default: CUDA, which must be present)."""
 
     def __init__(self, cfg: DataConfig, model_cfg=None, start_step: int = 0,
                  *, device: Device = None):
-        if model_cfg is not None and (model_cfg.prefix_tokens
-                                      or model_cfg.encoder_layers):
-            raise NotImplementedError(
-                f"arch {model_cfg.name!r} needs prefix patches or encoder "
-                f"frames, which come with the archs that use them (ROADMAP "
-                f"Q1 step 6)")
         self.cfg = cfg
         self.model_cfg = model_cfg
         self.step = start_step
@@ -72,11 +69,24 @@ class SyntheticLM:
         take_noise = rng.random((B, S)) < 0.05
         return np.where(take_noise, noise, base).astype(np.int32)
 
+    def _stub(self, step: int, stream: int, length: int) -> np.ndarray:
+        """A frontend stub's (B, length, D) embeddings: stream 7 the
+        patches, 11 the frames, as the JAX pipeline draws them."""
+        rng = np.random.default_rng((self.cfg.seed, step, stream))
+        return rng.normal(size=(self.cfg.global_batch, length,
+                                self.model_cfg.d_model)).astype(
+            np.float32) * 0.02
+
     def next_batch(self) -> Dict[str, torch.Tensor]:
-        batch = {"tokens": torch.from_numpy(self._tokens(self.step)).to(
-            self.device)}
+        arrays = {"tokens": self._tokens(self.step)}
+        mc = self.model_cfg
+        if mc is not None and mc.prefix_tokens:
+            arrays["patches"] = self._stub(self.step, 7, mc.prefix_tokens)
+        if mc is not None and mc.encoder_layers:
+            arrays["frames"] = self._stub(self.step, 11, mc.encoder_seq)
         self.step += 1
-        return batch
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in arrays.items()}
 
     def take(self, n: int) -> List[Dict[str, torch.Tensor]]:
         """The next ``n`` batches (advances the stream): two pipelines of

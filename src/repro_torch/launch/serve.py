@@ -1,14 +1,15 @@
 """Serving launcher: the paged continuous-batching engine (default) or the
 dense reference Server (``--legacy``), on the GPU.  An arch with non-KV
 decode state (the recurrent ``recurrentgemma-2b`` and ``xlstm-350m``, the
-encoder-decoder ``whisper-large-v3``) falls back to the dense Server with
-the JAX launcher's note.
+encoder-decoder ``whisper-large-v3``, the prefix-token ``paligemma-3b``)
+falls back to the dense Server with the JAX launcher's note.
 
     python -m repro_torch.launch.serve --arch fairsquare-demo \\
         --matmul-mode square_pallas --prepared [--legacy --max-batch 4]
 
-serves the paper's model at full width (random weights from ``--seed``)
-with every contraction square-form (``--policy none``, the default): K1
+serves the paper's model at full width (random weights from ``--seed``;
+``--layers N`` and ``--encoder-layers N`` cut the depth) with every
+contraction square-form (``--policy none``, the default): K1
 runs every projection, FFN and logits GEMM, K4 the engine's decode
 attention, and K2/K3 the attention einsums of prefill (and, under
 ``--legacy``, of every decode step).  ``--policy square_gemms`` keeps the
@@ -86,6 +87,12 @@ def main(argv: Optional[List[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="fairsquare-demo")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve only the first N layers of --arch, at its "
+                         "width (a depth cut)")
+    ap.add_argument("--encoder-layers", type=int, default=0,
+                    help="an encoder-decoder arch: only the first N "
+                         "encoder layers")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--matmul-mode", default=None)
@@ -152,6 +159,13 @@ def _serve(args):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.encoder_layers:
+        if not cfg.encoder_layers:
+            raise ValueError(f"--encoder-layers: arch {cfg.name!r} has no "
+                             f"encoder")
+        cfg = dataclasses.replace(cfg, encoder_layers=args.encoder_layers)
     if args.matmul_mode:
         cfg = dataclasses.replace(cfg, matmul_mode=args.matmul_mode)
     if args.policy == "square_gemms":

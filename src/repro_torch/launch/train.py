@@ -21,8 +21,11 @@ does once, after its first step), and the count of captures is printed
 and returned under ``"captures"``.  ``--reduced`` trains the small smoke
 configuration and ``--layers N`` the first N layers of the arch at its
 width (recurrentgemma-2b's whole captured step does not fit one 80 GB
-card); ``--device cpu`` runs the step eagerly on the kernels'
-plain versions, as the CPU has no graphs.  ``--metrics-file`` writes the
+card), ``--encoder-layers N`` the first N of an encoder-decoder arch's
+encoder.  A prefix arch (paligemma-3b) trains on the pipeline's patches,
+an encoder-decoder arch (whisper-large-v3) on its frames.  ``--device
+cpu`` runs the step eagerly on the kernels' plain versions, as the CPU
+has no graphs.  ``--metrics-file`` writes the
 trainer's registry snapshot (step counters and percentiles, checkpoint
 commits, the first step's contraction audit: on CUDA the compiled audit
 of its replay) as JSON and ``--trace-out`` a Chrome trace of the run.
@@ -64,6 +67,10 @@ def main(argv: Optional[List[str]] = None):
                     help="train only the first N layers of --arch, at its "
                          "width (a depth cut, for an arch whose whole "
                          "captured step does not fit the card)")
+    ap.add_argument("--encoder-layers", type=int, default=0,
+                    help="an encoder-decoder arch: train only the first N "
+                         "encoder layers (with --layers, the card's depth "
+                         "cut)")
     ap.add_argument("--microbatch", type=int, default=0)
     ap.add_argument("--grad-compression", action="store_true")
     ap.add_argument("--device", default=None,
@@ -95,6 +102,11 @@ def _train(args):
         cfg = dataclasses.replace(cfg, matmul_mode=args.matmul_mode)
     if args.layers:
         cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.encoder_layers:
+        if not cfg.encoder_layers:
+            raise ValueError(f"--encoder-layers: arch {cfg.name!r} has no "
+                             f"encoder")
+        cfg = dataclasses.replace(cfg, encoder_layers=args.encoder_layers)
     model = build_model(cfg, device=args.device, seed=0)
     params = model.train_params()
     n_params = sum(p.numel() for p in model.parameters())

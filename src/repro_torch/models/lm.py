@@ -1,6 +1,6 @@
 """The LM: the PyTorch port of ``repro/models/lm.py`` (the full-sequence
 forward and prefill, dense and paged decode, logits, prepared weights) for
-decoder LMs and the whisper-style encoder-decoder.
+decoder LMs, the whisper-style encoder-decoder and the VLM-prefixed LM.
 
 ``LM`` is an ``nn.Module`` whose layers are a Python loop over a
 ``ModuleList`` (the JAX package scans stacked layers; the port has no scan
@@ -19,6 +19,13 @@ frontend is a stub, as in JAX) and a norm.  Its decoder layers are
 ``xdec`` blocks (an ``attn`` of the pattern becomes ``xdec``), whose
 cross-attention reads the encoder's output; their decode caches carry the
 encoder's K/V per slot.
+
+A prefix-token arch (``cfg.prefix_tokens``, paligemma) puts the request's
+precomputed patch embeddings (``batch["patches"]``, (B, P, D); the SigLIP
+frontend is a stub, as in JAX) ahead of the token embeddings in the
+full-sequence forward, so the prefix holds positions ``0..P-1`` and the
+prompt ``P..P+S-1``; a decode step embeds its token alone, at its
+absolute position.  Such an arch serves through the dense ``Server``.
 
 Under autograd, ``cfg.remat == "block"`` rematerialises each block in the
 backward (``torch.utils.checkpoint`` through
@@ -46,14 +53,13 @@ __all__ = ["LM", "build_model", "decoder_kinds"]
 
 
 def _check_supported(cfg) -> None:
-    if cfg.prefix_tokens \
-            or any(k not in blk.KINDS for k in cfg.layer_kinds):
+    if any(k not in blk.KINDS for k in cfg.layer_kinds):
         raise NotImplementedError(
             f"arch {cfg.name!r} (family {cfg.family!r}, blocks "
-            f"{sorted(set(cfg.layer_kinds))}) is not ported yet: this port "
+            f"{sorted(set(cfg.layer_kinds))}) is not ported: this port "
             f"builds decoder LMs of attention, MoE, local-attention and "
-            f"recurrent (RG-LRU, mLSTM, sLSTM) blocks and encoder-decoder "
-            f"LMs (whisper); prefix-token archs come with ROADMAP Q1 step 6")
+            f"recurrent (RG-LRU, mLSTM, sLSTM) blocks, encoder-decoder LMs "
+            f"(whisper) and prefix-token LMs (paligemma)")
 
 
 def decoder_kinds(cfg) -> tuple:
@@ -74,7 +80,7 @@ def _as_tree(m: nn.Module):
 
 class LM(nn.Module):
     """Decoder LM (attention, MoE, local-attention and recurrent blocks),
-    or encoder-decoder LM, with tied embeddings."""
+    encoder-decoder LM, or prefix-token LM, with tied embeddings."""
 
     def __init__(self, cfg, *, device: torch.device, seed: int = 0):
         super().__init__()
@@ -175,12 +181,24 @@ class LM(nn.Module):
         return new
 
     # ------------------------------------------------------- embedding
-    def _embed_in(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed_tokens(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """The scaled token embeddings of ``tokens``, in the config's
+        dtype (a decode step's input)."""
         cfg = self.cfg
         x = basic.embed_apply(params["embed"], tokens)
         # the JAX package multiplies by sqrt(d) rounded to the table's dtype
         scale = float(torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype))
         return (x * scale).to(torch_dtype(cfg.dtype))
+
+    def _embed_in(self, params, batch: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+        """The full-sequence input: ``batch["tokens"]``' scaled embeddings,
+        after a prefix arch's ``batch["patches"]`` (cast to the
+        activation dtype, not scaled), as JAX's ``_embed_in``."""
+        x = self._embed_tokens(params, batch["tokens"])
+        if self.cfg.prefix_tokens:
+            x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        return x
 
     def _norm(self, p, x: torch.Tensor) -> torch.Tensor:
         norm = (basic.layernorm_apply if self.cfg.norm == "layernorm"
@@ -229,13 +247,15 @@ class LM(nn.Module):
                 collect_cache: bool = False):
         """Teacher-forced full-sequence pass over ``batch["tokens"]``
         (B, S) -> ``(hidden (B, S, D), aux_loss, caches)``; an
-        encoder-decoder arch first encodes ``batch["frames"]`` (B, T, D).
+        encoder-decoder arch first encodes ``batch["frames"]`` (B, T, D);
+        a prefix arch's ``batch["patches"]`` (B, P, D) come first, so
+        ``hidden`` is (B, P + S, D).
         With ``collect_cache`` (prefill), ``caches`` lists each layer's
         seed -- an attention layer's ``{"k", "v"}`` (an ``xdec`` layer's
         with its cross ``"xk"``, ``"xv"``), a recurrent layer's final
         state; otherwise it is empty."""
         cfg = self.cfg
-        x = self._embed_in(params, batch["tokens"])
+        x = self._embed_in(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         ctx = {"cfg": cfg, "mode": cfg.matmul_mode,
                "policy": cfg.contraction_policy, "positions": positions,
@@ -266,8 +286,9 @@ class LM(nn.Module):
     def init_paged_cache(self, pool_slots: int) -> List[Dict[str, torch.Tensor]]:
         """One ``(pool_slots, KV, hd)`` K/V pool per layer, shared by every
         sequence through the engine's block tables.  Raises ValueError for
-        an encoder-decoder arch and an arch with a recurrent layer, which
-        serve through the dense ``Server``, as the JAX package does."""
+        an encoder-decoder arch, a prefix-token arch and an arch with a
+        recurrent layer, which serve through the dense ``Server``, as the
+        JAX package does."""
         if self.cfg.encoder_layers or self.cfg.prefix_tokens:
             raise ValueError(
                 "paged serving supports plain decoder LMs; encoder-decoder "
@@ -295,7 +316,7 @@ class LM(nn.Module):
         pos_pool[phys.reshape(-1)] = torch.where(
             positions >= 0, positions, attn_mod.EMPTY_POS).reshape(-1).to(
                 pos_pool.dtype)
-        x = self._embed_in(params, torch.clamp(tokens, min=0))
+        x = self._embed_tokens(params, torch.clamp(tokens, min=0))
         ctx = {"cfg": cfg, "mode": cfg.matmul_mode,
                "policy": cfg.contraction_policy, "pos": positions,
                "paged": {"tables": tables, "pos_pool": pos_pool,
@@ -314,7 +335,7 @@ class LM(nn.Module):
         it from replay to replay; an ``xdec`` layer reads its slot's
         encoder K/V there.  Returns ``(logits (B, V), cache)``."""
         cfg = self.cfg
-        x = self._embed_in(params, tokens)
+        x = self._embed_tokens(params, tokens)
         ctx = {"cfg": cfg, "mode": cfg.matmul_mode,
                "policy": cfg.contraction_policy, "pos": pos}
         for kind, p, c in zip(self.kinds, params["layers"], cache):
@@ -326,7 +347,9 @@ class LM(nn.Module):
     def prefill(self, params, batch: Dict[str, torch.Tensor],
                 cache_len: int):
         """Process a prompt; returns ``(hidden (B, S, D), cache)`` with the
-        cache ready for :meth:`decode_step`.  When the prompt fills an
+        cache ready for :meth:`decode_step` (a prefix arch's ``hidden`` and
+        cache cover its P patches first: (B, P + S, D), and the next
+        position is P + S).  When the prompt fills an
         attention layer's cache (S >= T, a sliding-window ring), its last T
         entries roll in at slot ``pos % T``; an ``xdec`` layer's encoder
         K/V and a recurrent layer's final state are copied in as they

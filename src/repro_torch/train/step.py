@@ -52,7 +52,9 @@ class TrainConfig:
 def make_loss_fn(model, tcfg: TrainConfig):
     """``loss_fn(params, batch) -> (loss, metrics)``: next-token
     cross-entropy of ``batch["tokens"]`` (B, S+1) through the chunked loss
-    at the site ``loss``, plus the weighted aux loss."""
+    at the site ``loss``, plus the weighted aux loss.  A prefix arch's
+    patch positions are cut from the hidden states before the loss, so
+    its vocab GEMM runs over the S text positions only."""
     cfg = model.cfg
 
     def loss_fn(params, batch):
@@ -61,6 +63,8 @@ def make_loss_fn(model, tcfg: TrainConfig):
         inp["tokens"] = tokens[:, :-1]
         labels = tokens[:, 1:]
         hidden, aux, _ = model.forward(params, inp)
+        if cfg.prefix_tokens:
+            hidden = hidden[:, cfg.prefix_tokens:]    # the text positions
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
         loss, metrics = loss_mod.chunked_xent(

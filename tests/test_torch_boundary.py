@@ -8,6 +8,7 @@
   device and no GPU they raise, they never carry on on the CPU.
 """
 import ast
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
@@ -156,14 +157,27 @@ def test_serve_launcher_runs_on_an_explicit_cpu_device(capsys):
 
 
 def test_unported_archs_raise_naming_the_slice():
-    """paligemma (prefix tokens) is refused naming its ROADMAP step;
-    whisper, ported, builds: its encoder and its ``xdec`` decoder."""
-    with pytest.raises(NotImplementedError, match="step 6"):
-        build_model(get_config("paligemma-3b").reduced(), device="cpu")
+    """Every registry arch builds: paligemma (prefix tokens) serves
+    through the launcher's fallback to the dense Server and keeps refusing
+    the paged cache, as JAX does; whisper builds its encoder and its
+    ``xdec`` decoder.  A block kind the port lacks is still refused."""
+    from repro_torch.configs.registry import ARCHS
+    for name in ARCHS:
+        assert build_model(get_config(name).reduced(), device="cpu")
+    model = build_model(get_config("paligemma-3b").reduced(), device="cpu")
+    with pytest.raises(ValueError, match="prefix-token archs use the dense"):
+        model.init_paged_cache(64)
+    res = tserve.main(["--arch", "paligemma-3b", "--reduced", "--device",
+                       "cpu", "--requests", "2", "--max-new", "2"])
+    assert sorted(res) == [0, 1] and all(len(t) == 2 for t in res.values())
     model = build_model(get_config("whisper-large-v3").reduced(),
                         device="cpu")
     assert model.kinds == ("xdec",) * model.cfg.n_layers
     assert len(model.encoder["layers"]) == model.cfg.encoder_layers
+    odd = dataclasses.replace(get_config("fairsquare-demo").reduced(),
+                              block_pattern=("conv",))
+    with pytest.raises(NotImplementedError, match="is not ported"):
+        build_model(odd, device="cpu")
 
 
 @pytest.mark.parametrize("alone", [False, True])

@@ -70,6 +70,7 @@ from repro_torch.train import step as step_mod  # noqa: E402
 from repro_torch.train.faults import (TrainFaultInjector,  # noqa: E402
                                       TrainFaultPlan)
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from test_torch_moe import _one_thread  # noqa: E402,F401
 
 # tests/test_compiled_guard.py::_tiny_train_world's config
 TINY = dict(name="tiny-compiled-audit", family="dense", n_layers=2,

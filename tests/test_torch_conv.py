@@ -33,6 +33,7 @@ from repro_torch.core.prepared import prepare_operand  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels import routing as trt  # noqa: E402
+from test_torch_moe import _one_thread  # noqa: E402,F401
 
 CPU = "cpu"
 

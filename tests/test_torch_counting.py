@@ -48,6 +48,7 @@ from repro_torch.core import matmul as tmm  # noqa: E402
 from repro_torch.core import squares as tsq  # noqa: E402
 from repro_torch.core.einsum import fs_einsum as teinsum  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
+from test_torch_moe import _one_thread  # noqa: E402,F401
 
 
 @contextlib.contextmanager

@@ -30,6 +30,7 @@ from repro_torch.launch.serve import make_requests as trequests  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.serve import engine as teng  # noqa: E402
 from repro_torch.serve.server import Request  # noqa: E402
+from test_torch_moe import _one_thread  # noqa: E402,F401
 
 
 def _synchronous(engine):

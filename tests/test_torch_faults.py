@@ -51,6 +51,7 @@ from repro_torch.obs import trace as ttrace  # noqa: E402
 from repro_torch.serve import engine as teng  # noqa: E402
 from repro_torch.serve import faults as tfaults  # noqa: E402
 from repro_torch.serve.server import Request as TRequest  # noqa: E402
+from test_torch_moe import _one_thread  # noqa: E402,F401
 
 ENGINE_KW = dict(max_slots=4, block_size=8, num_blocks=48, blocks_per_seq=6,
                  prefill_chunk=8, max_new_tokens=5)

@@ -21,6 +21,7 @@ room for two f32 pipelines' summation orders and the square form's
 """
 import contextlib
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -38,6 +39,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.kernels import routing  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
+from test_torch_moe import _one_thread  # noqa: E402,F401
 
 ATOL = RTOL = 1e-4
 CACHE_LEN = 128
@@ -65,14 +67,22 @@ def _jax_route(mode):
         if mode == "square_pallas" else None
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_params(arch):
+    """JAX's seed-0 params of ``arch``'s ``.reduced()`` and the port's
+    state dict of them, once an arch for the file: they do not depend on
+    the mode."""
+    params = jbuild(jget(arch).reduced()).init(jax.random.PRNGKey(0))
+    return params, params_from_jax(jax.tree.map(np.asarray, params))
+
+
 def _models(arch, mode):
     jc = dataclasses.replace(jget(arch).reduced(), matmul_mode=mode)
     tc = dataclasses.replace(tget(arch).reduced(), matmul_mode=mode)
-    jm = jbuild(jc)
-    params = jm.init(jax.random.PRNGKey(0))
+    params, state = _jax_params(arch)
     tm = LM(tc, device=torch.device("cpu"))
-    tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
-    return jm, params, tm
+    tm.load_state_dict(state)
+    return jbuild(jc), params, tm
 
 
 def _tokens(vocab, shape, seed):

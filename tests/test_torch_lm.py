@@ -30,6 +30,7 @@ from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.configs.base import SQUARE_GEMMS_POLICY as T_SQG  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
+from test_torch_moe import _one_thread  # noqa: E402,F401
 
 ATOL = RTOL = 1e-4
 BS, NB, NUM_BLOCKS, CHUNK = 8, 8, 24, 8

@@ -91,13 +91,40 @@ def _cfgs(arch, mode="standard", policy=False, **kw):
     return jc, tc
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """These tensors are small: one torch thread computes them as fast, and
+    leaves the cores to the other test processes (a suite run's workers
+    each start a thread per core).  The port's other test files import
+    this fixture."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+_PARAMS = {}
+
+
+def _jax_params(jc):
+    """JAX's seed-0 params of ``jc`` and the port's state dict of them,
+    built once a config for the whole process: they depend on neither the
+    mode nor the policy, so every test of one arch shares them."""
+    key = dataclasses.replace(jc, matmul_mode="standard",
+                              contraction_policy=None)
+    if key not in _PARAMS:
+        params = jbuild(key).init(jax.random.PRNGKey(0))
+        _PARAMS[key] = (params,
+                        params_from_jax(jax.tree.map(np.asarray, params)))
+    return _PARAMS[key]
+
+
 def _models(arch, mode="standard", policy=False, **kw):
     jc, tc = _cfgs(arch, mode, policy, **kw)
-    jm = jbuild(jc)
-    params = jm.init(jax.random.PRNGKey(0))
+    params, state = _jax_params(jc)
     tm = LM(tc, device=CPU)
-    tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
-    return jm, params, tm
+    tm.load_state_dict(state)
+    return jbuild(jc), params, tm
 
 
 def _to_torch(tree):
@@ -300,12 +327,14 @@ def test_moe_block_is_pageable_and_unported_kinds_name_step_6():
         with pytest.raises(ValueError, match="no paged decode cache"):
             tblk.block_init_paged_cache(kind, tc, 64, CPU)
     # xdec (whisper) is ported and not pageable either; paligemma's
-    # prefix tokens still name step 6
+    # prefix tokens build, and its LM refuses the paged cache, as JAX's
     assert {"lnx", "xattn"} <= set(tblk.block_spec("xdec", tc))
     with pytest.raises(ValueError, match="no paged decode cache"):
         tblk.block_init_paged_cache("xdec", tc, 64, CPU)
-    with pytest.raises(NotImplementedError, match="step 6"):
-        LM(tget("paligemma-3b").reduced(), device=CPU)
+    vlm = LM(tget("paligemma-3b").reduced(), device=CPU)
+    assert vlm.kinds == ("attn",) * vlm.cfg.n_layers
+    with pytest.raises(ValueError, match="prefix-token archs"):
+        vlm.init_paged_cache(64)
 
 
 # -------------------------------------------------------------- the LM

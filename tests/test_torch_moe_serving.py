@@ -27,9 +27,9 @@ from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.serve import engine as teng  # noqa: E402
 from repro_torch.serve import server as tsrv  # noqa: E402
 from test_torch_compiled import _StubCall  # noqa: E402
-from test_torch_moe import (ARCHS, CPU, JAX_PALLAS_ROUTE,  # noqa: E402
-                            _cfgs, _jax_route, _models, _route,
-                            _synchronous)
+from test_torch_moe import (ARCHS, CPU, JAX_PALLAS_ROUTE,  # noqa: E402,F401
+                            _cfgs, _jax_route, _models, _one_thread,
+                            _route, _synchronous)
 
 
 # -------------------------------------------------- engine and Server

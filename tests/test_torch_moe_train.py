@@ -72,6 +72,7 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import step as step_mod  # noqa: E402
 from test_torch_compiled_train import (CUDA, _bind_stub,  # noqa: E402
                                        _StubCall)
+from test_torch_moe import _one_thread  # noqa: E402,F401
 
 # The JAX package's Pallas wrappers pass ``pltpu.TPUCompilerParams``, which
 # JAX 0.9.0 renamed ``CompilerParams``; set here too, so that this file's
@@ -164,17 +165,6 @@ def _routings(monkeypatch):
 def _no_tuning_cache(monkeypatch):
     # the JAX tile planner warns on every cache miss unless autotune is off
     monkeypatch.setenv("REPRO_AUTOTUNE", "0")
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """These tensors are small: one torch thread computes them as fast, and
-    leaves the cores to the other test processes (a suite run's workers
-    each start a thread per core)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ------------------------------------------------------ the tiny config

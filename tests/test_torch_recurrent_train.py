@@ -49,6 +49,7 @@ from repro_torch.core import counting as tcount  # noqa: E402
 from repro_torch.core.matmul import MODES  # noqa: E402
 from repro_torch.models import rglru as trg  # noqa: E402
 from repro_torch.models import xlstm as txl  # noqa: E402
+from test_torch_recurrent import _one_thread  # noqa: E402,F401
 
 # JAX 0.9.0 renamed ``pltpu.TPUCompilerParams``; with the alias the JAX
 # square_pallas runs its Pallas kernels in interpret mode.
@@ -58,17 +59,6 @@ if not hasattr(pltpu, "TPUCompilerParams"):
 # the tolerance of a mode (the module docstring)
 TOL = {"standard": 1e-5, "square_virtual": 1e-5, "square_exact": 2e-4,
        "square_scan": 2e-4, "square_pallas": 2e-4}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread(monkeypatch):
-    """Small tensors: one torch thread computes them as fast and leaves the
-    cores to the suite's other workers."""
-    monkeypatch.setenv("REPRO_AUTOTUNE", "0")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _normal(rng, *shape, scale=1.0):

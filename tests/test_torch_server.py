@@ -31,6 +31,7 @@ from repro_torch.kernels import routing  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models.lm import LM  # noqa: E402
 from repro_torch.serve import server as tsrv  # noqa: E402
+from test_torch_moe import _one_thread  # noqa: E402,F401
 
 
 @contextlib.contextmanager
@@ -150,8 +151,8 @@ def test_serve_launcher_policy_none_on_cpu(capsys, legacy):
 def test_serve_launcher_refuses_to_page_an_unpageable_arch(capsys):
     """An arch with non-KV decode state is not paged: the launcher falls
     back to the dense Server with the JAX launcher's note (whisper's
-    encoder-decoder too); an arch the port does not build yet
-    (paligemma's prefix tokens) names its step."""
+    encoder-decoder too), and paligemma's prefix tokens, which build
+    since they were ported, fall back alike."""
     res = tserve.main(["--arch", "xlstm-350m", "--reduced", "--device",
                        "cpu", "--requests", "2", "--max-new", "2"])
     assert "falling back to the dense reference Server" in \
@@ -164,6 +165,8 @@ def test_serve_launcher_refuses_to_page_an_unpageable_arch(capsys):
     assert "falling back to the dense reference Server" in \
         capsys.readouterr().out
     assert sorted(res) == [0, 1] and all(len(t) == 2 for t in res.values())
-    with pytest.raises(NotImplementedError, match="step 6"):
-        tserve.main(["--arch", "paligemma-3b", "--reduced", "--device",
-                     "cpu", "--legacy"])
+    res = tserve.main(["--arch", "paligemma-3b", "--reduced", "--device",
+                       "cpu", "--requests", "2", "--max-new", "2"])
+    assert "falling back to the dense reference Server" in \
+        capsys.readouterr().out
+    assert sorted(res) == [0, 1] and all(len(t) == 2 for t in res.values())

@@ -56,6 +56,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.models.lm import build_model  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import step as step_mod  # noqa: E402
+from test_torch_moe import _one_thread  # noqa: E402,F401
 
 N_STEPS = 3
 RTOL = ATOL = 2e-3            # tests/test_train_square.py's tolerance

@@ -44,6 +44,7 @@ from repro_torch.train import step as step_mod  # noqa: E402
 from repro_torch.train.faults import (SimulatedKill,  # noqa: E402
                                       TrainFaultInjector, TrainFaultPlan)
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from test_torch_moe import _one_thread  # noqa: E402,F401
 
 TOTAL = 6
 CHAOS = dict(name="tiny-chaos", family="dense", n_layers=2, d_model=32,

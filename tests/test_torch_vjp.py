@@ -34,6 +34,7 @@ from repro_torch.core.einsum import fs_einsum, vjp_enabled  # noqa: E402
 from repro_torch.core.matmul import MODES  # noqa: E402
 from repro_torch.core.prepared import prepare_operand  # noqa: E402
 from repro_torch.kernels import routing  # noqa: E402
+from test_torch_moe import _one_thread  # noqa: E402,F401
 
 from test_einsum_dispatch import CALL_SITE_SPECS  # noqa: E402
 
