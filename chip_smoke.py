@@ -210,8 +210,8 @@ decode-step logits end to end.
 
 Last, each in a process of its own too, the prefix-token and the
 encoder-decoder inputs.  paligemma-3b served at its published
-width and full depth (18 layers, d 2048, 8 query heads of 256 over 1 KV
-head, GeGLU d_ff 16384, vocab 257216, 256 prefix patches), its weights
+width (6 of its 18 layers, SERVE_LAYERS; d 2048, 8 query heads of 256 over
+1 KV head, GeGLU d_ff 16384, vocab 257216, 256 prefix patches), its weights
 drawn on the device from seed 0, bf16, prepared, no policy: K1 and K2 at
 a decode step's and a prefill's shapes against their plain versions and
 timed; the launcher's fallback (cache_len 128, its prefills rolled into
@@ -232,7 +232,20 @@ weight, GRAD_ZERO_NOTE, and its 3 steps with the elements whose AdamW
 first moment differs in sign held to standard's,
 TRAJECTORY_WITNESS_NOTE), each with its launcher.
 
+Last, each in a process of its own, the launch planner
+(``kernels/tuning.py``: model mode equal to every kernel's launch rule,
+K1 = K2 = K3 bit for bit under every tile, every plan variant of K1-K7 at
+the kernel phases' shapes held to its plain version and timed into a
+scratch cache, the cache served, a route override that moves a launch,
+``REPRO_AUTOTUNE=0``) and the attention options: deepseek-7b at its
+published width and 2 of its 30 layers, an 8192-token prefill under the
+base schedule, ``block_skip``, ``fold_q`` and ``p_bf16`` and a 4096-token
+train step under base and ``block_skip``, their K2 launches by counter and
+profiler and their audits equal to each schedule's analytic count.
+
     python3 chip_smoke.py
+    python3 chip_smoke.py --autotune FILE      # a tuning cache, the card's
+    python3 chip_smoke.py --crossovers FILE    # the route rules' sweeps
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repo.  Its last line is
@@ -270,6 +283,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config                      # noqa: E402
 from repro_torch.configs.base import SQUARE_GEMMS_POLICY        # noqa: E402
+from repro_torch.core import cost_model                         # noqa: E402
 from repro_torch.core import counting, graphs, guards           # noqa: E402
 from repro_torch.core.einsum import fs_einsum                   # noqa: E402
 from repro_torch.kernels import build, routing                  # noqa: E402
@@ -282,6 +296,8 @@ from repro_torch.core import transforms                          # noqa: E402
 from repro_torch.core.prepared import prepare_operand           # noqa: E402
 from repro_torch.core.tree import tree_leaves, tree_map         # noqa: E402
 from repro_torch.kernels import ops                             # noqa: E402
+from repro_torch.kernels import tuning                          # noqa: E402
+from repro_torch.kernels import cpm3_matmul, cpm4_matmul        # noqa: E402
 from repro_torch.kernels.cpm3_matmul import (                   # noqa: E402
     cpm3_matmul_k5, cpm3_matmul_plain, k5_launch_shape)
 from repro_torch.kernels.cpm4_matmul import (                   # noqa: E402
@@ -303,6 +319,7 @@ from repro_torch.models.lm import (                             # noqa: E402
 from repro_torch.models.moe import (                            # noqa: E402
     moe_apply_local, moe_capacity, moe_dispatch, moe_route)
 from repro_torch.obs import check as obs_check                  # noqa: E402
+from repro_torch.obs import trace as obs_trace                  # noqa: E402
 from repro_torch.serve.faults import FaultInjector, FaultPlan   # noqa: E402
 from repro_torch.serve.engine import (                          # noqa: E402
     Engine, EngineConfig, RequestStatus)
@@ -396,32 +413,32 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def time_graph(fns, reps: int = 20, replays: int = 5) -> float:
-    """Mean device ms of one call: at least ``reps`` calls, cycling through
-    every one of ``fns``, captured in one CUDA graph and replayed
-    ``replays`` times between CUDA events."""
-    reps = max(reps, len(fns))
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for f in fns:
-            f()
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for i in range(reps):
-            fns[i % len(fns)]()
-    g.replay()
-    torch.cuda.synchronize()
-    t0, t1 = torch.cuda.Event(enable_timing=True), \
-        torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(replays):
-        g.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / (reps * replays)
+# mean device ms of one call over CUDA-graph replays (kernels/tuning.py)
+time_graph = tuning.time_graph
+
+
+def k1_planned(m: int, n: int, k: int) -> dict:
+    """K1's launch of an f32 (m, k) @ (k, n) under the planner's plan (the
+    cache's, or the model rule's)."""
+    return k1_launch_shape(m, n, tuning.plan_matmul(m, n, k).rows)
+
+
+def batched_planned(name: str, nb: int, m: int, n: int, k: int) -> dict:
+    """K2's or K3's launch under the planner's plan."""
+    plan = tuning.plan_matmul(m, n, k, batch=nb, kind=PLAN_KIND[name])
+    return k2_launch_shape(nb, m, n, plan.rows, plan.cols)
+
+
+def cpm_planned(name: str, m: int, n: int, k: int) -> dict:
+    """K5's or K6's launch under the planner's thread tile."""
+    plan = tuning.plan_cpm(PLAN_KIND[name], m, n, k)
+    own = cpm3_matmul.K5_TILE if name == "K5" else cpm4_matmul.K6_TILE
+    return cpm3_matmul.cpm_launch_shape(m, n, own, plan.thread_tile)
+
+
+PLAN_KIND = {"K1": "sq_matmul", "K2": "sq_matmul_batched",
+             "K3": "sq_matmul_folded", "K4": "sq_paged_attn",
+             "K5": "cpm3_matmul", "K6": "cpm4_matmul", "K7": "sq_conv2d"}
 
 
 def copies_for(nbytes: int) -> int:
@@ -502,7 +519,7 @@ def k1_phase(dev, gen, cases, per_step=None, step_rows=(8, DENSE_BATCH),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    max_abs_err=err)
         rows.append(row)
-        shape = k1_launch_shape(m, n)
+        shape = k1_planned(m, n, k)
         print(f"    m={m:2d} k={k:4d} n={n:5d}  K1 {ms:.4f} ms | K2 at nb=1 "
               f"{k2_ms:.4f} ms ({k2_ms / ms:.1f}x) | plain "
               f"{plain_ms:.4f} ms | torch.matmul {lib_ms:.4f} ms | bound "
@@ -595,7 +612,7 @@ def batched_phase(dev, gen, name, cases, unit=None):
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, \
             ops / FP32_OPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
-        shape = launch_shape(nb, m, n)
+        shape = batched_planned(name, nb, m, n, k)
         row = dict(shape=(nb, m, k, n), ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=bound, t_bytes=t_bytes,
                    t_ops=t_ops, k2_ms=k2_ms, grid=shape["grid"],
@@ -660,20 +677,8 @@ def attn_f64(q, kp, vp, tables, pos_pool, q_pos, *, window=None,
     """K4's function in float64 with the multiplier: the reference for
     long tables, where the plain version's own f32 sums of (p + v)^2 over
     the whole window reach the tolerance."""
-    idx = (tables.long()[:, :, None] * BLOCK
-           + torch.arange(BLOCK, device=tables.device)).reshape(
-               tables.shape[0], -1)
-    k = kp[idx].double().permute(0, 2, 1, 3)[:, :, None]   # (B,KV,1,T,hd)
-    v = vp[idx].double().permute(0, 2, 1, 3)[:, :, None]
-    s = q.double().permute(0, 2, 3, 1, 4) @ k.transpose(-1, -2)
-    if softcap:
-        s = torch.tanh(s / softcap) * softcap
-    kv_pos, qp = pos_pool[idx][:, None, :], q_pos[:, :, None]
-    valid = (kv_pos <= qp) & (kv_pos < 2 ** 29)
-    if window is not None:
-        valid &= (qp - kv_pos) < window
-    s = s.masked_fill(~valid[:, None, None], -1e30)
-    return (torch.softmax(s, dim=-1) @ v).permute(0, 3, 1, 2, 4)
+    return tuning.paged_attn_f64(q, kp, vp, tables, pos_pool, q_pos, BLOCK,
+                                 window=window, softcap=softcap)
 
 
 def k4_time(dev, gen, nb: int, pools: int):
@@ -708,8 +713,10 @@ def k4_time(dev, gen, nb: int, pools: int):
     ops = 2 * 2 * t_live * S * KV * G * hd
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, \
         ops / FP32_OPS_PER_S * 1e3
-    splits = k4_splits(B, KV, nb, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+    splits = tuning.plan_paged_attn(
+        B, S, KV, G, hd, nb, BLOCK, kps[0].dtype,
+        sms=torch.cuda.get_device_properties(dev).multi_processor_count
+    ).splits
     row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -2074,8 +2081,12 @@ def k7_phase(dev, gen):
         torch.cuda.synchronize()
         shape = sq_conv2d_k7.last_shape
         strides, pads = conv_geometry(xshape, wshape, stride, padding)
+        plan = sq_conv2d_k7.last_plan     # the planner's: a cached or model plan
         want = k7_launch_shape(xshape, wshape[0], wshape[2:], strides, pads,
-                               sms)
+                               sms, band=plan.band, splits=plan.splits)
+        check(plan == tuning.plan_conv2d(
+            tuple(xshape), wshape[0], wshape[2:], strides, pads, sms=sms),
+            f"{name}: K7 launched the planner's {plan}")
         tol = conv_tol(x, w, kvol)
         err = (out - ref).abs().max().item()
         err_route = (out - via).abs().max().item()
@@ -2450,7 +2461,7 @@ def cpm_phase(dev, gen, z, w):
                   f"{name} f32 {label} m={m} k={k} n={n}: max|err| "
                   f"{err:.3e} <= {tol:.3e}")
             shape = kern.last_shape
-            check(shape == launch_shape(m, n),
+            check(shape == cpm_planned(name, m, n, k),
                   f"{name} {label}: grid {shape['grid']} of {shape['rows']} "
                   f"x {shape['cols']} tiles, {shape['thread_tile'][0]} x "
                   f"{shape['thread_tile'][1]} a thread, as the mirror says")
@@ -2652,7 +2663,7 @@ def train_kernel_phase(dev, gen, cfg):
               f"{ms:.4f} ms | torch.matmul {lib_ms:.4f} ms "
               f"({ms / lib_ms:.2f}x) | slot floor {floor:.4f} ms "
               f"({floor / ms:.1%} of it) | grid "
-              f"{k1_launch_shape(m, n)['grid']}", flush=True)
+              f"{k1_planned(m, n, k)['grid']}", flush=True)
         del aw, bw, a, b
     for (nb, m, k, n), per_step in sorted(k2.items()):
         aw = torch.randn(nb, m, k, generator=gen).to(torch.bfloat16).to(
@@ -2683,7 +2694,7 @@ def train_kernel_phase(dev, gen, cfg):
               f"step: {ms:.4f} ms | torch.bmm {lib_ms:.4f} ms "
               f"({ms / lib_ms:.2f}x) | slot floor {floor:.4f} ms "
               f"({floor / ms:.1%} of it) | grid "
-              f"{k2_launch_shape(nb, m, n)['grid']}", flush=True)
+              f"{batched_planned('K2', nb, m, n, k)['grid']}", flush=True)
     for name, lib in (("K1", "torch.matmul"), ("K2", "torch.bmm")):
         mine = [r for r in rows if r["kernel"] == name]
         tot = {key: sum(r["per_step"] * r[key] for r in mine)
@@ -3364,11 +3375,12 @@ RECURRENT_LONG_TOL = 2e-3
 # prefix-token and the two training phases after them took 251.5 s of a
 # whole smoke on one H100): recurrentgemma at its first (rglru, rglru,
 # lattn) period of 26 layers, xlstm at its first (mlstm x 7, slstm) period
-# of 24, whisper at 4 of its 32 encoder and 4 of its 32 decoder layers;
-# every kind, shape and kernel of each path still runs.  paligemma serves
-# whole.  The launcher serves the same cut (--layers, --encoder-layers).
+# of 24, whisper at 4 of its 32 encoder and 4 of its 32 decoder layers,
+# paligemma at 6 of its 18 (whole until the planner and attention-options
+# phases were added); every kind, shape and kernel of each path still
+# runs.  The launcher serves the same cut (--layers, --encoder-layers).
 SERVE_LAYERS = {"recurrentgemma-2b": 3, "xlstm-350m": 8,
-                "whisper-large-v3": 4}
+                "whisper-large-v3": 4, "paligemma-3b": 6}
 
 
 def serve_cut(arch) -> list:
@@ -4990,8 +5002,8 @@ def vlm_ttft(model: LM, params, dev) -> list:
 
 
 def vlm_phase(dev, gen) -> dict:
-    """paligemma-3b at its published width and full depth (its weights
-    drawn on the device from seed 0), its launcher's 8 requests with their
+    """paligemma-3b at its published width and SERVE_LAYERS' depth (its
+    weights drawn on the device from seed 0), its launcher's 8 requests with their
     256 patches served by the dense Server, eager and with its decode step
     replayed; the launcher at its own cache_len; bf16 logits and the f32
     layers against standard.  Runs in a process of its own
@@ -5007,7 +5019,7 @@ def vlm_phase(dev, gen) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     print(f"prefix-token serving: {arch} ({cfg.source}) at its published "
-          f"width and depth (L={L}, d={cfg.d_model} H={cfg.n_heads}x"
+          f"width, {served_depth(arch)} (L={L}, d={cfg.d_model} H={cfg.n_heads}x"
           f"{cfg.resolved_head_dim} over {cfg.n_kv_heads} KV head, ff="
           f"{cfg.d_ff} {cfg.activation}, V={cfg.vocab} padded to "
           f"{cfg.padded_vocab}, {P} prefix patches), {cfg.dtype}, prepared, "
@@ -5039,7 +5051,8 @@ def vlm_phase(dev, gen) -> dict:
 
     # the launcher, its weights drawn on the device (2.5 G parameters: a
     # host draw takes tens of seconds) and served after it
-    launched, l_run, model = launcher_serve(arch, draw=device_model)
+    launched, l_run, model = launcher_serve(arch, serve_cut(arch),
+                                            draw=device_model)
     l_counts, l_audit, l_eager, l_wall = l_run
     with torch.no_grad():
         params = model.prepare_params()
@@ -5375,11 +5388,13 @@ RECURRENT_F32_LAYERS = {"recurrentgemma-2b": 3, "xlstm-350m": 8,
 # step's wall)
 EAGER_TRACED = ("recurrentgemma-2b",)
 RECURRENT_TRAINER_STEPS = 2
-# the launcher on the card, each arch at its first period: recurrentgemma's
-# (rglru, rglru, lattn) (the host draw and the final checkpoint of its
-# 655 M-parameter tied table set its time at any depth), xlstm's (mlstm x
-# 7, slstm)
-RECURRENT_LAUNCHER_LAYERS = {"recurrentgemma-2b": 3, "xlstm-350m": 8,
+# the launcher on the card: recurrentgemma at its first period (rglru,
+# rglru, lattn) (the host draw and the final checkpoint of its 655
+# M-parameter tied table set its time at any depth), xlstm at one mLSTM
+# layer (its period of 8, whose eager warm-up step is host-bound, until
+# the planner and attention-options phases were added; the phase above
+# trains the whole period)
+RECURRENT_LAUNCHER_LAYERS = {"recurrentgemma-2b": 3, "xlstm-350m": 1,
                              "paligemma-3b": 1, "whisper-large-v3": 1}
 RECURRENT_LAUNCHER_STEPS = 2
 # xlstm's gradient control: every f32 parameter times (1 + 2^-20)
@@ -5608,7 +5623,7 @@ def recurrent_train_kernel_rows(dev, gen, cfg, rules,
                 args = (aw[0], bw[0], sa[0], sb[0])
                 kern, lib = sq_matmul_k1, (lambda: torch.matmul(aw[0], bw[0]))
                 plain = lambda: _plain_rows(*args, budget=2 ** 30)  # noqa
-                grid = k1_launch_shape(m, n)["grid"]
+                grid = k1_planned(m, n, k)["grid"]
             else:
                 args = (aw, bw, sa, sb)
                 kern, lib = BATCHED[name][0], (lambda: torch.bmm(aw, bw))
@@ -6809,7 +6824,7 @@ def moe_expert_phase(dev, gen, cfg) -> list:
             nbytes = 4 * E * (C * k + k * n + C + n + C * n)
             t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
             t_ops = 2 * E * C * n * k / FP32_OPS_PER_S * 1e3
-            shape = launch_shape(E, C, n)
+            shape = batched_planned(name, E, C, n, k)
             row = dict(kernel=name, shape=(E, C, k, n), ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=max(t_bytes, t_ops), t_bytes=t_bytes,
@@ -7333,7 +7348,7 @@ def moe_train_kernel_phase(dev, gen, cfg) -> list:
             args = (aw[0], bw[0], sa[0], sb[0])
             kern, lib = sq_matmul_k1, (lambda: torch.matmul(aw[0], bw[0]))
             plain = lambda: _plain_rows(*args)                 # noqa: E731
-            grid = k1_launch_shape(m, n)["grid"]
+            grid = k1_planned(m, n, k)["grid"]
         else:
             args = (aw, bw, sa, sb)
             kern, lib = BATCHED[name][0], (lambda: torch.bmm(aw, bw))
@@ -8075,9 +8090,657 @@ def moe_train_entries(k1, k2, mt) -> None:
                                   kern["moe_train"]["max_abs_err"])
 
 
+# ------------------------------------------------------------ the planner
+TUNING_FLAG = "--tuning-phase"
+AUTOTUNE_FLAG = "--autotune"
+CROSSOVER_FLAG = "--crossovers"
+# K4 at the paged engine's decode step and the 1024-token tables (bf16
+# pools), K5/K6 at the batched DFT and 64^3 (m, n, k)
+K4_TUNE_SHAPES = [(SLOTS, 1, HEADS, 1, HEAD_DIM, BLOCKS_PER_SEQ, BLOCK),
+                  (SLOTS, 1, HEADS, 1, HEAD_DIM, 64, BLOCK)]
+CPM_TUNE_SHAPES = [(DFT_SIGNALS, DFT_POINTS, DFT_POINTS), (64, 64, 64)]
+
+
+def tuning_shapes(prompt_lens, attn: bool = False) -> dict:
+    """Every shape the kernel phases hold K1-K7 at (the serving paths'
+    launches): K1 at :func:`k1_cases`, K2/K3 at :func:`batched_cases`, K4
+    at the decode step and the long tables, K5/K6 at the DFT shapes, K7 at
+    ResNet-50's six layers; with ``attn``, also K2 at deepseek-7b's
+    attention chunks (base and folded)."""
+    cases = batched_cases(prompt_lens)
+    shapes = {
+        "sq_matmul": sorted({(m, n, k) for m, k, n, _ in
+                             k1_cases(prompt_lens)}),
+        "sq_matmul_batched": sorted({(nb, m, n, k)
+                                     for nb, m, k, n in cases["K2"]}),
+        "sq_matmul_folded": sorted({(nb, m, n, k)
+                                    for nb, m, k, n in cases["K3"]}),
+        "sq_paged_attn": K4_TUNE_SHAPES, "cpm": CPM_TUNE_SHAPES,
+        "sq_conv2d": [(xs, ws[0], ws[2:], *conv_geometry(xs, ws, st, pd))
+                      for _, xs, ws, st, pd in RESNET50_LAYERS]}
+    if attn:
+        shapes["sq_matmul_batched"] += attn_k2_shapes()
+    return shapes
+
+
+def autotune_all(shapes: dict, path: str, verbose: bool = False) -> dict:
+    """Every plan variant of K1-K7 at ``shapes``, each held to its plain
+    version (kernels/tuning.py's autotune), timed; the winners written to
+    the cache at ``path``.  Returns the entries."""
+    found = {}
+    for kind in ("sq_matmul", "sq_matmul_batched", "sq_matmul_folded"):
+        found.update(tuning.autotune_matmul(shapes[kind], kind=kind,
+                                            path=path, verbose=verbose))
+    found.update(tuning.autotune_paged_attn(
+        shapes["sq_paged_attn"], torch.bfloat16, path=path,
+        verbose=verbose))
+    for kind in ("cpm3_matmul", "cpm4_matmul"):
+        found.update(tuning.autotune_cpm(shapes["cpm"], kind=kind, path=path,
+                                         verbose=verbose))
+    found.update(tuning.autotune_conv2d(shapes["sq_conv2d"], path=path,
+                                        verbose=verbose))
+    return found
+
+
+def print_entries(entries: dict, what: str) -> None:
+    """One line a cache entry: the model rule's variant and time, the
+    winner's, and how many variants were held to plain and timed."""
+    print(f"{what} ({CARD}):", flush=True)
+    for key, e in sorted(entries.items()):
+        fields = {k: v for k, v in e.items() if k not in (
+            "us_per_call", "rule", "rule_us", "variants", "max_abs_err")}
+        print(f"    {key}: rule {e['rule']} {e['rule_us']:.2f} us | winner "
+              f"{fields} {e['us_per_call']:.2f} us "
+              f"({e['rule_us'] / e['us_per_call']:.3f}x) | "
+              f"{e['variants']} variants, max|err| {e['max_abs_err']:.2e}",
+              flush=True)
+
+
+def model_plans(shapes: dict) -> dict:
+    """Under ``REPRO_AUTOTUNE=0`` every plan the planner gives at
+    ``shapes`` against the launch rule the C sources applied before the
+    planner: {kind: (equal, total)}."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    k1 = [tuning.plan_matmul(m, n, k) == tuning.K1Plan(
+        k1_launch_shape(m, n)["rows"], k1_launch_shape(m, n)["cols"])
+        for m, n, k in shapes["sq_matmul"]]
+    out["K1"] = (sum(k1), len(k1))
+    for name, kind in (("K2", "sq_matmul_batched"),
+                       ("K3", "sq_matmul_folded")):
+        got = [tuning.plan_matmul(m, n, k, batch=nb, kind=kind)
+               == tuning.BatchedPlan(k2_launch_shape(nb, m, n)["rows"],
+                                     k2_launch_shape(nb, m, n)["cols"])
+               for nb, m, n, k in shapes[kind]]
+        out[name] = (sum(got), len(got))
+    k4 = [tuning.plan_paged_attn(B, S, KV, G, hd, nb, bs, torch.bfloat16,
+                                 sms=sms).splits == k4_splits(B, KV, nb, sms)
+          for B, S, KV, G, hd, nb, bs in shapes["sq_paged_attn"]]
+    out["K4"] = (sum(k4), len(k4))
+    for name, own in (("K5", cpm3_matmul.K5_TILE),
+                      ("K6", cpm4_matmul.K6_TILE)):
+        got = [tuning.plan_cpm(PLAN_KIND[name], m, n, k).thread_tile
+               == cpm3_matmul.cpm_launch_shape(m, n, own)["thread_tile"]
+               for m, n, k in shapes["cpm"]]
+        out[name] = (sum(got), len(got))
+    k7 = []
+    for xs, N, khw, st, pads in shapes["sq_conv2d"]:
+        rule = k7_launch_shape(xs, N, khw, st, pads, sms)
+        k7.append(tuning.plan_conv2d(xs, N, khw, st, pads, sms=sms)
+                  == tuning.Conv2DPlan(rule["band"], rule["grid"][2]))
+    out["K7"] = (sum(k7), len(k7))
+    return out
+
+
+def bitwise_variants(dev, gen, shapes: dict) -> int:
+    """K1 under both tiles and K2 and K3 under all six at nb = 1, at every
+    K1 shape, and K2 and K3 under all six at every batched shape beside K1
+    on its first element: one result, bit for bit.  Returns the launches
+    compared."""
+    n = 0
+    for m, n_, k in shapes["sq_matmul"]:
+        aw, bw = torch.randn(m, k, generator=gen).to(dev), \
+            torch.randn(k, n_, generator=gen).to(dev)
+        sa, sb = -(aw * aw).sum(1), -(bw * bw).sum(0)
+        outs = [sq_matmul_k1(aw, bw, sa, sb, plan=p) for p in
+                tuning.candidates_matmul("sq_matmul", m, n_, k)]
+        outs += [kern(aw[None], bw[None], sa[None], sb[None], plan=p)[0]
+                 for kern in (sq_matmul_k2, sq_matmul_k3)
+                 for p in tuning.candidates_matmul("sq_matmul_batched", m,
+                                                   n_, k)]
+        check(all(torch.equal(o, outs[0]) for o in outs),
+              f"K1 x2 tiles, K2 x6, K3 x6 at nb=1, m={m} k={k} n={n_}: "
+              f"{len(outs)} results bit for bit")
+        n += len(outs)
+    for kind in ("sq_matmul_batched", "sq_matmul_folded"):
+        for nb, m, n_, k in shapes[kind]:
+            aw = torch.randn(nb, m, k, generator=gen).to(dev)
+            bw = torch.randn(nb, k, n_, generator=gen).to(dev)
+            sa, sb = -(aw * aw).sum(2), -(bw * bw).sum(1)
+            outs = [kern(aw, bw, sa, sb, plan=p)
+                    for kern in (sq_matmul_k2, sq_matmul_k3)
+                    for p in tuning.candidates_matmul(kind, m, n_, k, nb)]
+            first = sq_matmul_k1(aw[0], bw[0], sa[0], sb[0])
+            check(all(torch.equal(o, outs[0]) for o in outs)
+                  and torch.equal(outs[0][0], first),
+                  f"K2 x6, K3 x6 at B={nb} m={m} k={k} n={n_}, and K1 on "
+                  f"element 0: bit for bit")
+            n += len(outs) + 1
+    return n
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Environment variables for the block (None unsets), restored after,
+    with the planner's memo dropped on both sides."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        os.environ.pop(k, None) if v is None else os.environ.update({k: v})
+    tuning.clear_cache()
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            os.environ.pop(k, None) if v is None else os.environ.update(
+                {k: v})
+        tuning.clear_cache()
+
+
+def tuning_phase(dev, gen) -> dict:
+    """The planner on the card (kernels/tuning.py; run in a process of its
+    own, since it sets the planner's variables): model mode = the launch
+    rule at every shape of the kernel phases; K1 = K2 = K3 bit for bit
+    under every variant; every variant of K1-K7 at those shapes held to
+    its plain version and timed, the winners in a scratch cache
+    (``autotune_*``); the scratch cache served (hits counted, ``tuning.cache``
+    events traced); a route override in it that moves one batched GEMM
+    from K2 to K3, by counter; and ``REPRO_AUTOTUNE=0``, which ignores the
+    override and the cache."""
+    t0 = time.perf_counter()
+    prompt_lens = [len(r.tokens) for r in make_requests(
+        serve_cfg(), N_REQUESTS, seed=0)]
+    shapes = tuning_shapes(prompt_lens)
+    with _env(REPRO_AUTOTUNE="0"):
+        rule = model_plans(shapes)
+    for name, (eq, tot) in rule.items():
+        check(eq == tot, f"model mode: {name}'s plan = its launch rule at "
+                         f"{eq} of {tot} shapes")
+    compared = bitwise_variants(dev, gen, shapes)
+    scratch = Path(__file__).resolve().parent / "build" / \
+        "tuning_smoke.json"
+    scratch.parent.mkdir(exist_ok=True)
+    scratch.unlink(missing_ok=True)
+    t_tune = time.perf_counter()
+    entries = autotune_all(shapes, str(scratch))
+    tune_s = time.perf_counter() - t_tune
+    print_entries(entries, f"autotune of every variant at the kernel phases' "
+                           f"shapes, {tune_s:.1f} s")
+    check(len(entries) == sum(len(v) for k, v in shapes.items()) + len(
+        shapes["cpm"]), f"an entry for every shape ({len(entries)})")
+    reg = tuning._HIT_COUNTER, tuning._MISS_COUNTER
+    with _env(REPRO_TORCH_TUNING_CACHE=str(scratch), REPRO_AUTOTUNE=None), \
+            obs_trace.capture() as tracer:
+        hits0, miss0 = (c.value for c in reg)
+        served = model_plans(shapes)   # every shape resolves from the cache
+        hits, misses = reg[0].value - hits0, reg[1].value - miss0
+        events = [r for r in tracer.records() if r.name == "tuning.cache"]
+        check(hits == len(entries) and misses == 0 and len(events) == hits
+              and all(r.args["hit"] for r in events),
+              f"scratch cache served: {hits:.0f} hits, {misses:.0f} misses, "
+              f"{len(events)} tuning.cache events")
+        differ = {k: t - e for k, (e, t) in served.items()}
+        a = torch.randn(HEADS, CHUNK, HEAD_DIM, generator=gen).to(dev)
+        b = torch.randn(HEADS, HEAD_DIM, BLOCKS_PER_SEQ * BLOCK,
+                        generator=gen).to(dev)
+        sizes = {"b": HEADS, "m": CHUNK, "n": BLOCKS_PER_SEQ * BLOCK,
+                 "k": HEAD_DIM}
+        reset_counts()
+        fs_einsum("bmk,bkn->bmn", a, b, mode="square_pallas")
+        before = (sq_matmul_k2.launches, sq_matmul_k3.launches)
+        key = routing.set_route_override("matmul", dict(sizes, dtype="float32"),
+                                         "fold", path=str(scratch))
+        reset_counts()
+        moved = fs_einsum("bmk,bkn->bmn", a, b, mode="square_pallas")
+        after = (sq_matmul_k2.launches, sq_matmul_k3.launches)
+        route = routing.select_route("matmul", sizes).name
+    check(before == (1, 0) and after == (0, 1) and route == "fold",
+          f"route override {key} -> fold: K2/K3 launches {before} before, "
+          f"{after} after (select_route says {route})")
+    with _env(REPRO_TORCH_TUNING_CACHE=str(scratch), REPRO_AUTOTUNE="0"):
+        reset_counts()
+        plain = fs_einsum("bmk,bkn->bmn", a, b, mode="square_pallas")
+        off = (sq_matmul_k2.launches, sq_matmul_k3.launches)
+        hits0 = reg[0].value
+        again = model_plans(shapes)
+        check(off == (1, 0) and torch.equal(plain, moved)
+              and reg[0].value == hits0
+              and all(e == t for e, t in again.values()),
+              f"REPRO_AUTOTUNE=0: the override ignored (K2/K3 {off}, the "
+              f"same result bit for bit), no cache hit, every plan the "
+              f"model's")
+    wall = time.perf_counter() - t0
+    print(f"tuning phase: {wall:.1f} s ({tune_s:.1f} s of it timing "
+          f"{sum(e['variants'] for e in entries.values())} variants); "
+          f"winners other than the rule: {differ}", flush=True)
+    return {"entries": entries, "rule": rule, "bitwise": compared,
+            "seconds": wall, "tune_s": tune_s}
+
+
+def autotune_main(dev, path: str) -> dict:
+    """``python3 chip_smoke.py --autotune FILE``: the committed cache.  One
+    autotune over every shape the kernel phases hold K1-K7 at and
+    deepseek-7b's attention chunks, written to FILE (a fresh file)."""
+    prompt_lens = [len(r.tokens) for r in make_requests(
+        serve_cfg(), N_REQUESTS, seed=0)]
+    Path(path).unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    with _env(REPRO_AUTOTUNE="0"):
+        entries = autotune_all(tuning_shapes(prompt_lens, attn=True), path)
+    print_entries(entries, f"autotune into {path}, "
+                           f"{time.perf_counter() - t0:.1f} s")
+    return entries
+
+
+# Route crossovers: each rule's two routes timed as the dispatch runs them
+# (REPRO_ROUTE pins one), over a sweep of the quantity its threshold reads.
+CROSS_CUBES = (2, 4, 8, 16, 24, 32, 48, 64, 96, 128, 256)
+CROSS_DECODE = ((8, 64), (8, 128), (8, 256), (8, 512), (8, 768),
+                (8, 3072))                          # (m, k = n)
+CROSS_FOLD = ((1, 64, 64), (1, 128, 64), (4, 32, 32), (8, 128, 64),
+              (32, 128, 64), (32, 64, 128))          # per element (m, n, k)
+CROSS_BATCH = (1, 2, 4, 8, 16, 48, 96, 384)
+CROSS_CONV = ((8, 1, 32), (8, 3, 32), (8, 8, 32), (8, 14, 32),
+              (8, 3, 56), (8, 16, 56), (8, 64, 28), (8, 64, 56),
+              (1, 3, 224), (8, 3, 224))             # (B, cin, H = W), 3x3
+CROSS_PAGED_S = (1, 2, 4, 8, 9, 16, 32)
+CROSS_PAGED_NB = (1, 2, 4, 8, 16, 64)                 # T = 16 nb
+
+
+def _route_ms(kind: str, route: str, fn) -> float:
+    with _env(REPRO_ROUTE=f"{kind}={route}"):
+        return tuning.time_graph([fn], reps=10, replays=3)
+
+
+def crossovers_main(dev, path: str) -> dict:
+    """``python3 chip_smoke.py --crossovers FILE``: each route rule's two
+    routes timed on the card as ``fs_einsum`` / ``conv2d`` / the paged
+    attention read run them, over the quantity its threshold reads; the
+    smallest point from which the rule's preferred route is no slower, as
+    JSON in FILE.  The thresholds stay as they are (ROADMAP Q2)."""
+    gen = torch.Generator().manual_seed(0)
+    out = {"card": CARD}
+
+    def mm(m, n, k, nb=1):
+        a = torch.randn(*((nb,) if nb > 1 else ()), m, k,
+                        generator=gen).to(dev)
+        b = torch.randn(*((nb,) if nb > 1 else ()), k, n,
+                        generator=gen).to(dev)
+        spec = "bmk,bkn->bmn" if nb > 1 else "mk,kn->mn"
+        return lambda: fs_einsum(spec, a, b, mode="square_pallas")
+
+    rows = []
+    for m, n, k in [(c, c, c) for c in CROSS_CUBES] + \
+            [(m, kn, kn) for m, kn in CROSS_DECODE]:
+        f = mm(m, n, k)
+        rows.append({"m": m, "n": n, "k": k, "mults": m * n * k,
+                     "kernel_ms": _route_ms("matmul", "kernel", f),
+                     "virtual_ms": _route_ms("matmul", "virtual", f)})
+    out["virtual_floor"] = rows
+    rows = []
+    for (m, n, k), nb in itertools.product(CROSS_FOLD, CROSS_BATCH):
+        if nb == 1:
+            continue
+        f = mm(m, n, k, nb)
+        rows.append({"batch": nb, "m": m, "n": n, "k": k,
+                     "step_ops": cost_model.pm_tile_vpu_ops(m, n, k, 32),
+                     "batched_ms": _route_ms("matmul", "batched", f),
+                     "fold_ms": _route_ms("matmul", "fold", f)})
+    out["fold"] = rows
+    rows = []
+    from repro_torch.core.conv import conv2d
+    for B, cin, hw in CROSS_CONV:
+        x = torch.randn(B, cin, hw, hw, generator=gen).to(dev)
+        w = prepare_operand(torch.randn(64, cin, 3, 3, generator=gen).to(dev),
+                            for_="conv2d")
+        f = lambda x=x, w=w: conv2d(x, w, padding="SAME",   # noqa: E731
+                                    mode="square_pallas")
+        rows.append({"batch": B, "cin": cin, "hw": hw, "k_volume": cin * 9,
+                     "patch_bytes": cost_model.conv2d_patch_bytes(
+                         hw, hw, 3, 3, cin, batch=B),
+                     "fused_ms": _route_ms("conv2d", "fused", f),
+                     "im2col_ms": _route_ms("conv2d", "im2col", f)})
+    out["im2col"] = rows
+    rows = []
+    for S, nb in itertools.product(CROSS_PAGED_S, CROSS_PAGED_NB):
+        rows.append(dict(S=S, T=nb * BLOCK, **paged_routes_ms(dev, gen, S,
+                                                               nb)))
+    out["paged"] = rows
+    Path(path).write_text(json.dumps(out, indent=1))
+    for name, rows in out.items():
+        if name == "card":
+            continue
+        print(f"crossover sweep {name} ({CARD}):", flush=True)
+        for r in rows:
+            print("    " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float)
+                                     else f"{k} {v}" for k, v in r.items()),
+                  flush=True)
+    return out
+
+
+def paged_routes_ms(dev, gen, S: int, nb: int) -> dict:
+    """The paged attention read of a decode or chunk step (the paged
+    engine's geometry: 8 sequences, 12 kv-heads of 64, bf16 pools, each
+    table full) on both routes: K4 and the gathered window through the
+    square-routed einsums (``_attn_paged_step``'s two)."""
+    B, KV, hd = SLOTS, HEADS, HEAD_DIM
+    q, kps, vps, tables, pos_pool, _ = k4_inputs(dev, gen, B=B, S=S, nb=nb)
+    kp, vp = kps[0], vps[0]
+    q_pos = torch.arange(nb * BLOCK - S, nb * BLOCK, dtype=torch.int32,
+                         device=dev).expand(B, S).contiguous()
+
+    def kernel():
+        return sq_paged_attn_k4(q, kp, vp, tables, pos_pool, q_pos,
+                                block_size=BLOCK)
+
+    def gather():
+        idx = attn_mod.paged_gather_indices(tables, BLOCK)
+        k, v, kv_pos = kp[idx].float(), vp[idx].float(), pos_pool[idx]
+        valid = (kv_pos[:, None, :] <= q_pos[:, :, None]) \
+            & (kv_pos[:, None, :] < attn_mod.ATTEND_POS_LIMIT)
+        s = fs_einsum("bqkgh,btkh->bkgqt", q, k, mode="square_pallas",
+                      site="attn_scores")
+        s = s.masked_fill(~valid[:, None, None], attn_mod.NEG_INF)
+        return fs_einsum("bkgqt,btkh->bqkgh", torch.softmax(s, dim=-1), v,
+                         mode="square_pallas", site="attn_pv")
+
+    exact = attn_f64(q, kp, vp, tables, pos_pool, q_pos)
+    err = {name: (fn().double() - exact).abs().max().item()
+           for name, fn in (("K4", kernel), ("gather", gather))}
+    # the gather route's square-form PV sums T terms of (p + v)^2
+    vmax = vp.float().abs().max().item()
+    bound = nb * BLOCK * 2.0 ** -23 * (1 + vmax) ** 2
+    check(err["K4"] <= 1e-4 and err["gather"] <= bound,
+          f"paged read S={S} T={nb * BLOCK} vs float64: K4 "
+          f"{err['K4']:.2e} <= 1e-4, gather {err['gather']:.2e} <= "
+          f"{bound:.2e}")
+    return {"kernel_ms": tuning.time_graph([kernel], reps=10, replays=3),
+            "gather_ms": tuning.time_graph([gather], reps=10, replays=3)}
+
+
+# ------------------------------------------------------ attention options
+# deepseek-7b (arXiv:2401.02954: d 4096, 32 heads of 128, MHA, no window,
+# vocab 102400) at 2 of its 30 layers, bf16, weights drawn on the device:
+# a dense causal decoder with no window, which block_skip needs.  At the
+# default chunks (2048 q / 1024 kv) an 8192-token prefill has 4 q blocks
+# over 8 kv chunks (block_skip visits 20 of the 32 pairs) and a 4096-token
+# train step 2 over 4 (6 of 8).
+ATTN_ARCH = "deepseek-7b"
+ATTN_LAYERS = 2
+ATTN_PREFILL = 8192
+ATTN_TRAIN = 4096
+ATTN_FLAG = "--attn-opts-phase"
+ATTN_SCHEDULES = ("base", "block_skip", "fold_q", "p_bf16")
+
+
+def attn_cfg(schedule: str = "base", mode: str = "square_pallas", **kw):
+    return dataclasses.replace(
+        get_config(ATTN_ARCH), n_layers=ATTN_LAYERS, matmul_mode=mode,
+        attn_block_skip=schedule == "block_skip",
+        attn_fold_q=schedule == "fold_q", attn_p_bf16=schedule == "p_bf16",
+        **kw)
+
+
+def attn_pairs(cfg, schedule: str, S: int) -> int:
+    """The (q block, kv chunk) pairs a schedule visits at S tokens: nq x
+    nk, or block_skip's triangular sum (causal, no window)."""
+    cq, ck = min(cfg.attn_chunk_q, S), min(cfg.attn_chunk_kv, S)
+    nq, nk = -(-S // cq), -(-S // ck)
+    if schedule == "block_skip":
+        return sum(min(nk, -(-(i + 1) * cq // ck)) for i in range(nq))
+    return nq * nk
+
+
+def attn_k2(cfg, schedule: str, S: int, train: bool = False) -> int:
+    """K2 launches of a prefill (or, ``train``, a remat-block train step)
+    of S tokens: the scores and the PV a pair (fold_q: a kv chunk, all q
+    chunks batched) a layer; a step adds both gradients of each and the
+    block's recompute, 4x the forward.  Every one of these contractions
+    takes the batched route at these shapes (batch 32, m 2048)."""
+    nk = -(-S // min(cfg.attn_chunk_kv, S))
+    per_layer = 2 * (nk if schedule == "fold_q" else
+                     attn_pairs(cfg, schedule, S))
+    return cfg.n_layers * per_layer * (4 if train else 1)
+
+
+def attn_mults(cfg, schedule: str, S: int) -> int:
+    """The audit's multiplies at ``attn_scores`` (= ``attn_pv``) over the
+    layers: each pair is B * KV * G * cq * ck * hd."""
+    cq, ck = min(cfg.attn_chunk_q, S), min(cfg.attn_chunk_kv, S)
+    return cfg.n_layers * attn_pairs(cfg, schedule, S) * cfg.n_heads * \
+        cq * ck * cfg.resolved_head_dim
+
+
+def attn_k2_shapes() -> list:
+    """(nb, m, n, k) of K2's forward launches in the phase: the scores and
+    the PV, base and folded (4 q chunks)."""
+    cfg = attn_cfg()
+    H, hd = cfg.n_heads, cfg.resolved_head_dim
+    cq, ck = cfg.attn_chunk_q, cfg.attn_chunk_kv
+    nq = ATTN_PREFILL // cq
+    return [(nb, cq, n, k) for nb in (H, nq * H)
+            for n, k in ((ck, hd), (hd, ck))]
+
+
+def attn_direct(dev, gen) -> dict:
+    """The four schedules' ``chunked_attention`` on one layer's shapes at
+    8192 tokens (bf16 q, k, v as a layer gives them; square_pallas, then
+    ``standard`` in f32): fold_q = base bit for bit (K2 computes every
+    element as K1 whatever its batch or tile), block_skip within the
+    square form's f32 bound of base (a skipped pair's PV, 1/2 (sum (0 +
+    v)^2 - sum v^2), is K2's rounding residue and not exactly 0), p_bf16
+    within 2^-8 max|v| of base (p rounded to bf16), base within the f32
+    bound of ``standard``."""
+    cfg = attn_cfg()
+    S, KV, hd = ATTN_PREFILL, cfg.n_kv_heads, cfg.resolved_head_dim
+    G = cfg.n_heads // KV
+    q = torch.randn(1, S, KV, G, hd, generator=gen).to(torch.bfloat16).to(dev)
+    k = torch.randn(1, S, KV, hd, generator=gen).to(torch.bfloat16).to(dev)
+    v = torch.randn(1, S, KV, hd, generator=gen).to(torch.bfloat16).to(dev)
+    pos = torch.arange(S, device=dev)
+    kw = dict(causal=True, window=None, chunk_q=cfg.attn_chunk_q,
+              chunk_kv=cfg.attn_chunk_kv)
+    outs, k2 = {}, {}
+    for sched in ATTN_SCHEDULES:
+        reset_counts()
+        outs[sched] = attn_mod.chunked_attention(
+            q, k, v, pos, pos, mode="square_pallas",
+            **kw, **({sched: True} if sched != "base" else {})).float()
+        torch.cuda.synchronize()
+        k2[sched] = (sq_matmul_k2.launches, sq_matmul_k3.launches)
+        check(k2[sched] == (attn_k2(dataclasses.replace(cfg, n_layers=1),
+                                    sched, S), 0),
+              f"chunked_attention {sched} at S={S}: K2/K3 launches "
+              f"{k2[sched]} = the schedule's")
+    std = attn_mod.chunked_attention(q.float(), k.float(), v.float(), pos,
+                                     pos, mode="standard", **kw)
+    vmax = v.float().abs().max().item()
+    top = q.float().abs().max().item() * hd ** -0.5 \
+        + k.float().abs().max().item()
+    bound = 2.0 ** -23 * (S * (1 + vmax) ** 2 + 2 * hd * top * top * vmax)
+    err = {s: (outs[s] - outs["base"]).abs().max().item()
+           for s in ATTN_SCHEDULES}
+    err["standard"] = (outs["base"] - std).abs().max().item()
+    check(torch.equal(outs["fold_q"], outs["base"]),
+          "fold_q = base bit for bit (square_pallas, K2)")
+    check(err["block_skip"] <= bound,
+          f"block_skip vs base max|diff| {err['block_skip']:.3e} <= the "
+          f"f32 bound {bound:.3e} (bit for bit: "
+          f"{torch.equal(outs['block_skip'], outs['base'])})")
+    check(err["p_bf16"] <= 2.0 ** -8 * vmax,
+          f"p_bf16 vs base max|diff| {err['p_bf16']:.3e} <= 2^-8 max|v| "
+          f"{2.0 ** -8 * vmax:.3e}")
+    check(err["standard"] <= bound, f"base vs standard (f32) max|diff| "
+                                    f"{err['standard']:.3e} <= {bound:.3e}")
+    return {"err": err, "bound": bound, "k2": k2,
+            "block_skip_exact": torch.equal(outs["block_skip"],
+                                            outs["base"])}
+
+
+def _cfg_view(model: LM, cfg) -> LM:
+    """``model`` (its weights shared, not copied) under another config of
+    the same shapes: another attention schedule or mode."""
+    view = copy.copy(model)
+    view.cfg = cfg
+    return view
+
+
+def _timed(fn, what: str) -> tuple:
+    """A warm call, a timed one (synchronized wall) and a traced one
+    (device busy and K2/K3 kernels, :func:`trace_steps`)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = trace_steps(lambda: (fn(), torch.cuda.synchronize()), what,
+                        wall, calls=1, host=False)
+    return out, wall, stats
+
+
+def attn_opts_phase(dev, gen) -> dict:
+    """block_skip, fold_q and p_bf16 on deepseek-7b at its published width
+    (2 layers, bf16, seed 0 on the device): the schedules' attention alone
+    (:func:`attn_direct`); an 8192-token causal prompt through the prefill
+    path under each schedule (launches by counter and by a profiled run
+    equal to the schedule's, the audit's attention sites equal to its
+    multiplies and every other site equal to base's, the last position's
+    logits against ``standard``'s and fold_q's equal to base's bit for
+    bit); one remat-block train step at 4096 tokens, base and block_skip
+    (launches, audit, loss); each timed (wall and device)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    t_phase = time.perf_counter()
+    direct = attn_direct(dev, gen)
+    cfg = attn_cfg()
+    model = device_model(cfg, dev, seed=0)
+    tree = model.tree()
+    toks = torch.randint(0, cfg.vocab, (1, ATTN_PREFILL + 1),
+                         generator=gen).to(dev)
+    prefill = {}
+    for sched in ("standard",) + ATTN_SCHEDULES:
+        c = attn_cfg("base", mode="standard") if sched == "standard" \
+            else attn_cfg(sched)
+        view = _cfg_view(model, c)
+
+        def run(view=view):
+            with torch.no_grad():
+                hidden, _ = view.prefill(
+                    tree, {"tokens": toks[:, :ATTN_PREFILL]},
+                    cache_len=ATTN_PREFILL)
+                return view.logits(tree, hidden[:, -1:]).float()
+
+        reset_counts()
+        with counting.track_contractions() as ctr:
+            logits = run()
+        torch.cuda.synchronize()
+        n = (sq_matmul_k2.launches, sq_matmul_k3.launches)
+        k1 = sq_matmul_k1.launches
+        _, wall, stats = _timed(run, f"{ATTN_ARCH} prefill, {sched}")
+        prefill[sched] = dict(logits=logits, wall_s=wall, k1=k1,
+                              busy_ms=stats.get("busy_ms"),
+                              k2=n, traced=(stats.get("K2"), stats.get("K3")),
+                              audit=ctr.by_site(),
+                              fraction=ctr.fraction_square)
+        if sched == "standard":
+            continue
+        want = attn_k2(cfg, sched, ATTN_PREFILL)
+        check(n == (want, 0) and prefill[sched]["traced"] == (want, 0),
+              f"prefill {sched}: K2/K3 {n} by counter, "
+              f"{prefill[sched]['traced']} traced = ({want}, 0)")
+        mults = attn_mults(cfg, sched, ATTN_PREFILL)
+        site = ctr.by_site()
+        check(site["attn_scores"]["mults"] == site["attn_pv"]["mults"]
+              == mults and ctr.fraction_square == 1.0,
+              f"prefill {sched}: audit attn_scores = attn_pv = {mults} "
+              f"(analytic), fraction square {ctr.fraction_square}")
+        base = prefill["base"]["audit"]
+        check(all(v == base[k] for k, v in site.items()
+                  if not k.startswith("attn_")), f"prefill {sched}: "
+              f"every other site's multiplies = base's")
+    ref = prefill["standard"]["logits"]
+    scale = ref.abs().max().item()
+    for sched in ATTN_SCHEDULES:
+        got = prefill[sched]["logits"]
+        err = (got - ref).abs().max().item()
+        prefill[sched]["err_vs_standard"] = err
+        check(bool(torch.isfinite(got).all()) and err <= 2e-2 * scale
+              and got.argmax().item() == ref.argmax().item(),
+              f"prefill {sched}: last logits vs standard max|diff| "
+              f"{err:.4e} <= 2e-2 * max|logits| ({2e-2 * scale:.4e}), the "
+              f"same argmax")
+    check(torch.equal(prefill["fold_q"]["logits"], prefill["base"]["logits"]),
+          "prefill fold_q: logits = base's bit for bit")
+    print(f"prefill of {ATTN_PREFILL} tokens ({CARD}): " + "; ".join(
+        f"{s} {prefill[s]['wall_s'] * 1e3:.1f} ms wall, "
+        f"{prefill[s]['busy_ms']:.1f} ms busy" for s in
+        ("standard",) + ATTN_SCHEDULES), flush=True)
+    # one train step at 4096 tokens, remat block
+    batch = SyntheticLM(DataConfig(1, ATTN_TRAIN, cfg.vocab), cfg,
+                        device=dev).next_batch()
+    params = model.train_params()
+    opt = adamw.adamw_init(params)
+    train = {}
+    for sched in ("base", "block_skip"):
+        c = attn_cfg(sched)
+        step = step_mod.make_train_step(_cfg_view(model, c),
+                                        step_mod.TrainConfig())
+        reset_counts()
+        with counting.track_contractions() as ctr:
+            _, _, met = step(params, opt, batch)
+        torch.cuda.synchronize()
+        n = (sq_matmul_k2.launches, sq_matmul_k3.launches)
+        k1 = sq_matmul_k1.launches
+        _, wall, stats = _timed(lambda: step(params, opt, batch),
+                                f"{ATTN_ARCH} train step, {sched}")
+        want = attn_k2(cfg, sched, ATTN_TRAIN, train=True)
+        traced = (stats.get("K2"), stats.get("K3"))
+        check(n == (want, 0) and traced == (want, 0),
+              f"train step {sched}: K2/K3 {n} by counter, {traced} traced "
+              f"= ({want}, 0)")
+        site = ctr.by_site()
+        mults = attn_mults(cfg, sched, ATTN_TRAIN)
+        check(all(site[f"{s}{g}"]["mults"] == mults for s in
+                  ("attn_scores", "attn_pv") for g in ("", ".bwd_x",
+                                                        ".bwd_w"))
+              and ctr.fraction_square == 1.0
+              and ctr.fraction_square_bwd == 1.0,
+              f"train step {sched}: audit attn_scores / attn_pv and their "
+              f"gradients = {mults} each, fraction square 1.0 and 1.0")
+        train[sched] = dict(loss=float(met["loss"]), wall_s=wall, k1=k1,
+                            busy_ms=stats.get("busy_ms"), k2=n,
+                            traced=traced, total=ctr.total_mults)
+    rel = abs(train["block_skip"]["loss"] - train["base"]["loss"]) \
+        / abs(train["base"]["loss"])
+    check(math.isfinite(train["base"]["loss"]) and rel <= 2e-3,
+          f"train step: block_skip loss {train['block_skip']['loss']:.6f} vs "
+          f"base {train['base']['loss']:.6f} (rel {rel:.2e} <= 2e-3)")
+    print(f"train step of {ATTN_TRAIN} tokens, remat block ({CARD}): "
+          + "; ".join(f"{s} {train[s]['wall_s'] * 1e3:.1f} ms wall, "
+                      f"{train[s]['busy_ms']:.1f} ms busy"
+                      for s in train), flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"attention-options phase: {wall:.1f} s", flush=True)
+    for v in prefill.values():
+        v.pop("logits")
+    return {"direct": direct, "prefill": prefill, "train": train,
+            "seconds": wall}
+
+
 def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
                 cpm_rows, launches, train, moe, moe_train, rec, rec_train,
-                enc, vlm, vlm_train, enc_train):
+                enc, vlm, vlm_train, enc_train, attn=None, tune=None):
     """The kernels line.  ``launches``: {kernel: {path: count}} read after
     each path's run.  K1's and K4's times are per decode step of the paged
     engine, K2's per paged prefill chunk, K3's per dense decode step, K7's
@@ -8177,6 +8840,30 @@ def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
             kern[name] = entry[name]
             kern["max_abs_err"] = max(kern["max_abs_err"],
                                       entry["max_abs_err"])
+    if attn:
+        k2["attn_opts"] = {
+            "per": f"{ATTN_ARCH} at {ATTN_LAYERS} layers: a prefill of "
+                   f"{ATTN_PREFILL} tokens per schedule, a train step of "
+                   f"{ATTN_TRAIN} (remat block)",
+            "prefill": {s: {k: v for k, v in r.items() if k != "audit"}
+                        for s, r in attn["prefill"].items()},
+            "train": attn["train"]}
+    if tune:
+        for kern, names in ((k1, ("sq_matmul",)),
+                            (k2, ("sq_matmul_batched",)),
+                            (k3, ("sq_matmul_folded",)),
+                            (k4, ("sq_paged_attn",)), (k5, ("cpm3_matmul",)),
+                            (k6, ("cpm4_matmul",)), (k7, ("sq_conv2d",))):
+            mine = {key: e for key, e in tune["entries"].items()
+                    if key.split(":", 1)[0] in names}
+            kern["plans"] = {"shapes": len(mine),
+                             "variants": sum(e["variants"] for e in mine.values()),
+                             "winner_not_rule": sum(
+                                 e["rule"] != {f: e[f] for f in e["rule"]}
+                                 for e in mine.values()),
+                             "max_abs_err": max((e["max_abs_err"]
+                                                 for e in mine.values()),
+                                                default=0.0)}
     return json.dumps({"kernels": [k1, k2, k3, k4, k5, k6, k7, k8]})
 
 
@@ -8241,6 +8928,10 @@ def run(dev) -> str:
     enc_train = phase_isolated(ENCDEC_TRAIN_FLAG,
                                "the encoder-decoder training phase")
     mark("encoder-decoder training")
+    tune = phase_isolated(TUNING_FLAG, "the planner phase")
+    mark("the planner")
+    attn = phase_isolated(ATTN_FLAG, "the attention-options phase")
+    mark("the attention options")
     launches = {"K1": {"engine_square_gemms": k1_total,
                        "launcher": launcher["K1"],
                        "engine_graph": graph["K1"],
@@ -8251,8 +8942,14 @@ def run(dev) -> str:
                        "train": train["launches"]["K1"],
                        "moe_engine": moe["launches"]["eager"]["K1"],
                        "moe_engine_graph": moe["launches"]["graph"]["K1"],
-                       "moe_train": moe_train["trainer"]["K1"]},
+                       "moe_train": moe_train["trainer"]["K1"],
+                       "attn_opts": sum(r["k1"] for part in (
+                           attn["prefill"], attn["train"])
+                           for r in part.values())},
                 "K2": {"engine_no_policy": none["K2"],
+                       "attn_opts": sum(r["k2"][0] for part in (
+                           attn["prefill"], attn["train"])
+                           for r in part.values()),
                        "server_no_policy": dense["K2"],
                        "server_graph": dense_graph["K2"],
                        "train": train["launches"]["K2"],
@@ -8283,7 +8980,7 @@ def run(dev) -> str:
           f"{dense_k3:.3f} ms", flush=True)
     return kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
                        cpm_rows, launches, train, moe, moe_train, rec,
-                       rec_train, enc, vlm, vlm_train, enc_train)
+                       rec_train, enc, vlm, vlm_train, enc_train, attn, tune)
 
 
 def main() -> int:
@@ -8294,7 +8991,8 @@ def main() -> int:
              RECURRENT_TRAIN_FLAG: recurrent_train_phase,
              ENCDEC_FLAG: encdec_phase, VLM_FLAG: vlm_phase,
              VLM_TRAIN_FLAG: vlm_train_phase,
-             ENCDEC_TRAIN_FLAG: encdec_train_phase}.get(
+             ENCDEC_TRAIN_FLAG: encdec_train_phase,
+             TUNING_FLAG: tuning_phase, ATTN_FLAG: attn_opts_phase}.get(
                  sys.argv[1] if len(sys.argv) > 1 else None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -8317,6 +9015,13 @@ def main() -> int:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  {name}: {line.strip()}")
 
+    mode = sys.argv[1] if len(sys.argv) > 2 else None
+    if mode in (AUTOTUNE_FLAG, CROSSOVER_FLAG):
+        # by hand: python3 chip_smoke.py --autotune FILE (a tuning cache)
+        # or --crossovers FILE (the route sweeps, JSON)
+        (autotune_main if mode == AUTOTUNE_FLAG else crossovers_main)(
+            dev, sys.argv[2])
+        return 0
     if child:                          # a phase_isolated's process
         # by hand: python3 chip_smoke.py --recurrent-train-phase FILE [arch]
         out = child(dev, torch.Generator().manual_seed(0),

@@ -164,15 +164,17 @@ def _to_canonical(t: torch.Tensor, dims: str, target: str,
 
 
 def _batched_matmul(a: torch.Tensor, b, mode: str,
-                    preferred: Optional[torch.dtype]) -> torch.Tensor:
+                    preferred: Optional[torch.dtype],
+                    fold: int = 1) -> torch.Tensor:
     """Canonical (B, M, K) @ (B, K, N) under a fair-square mode.  ``b``
     may be a batched PreparedOperand: the non-kernel modes use its raw
     source, the kernels its prepared ``canon``/``corr``.
 
     ``square_pallas`` resolves its route with
-    :func:`repro_torch.kernels.routing.select_matmul_route`: K2
-    (``batched``), K3 (``fold``) or the ``virtual`` form below the
-    kernel-overhead floor."""
+    :func:`repro_torch.kernels.routing.select_matmul_route` at one copy's
+    shape (batch B / ``fold``): K2 (``batched``, and ``kernel``, whose K1
+    equals K2 bit for bit on every element), K3 (``fold``) or the
+    ``virtual`` form below the kernel-overhead floor."""
     if mode == "square_virtual":
         return fsmm.pm_matmul_virtual(a, unwrap(b), preferred)
     if mode == "square_exact":
@@ -184,7 +186,8 @@ def _batched_matmul(a: torch.Tensor, b, mode: str,
         from repro_torch.kernels import routing
         B, M, K = a.shape
         N = unwrap(b).shape[-1]
-        route = routing.select_matmul_route(M, N, K, batch=B, dtype=a.dtype)
+        route = routing.select_matmul_route(M, N, K, batch=B // fold,
+                                            dtype=a.dtype)
         if route.name == "virtual":
             return fsmm.pm_matmul_virtual(a, unwrap(b), preferred)
         return kops.sq_matmul_local(a, b, fold=(route.name == "fold"))
@@ -212,7 +215,8 @@ def _standard(spec: str, x: torch.Tensor, y: torch.Tensor,
 
 
 def _dispatch(spec: str, x: torch.Tensor, y, mode: str,
-              site: Optional[str], preferred: Optional[torch.dtype]):
+              site: Optional[str], preferred: Optional[torch.dtype],
+              fold: int = 1):
     """Execute one contraction under a resolved mode: canonicalisation,
     route-health demotion, the finite guard and the counting note all
     live here."""
@@ -221,6 +225,9 @@ def _dispatch(spec: str, x: torch.Tensor, y, mode: str,
     prod = lambda dims: math.prod(sizes[d] for d in dims)   # noqa: E731
     B, M, K, N = (prod(plan.batch), prod(plan.m), prod(plan.k),
                   prod(plan.n))
+    if fold < 1 or B % fold:
+        raise ValueError(f"fold {fold} does not divide the batch {B} of "
+                         f"{spec!r}")
 
     # A call site whose square-routed output tripped the finite check
     # ``trip_limit`` times is demoted: served standard, noted demoted.
@@ -234,7 +241,8 @@ def _dispatch(spec: str, x: torch.Tensor, y, mode: str,
         if health.is_demoted(hkey):
             mode, demoted = "standard", True
 
-    out = _execute(spec, plan, sizes, (B, M, K, N), x, y, mode, preferred)
+    out = _execute(spec, plan, sizes, (B, M, K, N), x, y, mode, preferred,
+                   fold)
     if hkey is not None and not demoted:
         # check_finite is None under a CUDA graph capture, where nothing
         # can be read back: no in-line recompute there.  Under a compiled
@@ -259,7 +267,7 @@ def _dispatch(spec: str, x: torch.Tensor, y, mode: str,
 
 
 def _execute(spec: str, plan: ContractionPlan, sizes: dict, bmkn, x, y,
-             mode: str, preferred: Optional[torch.dtype]):
+             mode: str, preferred: Optional[torch.dtype], fold: int = 1):
     """The contraction itself, under ``mode``."""
     if mode == "standard":
         return _standard(spec, x, unwrap(y), preferred)
@@ -294,7 +302,7 @@ def _execute(spec: str, plan: ContractionPlan, sizes: dict, bmkn, x, y,
                               (B, K, N))
         else:
             b = p
-        out = _batched_matmul(a, b, mode, preferred)
+        out = _batched_matmul(a, b, mode, preferred, fold)
     else:
         a = _to_canonical(xx, x_dims, plan.m + plan.k, (M, K))
         if p is None:
@@ -338,11 +346,12 @@ def _unreduce(t: torch.Tensor, dims: str, full_dims: str,
 
 def _einsum_grads(spec: str, x: torch.Tensor, ysrc: torch.Tensor, prep, g,
                   mode: str, policy, site: Optional[str], preferred,
-                  need_x: bool, need_w: bool):
+                  need_x: bool, need_w: bool, fold: int = 1):
     """``(dx, dW)`` of ``fs_einsum(spec, x, y)`` for the cotangent ``g``, each
     through ``fs_einsum`` at its backward site (``None`` where not
     needed).  A prepared ``y`` gives dx its opposite-layout ``grad`` prep
-    when it has one; otherwise dispatch falls back to its source."""
+    when it has one; otherwise dispatch falls back to its source.  Both
+    keep the forward's batch axes, so they keep its ``fold``."""
     plan = plan_contraction(spec, tuple(x.shape), tuple(ysrc.shape))
     base = site or "einsum"
     x_red = "".join(d for d in plan.x_dims if d not in plan.x_sum)
@@ -355,13 +364,13 @@ def _einsum_grads(spec: str, x: torch.Tensor, ysrc: torch.Tensor, prep, g,
             y_dx, _ = _sum_out(unwrap(y_dx), plan.y_dims, plan.y_sum)
         dx = fs_einsum(f"{plan.out_dims},{y_red}->{x_red}", g, y_dx,
                        mode=mode, policy=policy, site=f"{base}.bwd_x",
-                       preferred=preferred)
+                       preferred=preferred, fold=fold)
         dx = _unreduce(dx, x_red, plan.x_dims, x.shape).to(x.dtype)
     if need_w:
         xr, _ = _sum_out(x, plan.x_dims, plan.x_sum)
         dw = fs_einsum(f"{plan.out_dims},{x_red}->{y_red}", g, xr,
                        mode=mode, policy=policy, site=f"{base}.bwd_w",
-                       preferred=preferred)
+                       preferred=preferred, fold=fold)
         dw = _unreduce(dw, y_red, plan.y_dims, ysrc.shape).to(ysrc.dtype)
     return dx, dw
 
@@ -376,21 +385,22 @@ class _FsEinsumVJP(torch.autograd.Function):
     Function."""
 
     @staticmethod
-    def forward(ctx, x, ysrc, prep, spec, mode, policy, site, preferred):
+    def forward(ctx, x, ysrc, prep, spec, mode, policy, site, preferred,
+                fold):
         ctx.save_for_backward(x, ysrc)
         ctx.prep = prep
-        ctx.args = (spec, mode, policy, site, preferred)
+        ctx.args = (spec, mode, policy, site, preferred, fold)
         return _dispatch(spec, x, ysrc if prep is None else prep, mode, site,
-                         preferred)
+                         preferred, fold)
 
     @staticmethod
     def backward(ctx, g):
         x, ysrc = ctx.saved_tensors
-        spec, mode, policy, site, preferred = ctx.args
+        spec, mode, policy, site, preferred, fold = ctx.args
         dx, dw = _einsum_grads(spec, x, ysrc, ctx.prep, g, mode, policy,
                                site, preferred, ctx.needs_input_grad[0],
-                               ctx.needs_input_grad[1])
-        return dx, dw, None, None, None, None, None, None
+                               ctx.needs_input_grad[1], fold)
+        return dx, dw, None, None, None, None, None, None, None
 
 
 def _wants_grad(x: torch.Tensor, ysrc: torch.Tensor) -> bool:
@@ -405,13 +415,18 @@ def _wants_grad(x: torch.Tensor, ysrc: torch.Tensor) -> bool:
 
 def fs_einsum(spec: str, x: torch.Tensor, y, *, mode: Optional[str] = None,
               policy=None, site: Optional[str] = None,
-              preferred: Optional[torch.dtype] = None) -> torch.Tensor:
+              preferred: Optional[torch.dtype] = None,
+              fold: int = 1) -> torch.Tensor:
     """Two-operand einsum through the fair-square contraction dispatch.
 
     ``mode``: fair-square mode (default: policy / caller / ``standard``);
     ``policy``: a ContractionPolicy consulted with ``site``;
     ``preferred``: accumulation dtype of the multiplier paths (square paths
-    widen by ``accum_dtype``).
+    widen by ``accum_dtype``); ``fold``: the call stands for ``fold``
+    copies of one contraction stacked on its leading batch axis (what
+    ``jax.vmap`` of the JAX call computes): ``square_pallas`` routes at one
+    copy's shape (batch / ``fold``), as the vmapped JAX call does, and both
+    gradients keep it.
 
     >>> x = torch.arange(24.0).reshape(2, 3, 4)
     >>> y = torch.ones(2, 4, 5)
@@ -443,11 +458,11 @@ def fs_einsum(spec: str, x: torch.Tensor, y, *, mode: Optional[str] = None,
         if vjp_enabled():
             prep = y if isinstance(y, PreparedOperand) else None
             return _FsEinsumVJP.apply(x, ysrc, prep, spec, mode, policy,
-                                      site, preferred)
+                                      site, preferred, fold)
         if mode == "square_pallas":
             raise RuntimeError(
                 f"fs_einsum({spec!r}, site={site!r}): square_pallas cannot "
                 f"be differentiated with {_VJP_ENV}=0 (autograd does not see "
                 f"through the kernels' launches); unset {_VJP_ENV} to route "
                 f"the gradients through the square-form VJP")
-    return _dispatch(spec, x, y, mode, site, preferred)
+    return _dispatch(spec, x, y, mode, site, preferred, fold)

@@ -10,7 +10,8 @@ same prep function per call
 (:func:`repro_torch.kernels.ops.prepare_matmul_rhs`), so prepared and raw
 results are bit-identical by construction.
 
-There is no tile padding: K1 masks ragged edges itself.  ``transposed``
+There is no tile padding: K1 masks ragged edges itself, and the launch
+plan is resolved at each launch (:func:`clear_plan_cache` drops its memo).  ``transposed``
 records that the call site contracts the weight's last axis (the tied
 vocab GEMM ``bsd,vd->bsv``); the transpose is materialised once, here.
 ``prepare_grads=True`` also prepares the same source in the opposite
@@ -31,7 +32,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["PreparedOperand", "prepare_operand", "unwrap"]
+__all__ = ["PreparedOperand", "prepare_operand", "unwrap", "is_prepared",
+           "clear_plan_cache"]
 
 
 @dataclasses.dataclass
@@ -71,6 +73,19 @@ class PreparedOperand:
 def unwrap(x):
     """The raw source of a PreparedOperand (identity otherwise)."""
     return x.source if isinstance(x, PreparedOperand) else x
+
+
+def is_prepared(x) -> bool:
+    return isinstance(x, PreparedOperand)
+
+
+def clear_plan_cache() -> None:
+    """Drop the planner's memo of launch plans and cached routes
+    (:mod:`repro_torch.kernels.tuning`): each is resolved again, from the
+    tuning cache or the model, at its next launch.  A prepared operand
+    holds no plan of its own (no tile padding), so nothing else is kept."""
+    from repro_torch.kernels import tuning   # lazy: kernels import this
+    tuning.clear_memo()
 
 
 def prepare_operand(w, *, for_: str = "matmul", transpose: bool = False,

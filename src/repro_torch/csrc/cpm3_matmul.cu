@@ -101,13 +101,14 @@ struct Cpm3 {
 // a, b (m, k); c, s (k, n); re, im (m, n): f32, row-major and contiguous.
 // sre = Sab (m,), sim = Sba (m,), scs = Scs (n,), ssc = Ssc (n,).  shape
 // (4 ints, host memory) receives the launch's grid (x = row tiles, y =
-// column tiles) and thread tile (TM, TN).  Returns the cudaError_t of the
+// column tiles) and thread tile (TM, TN); tile 0 is the kernel's own
+// thread tile, 1 the 1 x 1 (the caller's plan).  Returns the cudaError_t of the
 // launch.
 extern "C" int fs_cpm3_matmul(const void* a, const void* b, const void* c,
                               const void* s, const void* sre, const void* sim,
                               const void* scs, const void* ssc, void* re,
-                              void* im, int m, int n, int k, void* stream,
-                              int* shape) {
+                              void* im, int m, int n, int k, int tile,
+                              void* stream, int* shape) {
   const cpm::Args p{static_cast<const float*>(a), static_cast<const float*>(b),
                     static_cast<const float*>(c), static_cast<const float*>(s),
                     static_cast<const float*>(sre),
@@ -115,7 +116,7 @@ extern "C" int fs_cpm3_matmul(const void* a, const void* b, const void* c,
                     static_cast<const float*>(scs),
                     static_cast<const float*>(ssc), static_cast<float*>(re),
                     static_cast<float*>(im), m, n, k};
-  return cpm::launch<Cpm3>(p, static_cast<cudaStream_t>(stream), shape);
+  return cpm::launch<Cpm3>(p, tile, static_cast<cudaStream_t>(stream), shape);
 }
 
 extern "C" const char* fs_error_string(int code) {

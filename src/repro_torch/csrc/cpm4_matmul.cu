@@ -85,19 +85,20 @@ struct Cpm4 {
 
 // a, b (m, k); c, s (k, n); re, im (m, n): f32, row-major and contiguous.
 // sx = Sx (m,), sy = Sy (n,).  shape (4 ints, host memory) receives the
-// launch's grid (x = row tiles, y = column tiles) and thread tile (TM, TN).
+// launch's grid (x = row tiles, y = column tiles) and thread tile (TM, TN);
+// tile 0 is the kernel's own thread tile, 1 the 1 x 1 (the caller's plan).
 // Returns the cudaError_t of the launch.
 extern "C" int fs_cpm4_matmul(const void* a, const void* b, const void* c,
                               const void* s, const void* sx, const void* sy,
                               void* re, void* im, int m, int n, int k,
-                              void* stream, int* shape) {
+                              int tile, void* stream, int* shape) {
   const float* x = static_cast<const float*>(sx);
   const float* y = static_cast<const float*>(sy);
   const cpm::Args p{static_cast<const float*>(a), static_cast<const float*>(b),
                     static_cast<const float*>(c), static_cast<const float*>(s),
                     x, x, y, y, static_cast<float*>(re),
                     static_cast<float*>(im), m, n, k};
-  return cpm::launch<Cpm4>(p, static_cast<cudaStream_t>(stream), shape);
+  return cpm::launch<Cpm4>(p, tile, static_cast<cudaStream_t>(stream), shape);
 }
 
 extern "C" const char* fs_error_string(int code) {

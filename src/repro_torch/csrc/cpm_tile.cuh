@@ -30,10 +30,11 @@
 //   sector) and a run of columns of one k; a warp's transposed stores hit
 //   32 consecutive rows of one k, so no padding is needed against bank
 //   conflicts.
-// - Tile rule (launch, below; kernels/cpm3_matmul.py::cpm_launch_shape
-//   mirrors it): a 1 x 1 thread tile with a 64-deep K tile where the
-//   kernel's own would leave fewer than TILE_MIN_BLOCKS blocks, so small
-//   products still spread over the SMs and a short walk is one round trip.
+// - Tile plan (launch, below; chosen by kernels/tuning.py, whose model
+//   rule is kernels/cpm3_matmul.py::cpm_launch_shape): a 1 x 1 thread tile
+//   with a 64-deep K tile where the kernel's own would leave fewer than 128
+//   blocks, so small products still spread over the SMs and a short walk is
+//   one round trip.
 // - Edges are masked in the kernel: rows and columns past the edge are
 //   never stored, and k past the edge stages zeros in all four planes,
 //   whose terms add exactly 0.  16-byte copies need k and n multiples of 4
@@ -55,7 +56,6 @@ namespace cpm {
 
 constexpr int THREADS = 256;          // 16 x 16 threads
 constexpr int STAGES = 2;
-constexpr int TILE_MIN_BLOCKS = 128;  // tile rule: blocks a grid should reach
 constexpr int MAX_DEVICES = 64;       // devices whose smem attribute is cached
 
 struct Args {
@@ -289,19 +289,16 @@ int launch_vec(const Args& p, cudaStream_t stream, int* shape) {
              : launch_tile<Op, TM, TN, BK, false>(p, stream, shape);
 }
 
-inline long long blocks(int m, int n, int bm, int bn) {
-  return static_cast<long long>((m + bm - 1) / bm) * ((n + bn - 1) / bn);
-}
-
-// The tile rule: the kernel's own thread tile (Op::TILE_M x Op::TILE_N)
-// where its grid has TILE_MIN_BLOCKS blocks, else 1 x 1 with a 64-deep K
-// tile, so that a short k walk is one round trip.  shape receives (grid x,
-// grid y, TM, TN) of the launch.
+// The two thread tiles: the kernel's own (tile 0: Op::TILE_M x Op::TILE_N,
+// 16-deep K tiles) or 1 x 1 with a 64-deep K tile (tile 1), so that a short
+// k walk is one round trip.  Which one a launch takes is the caller's plan
+// (kernels/tuning.py); its model rule takes the own tile where that grid
+// has 128 blocks.  shape receives (grid x, grid y, TM, TN) of the launch.
 template <class Op>
-int launch(const Args& p, cudaStream_t stream, int* shape) {
-  if (blocks(p.m, p.n, 16 * Op::TILE_M, 16 * Op::TILE_N) >= TILE_MIN_BLOCKS)
-    return launch_vec<Op, Op::TILE_M, Op::TILE_N, 16>(p, stream, shape);
-  return launch_vec<Op, 1, 1, 64>(p, stream, shape);
+int launch(const Args& p, int tile, cudaStream_t stream, int* shape) {
+  if (tile == 0) return launch_vec<Op, Op::TILE_M, Op::TILE_N, 16>(p, stream, shape);
+  if (tile == 1) return launch_vec<Op, 1, 1, 64>(p, stream, shape);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace cpm

@@ -60,13 +60,14 @@
 //   that gathers an element of A squares it once, so the work is O(M*K),
 //   not O(M*K*N); a pixel's two partial sums are added in a fixed order in
 //   the epilogue.
-// - Tile rule (launch_shape, below; kernels/sq_conv2d.py::k7_launch_shape
-//   mirrors it, and each launch reports it): the band, the channel slice
-//   that keeps the window ring within WINDOW_BYTES, and the number of
-//   blocks each tile's K walk is split over -- the count that least loads
-//   the busiest SM, so a split is taken only where a layer's tiles leave
-//   the SMs short of SAT_BLOCKS blocks (ResNet-50's conv3_1, conv4_x,
-//   conv5_x).  Each split writes its partial tile to a workspace and the
+// - Launch plan: the band and the number of blocks each tile's K walk is
+//   split over are the caller's (kernels/tuning.py; its model rule,
+//   kernels/sq_conv2d.py::k7_launch_shape, takes the band from ow's
+//   divisors and the split count that least loads the busiest SM, so a
+//   split is taken only where a layer's tiles leave the SMs short of 3
+//   blocks: ResNet-50's conv3_1, conv4_x, conv5_x).  launch_shape, below,
+//   derives the rest (the pixels a tile, the channel slice that keeps the
+//   window ring within WINDOW_BYTES) and each launch reports it.  Each split writes its partial tile to a workspace and the
 //   last of a tile's splits to finish (a ticket counter) adds them in
 //   split order 0, 1, ..., so the result does not depend on which block
 //   finished last.
@@ -104,10 +105,7 @@ constexpr int GR = BK * BM / THREADS;        // A rows a thread gathers
 constexpr int FV = BK * BN / 4 / THREADS;    // 16-byte filter copies a thread
 constexpr int MIN_BLOCKS = 4;      // __launch_bounds__: at most 128 registers
 constexpr int CS_MAX = 16;         // channels a slice
-constexpr int TC_LO = 8;           // band width: the smallest divisor of ow
-constexpr int TC_HI = 16;          // in [TC_LO, TC_HI], else min(ow, TC_LO)
 constexpr int WINDOW_BYTES = 64 * 1024;     // the two windows of the ring
-constexpr int SAT_BLOCKS = 3;      // blocks an SM that keep its FP32 pipes busy
 constexpr int MAX_SPLITS = 8;
 constexpr int MAX_DEVICES = 64;
 
@@ -200,13 +198,14 @@ inline int smem_bytes(int cs, int wr, int wc, int elem) {
          4 * ((cs * wr + 3) / 4 * 4) + elem * 2 * cs * wr * wc;
 }
 
+// The launch of a plan: band tc (1..ow) and at most `splits` (1..MAX_SPLITS)
+// blocks a tile's K walk; the split count is then the fewest that keep that
+// many K tiles a split.
 Shape launch_shape(int B, int C, int N, int kh, int kw, int sh, int sv,
-                   int pw, int oh, int ow, int sms, int elem, bool vec_x) {
+                   int pw, int oh, int ow, int tc, int splits, int elem,
+                   bool vec_x) {
   Shape s{};
-  s.tc = 0;
-  for (int d = TC_LO; d <= TC_HI && !s.tc; ++d)
-    if (ow % d == 0) s.tc = d;
-  if (!s.tc) s.tc = ow < TC_LO ? ow : TC_LO;
+  s.tc = tc;
   s.bands = cdiv(ow, s.tc);
   // A capacity guard, not a tier: only an output a few pixels wide under a
   // filter of hundreds of taps (each of its pixels then reads a window of
@@ -225,19 +224,7 @@ Shape launch_shape(int B, int C, int N, int kh, int kw, int sh, int sv,
   if (s.cs > C) s.cs = C;
   s.tps = cdiv(static_cast<long long>(kh) * kw * s.cs, BK);
   s.k_tiles = cdiv(C, s.cs) * s.tps;
-  // The split count that least loads the busiest SM: blocks an SM (at
-  // least SAT_BLOCKS, below which an SM's pipes are not kept busy) times
-  // K tiles a block; the smallest such count on a tie.
-  const long long tiles = static_cast<long long>(s.bands) * s.runs * cdiv(N, BN);
-  long long best = -1;
-  int best_s = 1;
-  for (int z = 1; z <= MAX_SPLITS && z <= s.k_tiles; ++z) {
-    long long per_sm = (tiles * z + sms - 1) / sms;
-    if (per_sm < SAT_BLOCKS) per_sm = SAT_BLOCKS;
-    const long long cost = per_sm * cdiv(s.k_tiles, z);
-    if (best < 0 || cost < best) { best = cost; best_s = z; }
-  }
-  s.per_split = cdiv(s.k_tiles, best_s);
+  s.per_split = cdiv(s.k_tiles, splits < s.k_tiles ? splits : s.k_tiles);
   s.splits = cdiv(s.k_tiles, s.per_split);
   s.smem = smem_bytes(s.cs, s.wr, s.wc, elem);
   return s;
@@ -573,11 +560,13 @@ sq_conv2d_kernel(const Params<T> p) {
 template <typename T>
 int launch(const void* x, const void* w, const void* sw, void* out, int B,
            int C, int H, int W, int N, int kh, int kw, int sh, int sv, int ph,
-           int pw, int oh, int ow, int sms, void* partial,
+           int pw, int oh, int ow, int tc, int splits, void* partial,
            long long partial_cap, void* tickets, long long tickets_cap,
            cudaStream_t stream, int* shape) {
   const bool vec_x = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const Shape s = launch_shape(B, C, N, kh, kw, sh, sv, pw, oh, ow, sms,
+  if (tc < 1 || tc > ow || splits < 1 || splits > MAX_SPLITS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Shape s = launch_shape(B, C, N, kh, kw, sh, sv, pw, oh, ow, tc, splits,
                                static_cast<int>(sizeof(T)), vec_x);
   const dim3 grid(s.bands * s.runs, (N + BN - 1) / BN, s.splits);
   shape[0] = static_cast<int>(grid.x);
@@ -639,9 +628,9 @@ int launch(const void* x, const void* w, const void* sw, void* out, int B,
 
 // dtype 0 = float32, 1 = int32.  x (B, C, H, W) contiguous and unpadded;
 // w (kh*kw*C, N) row-major, K ordered (i, j, c); sw (N,); out (B, N, oh, ow).
-// (ph, pw) are the leading pads; trailing pads follow from oh and ow.  sms
-// is the card's SM count, which the split rule reads.  Where the rule
-// splits the K walk, `partial` holds at least tiles * splits * 64 * 64
+// (ph, pw) are the leading pads; trailing pads follow from oh and ow.  tc
+// (the band, 1..ow) and splits (1..8) are the caller's launch plan.  Where
+// the launch splits the K walk, `partial` holds at least tiles * splits * 64 * 64
 // elements of the dtype and `tickets` one zeroed counter a tile,
 // capacities given in elements; both are left for
 // the kernel alone while it runs.  shape receives the launch: grid x, y, z
@@ -652,19 +641,18 @@ int launch(const void* x, const void* w, const void* sw, void* out, int B,
 extern "C" int fs_sq_conv2d(int dtype, const void* x, const void* w,
                             const void* sw, void* out, int B, int C, int H,
                             int W, int N, int kh, int kw, int sh, int sv,
-                            int ph, int pw, int oh, int ow, int sms,
-                            void* partial, long long partial_cap,
+                            int ph, int pw, int oh, int ow, int tc,
+                            int splits, void* partial, long long partial_cap,
                             void* tickets, long long tickets_cap,
                             void* stream, int* shape) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sms < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return launch<float>(x, w, sw, out, B, C, H, W, N, kh, kw, sh, sv, ph, pw,
-                         oh, ow, sms, partial, partial_cap, tickets,
+                         oh, ow, tc, splits, partial, partial_cap, tickets,
                          tickets_cap, s, shape);
   if (dtype == 1)
     return launch<int>(x, w, sw, out, B, C, H, W, N, kh, kw, sh, sv, ph, pw,
-                       oh, ow, sms, partial, partial_cap, tickets, tickets_cap,
+                       oh, ow, tc, splits, partial, partial_cap, tickets, tickets_cap,
                        s, shape);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -26,7 +26,9 @@
 //
 // K1 (sq_matmul_cluster_kernel): one thread-block cluster of KS = 8 blocks per
 // output tile (8 rows x 64 columns for m <= 8, 32 x 128 above); block rank p
-// computes partial p of the tile over all of K.  Design against the byte
+// computes partial p of the tile over all of K (the tile is the caller's
+// launch plan, kernels/tuning.py; no tile changes the summation order).
+// Design against the byte
 // bound:
 // - Lane j of a warp owns one column, so a row segment of b is coalesced.  A
 //   block streams only its own rows of b (k = p mod 8) through a STAGES-deep
@@ -79,10 +81,11 @@
 //   stores hit distinct banks, and read as 16-byte broadcasts.
 // - The partials meet in shared memory after one __syncthreads and are summed
 //   0..7: K2 = K3 = K1 per element, bit for bit.
-// - The tile is picked per launch: R = 1 row at m = 1, 4 up to 32 rows, 8
-//   above; V = 2 where n > 32 and the grid keeps TILE_MIN_BLOCKS blocks, else
-//   1.  At the serving shapes that is 96-192 blocks of 256 threads: one wave,
-//   at most two blocks an SM.
+// - The tile (R rows of 1, 4 or 8; V = 1 or 2 columns a lane) is the
+//   caller's launch plan (kernels/tuning.py).  Its model rule: R = 1 row at
+//   m = 1, 4 up to 32 rows, 8 above; V = 2 where n > 32 and the grid keeps
+//   96 blocks, else 1.  At the serving shapes that is 96-192 blocks of 256
+//   threads: one wave, at most two blocks an SM.
 // Larger k walks more chunks, each one round trip and two barriers.  Ragged
 // batch, m, n and k are masked in the kernel; nothing is padded on the host.
 //
@@ -269,8 +272,6 @@ sq_matmul_cluster_kernel(const T* __restrict__ a, const T* __restrict__ b,
 // lane l owns columns V * l .. V * l + V - 1 of it, acc[row][column] in
 // registers.
 constexpr int TILE_J = 16;            // k steps of a partial per chunk (128 k)
-constexpr int TILE_MIN_BLOCKS = 96;   // blocks a 2-column-a-lane grid must keep
-constexpr int TILE_TALL_M = 32;       // m above which a tile is 8 rows, not 4
 
 template <typename T, int R, int V>
 __device__ __forceinline__ void partial_warps_tile(const T* __restrict__ a,
@@ -425,31 +426,22 @@ int launch_cluster(const T* a, const T* b, const T* sa, const T* sb, T* out, int
   return static_cast<int>(cudaGetLastError());
 }
 
-// K1: 8-row tiles of 64 columns (4 warps: 2 row groups of 4 rows x 2
-// column tiles; 6 stages, 40 KB of b in flight per block) for m <= 8, else
-// 32-row tiles of 128 columns (16 warps: 4 row groups of 8 rows x 4 column
-// tiles, 4 stages), so one gathered a value serves 64 or 128 columns.
+// K1's two tiles: 8-row tiles of 64 columns (tile 0: 4 warps, 2 row groups
+// of 4 rows x 2 column tiles; 6 stages, 40 KB of b in flight per block) or
+// 32-row tiles of 128 columns (tile 1: 16 warps, 4 row groups of 8 rows x 4
+// column tiles, 4 stages), so one gathered a value serves 64 or 128 columns.
+// The model rule (kernels/tuning.py) takes tile 0 for m <= 8.
 template <typename T>
-int launch_k1(const void* a, const void* b, const void* sa, const void* sb, void* out,
-              int m, int n, int k, cudaStream_t stream) {
+int launch_k1(int tile, const void* a, const void* b, const void* sa, const void* sb,
+              void* out, int m, int n, int k, cudaStream_t stream) {
   const T* pa = static_cast<const T*>(a);
   const T* pb = static_cast<const T*>(b);
   const T* psa = static_cast<const T*>(sa);
   const T* psb = static_cast<const T*>(sb);
   T* po = static_cast<T*>(out);
-  if (m <= 8) return launch_cluster<T, 8, 2, 2, 6>(pa, pb, psa, psb, po, m, n, k, stream);
-  return launch_cluster<T, 32, 4, 4, 4>(pa, pb, psa, psb, po, m, n, k, stream);
-}
-
-// K2's and K3's tile: R = 1 row at m = 1, 4 up to m = TILE_TALL_M, else 8;
-// V = 2 columns a lane where n > 32 and the grid keeps TILE_MIN_BLOCKS blocks
-// at that width, else 1.
-int tile_rows(int m) { return m == 1 ? 1 : m <= TILE_TALL_M ? 4 : 8; }
-
-int tile_vec(int nb, int m, int n) {
-  const long long blocks = static_cast<long long>(nb) * ((m + tile_rows(m) - 1) / tile_rows(m))
-                           * ((n + 2 * BN - 1) / (2 * BN));
-  return n > BN && blocks >= TILE_MIN_BLOCKS ? 2 : 1;
+  if (tile == 0) return launch_cluster<T, 8, 2, 2, 6>(pa, pb, psa, psb, po, m, n, k, stream);
+  if (tile == 1) return launch_cluster<T, 32, 4, 4, 4>(pa, pb, psa, psb, po, m, n, k, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 template <typename T, int R, int V, bool FOLDED>
@@ -474,55 +466,64 @@ int launch_rows(int v, const T* a, const T* b, const T* sa, const T* sb, T* out,
 }
 
 template <typename T, bool FOLDED>
-int launch_batched(const void* a, const void* b, const void* sa, const void* sb,
-                   void* out, int nb, int m, int n, int k, cudaStream_t stream) {
+int launch_batched(int rows, int vec, const void* a, const void* b, const void* sa,
+                   const void* sb, void* out, int nb, int m, int n, int k,
+                   cudaStream_t stream) {
   const T* pa = static_cast<const T*>(a);
   const T* pb = static_cast<const T*>(b);
   const T* psa = static_cast<const T*>(sa);
   const T* psb = static_cast<const T*>(sb);
   T* po = static_cast<T*>(out);
-  const int v = tile_vec(nb, m, n);
-  switch (tile_rows(m)) {
-    case 1: return launch_rows<T, 1, FOLDED>(v, pa, pb, psa, psb, po, nb, m, n, k, stream);
-    case 4: return launch_rows<T, 4, FOLDED>(v, pa, pb, psa, psb, po, nb, m, n, k, stream);
-    default: return launch_rows<T, 8, FOLDED>(v, pa, pb, psa, psb, po, nb, m, n, k, stream);
+  if (vec != 1 && vec != 2) return static_cast<int>(cudaErrorInvalidValue);
+  switch (rows) {
+    case 1: return launch_rows<T, 1, FOLDED>(vec, pa, pb, psa, psb, po, nb, m, n, k, stream);
+    case 4: return launch_rows<T, 4, FOLDED>(vec, pa, pb, psa, psb, po, nb, m, n, k, stream);
+    case 8: return launch_rows<T, 8, FOLDED>(vec, pa, pb, psa, psb, po, nb, m, n, k, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = int32.  K1: a (m, k), b (k, n), out (m, n)
-// row-major and contiguous; sa (m,), sb (n,); the grid is (8 * ceil(n / W),
-// ceil(m / BM)) in clusters of 8 along x (launch_k1 gives BM and W).  K2
-// (fs_sq_matmul_batched) and K3 (fs_sq_matmul_folded): the same with a
-// leading batch axis of nb elements on every operand, each element
-// contiguous; the grid is (nb, ceil(n / 32V), ceil(m / R)) of 256-thread
-// blocks (tile_rows and tile_vec give R and V).  Each returns the cudaError_t
-// of its launch.
+// row-major and contiguous; sa (m,), sb (n,); tile 0 (8 x 64) or 1 (32 x
+// 128), the caller's plan; the grid is (8 * ceil(n / W), ceil(m / BM)) in
+// clusters of 8 along x.  K2 (fs_sq_matmul_batched) and K3
+// (fs_sq_matmul_folded): the same with a leading batch axis of nb elements
+// on every operand, each element contiguous; rows (1, 4 or 8) and vec (1 or
+// 2 columns a lane) are the caller's plan, and the grid is (nb, ceil(n /
+// 32 vec), ceil(m / rows)) of 256-thread blocks.  Each returns the
+// cudaError_t of its launch (cudaErrorInvalidValue for a plan it lacks).
 extern "C" int fs_sq_matmul(int dtype, const void* a, const void* b,
                             const void* sa, const void* sb, void* out,
-                            int m, int n, int k, void* stream) {
+                            int m, int n, int k, int tile, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_k1<float>(a, b, sa, sb, out, m, n, k, s);
-  if (dtype == 1) return launch_k1<int>(a, b, sa, sb, out, m, n, k, s);
+  if (dtype == 0) return launch_k1<float>(tile, a, b, sa, sb, out, m, n, k, s);
+  if (dtype == 1) return launch_k1<int>(tile, a, b, sa, sb, out, m, n, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int fs_sq_matmul_batched(int dtype, const void* a, const void* b,
                                     const void* sa, const void* sb, void* out,
-                                    int nb, int m, int n, int k, void* stream) {
+                                    int nb, int m, int n, int k, int rows, int vec,
+                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_batched<float, false>(a, b, sa, sb, out, nb, m, n, k, s);
-  if (dtype == 1) return launch_batched<int, false>(a, b, sa, sb, out, nb, m, n, k, s);
+  if (dtype == 0)
+    return launch_batched<float, false>(rows, vec, a, b, sa, sb, out, nb, m, n, k, s);
+  if (dtype == 1)
+    return launch_batched<int, false>(rows, vec, a, b, sa, sb, out, nb, m, n, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int fs_sq_matmul_folded(int dtype, const void* a, const void* b,
                                    const void* sa, const void* sb, void* out,
-                                   int nb, int m, int n, int k, void* stream) {
+                                   int nb, int m, int n, int k, int rows, int vec,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_batched<float, true>(a, b, sa, sb, out, nb, m, n, k, s);
-  if (dtype == 1) return launch_batched<int, true>(a, b, sa, sb, out, nb, m, n, k, s);
+  if (dtype == 0)
+    return launch_batched<float, true>(rows, vec, a, b, sa, sb, out, nb, m, n, k, s);
+  if (dtype == 1)
+    return launch_batched<int, true>(rows, vec, a, b, sa, sb, out, nb, m, n, k, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -62,9 +62,9 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "sq_matmul": {
-        "fs_sq_matmul": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-        "fs_sq_matmul_batched": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "fs_sq_matmul_folded": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "fs_sq_matmul": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "fs_sq_matmul_batched": [_I, _P, _P, _P, _P, _P] + [_I] * 6 + [_P],
+        "fs_sq_matmul_folded": [_I, _P, _P, _P, _P, _P] + [_I] * 6 + [_P],
     },
     "sq_paged_attn": {
         "fs_sq_paged_attn": [_I, _P, _P, _P, _P, _P, _P, _P,
@@ -72,13 +72,13 @@ _SIGNATURES = {
                              ctypes.c_float, _I, _I, _I, _P],
     },
     "cpm3_matmul": {
-        "fs_cpm3_matmul": [_P] * 10 + [_I, _I, _I, _P, _P],
+        "fs_cpm3_matmul": [_P] * 10 + [_I] * 4 + [_P, _P],
     },
     "cpm4_matmul": {
-        "fs_cpm4_matmul": [_P] * 8 + [_I, _I, _I, _P, _P],
+        "fs_cpm4_matmul": [_P] * 8 + [_I] * 4 + [_P, _P],
     },
     "sq_conv2d": {
-        "fs_sq_conv2d": [_I, _P, _P, _P, _P] + [_I] * 14
+        "fs_sq_conv2d": [_I, _P, _P, _P, _P] + [_I] * 15
                         + [_P, _L, _P, _L, _P, _P],
     },
     "sq_conv": {

@@ -6,8 +6,9 @@ cpm3_matmul_kernel`` (behind ``cpm3_matmul_pallas``).  The kernel lives in
 ``src/repro_torch/csrc/cpm3_matmul.cu``, whose header states what bounds it
 on an H100; its schedule, shared with K6, is ``csrc/cpm_tile.cuh``: one
 block of 16 x 16 threads per output tile, each thread a register tile of
-every accumulator plane, the tile picked per launch by the rule that
-:func:`cpm_launch_shape` mirrors (:func:`k5_launch_shape`).
+every accumulator plane, the thread tile a plan of
+:mod:`repro_torch.kernels.tuning` (model rule :func:`cpm_launch_shape`,
+:func:`k5_launch_shape`).
 
 It takes the four pre-widened f32 planes -- ``a``, ``b`` (m, k), the real
 and imaginary planes of X, and ``c``, ``s`` (k, n), those of Y -- with the
@@ -30,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tuning
 
 __all__ = ["cpm3_matmul_k5", "cpm3_matmul_plain", "cpm_launch_shape",
            "k5_launch_shape"]
@@ -52,15 +53,20 @@ def _grid(m: int, n: int, tile) -> tuple:
             -(-n // (_BLOCK_THREADS * tile[1])))
 
 
-def cpm_launch_shape(m: int, n: int, tile) -> dict:
+def cpm_launch_shape(m: int, n: int, tile, thread_tile=None) -> dict:
     """The launch of K5 or K6 (own thread tile ``tile``) for an (m, k) @
-    (k, n), as ``csrc/cpm_tile.cuh`` makes it.  ``rows`` x ``cols`` is a
-    block's output tile, ``thread_tile`` a thread's, and ``grid`` is (row
-    tiles, column tiles)."""
-    tm, tn = tuple(tile)
+    (k, n) with ``thread_tile`` (the own tile or (1, 1)).  ``rows`` x
+    ``cols`` is a block's output tile and ``grid`` is (row tiles, column
+    tiles).  The rule (``thread_tile=None``, the planner's model mode):
+    the own tile where its grid has 128 blocks, else (1, 1)."""
+    if thread_tile is None:
+        tm, tn = tuple(tile)
+        if _grid(m, n, (tm, tn))[0] * _grid(m, n, (tm, tn))[1] \
+                < _TILE_MIN_BLOCKS:
+            tm, tn = _SMALL_TILE
+    else:
+        tm, tn = tuple(thread_tile)
     grid = _grid(m, n, (tm, tn))
-    if grid[0] * grid[1] < _TILE_MIN_BLOCKS:
-        (tm, tn), grid = _SMALL_TILE, _grid(m, n, _SMALL_TILE)
     return {"rows": _BLOCK_THREADS * tm, "cols": _BLOCK_THREADS * tn,
             "thread_tile": (tm, tn), "grid": grid}
 
@@ -132,20 +138,24 @@ def check_planes(label: str, planes, row_corrs, col_corrs) -> None:
                          f"{[tuple(t.shape) for t in col_corrs]}")
 
 
-def launch_planes(label: str, source: str, counter, tile, planes, corrs):
+def launch_planes(label: str, source: str, counter, tile, planes, corrs,
+                  plan=None):
     """Launch the complex kernel of ``source`` (entry ``fs_<source>``, own
-    thread tile ``tile``) on checked CUDA planes and count the launch on
-    ``counter``, whose ``last_shape`` then holds the launch's tile and grid
-    as the kernel reports them (in :func:`cpm_launch_shape`'s form);
-    returns the (re, im) planes."""
+    thread tile ``tile``) on checked CUDA planes with the planner's (or the
+    given) thread tile and count the launch on ``counter``, whose
+    ``last_shape`` then holds the launch's tile and grid as the kernel
+    reports them (in :func:`cpm_launch_shape`'s form); returns the (re,
+    im) planes."""
     a, _, c, _ = planes
     if a.device.type != "cuda":
         raise build.KernelError(f"{label} runs on CUDA (or its plain version "
                                 f"on CPU), got a tensor on {a.device}")
     m, k = a.shape
     n = c.shape[1]
-    if max(m, n, k) > _INT_MAX \
-            or cpm_launch_shape(m, n, tile)["grid"][1] > _MAX_GRID_Y:
+    plan = tuning.plan_cpm(source, m, n, k, plan=plan)
+    code = 0 if tuple(plan.thread_tile) == tuple(tile) else 1
+    if max(m, n, k) > _INT_MAX or cpm_launch_shape(
+            m, n, tile, plan.thread_tile)["grid"][1] > _MAX_GRID_Y:
         raise build.KernelError(f"{label} shape ({m}, {k}) @ ({k}, {n}) "
                                 "exceeds the kernel's grid limits")
     re = torch.empty((m, n), dtype=a.dtype, device=a.device)
@@ -159,7 +169,7 @@ def launch_planes(label: str, source: str, counter, tile, planes, corrs):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         rc = getattr(lib, f"fs_{source}")(
             *(t.data_ptr() for t in args), re.data_ptr(), im.data_ptr(),
-            m, n, k, stream, ctypes.addressof(shape))
+            m, n, k, code, stream, ctypes.addressof(shape))
     build.check(lib, rc, f"{label} {source} launch")
     counter.launches += 1
     counter.shapes[(m, k, n)] += 1
@@ -170,9 +180,11 @@ def launch_planes(label: str, source: str, counter, tile, planes, corrs):
     return re, im
 
 
-def cpm3_matmul_k5(a, b, c, s, sre, sim, scs, ssc):
+def cpm3_matmul_k5(a, b, c, s, sre, sim, scs, ssc,
+                   plan: tuning.CpmPlan = None):
     """Launch K5 on CUDA tensors (the plain version on CPU tensors); returns
-    the (re, im) planes (m, n).
+    the (re, im) planes (m, n).  ``plan``: the thread tile (default the
+    planner's, :func:`repro_torch.kernels.tuning.plan_cpm`).
 
     ``cpm3_matmul_k5.launches`` counts the kernel launches made by this
     process, and ``cpm3_matmul_k5.shapes`` counts them by ``(m, k, n)``; a
@@ -184,7 +196,7 @@ def cpm3_matmul_k5(a, b, c, s, sre, sim, scs, ssc):
     if a.device.type == "cpu":
         return cpm3_matmul_plain(a, b, c, s, sre, sim, scs, ssc)
     return launch_planes("K5", "cpm3_matmul", cpm3_matmul_k5, K5_TILE,
-                         planes, (sre, sim, scs, ssc))
+                         planes, (sre, sim, scs, ssc), plan)
 
 
 cpm3_matmul_k5.launches = 0

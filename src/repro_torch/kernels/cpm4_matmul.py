@@ -61,9 +61,10 @@ def cpm4_matmul_plain(a, b, c, s, sx, sy, k_chunk=None):
     return re * 0.5 + 0.5 * sy, im * 0.5 + 0.5 * sy
 
 
-def cpm4_matmul_k6(a, b, c, s, sx, sy):
+def cpm4_matmul_k6(a, b, c, s, sx, sy, plan=None):
     """Launch K6 on CUDA tensors (the plain version on CPU tensors); returns
-    the (re, im) planes (m, n).
+    the (re, im) planes (m, n).  ``plan``: the thread tile (a
+    :class:`~repro_torch.kernels.tuning.CpmPlan`; default the planner's).
 
     ``cpm4_matmul_k6.launches`` and ``cpm4_matmul_k6.shapes`` (by
     ``(m, k, n)``) count the launches of this process; a CPU call does not
@@ -75,7 +76,7 @@ def cpm4_matmul_k6(a, b, c, s, sx, sy):
     if a.device.type == "cpu":
         return cpm4_matmul_plain(a, b, c, s, sx, sy)
     return launch_planes("K6", "cpm4_matmul", cpm4_matmul_k6, K6_TILE,
-                         planes, (sx, sy))
+                         planes, (sx, sy), plan)
 
 
 cpm4_matmul_k6.launches = 0

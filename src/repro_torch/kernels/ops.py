@@ -12,10 +12,13 @@ and prepared calls share these functions, so they are bit-identical.  The
 complex matmuls split their operands into planes, compute the paper's
 corrections and launch K5 (CPM3) or K6 (CPM4).
 
-The JAX package's tile plans (``tuning.plan_conv2d``, ``plan_conv``,
-``_pick_fb``, ``_resolve_plan``) and its ``_pad_operands`` are Pallas
-tiling with no counterpart here: each CUDA kernel picks its own tiles and
-masks its ragged edges, so nothing is padded on the host.
+Each launch takes its variant (K1's tile, K2/K3's rows and columns, K4's
+splits, K5/K6's thread tile, K7's band and splits) from the port's planner,
+:mod:`repro_torch.kernels.tuning`: an explicit plan, the autotune cache or
+the model rule, in that order, resolved inside each kernel's wrapper at its
+launch.  The JAX package's Pallas tile fields (``bm``/``bn``/``bk``/``kc``,
+``_pick_fb``) and its ``_pad_operands`` have no counterpart: each CUDA
+kernel masks its ragged edges, so nothing is padded on the host.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ from repro_torch.kernels.sq_matmul import (sq_matmul_k1, sq_matmul_k2,
                                            sq_matmul_k3)
 
 __all__ = ["sq_matmul", "sq_matmul_local", "prepare_matmul_rhs",
-           "cpm3_matmul", "cpm4_matmul", "sq_conv", "sq_conv2d",
+           "cpm3_matmul", "cpm4_matmul", "cpm3_corrections",
+           "cpm4_corrections", "sq_conv", "sq_conv2d",
            "sq_conv2d_im2col", "sq_conv2d_routed", "prepare_conv2d_weights"]
 
 
@@ -213,12 +217,23 @@ def cpm3_matmul(x, y, *, device: Device = None
     True
     """
     a, b, c, s = _complex_operands(x, y, device)
-    # corrections, paper eqs 33 / 35
-    sre = sq.acc_sum(-sq.square(a + b) + sq.square(b), -1)
-    sim = sq.acc_sum(-sq.square(a + b) - sq.square(a), -1)
-    scs = sq.acc_sum(-sq.square(c) + sq.square(c + s), 0)
-    ssc = sq.acc_sum(-sq.square(c) - sq.square(s - c), 0)
-    return cpm3_matmul_k5(a, b, c, s, sre, sim, scs, ssc)
+    return cpm3_matmul_k5(a, b, c, s, *cpm3_corrections(a, b, c, s))
+
+
+def cpm3_corrections(a, b, c, s):
+    """K5's corrections of the planes (paper eqs 33 / 35): ``Sab``,
+    ``Sba`` (m,) and ``Scs``, ``Ssc`` (n,)."""
+    return (sq.acc_sum(-sq.square(a + b) + sq.square(b), -1),
+            sq.acc_sum(-sq.square(a + b) - sq.square(a), -1),
+            sq.acc_sum(-sq.square(c) + sq.square(c + s), 0),
+            sq.acc_sum(-sq.square(c) - sq.square(s - c), 0))
+
+
+def cpm4_corrections(a, b, c, s):
+    """K6's shared corrections of the planes (paper eq 18): ``Sx`` (m,)
+    and ``Sy`` (n,)."""
+    return (-sq.acc_sum(sq.square(a) + sq.square(b), -1),
+            -sq.acc_sum(sq.square(c) + sq.square(s), 0))
 
 
 def cpm4_matmul(x, y, *, device: Device = None
@@ -226,10 +241,7 @@ def cpm4_matmul(x, y, *, device: Device = None
     """Complex matmul with 4 squares per multiply through K6; operands and
     result as :func:`cpm3_matmul`."""
     a, b, c, s = _complex_operands(x, y, device)
-    # shared corrections, paper eq 18
-    sx = -sq.acc_sum(sq.square(a) + sq.square(b), -1)
-    sy = -sq.acc_sum(sq.square(c) + sq.square(s), 0)
-    return cpm4_matmul_k6(a, b, c, s, sx, sy)
+    return cpm4_matmul_k6(a, b, c, s, *cpm4_corrections(a, b, c, s))
 
 
 # --------------------------------------------------------------------------

@@ -10,14 +10,18 @@ multiplier, below the kernel-overhead floor).  ``conv2d`` routes: ``fused``
 ``kernel`` (K4, the block-table-streaming kernel) and ``gather`` (a dense
 gathered window plus two einsums).
 
-The thresholds are the JAX package's, which were set on its CPU interpret
-host; they are carried over as the same rules and are still to be measured
-again on the H100.
-
-``REPRO_ROUTE`` keeps its meaning: a bare route name applies to every kind
-it is valid for (``kernel`` pins matmul and paged_attn), ``kind=route``
-lists scope it, ``auto`` defers to the rules.  Each selector counts its
+Each selector resolves, in order: ``REPRO_ROUTE`` (a bare route name
+applies to every kind it is valid for -- ``kernel`` pins matmul and
+paged_attn -- ``kind=route`` lists scope it, ``auto`` defers), then a route
+override in the port's tuning cache (:func:`set_route_override`, keyed by
+:func:`route_key` as the JAX package keys it; off under
+``REPRO_AUTOTUNE=0``; memoised per key), then the rules.  Each counts its
 decisions in its ``taken`` counter, so a run can show which routes it used.
+
+The rules' thresholds are the JAX package's, set on its CPU interpret
+host.  The port keeps them unchanged; their crossovers on an H100 are
+measured by ``chip_smoke.py``'s crossover phase (PERF.md), and moving them
+waits for a measured benchmark.
 
 :class:`RouteHealth` is the per-(site, shape, dtype) breaker the numerics
 guard (:mod:`repro_torch.core.guards`) records its trips in; its keys
@@ -33,11 +37,15 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.core import cost_model as cm
 from repro_torch.core import squares as sq
+from repro_torch.kernels import tuning
 from repro_torch.obs import trace as obs_trace
 
-__all__ = ["Route", "select_matmul_route", "select_conv2d_route",
-           "select_paged_attn_route", "conv2d_patch_bytes", "MATMUL_ROUTES",
+__all__ = ["Route", "select_route", "select_matmul_route",
+           "select_conv2d_route", "select_paged_attn_route",
+           "set_route_override", "route_key", "clear_route_memo",
+           "conv2d_patch_bytes", "MATMUL_ROUTES",
            "CONV2D_ROUTES", "PAGED_ATTN_ROUTES", "VIRTUAL_FLOOR_MULTS",
            "FOLD_STEP_LANE_OPS", "FOLD_MIN_BATCH", "IM2COL_PATCH_BYTES_MAX",
            "IM2COL_K_MAX", "PAGED_KERNEL_MAX_S", "PAGED_KERNEL_MIN_T",
@@ -50,8 +58,10 @@ MATMUL_ROUTES = ("kernel", "batched", "fold", "virtual")
 CONV2D_ROUTES = ("fused", "im2col")
 PAGED_ATTN_ROUTES = ("kernel", "gather")
 _ALL_ROUTES = frozenset(MATMUL_ROUTES + CONV2D_ROUTES + PAGED_ATTN_ROUTES)
+_KIND_ROUTES = {"matmul": MATMUL_ROUTES, "conv2d": CONV2D_ROUTES,
+                "paged_attn": PAGED_ATTN_ROUTES}
 
-# Interpret-host values of the JAX package, to be re-measured on the H100.
+# Interpret-host values of the JAX package (their H100 crossovers: PERF.md).
 VIRTUAL_FLOOR_MULTS = 32768          # B*M*K*N below which -> virtual
 FOLD_STEP_LANE_OPS = 8 * 4096        # per-element PM lane-ops -> fold
 FOLD_MIN_BATCH = 4
@@ -98,18 +108,65 @@ def _env_route(kind: str, valid) -> Optional[str]:
                      f"{tuple(sorted(_ALL_ROUTES))} or 'auto'")
 
 
-def _pm_tile_vpu_ops(m: int, n: int, k: int, kc: int) -> float:
-    """repro.core.cost_model.pm_tile_vpu_ops with 3 ops per PM term."""
-    return float(m) * n * k * (3 + 1.0 / max(1, kc))
+conv2d_patch_bytes = cm.conv2d_patch_bytes
 
 
-def conv2d_patch_bytes(oh: int, ow: int, kh: int, kw: int, cin: int,
-                       batch: int = 1, itemsize: int = 4) -> int:
-    """Bytes of the materialised im2col patch matrix ``(B*oh*ow,
-    cin*kh*kw)`` (``repro.core.cost_model.conv2d_patch_bytes``): the
-    planner keys the fused-vs-im2col choice on whether it stays
-    cache-resident."""
-    return batch * oh * ow * cin * kh * kw * itemsize
+def route_key(kind: str, sizes: dict, dtype) -> str:
+    """Cache key of a route override: ``route:<kind>:<sizes, in their keys'
+    sorted order, joined by x>:<dtype name>``, the JAX package's letter
+    for letter."""
+    sig = "x".join(str(sizes[f]) for f in sorted(sizes))
+    return f"route:{kind}:{sig}:{str(dtype).removeprefix('torch.')}"
+
+
+_ROUTE_MEMO: Dict[tuple, Optional[Route]] = {}
+
+
+def clear_route_memo() -> None:
+    """Drop the memoised cache lookups of the selectors."""
+    _ROUTE_MEMO.clear()
+
+
+def _cached_route(kind: str, sizes: dict, dtype, valid) -> Optional[Route]:
+    """The tuning cache's route override for this key, if autotune is on
+    and the cache has one; memoised per (key, cache file)."""
+    if not tuning.autotune_enabled():
+        return None
+    key = route_key(kind, sizes, dtype)
+    memo = (key, tuning.cache_path())
+    if memo not in _ROUTE_MEMO:
+        entry = tuning.load_cache().get(key)
+        _ROUTE_MEMO[memo] = (Route(entry["route"], "autotune-cache override")
+                             if entry and entry.get("route") in valid
+                             else None)
+    return _ROUTE_MEMO[memo]
+
+
+def set_route_override(kind: str, sizes: dict, route: str,
+                       path: Optional[str] = None) -> str:
+    """Pin a route for an exact shape in the tuning cache at ``path``
+    (default the port's, :func:`repro_torch.kernels.tuning.cache_path`);
+    the selectors consult it after ``REPRO_ROUTE`` and before their rules
+    while autotune is on.  ``sizes`` may carry ``"dtype"`` (a name or a
+    torch dtype, default float32): the entry keys on its ACCUMULATOR dtype,
+    which is what the selectors look up, so a bf16 or int8 pin lands on
+    the key a bf16 or int8 call reads.  Returns the key."""
+    valid = _KIND_ROUTES.get(kind)
+    if valid is None:
+        raise ValueError(f"unknown route kind {kind!r}; expected one of "
+                         f"{tuple(_KIND_ROUTES)}")
+    if route not in valid:
+        raise ValueError(f"unknown {kind} route {route!r}; expected one of "
+                         f"{valid}")
+    sizes = dict(sizes)
+    dt = sizes.pop("dtype", torch.float32)
+    if isinstance(dt, str):
+        dt = getattr(torch, dt)
+    key = route_key(kind, sizes, sq.accum_dtype(dt))
+    cache = dict(tuning.load_cache(path))
+    cache[key] = {"route": route}
+    tuning.save_cache(cache, path)
+    return key
 
 
 def _decide(fn, route: Route) -> Route:
@@ -124,6 +181,10 @@ def select_matmul_route(m: int, n: int, k: int, *, batch: int = 1,
     env = _env_route("matmul", MATMUL_ROUTES)
     if env is not None:
         return _decide(fn, Route(env, "REPRO_ROUTE override"))
+    cached = _cached_route("matmul", {"b": batch, "m": m, "n": n, "k": k},
+                           sq.accum_dtype(dtype), MATMUL_ROUTES)
+    if cached is not None:
+        return _decide(fn, cached)
     mults = batch * m * n * k
     if mults < VIRTUAL_FLOOR_MULTS:
         return _decide(fn, Route("virtual", f"volume {mults} below "
@@ -131,7 +192,7 @@ def select_matmul_route(m: int, n: int, k: int, *, batch: int = 1,
                                             f"{VIRTUAL_FLOOR_MULTS}"))
     if batch == 1:
         return _decide(fn, Route("kernel", "unbatched GEMM"))
-    step_ops = _pm_tile_vpu_ops(m, n, k, kc=_KC_MNK_MAX)
+    step_ops = cm.pm_tile_vpu_ops(m, n, k, kc=_KC_MNK_MAX)
     if batch >= FOLD_MIN_BATCH and step_ops < FOLD_STEP_LANE_OPS:
         return _decide(fn, Route("fold", f"per-element PM work "
                                          f"{step_ops:.0f} lane-ops below "
@@ -151,9 +212,15 @@ def select_conv2d_route(oh: int, ow: int, kh: int, kw: int, cin: int,
     env = _env_route("conv2d", CONV2D_ROUTES)
     if env is not None:
         return _decide(fn, Route(env, "REPRO_ROUTE override"))
+    acc = sq.accum_dtype(dtype)
+    cached = _cached_route("conv2d", {"b": batch, "oh": oh, "ow": ow,
+                                      "kh": kh, "kw": kw, "ci": cin,
+                                      "co": cout}, acc, CONV2D_ROUTES)
+    if cached is not None:
+        return _decide(fn, cached)
     kvol = cin * kh * kw
-    patch = conv2d_patch_bytes(oh, ow, kh, kw, cin, batch=batch,
-                               itemsize=sq.accum_dtype(dtype).itemsize)
+    patch = cm.conv2d_patch_bytes(oh, ow, kh, kw, cin, batch=batch,
+                                  itemsize=acc.itemsize)
     if patch <= IM2COL_PATCH_BYTES_MAX and kvol <= IM2COL_K_MAX:
         return _decide(fn, Route("im2col", f"patch matrix {patch}B "
                                            f"cache-resident and K volume "
@@ -177,7 +244,13 @@ def select_paged_attn_route(s: int, t: int, *, batch: int = 1,
     env = _env_route("paged_attn", PAGED_ATTN_ROUTES)
     if env is not None:
         return _decide(fn, Route(env, "REPRO_ROUTE override"))
-    gbytes = 2 * 2 * batch * t * kv_heads * hd * 4
+    cached = _cached_route("paged_attn", {"b": batch, "s": s, "t": t,
+                                          "kv": kv_heads, "g": group,
+                                          "hd": hd}, sq.accum_dtype(dtype),
+                           PAGED_ATTN_ROUTES)
+    if cached is not None:
+        return _decide(fn, cached)
+    gbytes = cm.paged_attn_gather_bytes(t, kv_heads, hd, batch=batch)
     if s > PAGED_KERNEL_MAX_S:
         return _decide(fn, Route("gather", f"query tile {s} > "
                                            f"{PAGED_KERNEL_MAX_S}: "
@@ -197,6 +270,28 @@ def select_paged_attn_route(s: int, t: int, *, batch: int = 1,
 select_matmul_route.taken = collections.Counter()
 select_conv2d_route.taken = collections.Counter()
 select_paged_attn_route.taken = collections.Counter()
+
+
+def select_route(kind: str, sizes: dict, *,
+                 dtype: torch.dtype = torch.float32) -> Route:
+    """Generic entry point: ``kind`` is ``"matmul"``, ``"conv2d"`` or
+    ``"paged_attn"``, ``sizes`` its geometry as :func:`route_key` names it
+    (matmul ``b m n k``; conv2d ``b oh ow kh kw ci co``; paged_attn ``b s t
+    kv g hd``)."""
+    if kind == "matmul":
+        return select_matmul_route(sizes["m"], sizes["n"], sizes["k"],
+                                   batch=sizes.get("b", 1), dtype=dtype)
+    if kind == "conv2d":
+        return select_conv2d_route(sizes["oh"], sizes["ow"], sizes["kh"],
+                                   sizes["kw"], sizes["ci"], sizes["co"],
+                                   batch=sizes.get("b", 1), dtype=dtype)
+    if kind == "paged_attn":
+        return select_paged_attn_route(
+            sizes["s"], sizes["t"], batch=sizes.get("b", 1),
+            kv_heads=sizes.get("kv", 1), group=sizes.get("g", 1),
+            hd=sizes.get("hd", 64), dtype=dtype)
+    raise ValueError(f"unknown route kind {kind!r}; expected one of "
+                     f"{tuple(_KIND_ROUTES)}")
 
 
 # --------------------------------------------------------------------------

@@ -6,8 +6,9 @@ correlation that never builds the im2col patch tensor.  The kernel lives
 in ``src/repro_torch/csrc/sq_conv2d.cu``, whose header states what bounds
 it on an H100 and how its design meets that: a block of 128 threads per
 64-pixel x 64-filter tile, each thread an 8 x 4 register tile, one input
-window per tile and channel slice staged in shared memory, the launch
-picked per layer by the rule that :func:`k7_launch_shape` mirrors.
+window per tile and channel slice staged in shared memory, the band and
+the K walk's splits a plan of :mod:`repro_torch.kernels.tuning` (model
+rule: :func:`k7_launch_shape`), the rest of the launch derived from them.
 
 It takes pre-widened operands, as the Pallas kernel does, in f32 or int32:
 the input ``xw`` (B, cin, H, W) NCHW and unpadded (the kernel masks the
@@ -30,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import squares as sq
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tuning
 
 __all__ = ["sq_conv2d_k7", "sq_conv2d_plain", "conv2d_out_hw",
            "k7_launch_shape"]
@@ -117,26 +118,32 @@ def _window(pt: int, tc: int, oh: int, khw, stride, pw: int,
 
 
 def k7_launch_shape(xshape, N: int, khw, stride, pads: Pads, sms: int,
-                    elem: int = 4, x_aligned: bool = True) -> dict:
+                    elem: int = 4, x_aligned: bool = True, band: int = None,
+                    splits: int = None) -> dict:
     """K7's launch for a (B, C, H, W) input, N filters of ``khw`` taps under
     ``stride`` and ``pads``, on a card of ``sms`` SMs, as
-    ``csrc/sq_conv2d.cu`` (``launch_shape``) makes it; ``x_aligned``: the
-    input starts on a 16-byte boundary.
+    ``csrc/sq_conv2d.cu`` (``launch_shape``) makes it from a plan's
+    ``band`` and ``splits``; ``x_aligned``: the input starts on a 16-byte
+    boundary.
 
-    ``band`` is the output columns a tile row (the smallest divisor of ow
-    in [8, 16], else min(ow, 8)), ``pixels`` the pixels a tile (64 unless
-    one channel's window would not fit), ``slice`` the channels a window,
-    ``window`` its rows and staged columns (4-column chunks where W % 4 ==
-    0), ``splits`` (grid z) the blocks a tile's K walk is split over: the
-    count that least loads the busiest SM, counting fewer than 3 blocks an
-    SM as 3, the smallest on a tie.  ``grid`` is (pixel tiles, filter
-    tiles, splits); ``tile`` the block's (pixels, filters)."""
+    ``band`` is the output columns a tile row and ``splits`` the most
+    blocks a tile's K walk is split over (the launch takes the fewest that
+    keep that many K tiles a split).  The rule (``None``, the planner's
+    model mode): the band is the smallest divisor of ow in [8, 16], else
+    min(ow, 8); the split count the one that least loads the busiest SM,
+    counting fewer than 3 blocks an SM as 3, the smallest on a tie.
+    ``pixels`` is the pixels a tile (64 unless one channel's window would
+    not fit), ``slice`` the channels a window, ``window`` its rows and
+    staged columns (4-column chunks where W % 4 == 0).  ``grid`` is (pixel
+    tiles, filter tiles, splits); ``tile`` the block's (pixels,
+    filters)."""
     B, C, H, W = xshape
     kh, kw = khw
     oh, ow = conv2d_out_hw((H, W), khw, stride, pads)
     vec = W % 4 == 0 and x_aligned
-    tc = next((d for d in range(_TC_LO, _TC_HI + 1) if ow % d == 0),
-              min(ow, _TC_LO))
+    tc = band if band is not None else next(
+        (d for d in range(_TC_LO, _TC_HI + 1) if ow % d == 0),
+        min(ow, _TC_LO))
     pt = _BM
     while True:
         wr, wc = _window(pt, tc, oh, khw, stride, pads[1][0], vec)
@@ -147,11 +154,12 @@ def k7_launch_shape(xshape, N: int, khw, stride, pads: Pads, sms: int,
     tps = _cdiv(kh * kw * cs, _BK)
     k_tiles = _cdiv(C, cs) * tps
     grid_xy = (_cdiv(ow, tc) * _cdiv(B * oh * tc, pt), _cdiv(N, _BN))
-    tiles = grid_xy[0] * grid_xy[1]
-    cost = {z: max(_cdiv(tiles * z, sms), _SAT_BLOCKS) * _cdiv(k_tiles, z)
-            for z in range(1, min(_MAX_SPLITS, k_tiles) + 1)}
-    z = min(cost, key=lambda z: (cost[z], z))
-    per_split = _cdiv(k_tiles, z)
+    if splits is None:
+        tiles = grid_xy[0] * grid_xy[1]
+        cost = {z: max(_cdiv(tiles * z, sms), _SAT_BLOCKS) * _cdiv(k_tiles, z)
+                for z in range(1, min(_MAX_SPLITS, k_tiles) + 1)}
+        splits = min(cost, key=lambda z: (cost[z], z))
+    per_split = _cdiv(k_tiles, min(splits, k_tiles))
     smem = (elem * (2 * _BK * _BM + 2 * _BK * _BN + 2 * _BM) + 4 * 6 * _BK
             + 4 * _cdiv(cs * wr, 4) * 4 + elem * 2 * cs * wr * wc)
     return {"grid": (*grid_xy, _cdiv(k_tiles, per_split)),
@@ -193,14 +201,17 @@ def _check(xw, wt, sw, khw) -> None:
 
 def sq_conv2d_k7(xw: torch.Tensor, wt: torch.Tensor, sw: torch.Tensor, *,
                  khw: Tuple[int, int], stride: Tuple[int, int],
-                 pads: Pads) -> torch.Tensor:
-    """Launch K7 on CUDA tensors (the plain version on CPU tensors).
+                 pads: Pads, plan: tuning.Conv2DPlan = None) -> torch.Tensor:
+    """Launch K7 on CUDA tensors (the plain version on CPU tensors), with
+    ``plan``'s band and splits (default the planner's,
+    :func:`repro_torch.kernels.tuning.plan_conv2d`).
 
     ``sq_conv2d_k7.launches`` counts the kernel launches made by this
     process, and ``sq_conv2d_k7.shapes`` counts them by ``(B, cin, H, W,
     cout, kh, kw, stride, pads)``; a CPU call does not count.
     ``sq_conv2d_k7.last_shape`` is the last launch as the kernel reports it
-    (:func:`k7_launch_shape`'s form), None before one.
+    (:func:`k7_launch_shape`'s form) and ``sq_conv2d_k7.last_plan`` its
+    plan, None before one.
     """
     _check(xw, wt, sw, khw)
     B, C, H, W = xw.shape
@@ -218,8 +229,12 @@ def sq_conv2d_k7(xw: torch.Tensor, wt: torch.Tensor, sw: torch.Tensor, *,
     M = B * oh * ow
     xw, wt, sw = xw.contiguous(), wt.contiguous(), sw.contiguous()
     sms = torch.cuda.get_device_properties(xw.device).multi_processor_count
+    aligned = xw.data_ptr() % 16 == 0
+    plan = tuning.plan_conv2d(tuple(xw.shape), N, khw, stride, pads,
+                              xw.dtype, sms=sms, x_aligned=aligned, plan=plan)
     shape = k7_launch_shape(xw.shape, N, khw, stride, pads, sms,
-                            x_aligned=xw.data_ptr() % 16 == 0)
+                            x_aligned=aligned, band=plan.band,
+                            splits=plan.splits)
     gx, gy, gz = shape["grid"]
     if max(xw.numel(), wt.numel(), M * N) > _INT_MAX or gy > _MAX_GRID_Y:
         raise build.KernelError(f"K7 shape {tuple(xw.shape)} x "
@@ -241,8 +256,8 @@ def sq_conv2d_k7(xw: torch.Tensor, wt: torch.Tensor, sw: torch.Tensor, *,
         rc = lib.fs_sq_conv2d(_DTYPE_CODES[xw.dtype], xw.data_ptr(),
                               wt.data_ptr(), sw.data_ptr(), out.data_ptr(),
                               B, C, H, W, N, kh, kw, stride[0], stride[1],
-                              pads[0][0], pads[1][0], oh, ow, sms,
-                              partial.data_ptr(), partial.numel(),
+                              pads[0][0], pads[1][0], oh, ow, plan.band,
+                              plan.splits, partial.data_ptr(), partial.numel(),
                               tickets.data_ptr(), tickets.numel(), stream,
                               ctypes.addressof(report))
     build.check(lib, rc, "K7 sq_conv2d launch")
@@ -250,9 +265,11 @@ def sq_conv2d_k7(xw: torch.Tensor, wt: torch.Tensor, sw: torch.Tensor, *,
     sq_conv2d_k7.shapes[(B, C, H, W, N, kh, kw, tuple(stride),
                          tuple(map(tuple, pads)))] += 1
     sq_conv2d_k7.last_shape = _reported(tuple(report))
+    sq_conv2d_k7.last_plan = plan
     return out
 
 
 sq_conv2d_k7.launches = 0
 sq_conv2d_k7.shapes = collections.Counter()
 sq_conv2d_k7.last_shape = None
+sq_conv2d_k7.last_plan = None

@@ -15,7 +15,10 @@ versions.
   only; each is bit-identical to K1 on every element.
 
 All three live in ``src/repro_torch/csrc/sq_matmul.cu``, whose header
-states what bounds each on an H100 and how its design meets that.
+states what bounds each on an H100 and how its design meets that.  Each
+launch's tile is a plan of :mod:`repro_torch.kernels.tuning` (explicit,
+cached or the model rule that :func:`k1_launch_shape` and
+:func:`k2_launch_shape` state); no tile changes the summation order.
 
 The kernels take pre-widened operands, as the Pallas kernels do: ``aw``
 (m, k) and ``bw`` (k, n) in f32 or int32, ``sa`` (m,) and ``sb`` (n,) the
@@ -31,7 +34,7 @@ import collections
 import torch
 
 from repro_torch.core import squares as sq
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tuning
 
 __all__ = ["sq_matmul_k1", "sq_matmul_k2", "sq_matmul_k3",
            "sq_matmul_plain", "sq_matmul_batched_plain", "k1_launch_shape",
@@ -41,40 +44,47 @@ _DTYPE_CODES = {torch.float32: 0, torch.int32: 1}
 _INT_MAX = 2 ** 31 - 1
 _MAX_GRID_Y = _MAX_GRID_Z = 65535
 _KS = 8                       # partial sums per output: K1's cluster, K2/K3's warps
-# K2's and K3's tile rule, as in the source: TILE_MIN_BLOCKS, TILE_TALL_M
+# K2's and K3's tile rule (the model mode of kernels/tuning.py)
 _TILE_MIN_BLOCKS = 96
 _TILE_TALL_M = 32
 
 
-def k1_launch_shape(m: int, n: int) -> dict:
-    """K1's launch for an (m, k) @ (k, n), as the CUDA source makes it: one
-    cluster of 8 blocks (partials 0..7) per output tile of 8 rows x 64
-    columns (4 warps a block) for m <= 8, else 32 rows x 128 columns (16
-    warps)."""
-    rows, cols, warps = (8, 64, 4) if m <= 8 else (32, 128, 16)
+def k1_launch_shape(m: int, n: int, rows: int = None) -> dict:
+    """K1's launch for an (m, k) @ (k, n): one cluster of 8 blocks
+    (partials 0..7) per output tile of ``rows`` x 64 columns (4 warps a
+    block) at 8 rows or 32 x 128 (16 warps).  The rule (``rows=None``, the
+    planner's model mode) takes 8 rows for m <= 8, else 32."""
+    if rows is None:
+        rows = 8 if m <= 8 else 32
+    cols, warps = (64, 4) if rows == 8 else (128, 16)
     return {"rows": rows, "cols": cols, "warps": warps,
             "grid": (_KS * -(-n // cols), -(-m // rows)),
             "cluster": (_KS, 1, 1)}
 
 
-def k2_launch_shape(nb: int, m: int, n: int) -> dict:
-    """K2's launch for a (nb, m, k) @ (nb, k, n), as the CUDA source makes
-    it: one block of 8 warps (partials 0..7) per (element, row tile, column
-    tile), grid (nb, column tiles, row tiles).  A tile is 1 row at m = 1, 4
-    rows up to m = 32, else 8; 64 columns (2 a lane) where n > 32 and that
-    grid keeps 96 blocks, else 32."""
-    rows = 1 if m == 1 else 4 if m <= _TILE_TALL_M else 8
+def k2_launch_shape(nb: int, m: int, n: int, rows: int = None,
+                    cols: int = None) -> dict:
+    """K2's launch for a (nb, m, k) @ (nb, k, n): one block of 8 warps
+    (partials 0..7) per (element, row tile, column tile), grid (nb, column
+    tiles, row tiles), a tile ``rows`` (1, 4 or 8) x ``cols`` (32 or 64: 2
+    a lane).  The rule (``None``, the planner's model mode): 1 row at m =
+    1, 4 up to m = 32, else 8; 64 columns where n > 32 and that grid keeps
+    96 blocks, else 32."""
+    if rows is None:
+        rows = 1 if m == 1 else 4 if m <= _TILE_TALL_M else 8
     row_tiles = -(-m // rows)
-    wide = n > 32 and nb * row_tiles * -(-n // 64) >= _TILE_MIN_BLOCKS
-    cols = 64 if wide else 32
+    if cols is None:
+        wide = n > 32 and nb * row_tiles * -(-n // 64) >= _TILE_MIN_BLOCKS
+        cols = 64 if wide else 32
     return {"rows": rows, "cols": cols, "warps": _KS,
             "grid": (nb, -(-n // cols), row_tiles)}
 
 
-def k3_launch_shape(nb: int, m: int, n: int) -> dict:
-    """K3's launch: K2's rule (:func:`k2_launch_shape`), which on an H100
-    also serves the fold route's small-(m, n), large-B regime."""
-    return k2_launch_shape(nb, m, n)
+def k3_launch_shape(nb: int, m: int, n: int, rows: int = None,
+                    cols: int = None) -> dict:
+    """K3's launch: K2's (:func:`k2_launch_shape`), which on an H100 also
+    serves the fold route's small-(m, n), large-B regime."""
+    return k2_launch_shape(nb, m, n, rows, cols)
 
 
 def sq_matmul_plain(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
@@ -143,9 +153,11 @@ def _check(aw, bw, sa, sb) -> None:
 
 
 def sq_matmul_k1(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
-                 sb: torch.Tensor) -> torch.Tensor:
+                 sb: torch.Tensor, plan: tuning.K1Plan = None) -> torch.Tensor:
     """Launch K1 on CUDA tensors (the plain version on CPU tensors).
 
+    ``plan``: the launch's tile (:class:`~repro_torch.kernels.tuning.K1Plan`;
+    default the planner's, :func:`repro_torch.kernels.tuning.plan_matmul`).
     ``sq_matmul_k1.launches`` counts the kernel launches made by this
     process, and ``sq_matmul_k1.shapes`` counts them by ``(m, k, n)``; a
     CPU call does not count.
@@ -158,7 +170,8 @@ def sq_matmul_k1(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
                                 f"CPU), got a tensor on {aw.device}")
     m, k = aw.shape
     n = bw.shape[1]
-    gx, gy = k1_launch_shape(m, n)["grid"]
+    plan = tuning.plan_matmul(m, n, k, aw.dtype, plan=plan)
+    gx, gy = k1_launch_shape(m, n, plan.rows)["grid"]
     if max(m * k, k * n, m * n) > _INT_MAX or gx > _INT_MAX \
             or gy > _MAX_GRID_Y:
         raise build.KernelError(f"K1 shape ({m}, {k}) @ ({k}, {n}) exceeds "
@@ -173,7 +186,7 @@ def sq_matmul_k1(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
         stream = torch.cuda.current_stream(aw.device).cuda_stream
         rc = lib.fs_sq_matmul(_DTYPE_CODES[aw.dtype], aw.data_ptr(),
                               bw.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-                              out.data_ptr(), m, n, k, stream)
+                              out.data_ptr(), m, n, k, plan.code, stream)
     build.check(lib, rc, "K1 sq_matmul launch")
     sq_matmul_k1.launches += 1
     sq_matmul_k1.shapes[(m, k, n)] += 1
@@ -184,10 +197,10 @@ sq_matmul_k1.launches = 0
 sq_matmul_k1.shapes = collections.Counter()
 
 
-def _batched(label: str, entry: str, counter, launch_shape, aw, bw, sa,
-             sb) -> torch.Tensor:
-    """Check, then launch K2 or K3 (the C entry point ``entry``, whose grid
-    ``launch_shape`` mirrors) on CUDA tensors and count the launch on
+def _batched(label: str, kind: str, entry: str, counter, aw, bw, sa, sb,
+             plan) -> torch.Tensor:
+    """Check, then launch K2 or K3 (the C entry point ``entry``) on CUDA
+    tensors with the planner's (or the given) tile and count the launch on
     ``counter``, or run the plain version on CPU tensors."""
     _check_batched(aw, bw, sa, sb, label)
     if aw.device.type == "cpu":
@@ -197,7 +210,9 @@ def _batched(label: str, entry: str, counter, launch_shape, aw, bw, sa,
                                 f"on CPU), got a tensor on {aw.device}")
     nb, m, k = aw.shape
     n = bw.shape[2]
-    gx, gy, gz = launch_shape(nb, m, n)["grid"]
+    plan = tuning.plan_matmul(m, n, k, aw.dtype, batch=nb, kind=kind,
+                              plan=plan)
+    gx, gy, gz = k2_launch_shape(nb, m, n, plan.rows, plan.cols)["grid"]
     if max(m * k, k * n, m * n) > _INT_MAX or gx > _INT_MAX \
             or gy > _MAX_GRID_Y or gz > _MAX_GRID_Z:
         raise build.KernelError(f"{label} shape ({nb}, {m}, {k}) @ ({nb}, "
@@ -213,7 +228,8 @@ def _batched(label: str, entry: str, counter, launch_shape, aw, bw, sa,
         stream = torch.cuda.current_stream(aw.device).cuda_stream
         rc = getattr(lib, entry)(_DTYPE_CODES[aw.dtype], aw.data_ptr(),
                                  bw.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-                                 out.data_ptr(), nb, m, n, k, stream)
+                                 out.data_ptr(), nb, m, n, k, plan.rows,
+                                 plan.cols // 32, stream)
     build.check(lib, rc, f"{label} launch")
     counter.launches += 1
     counter.shapes[(nb, m, k, n)] += 1
@@ -221,29 +237,33 @@ def _batched(label: str, entry: str, counter, launch_shape, aw, bw, sa,
 
 
 def sq_matmul_k2(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
-                 sb: torch.Tensor) -> torch.Tensor:
+                 sb: torch.Tensor, plan: tuning.BatchedPlan = None
+                 ) -> torch.Tensor:
     """Launch K2 (the batched route: one 8-warp block per element, row
     tile and column tile, :func:`k2_launch_shape`) on CUDA tensors (the
     plain version on CPU tensors): ``aw`` (B, m, k), ``bw`` (B, k, n),
-    ``sa`` (B, m), ``sb`` (B, n).
+    ``sa`` (B, m), ``sb`` (B, n); ``plan`` the tile (default the
+    planner's).
 
     ``sq_matmul_k2.launches`` counts the launches of this process and
     ``sq_matmul_k2.shapes`` counts them by ``(B, m, k, n)``; a CPU call
     does not count.
     """
-    return _batched("K2", "fs_sq_matmul_batched", sq_matmul_k2,
-                    k2_launch_shape, aw, bw, sa, sb)
+    return _batched("K2", "sq_matmul_batched", "fs_sq_matmul_batched",
+                    sq_matmul_k2, aw, bw, sa, sb, plan)
 
 
 def sq_matmul_k3(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
-                 sb: torch.Tensor) -> torch.Tensor:
+                 sb: torch.Tensor, plan: tuning.BatchedPlan = None
+                 ) -> torch.Tensor:
     """Launch K3 (the fold route, :func:`k3_launch_shape`) on CUDA tensors
     (the plain version on CPU tensors); operands as :func:`sq_matmul_k2`.
 
-    ``sq_matmul_k3.launches`` and ``sq_matmul_k3.shapes`` count as K2's do.
+    ``sq_matmul_k3.launches`` and ``sq_matmul_k3.shapes`` count as K2's
+    do.
     """
-    return _batched("K3", "fs_sq_matmul_folded", sq_matmul_k3,
-                    k3_launch_shape, aw, bw, sa, sb)
+    return _batched("K3", "sq_matmul_folded", "fs_sq_matmul_folded",
+                    sq_matmul_k3, aw, bw, sa, sb, plan)
 
 
 sq_matmul_k2.launches = 0

@@ -8,7 +8,8 @@ on an H100 (the bytes of the K/V blocks and positions the table walk reads,
 and at decode sizes the latency of one walk) and how its design meets that:
 each table is split into up to 8 ranges walked by the blocks of one
 thread-block cluster, combined in split order through distributed shared
-memory (:func:`k4_splits` picks the count); a block is min(4, S*G) warps,
+memory (the count is a plan of :mod:`repro_torch.kernels.tuning`, whose
+model rule is :func:`k4_splits`); a block is min(4, S*G) warps,
 each owning query rows.  The cluster launch needs Hopper (``sm_90`` or
 later).
 
@@ -27,7 +28,7 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tuning
 
 __all__ = ["sq_paged_attn", "sq_paged_attn_k4", "sq_paged_attn_plain",
            "smem_bytes", "k4_splits"]
@@ -141,16 +142,18 @@ def _check(q, k_pool, v_pool, tables, pos_pool, q_pos, block_size) -> None:
 
 def sq_paged_attn_k4(q, k_pool, v_pool, tables, pos_pool, q_pos, *,
                      block_size: int, window: Optional[int] = None,
-                     softcap: float = 0.0,
-                     attend_limit: int = 2 ** 29) -> torch.Tensor:
+                     softcap: float = 0.0, attend_limit: int = 2 ** 29,
+                     plan: tuning.PagedAttnPlan = None) -> torch.Tensor:
     """Launch K4 on CUDA tensors (the plain version on CPU tensors).
 
     ``q``: (B, S, KV, G, hd) float32, pre-scaled by ``hd**-0.5``;
     ``k_pool``/``v_pool``: (P, KV, hd) in the model dtype, with this step's
     K/V already written; ``tables``: (B, nb) int32 block ids (0 = null
     block); ``pos_pool``: (P,) int32; ``q_pos``: (B, S) int32, -1 padding.
-    Returns (B, S, KV, G, hd) float32.  ``sq_paged_attn_k4.launches``
-    counts the kernel launches.
+    ``plan``: the table splits (default the planner's,
+    :func:`repro_torch.kernels.tuning.plan_paged_attn`).  Returns (B, S,
+    KV, G, hd) float32.  ``sq_paged_attn_k4.launches`` counts the kernel
+    launches.
     """
     _check(q, k_pool, v_pool, tables, pos_pool, q_pos, block_size)
     if window is not None and window <= 0:
@@ -169,7 +172,10 @@ def sq_paged_attn_k4(q, k_pool, v_pool, tables, pos_pool, q_pos, *,
         raise build.KernelError("K4 copies K/V rows in 16-byte pieces of "
                                 f"8 elements: head_dim {hd} is not a "
                                 "multiple of 8")
-    splits = k4_splits(B, KV, nb, _sm_count(q.device.index))
+    plan = tuning.plan_paged_attn(B, S, KV, G, hd, nb, block_size,
+                                  k_pool.dtype, sms=_sm_count(q.device.index),
+                                  plan=plan)
+    splits = plan.splits
     smem = smem_bytes(S * G, block_size, hd, k_pool.element_size(),
                       -(-nb // splits))
     if smem > _SMEM_MAX:

@@ -2,7 +2,9 @@
 cross-attention).
 
 - Full sequence (train / prefill): :func:`attn_forward` over
-  :func:`chunked_attention`, an online softmax over q chunks x kv chunks;
+  :func:`chunked_attention`, an online softmax over q chunks x kv chunks
+  (with the config's ``attn_block_skip``, ``attn_fold_q`` and
+  ``attn_p_bf16`` schedules, as JAX's ``attn_forward`` passes them);
   with ``cross_x`` K/V come from the encoder stream (no rope, no causal
   mask, no window).
 - Dense decode: :func:`attn_decode` against a ``(B, T, KV, hd)`` cache
@@ -108,7 +110,9 @@ def _pad_seq(t: torch.Tensor, pad: int, value=0) -> torch.Tensor:
 
 def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
                       window: Optional[int], chunk_q: int, chunk_kv: int,
-                      softcap: float = 0.0, mode: Optional[str] = None,
+                      softcap: float = 0.0, block_skip: bool = False,
+                      p_bf16: bool = False, fold_q: bool = False,
+                      mode: Optional[str] = None,
                       policy=None) -> torch.Tensor:
     """Online-softmax attention with O(chunk_q * chunk_kv) live scores.
 
@@ -117,8 +121,27 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
     q.dtype.  Padded q rows get position -1 and padded kv entries
     :data:`EMPTY_POS`, so they never attend; a fully masked row ends as a
     finite average (the normaliser is clamped at 1e-30).  Python loops
-    stand in for the JAX version's ``lax.map``/``lax.scan``; its
-    ``block_skip``, ``fold_q`` and ``p_bf16`` options are not ported.
+    stand in for the JAX version's ``lax.map``/``lax.scan``, and each
+    iteration notes its contractions into the audit, so a schedule's audit
+    is JAX's ``count_scale`` accounting: nq x nk chunk pairs, or
+    block_skip's triangular number.  The schedules (JAX's options):
+
+    - ``block_skip`` (causal, no window): q block i visits kv chunks
+      ``0 .. min(nk, ceil((i+1) cq / ck))`` only, a static triangular
+      schedule that halves a long causal prefill's or train step's
+      attention work; otherwise every q block visits all nk chunks.
+    - ``fold_q``: every q chunk against each kv chunk in ONE contraction a
+      kv chunk (scores and PV), batched over nq x B x KV: JAX's
+      ``jax.vmap`` of the q block, whose contractions ``square_pallas``
+      routes at one q chunk's shape (``fs_einsum(fold=nq)``), so a chunk
+      on K1's route runs K2 over the fold (bit for bit K1's).  JAX also
+      shards the folded axis over a device mesh; the port has no mesh yet
+      (ROADMAP Q1 step 8), and with none that constraint is a no-op.
+    - ``p_bf16``: the PV contraction takes ``p`` rounded to bf16 and ``v``
+      in its own dtype, accumulating in f32 (``preferred=float32``), as
+      JAX's.  This computes JAX's function but saves none of its bytes:
+      the square kernels take f32 operands only, so K2/K3 widen ``p`` back
+      to f32 before the launch (bf16 operands in K2/K3 are ROADMAP Q2).
     """
     B, S, KV, G, hd = q.shape
     T = k.shape[1]
@@ -131,35 +154,62 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
     nq, nk = qp.shape[1] // cq, kp.shape[1] // ck
     scale = hd ** -0.5
     dev = q.device
+    # fold_q stacks the q chunks on a leading axis n of every operand; the
+    # base schedule runs one q chunk a loop iteration (n absent)
+    lead = (nq,) if fold_q else ()
+    n = "n" if fold_q else ""
+    score_spec = f"{n}bqkgh,{n}bckh->{n}bkgqc"
+    pv_spec = f"{n}bkgqc,{n}bckh->{n}bkgqh"
+    fold = nq if fold_q else 1
 
-    outs = []
-    for qi in range(nq):
-        qf = qp[:, qi * cq:(qi + 1) * cq].float() * scale
-        qpc = qpos[qi * cq:(qi + 1) * cq]
-        m = torch.full((B, KV, G, cq), NEG_INF, device=dev)
-        l = torch.zeros((B, KV, G, cq), device=dev)
-        acc = torch.zeros((B, KV, G, cq, hd), device=dev)
-        for ki in range(nk):
+    def q_block(qc, qpc, n_kv: int):
+        """q chunk(s) ``qc`` (``lead`` + (B, cq, KV, G, hd)) at positions
+        ``qpc`` (``lead`` + (cq,)) against kv chunks [0, n_kv)."""
+        qf = qc.float() * scale
+        m = torch.full(lead + (B, KV, G, cq), NEG_INF, device=dev)
+        l = torch.zeros(lead + (B, KV, G, cq), device=dev)
+        acc = torch.zeros(lead + (B, KV, G, cq, hd), device=dev)
+        for ki in range(n_kv):
             sl = slice(ki * ck, (ki + 1) * ck)
-            kc, vc, kpc = kp[:, sl].float(), vp[:, sl].float(), kpos[sl]
-            s = fs_einsum("bqkgh,bckh->bkgqc", qf, kc, mode=mode,
-                          policy=policy, site="attn_scores")
+            kc, vc, kpc = kp[:, sl], vp[:, sl], kpos[sl]
+            if fold_q:
+                kc, vc = (t.expand(nq, *t.shape) for t in (kc, vc))
+            s = fs_einsum(score_spec, qf, kc.float(), mode=mode,
+                          policy=policy, site="attn_scores", fold=fold)
             s = _softcap(s, softcap)
             mask = kpc[None, :] < ATTEND_POS_LIMIT   # padded kv never attend
             if causal:
-                mask = mask & (kpc[None, :] <= qpc[:, None])
+                mask = mask & (kpc[None, :] <= qpc[..., :, None])
             if window is not None:
-                mask = mask & ((qpc[:, None] - kpc[None, :]) < window)
+                mask = mask & ((qpc[..., :, None] - kpc[None, :]) < window)
+            mask = mask[..., None, None, None, :, :] if fold_q else mask
             s = s.masked_fill(~mask, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
-            pv = fs_einsum("bkgqc,bckh->bkgqh", p, vc, mode=mode,
-                           policy=policy, site="attn_pv")
+            if p_bf16:
+                pv = fs_einsum(pv_spec, p.to(torch.bfloat16), vc, mode=mode,
+                               policy=policy, site="attn_pv",
+                               preferred=torch.float32, fold=fold)
+            else:
+                pv = fs_einsum(pv_spec, p, vc.float(), mode=mode,
+                               policy=policy, site="attn_pv", fold=fold)
             acc = acc * corr[..., None] + pv
             m = m_new
-        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        return acc / torch.clamp(l, min=1e-30)[..., None]
+
+    if fold_q:
+        qb = qp.reshape(B, nq, cq, KV, G, hd).transpose(0, 1)
+        out = q_block(qb, qpos.reshape(nq, cq), nk)   # (nq,B,KV,G,cq,hd)
+        out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, nq * cq, KV, G, hd)
+        return out[:, :S].to(q.dtype)
+    skip = block_skip and causal and window is None
+    outs = []
+    for qi in range(nq):
+        n_kv = min(nk, -(-(qi + 1) * cq // ck)) if skip else nk
+        out = q_block(qp[:, qi * cq:(qi + 1) * cq],
+                      qpos[qi * cq:(qi + 1) * cq], n_kv)
         outs.append(out.permute(0, 3, 1, 2, 4))              # (B,cq,KV,G,hd)
     return torch.cat(outs, dim=1)[:, :S].to(q.dtype)
 
@@ -192,8 +242,10 @@ def attn_forward(p, x, *, cfg, positions, causal: bool = True,
                             positions, kv_pos, causal=causal,
                             window=window, chunk_q=cfg.attn_chunk_q,
                             chunk_kv=cfg.attn_chunk_kv,
-                            softcap=cfg.attn_logit_softcap, mode=mode,
-                            policy=policy)
+                            softcap=cfg.attn_logit_softcap,
+                            block_skip=cfg.attn_block_skip,
+                            p_bf16=cfg.attn_p_bf16, fold_q=cfg.attn_fold_q,
+                            mode=mode, policy=policy)
     out = out.reshape(B, S, H, hd)
     return _proj_out(p["wo"], out, mode, x.dtype, policy=policy), (k, v)
 

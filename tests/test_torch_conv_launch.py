@@ -158,16 +158,20 @@ def _consts(name):
 
 
 def test_k7_launch_constants_match_source():
-    """The mirror reads the rule the CUDA source launches with."""
+    """The mirror reads the launch the CUDA source derives from a plan (the
+    band and split rule itself is the planner's model mode, in Python: the
+    source takes both from its caller and checks their range)."""
     src, c = _consts("sq_conv2d.cu")
     assert c["THREADS"] == 128 and (c["TM"], c["TN"]) == (8, 4)
     assert "constexpr int BM = 8 * TM;" in src
     assert "constexpr int BN = 16 * TN;" in src
     assert (8 * c["TM"], 16 * c["TN"], c["BK"]) == \
         (k7mod._BM, k7mod._BN, k7mod._BK)
-    assert (c["TC_LO"], c["TC_HI"], c["CS_MAX"], c["SAT_BLOCKS"],
-            c["MAX_SPLITS"]) == (k7mod._TC_LO, k7mod._TC_HI, k7mod._CS_MAX,
-                                 k7mod._SAT_BLOCKS, k7mod._MAX_SPLITS)
+    assert (c["CS_MAX"], c["MAX_SPLITS"]) == (k7mod._CS_MAX,
+                                              k7mod._MAX_SPLITS)
+    assert not {"TC_LO", "TC_HI", "SAT_BLOCKS"} & set(c)
+    assert "if (tc < 1 || tc > ow || splits < 1 || splits > MAX_SPLITS)" \
+        in src
     assert "constexpr int WINDOW_BYTES = 64 * 1024;" in src
     assert k7mod._WINDOW_BYTES == 64 * 1024
     assert max(int(i) for i in re.findall(r"shape\[(\d+)\] = ", src)) + 1 \

@@ -68,19 +68,24 @@ def test_tiles_cover_the_output_exactly(launch_shape, m, n):
 
 
 def test_cpm_launch_constants_match_source():
-    """The mirrors read the rule the CUDA sources launch with: the block of
-    16 x 16 threads, the block floor, each kernel's own thread tile and the
-    small tile."""
+    """The mirrors read what the CUDA sources launch with: the block of 16 x
+    16 threads, each kernel's own thread tile (plan code 0) and the small
+    tile (code 1).  The block floor of the rule is the planner's model
+    mode, in Python: the source takes the tile from its caller."""
+    from repro_torch.kernels import tuning
     src = (CSRC / "cpm_tile.cuh").read_text()
     consts = {k: int(v) for k, v in
               re.findall(r"constexpr int (\w+) = (\d+);", src)}
     assert consts["THREADS"] == k5mod._BLOCK_THREADS ** 2 == 256
-    assert consts["TILE_MIN_BLOCKS"] == k5mod._TILE_MIN_BLOCKS
+    assert "TILE_MIN_BLOCKS" not in consts and k5mod._TILE_MIN_BLOCKS == 128
     assert "constexpr int BM = 16 * TM, BN = 16 * TN;" in src
-    assert "blocks(p.m, p.n, 16 * Op::TILE_M, 16 * Op::TILE_N) >= " \
-           "TILE_MIN_BLOCKS" in src
-    small = re.findall(r"launch_vec<Op, (\d+), (\d+), \d+>\(p", src)
+    assert "if (tile == 0) return launch_vec<Op, Op::TILE_M, Op::TILE_N, " \
+           "16>(p" in src
+    small = re.findall(r"if \(tile == 1\) return launch_vec<Op, (\d+), "
+                       r"(\d+), \d+>\(p", src)
     assert [(int(a), int(b)) for a, b in small] == [k5mod._SMALL_TILE]
+    assert [p.thread_tile for p in tuning.candidates_cpm(
+        "cpm3_matmul", 64, 64)] == [k5mod.K5_TILE, k5mod._SMALL_TILE]
     for name, tile in (("cpm3_matmul", k5mod.K5_TILE),
                        ("cpm4_matmul", k6mod.K6_TILE)):
         cu = (CSRC / f"{name}.cu").read_text()

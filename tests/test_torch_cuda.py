@@ -45,6 +45,17 @@ from repro_torch.models.attention import EMPTY_POS  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(autouse=True)
+def _model_plans(monkeypatch):
+    # these tests hold each launch to its kernel's model rule (the mirrors'
+    # launch shapes): the planner's model mode, whatever the cache holds
+    from repro_torch.kernels import tuning
+    monkeypatch.setenv("REPRO_AUTOTUNE", "0")
+    tuning.clear_memo()
+    yield
+    tuning.clear_memo()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

@@ -210,40 +210,48 @@ def test_k3_launch_shape(nb, m, n, grid):
 
 
 def test_sq_matmul_launch_constants_match_source():
-    """The Python launch-shape mirrors read the tile rules the CUDA source
-    launches with: K1's two cluster instances, and K2's and K3's shared
-    8-warp tile (its rows, column widths and block floor)."""
+    """The Python launch-shape mirrors and the planner's variants read what
+    the CUDA source launches with: K1's two cluster instances (tile codes 0
+    and 1), and K2's and K3's shared 8-warp tile (its instantiated rows and
+    column widths).  The source applies no rule of its own: each launch's
+    variant is the caller's plan (kernels/tuning.py)."""
     import re
     from pathlib import Path
 
     import repro_torch
     from repro_torch.kernels import sq_matmul as mod
+    from repro_torch.kernels import tuning
     src = (Path(repro_torch.__file__).parent / "csrc" /
            "sq_matmul.cu").read_text()
     consts = {k: int(v) for k, v in
               re.findall(r"constexpr int (\w+) = (\d+);", src)}
     assert consts["KS"] == mod._KS == 8 and consts["BN"] == 32
-    assert consts["TILE_MIN_BLOCKS"] == mod._TILE_MIN_BLOCKS
-    assert consts["TILE_TALL_M"] == mod._TILE_TALL_M
+    assert "TILE_MIN_BLOCKS" not in consts and "TILE_TALL_M" not in consts
     assert "constexpr int THREADS = BN * KS;" in src
-    # K1: launch_cluster<T, BM, RW, CT, STAGES> for m <= 8, then above
-    k1 = re.findall(r"launch_cluster<T, (\d+), (\d+), (\d+), (\d+)>", src)
-    assert len(k1) == 2
-    for (bm, rw, ct, _), m in zip(k1, (8, 9)):
+    # K1: launch_cluster<T, BM, RW, CT, STAGES> for tile 0, then tile 1
+    k1 = re.findall(r"if \(tile == (\d)\) return launch_cluster<T, (\d+), "
+                    r"(\d+), (\d+), (\d+)>", src)
+    assert [int(t[0]) for t in k1] == [0, 1]
+    plans = tuning.candidates_matmul("sq_matmul", 9, 1, 1)
+    assert [p.code for p in plans] == [0, 1]
+    for (_, bm, rw, ct, _), plan, m in zip(k1, plans, (8, 9)):
         shape = mod.k1_launch_shape(m, 1)
         assert (shape["rows"], shape["cols"], shape["warps"]) == (
             int(bm), 32 * int(ct), int(rw) * int(ct))
-    # K2/K3: rows by m, the instantiated rows and column widths
-    rows = re.search(r"return m == 1 \? (\d+) : m <= TILE_TALL_M \? (\d+) : "
-                     r"(\d+);", src).groups()
-    assert [mod.k2_launch_shape(1, m, 1)["rows"]
-            for m in (1, 2, mod._TILE_TALL_M + 1)] == [int(r) for r in rows]
-    assert sorted(int(r) for r in re.findall(
-        r"launch_rows<T, (\d+), FOLDED>", src)) == sorted(map(int, rows))
+        assert (plan.rows, plan.cols) == (int(bm), 32 * int(ct))
+    # K2/K3: the instantiated rows and column widths are the candidates'
+    rows = sorted(int(r) for r in re.findall(
+        r"case (\d+): return launch_rows<T, (?:\d+), FOLDED>", src))
+    assert rows == sorted(int(r) for r in re.findall(
+        r"launch_rows<T, (\d+), FOLDED>", src)) == [1, 4, 8]
     vecs = sorted(int(v) for v in re.findall(
         r"launch_tile<T, R, (\d+), FOLDED>", src))
     assert vecs == [1, 2]
-    assert "return n > BN && blocks >= TILE_MIN_BLOCKS ? 2 : 1;" in src
+    cands = tuning.candidates_matmul("sq_matmul_batched", 33, 65, 1, 4)
+    assert sorted({p.rows for p in cands}) == rows
+    assert sorted({p.cols for p in cands}) == [32 * v for v in vecs]
+    assert [mod.k2_launch_shape(1, m, 1)["rows"]
+            for m in (1, 2, mod._TILE_TALL_M + 1)] == [1, 4, 8]
     widths = {mod.k3_launch_shape(nb, 1, n)["cols"]
               for nb in (1, 95, 96) for n in (32, 33, 64)}
     assert widths == {32 * v for v in vecs}

@@ -14,8 +14,8 @@ from repro_torch.kernels import routing as trt  # noqa: E402
 
 @pytest.fixture(autouse=True)
 def _no_autotune_cache(monkeypatch):
-    # the JAX planner consults its tuning cache only when autotune is on;
-    # the port has no cache, so compare the rules themselves
+    # each planner consults its own tuning cache (route overrides) only
+    # when autotune is on: compare the rules themselves
     monkeypatch.setenv("REPRO_AUTOTUNE", "0")
     monkeypatch.delenv("REPRO_ROUTE", raising=False)
 
