@@ -222,11 +222,11 @@ profiled replay, the audits equal to ``recurrent_audit`` over P + S
 positions; turns, traces, TTFT; in f32 teacher-forced every layer
 against standard (with a witness site, LAYER_WITNESS_NOTE) and the
 decode-step logits end to end; the bf16 decode-step logits against
-standard.  Then paligemma-3b trained at 4 of its 18 layers over 2 x (256
-patches + 256 tokens), and whisper-large-v3 at 4 + 4 layers over 2 x 128
+standard.  Then paligemma-3b trained at 2 of its 18 layers over 2 x (256
+patches + 256 tokens), and whisper-large-v3 at 2 + 2 layers over 2 x 128
 tokens and 2 x 1500 frames, as the recurrent training phase trains its
 archs (the loss's vocab GEMM over the text positions only; the launches
-held to K1's own order; the f32 parity at 2 layers with its witness, its
+held to K1's own order; the f32 parity at 1 (1 + 1) layer with its witness, its
 catch and, for whisper, the cross-attention's key bias held beside its
 weight, GRAD_ZERO_NOTE, and its 3 steps with the elements whose AdamW
 first moment differs in sign held to standard's,
@@ -242,6 +242,20 @@ published width and 2 of its 30 layers, an 8192-token prefill under the
 base schedule, ``block_skip``, ``fold_q`` and ``p_bf16`` and a 4096-token
 train step under base and ``block_skip``, their K2 launches by counter and
 profiler and their audits equal to each schedule's analytic count.
+
+Last, the devices and the roofline.  The replayed dense decode tick, the
+captured train step and deepseek-7b's base prefill are dry-run on
+``meta`` (``launch/dryrun.py``) under the op-level analyzer, in a process
+of its own beside the next phase (it runs nothing on the card): their
+K1-K4 launches equal the counters of the measured runs, their square
+terms the audit's multiplies, their dot FLOPs twice those, and every
+measured wall is at or above its floor against the H100's datasheet
+peaks (each share printed).  Then two gloo ranks share the one card
+(NCCL takes a GPU a rank), each a process of its own: ``dense_tp_reduce``
+at the FFN's down-projection runs K1 on each rank's K-shard within K1's
+f32 bound, a 2-rank data-parallel bf16 train step equals the 1-rank step
+on the whole batch within 2e-3, and the captured step under the mesh is
+refused.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --autotune FILE      # a tuning cache, the card's
@@ -1905,7 +1919,8 @@ def dense_graph_phase(model: LM, dev, compared, dense):
     check(stats.get("K1") == per[0] and stats.get("K3") == per[2],
           f"a profiled replay holds {stats.get('K1')} K1 and "
           f"{stats.get('K3')} K3 kernels (want {per[0]} and {per[2]})")
-    return total
+    return dict(total, step_s=walls[len(walls) // 2],
+                per_step=dict(zip(("K1", "K2", "K3", "K4"), per)))
 
 
 def _one_batch(prompt, dev) -> dict:
@@ -3157,6 +3172,7 @@ def train_timing_phase(dev) -> dict:
         step(params, opt, batch)
         torch.cuda.synchronize()
         split[remat] = (sq_matmul_k1.launches, sq_matmul_k2.launches)
+        step_counts = dict(zip(("K1", "K2", "K3", "K4"), counts()))
     # the loss rematerialises its chunks at either setting (as JAX's
     # jax.checkpoint of the chunk body does): one K1 launch a chunk
     chunks = -(-TRAIN_S // min(cfg.loss_chunk, TRAIN_S))
@@ -3269,13 +3285,14 @@ def train_timing_phase(dev) -> dict:
           f"fraction_square {ctr.fraction_square} and fraction_square_bwd "
           f"{ctr.fraction_square_bwd}")
     return {"forward": fwd, "backward": bwd, "recompute": rec,
-            "step": split["block"], "median_ms": med["eager"] * 1e3,
+            "step": split["block"], "step_counts": step_counts,
+            "audit": ctr.total_mults, "median_ms": med["eager"] * 1e3,
             "graph_median_ms": med["graph"] * 1e3, "capture_ms":
             capture_s * 1e3, "copy_ms": copy_ms, "trace": stats["eager"],
             "graph_trace": stats["graph"]}
 
 
-TRAIN_LONG_STEPS = 32
+TRAIN_LONG_STEPS = 16
 
 
 def train_long_phase(dev) -> dict:
@@ -3305,7 +3322,7 @@ def train_long_phase(dev) -> dict:
     gap = [a - b for a, b in zip(sq, std)]
     print(f"  loss gap square_pallas - standard by step: "
           f"{[f'{g:.2e}' for g in gap]}; mean |gap| steps 1-8 "
-          f"{sum(abs(g) for g in gap[:8]) / 8:.2e}, steps 25-32 "
+          f"{sum(abs(g) for g in gap[:8]) / 8:.2e}, steps {n - 7}-{n} "
           f"{sum(abs(g) for g in gap[-8:]) / 8:.2e}, largest "
           f"{max(abs(g) for g in gap):.2e} at step "
           f"{max(range(n), key=lambda i: abs(gap[i])) + 1}; card {CARD}",
@@ -4319,7 +4336,7 @@ def recurrent_phase(dev, gen) -> dict:
 RECURRENT_FLAG = "--recurrent-phase"
 
 
-def phase_isolated(flag: str, what: str) -> dict:
+def phase_isolated(flag: str, what: str, *args: str) -> dict:
     """A phase run in a process of its own (``chip_smoke.py FLAG FILE``),
     which writes its results to a JSON file under ``build/``: a fresh CUDA
     context and profiler.  In one long process the later traces lose a
@@ -4327,18 +4344,47 @@ def phase_isolated(flag: str, what: str) -> dict:
     kernels, every try, after the MoE phases, and a MoE train replay 63
     of its 64 in four single-replay traces after the MoE serving phase),
     while tokens and ledgers stay exact."""
+    return phase_join(phase_start(flag, *args), what)
+
+
+def phase_start(flag: str, *args: str, name: str = None) -> tuple:
+    """Start :func:`phase_isolated`'s process; returns it and its file
+    (``build/<name>.json``, the flag's name by default)."""
     out = Path(__file__).resolve().parent / "build" / \
-        f"{flag.strip('-')}.json"
+        f"{name or flag.strip('-')}.json"
     out.parent.mkdir(exist_ok=True)
     out.unlink(missing_ok=True)
     gc.collect()
     torch.cuda.empty_cache()
     sys.stdout.flush()
-    rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                         flag, str(out)], timeout=900).returncode
-    check(rc == 0 and out.exists(),
-          f"{what}, in a process of its own, ran to its end (exit {rc})")
-    return json.loads(out.read_text())
+    return subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             flag, str(out), *args]), out
+
+
+def phase_join(started, what: str, timeout: float = 900):
+    """Wait for a :func:`phase_start`'s process, or for a list of them
+    (every one killed past ``timeout``), and read its results (a list of
+    them for a list)."""
+    group = started if isinstance(started, list) else [started]
+    deadline = time.monotonic() + timeout
+    rcs = []
+    try:
+        for proc, _ in group:
+            try:
+                rcs.append(proc.wait(
+                    timeout=max(0.0, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+    finally:
+        for proc, _ in group:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(rcs == [0] * len(group) and all(out.exists() for _, out in group),
+          f"{what}, in a process of its own, ran to its end (exit "
+          f"{rcs if isinstance(started, list) else rcs[0]})")
+    res = [json.loads(out.read_text()) for _, out in group]
+    return res if isinstance(started, list) else res[0]
 
 
 def recurrent_entries(k1, k2, k3, rec) -> None:
@@ -5373,15 +5419,15 @@ def recurrent_train_launches(cfg, B: int, S: int) -> dict:
 # the smoke at 24 layers).
 # paligemma's whole step (2.51 G parameters, ~30 GB of weights,
 # gradients and AdamW state before the eager step beside the captured
-# one) would not fit as recurrentgemma's did not; at 4 of its 18 layers
-# every shape and kernel of its step runs.  whisper trains 4 encoder and
-# 4 decoder layers (an encoder-decoder arch is cut as deep on both sides,
-# :func:`recurrent_train_cfg`).
+# one) would not fit as recurrentgemma's did not; at 2 of its 18 layers
+# every shape and kernel of its step runs.  whisper trains 2 encoder and
+# 2 decoder layers (an encoder-decoder arch is cut as deep on both
+# sides, :func:`recurrent_train_cfg`).
 RECURRENT_TRAIN_LAYERS = {"recurrentgemma-2b": 3, "xlstm-350m": 8,
-                          "paligemma-3b": 4, "whisper-large-v3": 4}
-# the f32 parity against standard: each at one period (2 layers, 2 + 2)
+                          "paligemma-3b": 2, "whisper-large-v3": 2}
+# the f32 parity against standard: each at one period (1 layer, 1 + 1)
 RECURRENT_F32_LAYERS = {"recurrentgemma-2b": 3, "xlstm-350m": 8,
-                        "paligemma-3b": 2, "whisper-large-v3": 2}
+                        "paligemma-3b": 1, "whisper-large-v3": 1}
 # the archs whose eager step is traced: xlstm's holds 2.7e5 device
 # operations beside as many host ones, and reading its trace took ~2 min
 # of the smoke (measured on one H100: busy 1397.8 ms, 9.3 % of the traced
@@ -6646,14 +6692,14 @@ ENCDEC_TRAIN_FLAG = "--encdec-train-phase"
 
 
 def vlm_train_phase(dev, gen) -> dict:
-    """paligemma-3b trained at its published width: 4 of its 18 layers
+    """paligemma-3b trained at its published width: 2 of its 18 layers
     over its 256 patches and 256 tokens a sequence."""
     return arch_train_phase(dev, gen, VLM_ARCH, "vlm_train")
 
 
 def encdec_train_phase(dev, gen) -> dict:
-    """whisper-large-v3 trained at its published width: 4 encoder layers
-    over the 1500 frames and 4 decoder layers."""
+    """whisper-large-v3 trained at its published width: 2 encoder layers
+    over the 1500 frames and 2 decoder layers."""
     return arch_train_phase(dev, gen, ENCDEC_ARCH, "encdec_train")
 
 
@@ -7160,7 +7206,8 @@ MOE_TRAIN_FLAG = "--moe-train-phase"
 # parameter, 41 GB at 2 layers
 MOE_TRAIN_F32_LAYERS = 2
 MOE_TRAINER_STEPS = 4
-MOE_TURN_STEPS = 6              # a timed turn: 1 warm step and 5 timed
+# a timed turn: 1 warm step and 3 timed
+MOE_TURN_STEPS = 4
 MOE_EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 # device work of the dispatch and combine, by kernel name
 DISPATCH_OPS = ("sort", "scatter", "gather", "index", "cumsum", "Radix",
@@ -7853,9 +7900,10 @@ def moe_train_phase(dev, gen) -> dict:
             times.append(time.perf_counter() - t0)
         times = sorted(times[1:])
         walls[kind] += times
-        print(f"  turn {i} {kind}: median {times[2] * 1e3:.1f} ms (min "
+        mid = times[len(times) // 2]
+        print(f"  turn {i} {kind}: median {mid * 1e3:.1f} ms (min "
               f"{times[0] * 1e3:.1f}, max {times[-1] * 1e3:.1f}), "
-              f"{TRAIN_T / times[2]:.0f} tokens/s; card {CARD}", flush=True)
+              f"{TRAIN_T / mid:.0f} tokens/s; card {CARD}", flush=True)
 
     state = {"eager": (p, o)}
     b_fixed = batches[-1]
@@ -7868,9 +7916,9 @@ def moe_train_phase(dev, gen) -> dict:
     graph = step_mod.jit_train_step(step, dev)
     fns = {"eager": step, "graph": graph}
     turn("eager", lambda: one("eager"), 1)
-    med_e1 = sorted(walls["eager"])[2]
+    med_e1 = sorted(walls["eager"])[len(walls["eager"]) // 2]
     stats = {"eager": trace_steps(lambda: float(one("eager")["loss"]),
-                                  "eager MoE train steps", med_e1, calls=2)}
+                                  "eager MoE train steps", med_e1, calls=1)}
     del state["eager"], p, o
     gc.collect()
     torch.cuda.empty_cache()
@@ -7914,7 +7962,7 @@ def moe_train_phase(dev, gen) -> dict:
         len(walls["graph"]) // 2]}
     stats["graph"] = trace_steps(lambda: float(one("graph")["loss"]),
                                  "replayed MoE train steps", med["graph"],
-                                 calls=2)
+                                 calls=1)
     traced = tuple(stats["graph"].get(k) for k in kk)
     check(traced == led,
           f"a profiled replay holds {traced} K1/K2/K3 kernels (the "
@@ -8738,6 +8786,333 @@ def attn_opts_phase(dev, gen) -> dict:
             "seconds": wall}
 
 
+# ----------------------------------------------------------- the roofline
+# The op-level analyzer (roofline/op_analysis.py) prices, on ``meta``, the
+# three steps whose walls the phases above measure: the replayed dense
+# decode tick, the captured train step and deepseek-7b's base prefill.
+# Nothing new runs on the card.  The per-step launches, the audit and the
+# walls come in from the measured runs (a JSON file).
+ROOFLINE_FLAG = "--roofline-phase"
+ROOFLINE_KERNELS = ("K1", "K2", "K3", "K4")
+
+
+def cfg_overrides(cfg) -> dict:
+    """The fields of ``cfg`` that differ from its registry config: the dry
+    run's ``overrides`` that rebuild it."""
+    base = get_config(cfg.name)
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if getattr(cfg, f.name) != getattr(base, f.name)}
+
+
+def dense_decode_mults(cfg, B: int, T: int) -> int:
+    """The contraction audit's multiplies of one dense decode step of B
+    rows over a T-position cache: the projections, the scores and the PV
+    over the cache, the 3-GEMM FFN and the logits."""
+    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    return B * (L * (d * (H + 2 * KV) * hd + H * hd * d + 2 * H * hd * T
+                     + 3 * d * ff) + d * cfg.padded_vocab)
+
+
+def roofline_steps() -> list:
+    """(name, config, shape, prepared) of each measured step."""
+    from repro_torch.configs.base import ShapeConfig
+    return [("dense decode tick, replayed", serve_cfg(policy=None),
+             ShapeConfig("decode_tick", DENSE_CACHE, DENSE_BATCH, "decode"),
+             True),
+            ("train step, captured", train_cfg(remat="block"),
+             ShapeConfig("train_step", TRAIN_S, TRAIN_B, "train"), False),
+            (f"{ATTN_ARCH} prefill, base", attn_cfg(),
+             ShapeConfig("prefill", ATTN_PREFILL, 1, "prefill"), False)]
+
+
+def roofline_measured(dense_graph, train, attn) -> dict:
+    """What the measured runs give each step of :func:`roofline_steps`:
+    its wall, its launches by the kernels' counters, its audit."""
+    names = [s[0] for s in roofline_steps()]
+    timing = train["timing"]
+    base = attn["prefill"]["base"]
+    return {
+        names[0]: {"wall_s": dense_graph["step_s"],
+                   "launches": dense_graph["per_step"],
+                   "audit": dense_decode_mults(serve_cfg(), DENSE_BATCH,
+                                               DENSE_CACHE)},
+        names[1]: {"wall_s": timing["graph_median_ms"] / 1e3,
+                   "launches": timing["step_counts"],
+                   "audit": timing["audit"]},
+        names[2]: {"wall_s": base["wall_s"],
+                   "launches": {"K1": base["k1"], "K2": base["k2"][0],
+                                "K3": base["k2"][1], "K4": 0},
+                   "audit": sum(v["mults"] for v in base["audit"].values())}}
+
+
+def roofline_phase(dev, gen, args) -> dict:
+    """Each measured step dry-run on ``meta`` (``launch/dryrun.py``) under
+    the op-level analyzer: its K1-K4 launches equal the counters' in the
+    measured run; its square terms equal the dry run's contraction audit
+    (a remat-block train step also recomputes the forward: 4/3 of it),
+    the audit equals the measured run's, and its dot FLOPs are twice the
+    terms; every measured wall is at or above its floor (a share over 1
+    means a count is wrong).  Prints each roofline term and each wall's
+    share of its slot floor and of the MFU peak."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import report
+    t_phase = time.perf_counter()
+    measured = json.loads(Path(args[0]).read_text())
+    print(f"roofline: the measured steps dry-run on meta against the "
+          f"{report.HW['name']}; card {CARD}", flush=True)
+    out = {}
+    for name, cfg, shape, prepared in roofline_steps():
+        m = measured[name]
+        cell = dryrun.dryrun_cell(cfg.name, shape, prepared=prepared,
+                                  overrides=cfg_overrides(cfg),
+                                  verbose=False)
+        got = {k: cell["launches"].get(k, 0) for k in ROOFLINE_KERNELS}
+        check(got == m["launches"], f"{name}: the analyzer's launches "
+              f"{got} = the kernels' counters in the measured run "
+              f"{m['launches']}")
+        audit, terms = cell["audit_mults"], cell["square_terms"]
+        recompute = shape.kind == "train" and cfg.remat == "block"
+        want = audit * 4 // 3 if recompute else audit
+        check(audit == m["audit"] and terms == want
+              and cell["dot_flops_per_device"] == 2 * terms,
+              f"{name}: square terms {terms:.6e} = the dry run's audit "
+              f"{audit:,}{' x 4/3 (the recompute)' * recompute}, the audit "
+              f"= the measured run's {m['audit']:,}, dot FLOPs = 2 x terms")
+        row = report.roofline_row(cell)
+        share = report.fraction_of_floor(row, m["wall_s"])
+        print(f"  {name}: compute {row['compute_s'] * 1e3:.4f} ms, slots "
+              f"{row['slot_s'] * 1e3:.4f}, elementwise "
+              f"{row['elem_s'] * 1e3:.4f}, memory {row['memory_s'] * 1e3:.4f}"
+              f" (eager's {row['memory_ub_s'] * 1e3:.4f}), collective "
+              f"{row['collective_s'] * 1e3:.4f}; floor "
+              f"{row['floor_s'] * 1e3:.4f} ms ({row['bottleneck']}); the "
+              f"wall {m['wall_s'] * 1e3:.3f} ms: {share['slot_share']:.2%} "
+              f"slot floor, {share['floor_share']:.2%} floor, MFU "
+              f"{share['mfu']:.3%}, roofline MFU "
+              f"{row['roofline_fraction_mfu']:.3%}; card {CARD}", flush=True)
+        check(share["floor_share"] <= 1.0, f"{name}: the wall is at or above "
+              f"its floor (share {share['floor_share']:.2%})")
+        out[name] = {"row": row, "share": share, "launches": got,
+                     "square_terms": terms, "audit": audit,
+                     "trace_seconds": cell["trace_seconds"]}
+    wall = time.perf_counter() - t_phase
+    print(f"roofline phase: {wall:.1f} s", flush=True)
+    return {"steps": out, "seconds": wall}
+
+
+# ------------------------------------------------------- tensor parallel
+# Two gloo ranks on the one card (NCCL takes one GPU a rank), each a
+# process of its own: the TP reduce at the FFN's down-projection, a
+# data-parallel train step against one rank's, and the gradients under
+# the mesh against one process's.
+TP_RANK_FLAG = "--tp-rank"
+TP_WORLD = 2
+TP_TIMEOUT_S = 600
+TP_STEP_TOL = 2e-3          # tests/test_train_square.py's rtol and atol
+TP_MOE_ARCH = "mixtral-8x7b"
+# The worst leaf's relative gradient gap (L2) and the grad norm's, under
+# the mesh against one process, in f32 on the standard route, which holds
+# the collectives' hand-written transposes at f32's rounding (a square
+# route's gradients with no loss scale are mostly its rounding, section 6
+# of PERF.md, and a rank's cotangent is half the one process's): ``dp``
+# data-parallel, ``tp`` with the attention-out and FFN-down partials
+# reduced in bf16 over ``model`` (tp_bf16_reduce), ``moe`` the expert
+# hidden axis over ``model``.  Read on one H100: 0, 9.7e-3 and 5.0e-7.  A
+# gradient that misses the data all-reduce is off by ~0.7, a cotangent
+# summed again over ``model`` by ~1 or more, an expert input's cotangent
+# not summed by ~0.7 (planted faults, on the card and in tests/test_torch_
+# distributed.py; PERF.md).
+TP_GRAD_TOL = {"dp": 1e-4, "tp": 5e-2, "moe": 1e-4}
+
+
+def mesh_grad_gap(model: LM, params, batch, mesh, data: int) -> dict:
+    """``make_grad_fn``'s gradients under ``mesh`` against one process's:
+    the mean over the ``data`` row shards of each shard's gradients (the
+    whole batch's for ``data`` 1), summed in the leaves' dtype as the
+    data-parallel all-reduce sums them.  The worst leaf's relative gap
+    (L2) and the grad norms' gap."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.train import step as step_mod
+    grad_fn = step_mod.make_grad_fn(model, step_mod.TrainConfig())
+    with dctx.use_mesh(mesh):
+        _, got = grad_fn(params, batch)
+    parts = [grad_fn(params, {k: v.chunk(data)[h] for k, v in
+                              batch.items()})[1] for h in range(data)]
+    ref = tree_map(lambda *gs: sum(gs) / data, *parts)
+    rel = _rel_tensors(_tree_leaves_named(got), _tree_leaves_named(ref))
+    worst = max(rel, key=rel.get)
+
+    def norm(tree):
+        return math.sqrt(sum(t.double().square().sum().item()
+                             for t in tree_leaves(tree)))
+    n_got, n_ref = norm(got), norm(ref)
+    return {"worst": worst, "gap": rel[worst],
+            "norm_gap": abs(n_got - n_ref) / n_ref, "leaves": len(rel)}
+
+
+def tp_rank(dev, gen, args) -> dict:
+    """One rank of :func:`tp_phase`'s world (``chip_smoke.py --tp-rank FILE
+    STORE RANK``): ``dense_tp_reduce`` of (TRAIN_T, d_ff) @ (d_ff, d) f32
+    in square_pallas over a 2-way ``model`` mesh (K1 on this rank's
+    K-shard), one unsharded K1 launch of the same product and the exact
+    (float64) one; one bf16 train step of fairsquare-demo over a 2-way
+    ``data`` mesh (this rank's 4 of the 8 rows) and the same step on the
+    whole batch with no mesh; the gradients (:func:`mesh_grad_gap`, f32 on
+    the standard route) of fairsquare-demo over the ``data`` mesh and
+    with ``tp_bf16_reduce`` over a 2-way ``model`` mesh, and of
+    mixtral-8x7b reduced with its expert hidden axis over ``model``;
+    ``jit_train_step`` under the mesh."""
+    import datetime
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.distributed import context as dctx
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    store, rank = args[0], int(args[1])
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=TP_WORLD,
+                            timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    try:
+        cfg = train_cfg()
+        g = torch.Generator().manual_seed(0)        # the same on each rank
+        x = torch.randn(TRAIN_T, cfg.d_ff, generator=g).to(dev)
+        w = (torch.randn(cfg.d_ff, cfg.d_model, generator=g)
+             / math.sqrt(cfg.d_ff)).to(dev)
+        tp = make_mesh((TP_WORLD,), ("model",))
+        reset_counts()
+        with dctx.use_mesh(tp):
+            got = basic.dense_tp_reduce({"w": w}, x, mode="square_pallas",
+                                        reduce_dtype=torch.float32)
+        torch.cuda.synchronize()
+        tp_k1 = dict(sq_matmul_k1.shapes)
+        reset_counts()
+        ref = basic.dense_apply({"w": w}, x, mode="square_pallas")
+        torch.cuda.synchronize()
+        ref_k1 = dict(sq_matmul_k1.shapes)
+        exact = x.double() @ w.double()
+        scale = (x.abs().max() + w.abs().max()).item() ** 2
+        res = {"tp_k1": {str(k): v for k, v in tp_k1.items()},
+               "ref_k1": {str(k): v for k, v in ref_k1.items()},
+               "tp_err": (got.double() - exact).abs().max().item(),
+               "ref_err": (ref.double() - exact).abs().max().item(),
+               "tp_vs_ref": (got - ref).abs().max().item(),
+               "bound": cfg.d_ff * 2.0 ** -23 * scale}
+
+        model = build_model(cfg, device=dev, seed=0)
+        params = model.train_params()
+        batch = SyntheticLM(DataConfig(TRAIN_B, TRAIN_S, cfg.vocab), cfg,
+                            device=dev).next_batch()
+        step = step_mod.make_train_step(model, step_mod.TrainConfig())
+        dp = make_mesh((TP_WORLD,), ("data",))
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with dctx.use_mesh(dp):
+            p2, _, m2 = step(params, adamw.adamw_init(params), batch)
+        torch.cuda.synchronize()
+        res["dp_s"] = time.perf_counter() - t0
+        res["dp_launches"] = list(counts())
+        p1, _, m1 = step(params, adamw.adamw_init(params), batch)
+        worst = 0.0
+        for a, b in zip(tree_leaves(p2), tree_leaves(p1)):
+            a, b = a.float(), b.float()
+            excess = ((a - b).abs() - TP_STEP_TOL * b.abs()).max().item()
+            worst = max(worst, excess)
+        res.update(loss=[float(m1["loss"]), float(m2["loss"])],
+                   param_excess=worst, tokens=[float(m1["tokens"]),
+                                               float(m2["tokens"])])
+        del model, params, p1, p2
+        t0 = time.perf_counter()
+        f32 = train_cfg("standard", dtype="float32", tp_bf16_reduce=True)
+        model = build_model(f32, device=dev, seed=0)
+        params = model.train_params()
+        grads = {"dp": mesh_grad_gap(model, params, batch, dp, TP_WORLD),
+                 "tp": mesh_grad_gap(model, params, batch, tp, 1)}
+        del model, params
+        moe = dataclasses.replace(get_config(TP_MOE_ARCH).reduced(),
+                                  matmul_mode="standard")
+        model = build_model(moe, device=dev, seed=0)
+        mb = SyntheticLM(DataConfig(TRAIN_B, 16, moe.vocab), moe,
+                         device=dev).next_batch()
+        grads["moe"] = mesh_grad_gap(model, model.train_params(), mb, tp, 1)
+        res.update(grads=grads, grads_s=time.perf_counter() - t0)
+        with dctx.use_mesh(dp):
+            try:
+                step_mod.jit_train_step(step, dev)
+                res["refused"] = None
+            except RuntimeError as e:
+                res["refused"] = str(e)
+        dist.barrier()
+        return res
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_phase(dev) -> dict:
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one
+    device), each a process of its own (:func:`tp_rank`), building or
+    loading the kernels from the one build directory under its file lock:
+    the TP reduce's K1 on each rank's K-shard (one launch a rank, at k =
+    d_ff / 2) and the unsharded launch each within K1's f32 bound of the
+    exact product; the 2-rank data-parallel train step's loss and params
+    against the 1-rank step on the whole batch at rtol = atol = 2e-3; the
+    gradients under each mesh against one process's at
+    :data:`TP_GRAD_TOL`; the captured step under the mesh refused with its
+    stated error."""
+    t_phase = time.perf_counter()
+    cfg = train_cfg()
+    store = Path(__file__).resolve().parent / "build" / "tp_store"
+    store.parent.mkdir(exist_ok=True)
+    store.unlink(missing_ok=True)
+    res = phase_join([phase_start(TP_RANK_FLAG, str(store), str(r),
+                                  name=f"tp_rank{r}")
+                      for r in range(TP_WORLD)],
+                     f"tensor-parallel phase: {TP_WORLD} gloo ranks on the "
+                     f"one card", timeout=TP_TIMEOUT_S)
+    half = (TRAIN_T, cfg.d_ff // TP_WORLD, cfg.d_model)
+    whole = (TRAIN_T, cfg.d_ff, cfg.d_model)
+    for r, rr in enumerate(res):
+        check(rr["tp_k1"] == {str(half): 1} and rr["ref_k1"] ==
+              {str(whole): 1} and max(rr["tp_err"], rr["ref_err"],
+                                      rr["tp_vs_ref"]) <= rr["bound"],
+              f"rank {r}: dense_tp_reduce ran K1 once on its K-shard "
+              f"{half} (its counter), the unsharded product K1 once at "
+              f"{whole}; the reduced result within K1's f32 bound "
+              f"{rr['bound']:.3e} of the unsharded launch "
+              f"({rr['tp_vs_ref']:.3e}) and both of the exact product "
+              f"({rr['tp_err']:.3e}, {rr['ref_err']:.3e})")
+        l1, l2 = rr["loss"]
+        check(abs(l2 - l1) <= TP_STEP_TOL + TP_STEP_TOL * abs(l1)
+              and rr["param_excess"] <= TP_STEP_TOL
+              and rr["tokens"][0] == rr["tokens"][1],
+              f"rank {r}: the {TP_WORLD}-rank data-parallel step (bf16, "
+              f"{TP_WORLD} x {TRAIN_B // TP_WORLD} x {TRAIN_S} tokens) = the "
+              f"1-rank step on the whole batch: loss {l2:.6f} vs {l1:.6f}, "
+              f"params within rtol = atol = {TP_STEP_TOL} (excess "
+              f"{rr['param_excess']:.2e}), global tokens {rr['tokens'][1]:.0f}"
+              f"; its launches (K1, K2, K3, K4) {rr['dp_launches']} in "
+              f"{rr['dp_s']:.2f} s")
+        print(f"  rank {r} gradient gaps: " + ", ".join(
+            f"{w} {g['gap']:.3e} ({g['worst']}) norm {g['norm_gap']:.3e}"
+            for w, g in rr["grads"].items()), flush=True)
+        for what, gr in rr["grads"].items():
+            tol = TP_GRAD_TOL[what]
+            check(gr["gap"] <= tol and gr["norm_gap"] <= tol,
+                  f"rank {r}: {what} gradients under the {TP_WORLD}-rank "
+                  f"mesh = one process's: worst of {gr['leaves']} leaves "
+                  f"{gr['worst']} {gr['gap']:.3e}, grad norm "
+                  f"{gr['norm_gap']:.3e} (gate {tol:.0e}; "
+                  f"{rr['grads_s']:.1f} s for the three)")
+        check(bool(rr["refused"]) and "cannot be captured" in rr["refused"],
+              f"rank {r}: jit_train_step under the {TP_WORLD}-rank mesh "
+              f"refused: {rr['refused']}")
+    wall = time.perf_counter() - t_phase
+    print(f"tensor-parallel phase: {wall:.1f} s; card {CARD}", flush=True)
+    return {"ranks": res, "seconds": wall}
+
+
 def kernel_line(k1_rows, k2_rows, k3_rows, k4_row, k7_rows, k8_rows,
                 cpm_rows, launches, train, moe, moe_train, rec, rec_train,
                 enc, vlm, vlm_train, enc_train, attn=None, tune=None):
@@ -8932,6 +9307,15 @@ def run(dev) -> str:
     mark("the planner")
     attn = phase_isolated(ATTN_FLAG, "the attention-options phase")
     mark("the attention options")
+    measured = Path(__file__).resolve().parent / "build" / "roofline_in.json"
+    measured.write_text(json.dumps(roofline_measured(dense_graph, train,
+                                                     attn)))
+    # the roofline runs nothing on the card: it runs beside the TP ranks
+    roofline = phase_start(ROOFLINE_FLAG, str(measured))
+    tp = tp_phase(dev)
+    mark("the tensor-parallel phase")
+    phase_join(roofline, "the roofline phase")
+    mark("the roofline")
     launches = {"K1": {"engine_square_gemms": k1_total,
                        "launcher": launcher["K1"],
                        "engine_graph": graph["K1"],
@@ -8945,7 +9329,10 @@ def run(dev) -> str:
                        "moe_train": moe_train["trainer"]["K1"],
                        "attn_opts": sum(r["k1"] for part in (
                            attn["prefill"], attn["train"])
-                           for r in part.values())},
+                           for r in part.values()),
+                       "tp_ranks": sum(sum(r["tp_k1"].values())
+                                       + r["dp_launches"][0]
+                                       for r in tp["ranks"])},
                 "K2": {"engine_no_policy": none["K2"],
                        "attn_opts": sum(r["k2"][0] for part in (
                            attn["prefill"], attn["train"])
@@ -8955,7 +9342,9 @@ def run(dev) -> str:
                        "train": train["launches"]["K2"],
                        "moe_engine": moe["launches"]["eager"]["K2"],
                        "moe_engine_graph": moe["launches"]["graph"]["K2"],
-                       "moe_train": moe_train["trainer"]["K2"]},
+                       "moe_train": moe_train["trainer"]["K2"],
+                       "tp_ranks": sum(r["dp_launches"][1]
+                                       for r in tp["ranks"])},
                 "K3": {"server_no_policy": dense["K3"],
                        "server_graph": dense_graph["K3"],
                        "train": train["launches"]["K3"]},
@@ -8992,7 +9381,8 @@ def main() -> int:
              ENCDEC_FLAG: encdec_phase, VLM_FLAG: vlm_phase,
              VLM_TRAIN_FLAG: vlm_train_phase,
              ENCDEC_TRAIN_FLAG: encdec_train_phase,
-             TUNING_FLAG: tuning_phase, ATTN_FLAG: attn_opts_phase}.get(
+             TUNING_FLAG: tuning_phase, ATTN_FLAG: attn_opts_phase,
+             ROOFLINE_FLAG: roofline_phase, TP_RANK_FLAG: tp_rank}.get(
                  sys.argv[1] if len(sys.argv) > 1 else None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["ModelConfig", "pad_vocab", "ContractionPolicy",
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "pad_vocab", "ContractionPolicy",
            "CONTRACTION_SITES", "GRAD_SITE_SUFFIXES", "SQUARE_GEMMS_POLICY"]
 
 
@@ -174,6 +174,20 @@ class ModelConfig:
         pat = self.block_pattern
         return tuple(pat[i % len(pat)] for i in range(self.n_layers))
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if decode-time state is O(1) in context length (a sliding
+        window counts: its cache is window-bounded)."""
+        kinds = set(self.layer_kinds)
+        if "attn" in kinds or "moe" in kinds:
+            return self.window is not None
+        return True                  # recurrent / local-attention only
+
+    def supports_shape(self, shape_name: str) -> bool:
+        if shape_name == "long_500k":
+            return self.is_subquadratic
+        return True
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test config of the same family (the JAX package's rule)."""
         pat_len = len(self.block_pattern)
@@ -204,3 +218,19 @@ class ModelConfig:
             scan_layers=self.scan_layers,
             remat="none",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -37,7 +37,9 @@ __all__ = ["ArithCost", "mac_cost", "pm_mac_cost", "complex_mac_cost",
            "cpm4_cost", "cpm3_cost", "systolic_array_cost",
            "tensor_core_cost", "savings_table", "pm_tile_vpu_ops",
            "conv2d_patch_bytes", "paged_attn_gather_bytes", "LaunchCost",
-           "H100_SMS", "HBM_BYTES_PER_S", "FP32_SLOTS_PER_S",
+           "H100_SMS", "HBM_BYTES_PER_S", "FP32_FLOPS_PER_S",
+           "FP32_SLOTS_PER_S", "INT32_SLOTS_PER_S", "BF16_TENSOR_FLOPS_PER_S",
+           "NVLINK_BYTES_PER_S",
            "k1_cost", "batched_cost", "paged_attn_cost", "cpm_cost",
            "conv2d_cost"]
 
@@ -194,12 +196,19 @@ def paged_attn_gather_bytes(t: int, kv_heads: int, hd: int, *,
 # The H100 launch model
 # --------------------------------------------------------------------------
 
-# H100 SXM (NVIDIA data sheet): SMs, the HBM3 rate and the CUDA-core FP32
-# rate outside the tensor cores.  An FP32 add takes an issue slot as an fma
-# does, so the slot rate is half the FLOP rate.
+# H100 SXM5 80GB at 700 W (NVIDIA data sheet, not measured): SMs, the HBM3
+# rate, the CUDA-core FP32 rate outside the tensor cores, the dense BF16
+# tensor-core rate and NVLink's rate a direction.  An FP32 add takes an
+# issue slot as an fma does, so the slot rate is half the FLOP rate; an
+# sm_90 SM issues 64 INT32 lanes a clock against 128 FP32, so the INT32
+# slot rate is half the FP32 one.
 H100_SMS = 132
 HBM_BYTES_PER_S = 3.35e12
-FP32_SLOTS_PER_S = 67e12 / 2
+FP32_FLOPS_PER_S = 67e12
+FP32_SLOTS_PER_S = FP32_FLOPS_PER_S / 2
+INT32_SLOTS_PER_S = FP32_SLOTS_PER_S / 2
+BF16_TENSOR_FLOPS_PER_S = 989.4e12
+NVLINK_BYTES_PER_S = 450e9
 SMEM_PER_SM = 228 * 1024          # bytes; 1 KB of it is reserved a block
 THREADS_PER_SM = 2048
 BLOCKS_PER_SM = 32

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.device import Device, resolve_device
 
-__all__ = ["DataConfig", "SyntheticLM"]
+__all__ = ["DataConfig", "SyntheticLM", "make_batch_specs"]
 
 
 @dataclasses.dataclass
@@ -92,3 +92,26 @@ class SyntheticLM:
         """The next ``n`` batches (advances the stream): two pipelines of
         one ``DataConfig`` give bit-identical lists."""
         return [self.next_batch() for _ in range(n)]
+
+
+def make_batch_specs(model_cfg, shape_cfg, *, for_train: bool = True
+                     ) -> Dict[str, torch.Tensor]:
+    """``meta`` stand-ins for every model input of a cell (JAX's
+    ``ShapeDtypeStruct`` batch): ``tokens`` int32, (B, S+1) to train,
+    (B, S) to prefill, (B, 1) to decode, and at train and prefill a prefix
+    arch's ``patches`` and an encoder-decoder arch's ``frames``, f32."""
+    B = shape_cfg.global_batch
+    S = shape_cfg.seq_len
+    meta = dict(device="meta")
+    n = {"train": S + 1, "prefill": S}.get(shape_cfg.kind, 1)
+    specs = {"tokens": torch.empty((B, n), dtype=torch.int32, **meta)}
+    if shape_cfg.kind in ("train", "prefill"):
+        if model_cfg.prefix_tokens:
+            specs["patches"] = torch.empty(
+                (B, model_cfg.prefix_tokens, model_cfg.d_model),
+                dtype=torch.float32, **meta)
+        if model_cfg.encoder_layers:
+            specs["frames"] = torch.empty(
+                (B, model_cfg.encoder_seq, model_cfg.d_model),
+                dtype=torch.float32, **meta)
+    return specs

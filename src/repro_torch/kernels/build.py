@@ -20,6 +20,7 @@ slowest build, not the sum.  Nothing is compiled when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -111,6 +112,8 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
 
     Returns ``{name: nvcc output}`` for the sources compiled by this call
     (``-Xptxas=-v`` makes that output the register and shared-memory report).
+    Processes sharing the build directory take turns through a file lock,
+    so a library another process is building is waited for, not rebuilt.
     Raises :class:`KernelError` if any build fails or runs past
     ``NVCC_TIMEOUT_S``; no compiler process outlives the call.
     """
@@ -119,7 +122,13 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
         if name not in _SIGNATURES:
             raise ValueError(f"unknown kernel source {name!r}; expected one "
                              f"of {KERNEL_SOURCES}")
-    with _LOCK:
+    if all(_library_path(name).exists() for name in names):
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with _LOCK, open(BUILD_DIR / "build.lock", "w") as lock:
+        # processes that share the build directory (the ranks of a world)
+        # build one at a time; the lock goes with its holder's process
+        fcntl.flock(lock, fcntl.LOCK_EX)
         jobs = {}
         reports: Dict[str, str] = {}
         try:
@@ -127,7 +136,6 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
                 lib = _library_path(name)
                 if lib.exists():
                     continue
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
                 cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
                        str(_CSRC / f"{name}.cu")]

@@ -31,7 +31,8 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, tuning
+from repro_torch.core import cost_model as cm
+from repro_torch.kernels import build, meta, tuning
 
 __all__ = ["cpm3_matmul_k5", "cpm3_matmul_plain", "cpm_launch_shape",
            "k5_launch_shape"]
@@ -147,6 +148,17 @@ def launch_planes(label: str, source: str, counter, tile, planes, corrs,
     reports them (in :func:`cpm_launch_shape`'s form); returns the (re,
     im) planes."""
     a, _, c, _ = planes
+    if a.device.type == "meta" and meta.active():
+        m, k = a.shape
+        n = c.shape[1]
+        plan = tuning.plan_cpm(source, m, n, k, plan=plan)
+        squares, nplanes = (3, (3, 3)) if source == "cpm3_matmul" \
+            else (4, (2, 2))
+        meta.record(label, (m, k, n), squares * m * n * k, 8 * m * n * k,
+                    cm.cpm_cost(m, n, k, plan.thread_tile, nplanes,
+                                2 * squares, tile), a.dtype)
+        return (torch.empty((m, n), dtype=a.dtype, device="meta"),
+                torch.empty((m, n), dtype=a.dtype, device="meta"))
     if a.device.type != "cuda":
         raise build.KernelError(f"{label} runs on CUDA (or its plain version "
                                 f"on CPU), got a tensor on {a.device}")

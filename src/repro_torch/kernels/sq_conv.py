@@ -26,7 +26,8 @@ import ctypes
 import torch
 
 from repro_torch.core import squares as sq
-from repro_torch.kernels import build
+from repro_torch.core import cost_model as cm
+from repro_torch.kernels import build, meta
 
 __all__ = ["sq_conv_k8", "sq_conv_plain", "k8_launch_shape"]
 
@@ -98,6 +99,16 @@ def sq_conv_k8(xw: torch.Tensor, ww: torch.Tensor,
     _check(xw, ww, sw)
     if xw.device.type == "cpu":
         return sq_conv_plain(xw, ww, sw)
+    if xw.device.type == "meta" and meta.active():
+        L, n = xw.shape[0], ww.shape[0]
+        terms = (L - n + 1) * n
+        launch = k8_launch_shape(L, n)
+        size = xw.element_size()
+        # a square a sample a tap and its accumulate: 2 slots a term
+        meta.record("K8", (L, n), terms, 2 * terms, cm.LaunchCost(
+            launch["grid"], _THREADS, size * (launch["block"] + _TC),
+            2.0 * terms, size * (L + n + (L - n + 1) + 1)), xw.dtype)
+        return torch.empty((L - n + 1,), dtype=xw.dtype, device="meta")
     if xw.device.type != "cuda":
         raise build.KernelError("K8 runs on CUDA (or its plain version on "
                                 f"CPU), got a tensor on {xw.device}")

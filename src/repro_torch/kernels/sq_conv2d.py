@@ -31,7 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import squares as sq
-from repro_torch.kernels import build, tuning
+from repro_torch.core import cost_model as cm
+from repro_torch.kernels import build, meta, tuning
 
 __all__ = ["sq_conv2d_k7", "sq_conv2d_plain", "conv2d_out_hw",
            "k7_launch_shape"]
@@ -223,6 +224,17 @@ def sq_conv2d_k7(xw: torch.Tensor, wt: torch.Tensor, sw: torch.Tensor, *,
                          f"{(H, W)} under pads {pads}")
     if xw.device.type == "cpu":
         return sq_conv2d_plain(xw, wt, sw, khw, stride, pads)
+    if xw.device.type == "meta" and meta.active():
+        plan = tuning.plan_conv2d(tuple(xw.shape), N, khw, stride, pads,
+                                  xw.dtype, sms=cm.H100_SMS, plan=plan)
+        shape = k7_launch_shape(xw.shape, N, khw, stride, pads, cm.H100_SMS,
+                                band=plan.band, splits=plan.splits)
+        terms = B * oh * ow * N * kh * kw * C
+        meta.record("K7", (B, C, H, W, N, kh, kw, tuple(stride),
+                           tuple(map(tuple, pads))), terms, 2 * terms,
+                    cm.conv2d_cost(shape, B, C, N, oh, ow, kh, kw, H, W,
+                                   xw.element_size()), xw.dtype)
+        return torch.empty((B, N, oh, ow), dtype=xw.dtype, device="meta")
     if xw.device.type != "cuda":
         raise build.KernelError("K7 runs on CUDA (or its plain version on "
                                 f"CPU), got a tensor on {xw.device}")

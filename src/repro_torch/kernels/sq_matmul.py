@@ -34,7 +34,8 @@ import collections
 import torch
 
 from repro_torch.core import squares as sq
-from repro_torch.kernels import build, tuning
+from repro_torch.core import cost_model as cm
+from repro_torch.kernels import build, meta, tuning
 
 __all__ = ["sq_matmul_k1", "sq_matmul_k2", "sq_matmul_k3",
            "sq_matmul_plain", "sq_matmul_batched_plain", "k1_launch_shape",
@@ -160,16 +161,24 @@ def sq_matmul_k1(aw: torch.Tensor, bw: torch.Tensor, sa: torch.Tensor,
     default the planner's, :func:`repro_torch.kernels.tuning.plan_matmul`).
     ``sq_matmul_k1.launches`` counts the kernel launches made by this
     process, and ``sq_matmul_k1.shapes`` counts them by ``(m, k, n)``; a
-    CPU call does not count.
+    CPU call does not count.  On ``meta`` tensors inside a
+    :func:`repro_torch.kernels.meta.recording` (the dry run) it launches
+    nothing: it records the launch and returns an empty output.
     """
     _check(aw, bw, sa, sb)
     if aw.device.type == "cpu":
         return sq_matmul_plain(aw, bw, sa, sb)
+    m, k = aw.shape
+    n = bw.shape[1]
+    if aw.device.type == "meta" and meta.active():
+        plan = tuning.plan_matmul(m, n, k, aw.dtype, plan=plan)
+        meta.record("K1", (m, k, n), m * k * n, 2 * m * k * n,
+                    cm.k1_cost(m, n, k, plan.rows, plan.cols,
+                               aw.element_size()), aw.dtype)
+        return torch.empty((m, n), dtype=aw.dtype, device="meta")
     if aw.device.type != "cuda":
         raise build.KernelError("K1 runs on CUDA (or its plain version on "
                                 f"CPU), got a tensor on {aw.device}")
-    m, k = aw.shape
-    n = bw.shape[1]
     plan = tuning.plan_matmul(m, n, k, aw.dtype, plan=plan)
     gx, gy = k1_launch_shape(m, n, plan.rows)["grid"]
     if max(m * k, k * n, m * n) > _INT_MAX or gx > _INT_MAX \
@@ -205,11 +214,19 @@ def _batched(label: str, kind: str, entry: str, counter, aw, bw, sa, sb,
     _check_batched(aw, bw, sa, sb, label)
     if aw.device.type == "cpu":
         return sq_matmul_batched_plain(aw, bw, sa, sb)
+    nb, m, k = aw.shape
+    n = bw.shape[2]
+    if aw.device.type == "meta" and meta.active():
+        plan = tuning.plan_matmul(m, n, k, aw.dtype, batch=nb, kind=kind,
+                                  plan=plan)
+        meta.record(label, (nb, m, k, n), nb * m * k * n,
+                    2 * nb * m * k * n,
+                    cm.batched_cost(nb, m, n, k, plan.rows, plan.cols,
+                                    aw.element_size()), aw.dtype)
+        return torch.empty((nb, m, n), dtype=aw.dtype, device="meta")
     if aw.device.type != "cuda":
         raise build.KernelError(f"{label} runs on CUDA (or its plain version "
                                 f"on CPU), got a tensor on {aw.device}")
-    nb, m, k = aw.shape
-    n = bw.shape[2]
     plan = tuning.plan_matmul(m, n, k, aw.dtype, batch=nb, kind=kind,
                               plan=plan)
     gx, gy, gz = k2_launch_shape(nb, m, n, plan.rows, plan.cols)["grid"]

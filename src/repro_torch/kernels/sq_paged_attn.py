@@ -28,7 +28,8 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import build, tuning
+from repro_torch.core import cost_model as cm
+from repro_torch.kernels import build, meta, tuning
 
 __all__ = ["sq_paged_attn", "sq_paged_attn_k4", "sq_paged_attn_plain",
            "smem_bytes", "k4_splits"]
@@ -163,6 +164,20 @@ def sq_paged_attn_k4(q, k_pool, v_pool, tables, pos_pool, q_pos, *,
                                    q_pos, block_size=block_size,
                                    window=window, softcap=softcap,
                                    attend_limit=attend_limit)
+    if q.device.type == "meta" and meta.active():
+        B, S, KV, G, hd = q.shape
+        nb = tables.shape[1]
+        plan = tuning.plan_paged_attn(B, S, KV, G, hd, nb, block_size,
+                                      k_pool.dtype, sms=cm.H100_SMS,
+                                      plan=plan)
+        smem = smem_bytes(S * G, block_size, hd, k_pool.element_size(),
+                          -(-nb // plan.splits))
+        terms = 2 * B * KV * S * G * nb * block_size * hd
+        meta.record("K4", (B, S, KV, G, hd, nb, block_size), terms,
+                    2 * terms, cm.paged_attn_cost(
+                        B, S, KV, G, hd, nb, block_size, plan.splits, smem,
+                        k_pool.element_size()), q.dtype)
+        return torch.empty(q.shape, dtype=torch.float32, device="meta")
     if q.device.type != "cuda":
         raise build.KernelError("K4 runs on CUDA (or its plain version on "
                                 f"CPU), got a tensor on {q.device}")

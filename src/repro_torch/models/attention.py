@@ -32,6 +32,8 @@ import torch.nn.functional as F
 from repro_torch.core import counting, graphs, guards
 from repro_torch.core.einsum import fs_einsum, resolve_mode
 from repro_torch.core.prepared import PreparedOperand
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed import sharding as shd
 from repro_torch.layers import basic
 from repro_torch.layers.param import ParamSpec, torch_dtype
 
@@ -55,15 +57,20 @@ def attn_spec(cfg):
     h, kv = cfg.n_heads, cfg.n_kv_heads
     dt = torch_dtype(cfg.dtype)
 
-    def proj(shape):
-        return {"w": ParamSpec(shape, dtype=dt, fan_in=d)}
+    def proj(shape, axes):
+        return {"w": ParamSpec(shape, axes, dtype=dt, fan_in=d)}
 
-    spec = {"wq": proj((d, h, hd)), "wk": proj((d, kv, hd)),
-            "wv": proj((d, kv, hd)), "wo": proj((h, hd, d))}
+    spec = {"wq": proj((d, h, hd), ("embed", "heads", "head_dim")),
+            "wk": proj((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+            "wv": proj((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+            "wo": proj((h, hd, d), ("heads", "head_dim", "embed"))}
     if cfg.attn_bias:
-        for nm, shape in (("wq", (h, hd)), ("wk", (kv, hd)),
-                          ("wv", (kv, hd)), ("wo", (d,))):
-            spec[nm]["b"] = ParamSpec(shape, dtype=dt, init="zeros")
+        for nm, shape, axes in (
+                ("wq", (h, hd), ("heads", "head_dim")),
+                ("wk", (kv, hd), ("kv_heads", "head_dim")),
+                ("wv", (kv, hd), ("kv_heads", "head_dim")),
+                ("wo", (d,), ("embed",))):
+            spec[nm]["b"] = ParamSpec(shape, axes, dtype=dt, init="zeros")
     return spec
 
 
@@ -81,15 +88,17 @@ def _proj_in(p, x, n, hd, mode, policy=None):
     return out
 
 
-def _proj_out(p, x, mode, out_dtype, policy=None):
-    """x[..., h, hd] @ w[h, hd, d] -> (..., d)."""
+def _proj_out(p, x, mode, out_dtype, tp_reduce: bool = False, policy=None):
+    """x[..., h, hd] @ w[h, hd, d] -> (..., d); with ``tp_reduce``
+    (``cfg.tp_bf16_reduce``) row-parallel over ``model`` under a mesh
+    (:func:`repro_torch.layers.basic.dense_tp_reduce`)."""
     w = p["w"]
     if not isinstance(w, PreparedOperand):
         h, hd, d = w.shape[-3:]
         w = w.reshape(h * hd, d)
     xf = x.reshape(*x.shape[:-2], w.shape[0])
-    out = basic.dense_apply({"w": w}, xf, mode=mode, policy=policy,
-                            site="attn_out")
+    dense = basic.dense_tp_reduce if tp_reduce else basic.dense_apply
+    out = dense({"w": w}, xf, mode=mode, policy=policy, site="attn_out")
     if "b" in p:
         out = out + p["b"].to(out.dtype)
     return out.to(out_dtype)
@@ -135,8 +144,10 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
       ``jax.vmap`` of the q block, whose contractions ``square_pallas``
       routes at one q chunk's shape (``fs_einsum(fold=nq)``), so a chunk
       on K1's route runs K2 over the fold (bit for bit K1's).  JAX also
-      shards the folded axis over a device mesh; the port has no mesh yet
-      (ROADMAP Q1 step 8), and with none that constraint is a no-op.
+      shards the folded axis over the mesh's ``model`` axis; the port
+      states that constraint (``sharding.constrain``, ``("q_chunks",
+      "batch")``) and runs the fold whole on every model rank, as it runs
+      everything JAX leaves to GSPMD (``distributed/context.py``).
     - ``p_bf16``: the PV contraction takes ``p`` rounded to bf16 and ``v``
       in its own dtype, accumulating in f32 (``preferred=float32``), as
       JAX's.  This computes JAX's function but saves none of its bytes:
@@ -200,8 +211,11 @@ def chunked_attention(q, k, v, q_pos, kv_pos, *, causal: bool,
         return acc / torch.clamp(l, min=1e-30)[..., None]
 
     if fold_q:
+        mesh = dctx.current_mesh()
         qb = qp.reshape(B, nq, cq, KV, G, hd).transpose(0, 1)
+        qb = shd.constrain(qb, mesh, "q_chunks", "batch")
         out = q_block(qb, qpos.reshape(nq, cq), nk)   # (nq,B,KV,G,cq,hd)
+        out = shd.constrain(out, mesh, "q_chunks", "batch")
         out = out.permute(1, 0, 4, 2, 3, 5).reshape(B, nq * cq, KV, G, hd)
         return out[:, :S].to(q.dtype)
     skip = block_skip and causal and window is None
@@ -247,7 +261,8 @@ def attn_forward(p, x, *, cfg, positions, causal: bool = True,
                             p_bf16=cfg.attn_p_bf16, fold_q=cfg.attn_fold_q,
                             mode=mode, policy=policy)
     out = out.reshape(B, S, H, hd)
-    return _proj_out(p["wo"], out, mode, x.dtype, policy=policy), (k, v)
+    return _proj_out(p["wo"], out, mode, x.dtype,
+                     tp_reduce=cfg.tp_bf16_reduce, policy=policy), (k, v)
 
 
 def attn_decode(p, x, cache, pos, *, cfg, window: Optional[int] = None,
@@ -286,7 +301,10 @@ def attn_decode(p, x, cache, pos, *, cfg, window: Optional[int] = None,
         cache["k"][bidx, slot] = k1[:, 0].to(cache["k"].dtype)
         cache["v"][bidx, slot] = v1[:, 0].to(cache["v"].dtype)
         cache["pos"][bidx, slot] = pos.to(cache["pos"].dtype)
-        k, v, kv_abs = cache["k"], cache["v"], cache["pos"]
+        mesh = dctx.current_mesh()
+        k = shd.constrain(cache["k"], mesh, "batch", None, "kv_heads", None)
+        v = shd.constrain(cache["v"], mesh, "batch", None, "kv_heads", None)
+        kv_abs = cache["pos"]
         valid = kv_abs <= pos[:, None]
         if window is not None:
             valid &= (pos[:, None] - kv_abs) < window
@@ -301,7 +319,8 @@ def attn_decode(p, x, cache, pos, *, cfg, window: Optional[int] = None,
     out = fs_einsum("bkgqt,btkh->bqkgh", w, v.float(), mode=mode,
                     policy=policy, site="attn_pv")
     out = out.reshape(B, 1, H, hd).to(dt)
-    return _proj_out(p["wo"], out, mode, x.dtype, policy=policy), cache
+    return _proj_out(p["wo"], out, mode, x.dtype,
+                     tp_reduce=cfg.tp_bf16_reduce, policy=policy), cache
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, device,
@@ -445,7 +464,8 @@ def _attn_paged_step(p, x, cache, pos, *, cfg, window: Optional[int], mode,
         out = gather_attend()
 
     out = out.reshape(B, S, H, hd).to(dt)
-    return _proj_out(p["wo"], out, mode, x.dtype, policy=policy)
+    return _proj_out(p["wo"], out, mode, x.dtype,
+                     tp_reduce=cfg.tp_bf16_reduce, policy=policy)
 
 
 def init_paged_kv_cache(cfg, pool_slots: int, device) -> dict:

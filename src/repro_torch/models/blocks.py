@@ -22,6 +22,9 @@ from typing import Any, Dict
 
 import torch
 
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed import sharding as shd
 from repro_torch.layers import basic
 from repro_torch.models import attention as attn
 from repro_torch.models import ffn as ffn_mod
@@ -93,6 +96,28 @@ def block_spec(kind: str, cfg) -> Dict[str, Any]:
     return s
 
 
+def _apply_moe(p, x, cfg, mode, policy=None):
+    """The MoE block over ``x`` (B, S, D), alone or under the mesh (JAX's
+    ``shard_map`` dispatch): the tokens are this rank's batch shard, the
+    expert hidden axis is tensor-parallel over ``model`` where it divides,
+    and the aux loss is averaged over the data axes."""
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    mesh = dctx.current_mesh()
+    if mesh is None:
+        out, aux = moe_mod.moe_apply_local(p, xt, cfg=cfg, mode=mode,
+                                           policy=policy)
+        return out.reshape(B, S, D), aux
+    tp = coll.axis_size(mesh, "model") > 1 \
+        and cfg.d_ff % coll.axis_size(mesh, "model") == 0
+    out, aux = moe_mod.moe_apply_local(
+        p, xt, cfg=cfg, mode=mode, policy=policy,
+        psum_axes=("model",) if tp else None)
+    for a in shd.data_axes(mesh):
+        aux = coll.mean_from(aux, mesh, a)
+    return out.reshape(B, S, D), aux
+
+
 def _ffn_residual(kind, cfg, p, x, mode, policy):
     """``x`` plus the block's FFN (or MoE) of its normed input; returns
     ``(x, aux_loss)``, the aux loss zero outside a MoE block."""
@@ -100,11 +125,7 @@ def _ffn_residual(kind, cfg, p, x, mode, policy):
     if "ffn" in p:
         h2 = _norm_apply(cfg, p["ln2"], x)
         if kind == "moe":
-            B, S, D = h2.shape
-            out, aux = moe_mod.moe_apply_local(
-                p["ffn"], h2.reshape(B * S, D), cfg=cfg, mode=mode,
-                policy=policy)
-            out = out.reshape(B, S, D)
+            out, aux = _apply_moe(p["ffn"], h2, cfg, mode, policy)
         else:
             out = ffn_mod.ffn_apply(p["ffn"], h2, cfg=cfg, mode=mode,
                                     policy=policy)

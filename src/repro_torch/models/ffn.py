@@ -14,10 +14,10 @@ def ffn_spec(cfg):
     d, f = cfg.d_model, cfg.d_ff
     dt = torch_dtype(cfg.dtype)
     bias = cfg.ffn_bias
-    spec = {"w_up": basic.dense_spec(d, f, dt, bias),
-            "w_down": basic.dense_spec(f, d, dt, bias)}
+    spec = {"w_up": basic.dense_spec(d, f, ("embed", "mlp"), dt, bias),
+            "w_down": basic.dense_spec(f, d, ("mlp", "embed"), dt, bias)}
     if cfg.activation in ("swiglu", "geglu"):
-        spec["w_gate"] = basic.dense_spec(d, f, dt, bias)
+        spec["w_gate"] = basic.dense_spec(d, f, ("embed", "mlp"), dt, bias)
     return spec
 
 
@@ -30,5 +30,9 @@ def ffn_apply(p, x, *, cfg, mode: Optional[str] = None, policy=None):
     else:
         h = basic.activation(cfg.activation, up)
     h = h.to(x.dtype)
+    if cfg.tp_bf16_reduce:
+        return basic.dense_tp_reduce(p["w_down"], h, mode=mode,
+                                     out_dtype=x.dtype, policy=policy,
+                                     site="ffn")
     return basic.dense_apply(p["w_down"], h, mode=mode, out_dtype=x.dtype,
                              policy=policy, site="ffn")

@@ -45,7 +45,8 @@ from repro_torch.core.prepared import prepare_operand
 from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve_device
 from repro_torch.layers import basic
-from repro_torch.layers.param import init_module, torch_dtype
+from repro_torch.layers.param import (abstract_tree, count_params,
+                                      init_module, torch_dtype)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import blocks as blk
 
@@ -113,6 +114,42 @@ class LM(nn.Module):
         return self.embed["table"].device
 
     # ------------------------------------------------------------ params
+    def spec(self) -> Dict[str, Any]:
+        """The :class:`~repro_torch.layers.param.ParamSpec` tree of the
+        weights, in :meth:`tree`'s layout: a list of per-layer subtrees
+        where JAX stacks the layers of a period (so each tensor's axes are
+        JAX's without the leading ``layers`` axis)."""
+        cfg = self.cfg
+        norm = (basic.layernorm_spec if cfg.norm == "layernorm"
+                else basic.rmsnorm_spec)
+        s = {"embed": basic.embed_spec(cfg.padded_vocab, cfg.d_model,
+                                       torch_dtype(cfg.dtype)),
+             "final_norm": norm(cfg.d_model),
+             "layers": [blk.block_spec(k, cfg) for k in self.kinds]}
+        if cfg.encoder_layers:
+            s["encoder"] = {"layers": [blk.block_spec("attn", cfg)
+                                       for _ in range(cfg.encoder_layers)],
+                            "norm": norm(cfg.d_model)}
+        return s
+
+    def abstract_params(self) -> Dict[str, Any]:
+        """The params tree as ``meta`` tensors (nothing allocated)."""
+        return abstract_tree(self.spec())
+
+    def n_params(self) -> int:
+        return count_params(self.spec())
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE discounts inactive experts)."""
+        cfg = self.cfg
+        total = self.n_params()
+        if not cfg.n_experts:
+            return total
+        expert_p = 3 * cfg.d_model * cfg.d_ff     # gate+up+down per expert
+        per_layer_inactive = (cfg.n_experts - cfg.topk) * expert_p
+        n_moe_layers = sum(1 for k in cfg.layer_kinds if k == "moe")
+        return total - n_moe_layers * per_layer_inactive
+
     def tree(self) -> Dict[str, Any]:
         """The module's weights as a params tree (with ``"encoder":
         {"layers": [...], "norm"}`` in an encoder-decoder arch)."""
@@ -395,5 +432,6 @@ class LM(nn.Module):
 def build_model(cfg, *, device: Optional[Union[str, torch.device]] = None,
                 seed: int = 0) -> LM:
     """An LM with weights drawn from ``seed`` on ``device`` (default: CUDA,
-    which must be present)."""
+    which must be present); on ``"meta"`` its weights are abstract
+    (:meth:`LM.abstract_params`'s) and nothing is drawn."""
     return LM(cfg, device=resolve_device(device), seed=seed)

@@ -5,8 +5,11 @@ factor).
 
 The JAX package runs the block inside ``shard_map`` under a mesh (tokens
 over the data axes, the expert hidden axis over ``model``, one psum after
-the down-projection); the port runs on one card, so there is no psum and
-no mesh.  The router step (logits, softmax, top-k, renormalised gates) is
+the down-projection).  So does the port under a mesh
+(``models/blocks.py::_apply_moe``): each rank routes its own batch shard's
+tokens, contracts the experts' hidden slice of this model rank
+(``psum_axes``) and sums the down-projection over ``model``; the aux loss
+is averaged over the data axes.  The router step (logits, softmax, top-k, renormalised gates) is
 :func:`moe_route` and the sort-based dispatch :func:`moe_dispatch`, so a
 caller can hold either on its own.
 
@@ -34,6 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.einsum import fs_einsum
+from repro_torch.core.prepared import PreparedOperand
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import context as dctx
 from repro_torch.layers.param import ParamSpec, torch_dtype
 
 __all__ = ["moe_spec", "moe_capacity", "moe_route", "moe_dispatch",
@@ -44,10 +50,14 @@ def moe_spec(cfg):
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     dt = torch_dtype(cfg.dtype)
     return {
-        "router": {"w": ParamSpec((d, e), torch.float32, fan_in=d)},
-        "w_gate": {"w": ParamSpec((e, d, f), dt, fan_in=d)},
-        "w_up": {"w": ParamSpec((e, d, f), dt, fan_in=d)},
-        "w_down": {"w": ParamSpec((e, f, d), dt, fan_in=f)},
+        "router": {"w": ParamSpec((d, e), ("embed", None), torch.float32,
+                                  fan_in=d)},
+        "w_gate": {"w": ParamSpec((e, d, f), ("expert", "embed", "mlp"),
+                                  dt, fan_in=d)},
+        "w_up": {"w": ParamSpec((e, d, f), ("expert", "embed", "mlp"), dt,
+                                fan_in=d)},
+        "w_down": {"w": ParamSpec((e, f, d), ("expert", "mlp", "embed"),
+                                  dt, fan_in=f)},
     }
 
 
@@ -118,10 +128,33 @@ def moe_dispatch(expert_idx: torch.Tensor, gate_vals: torch.Tensor,
             "counts": counts, "order": order}
 
 
+def _tp_experts(p, mesh, axis: str):
+    """The expert weights' hidden (mlp) slice of this rank on ``axis``
+    (a prepared stack is unwrapped: its corrections are of the whole
+    hidden axis, as JAX's ``shard_map`` in_specs slice the raw tensor)."""
+    def raw(w):
+        return w.kn_source() if isinstance(w, PreparedOperand) else w
+    return dict(p, **{
+        "w_gate": {"w": coll.slice_from(raw(p["w_gate"]["w"]), mesh, axis,
+                                        2)},
+        "w_up": {"w": coll.slice_from(raw(p["w_up"]["w"]), mesh, axis, 2)},
+        "w_down": {"w": coll.slice_from(raw(p["w_down"]["w"]), mesh, axis,
+                                        1)}})
+
+
 def moe_apply_local(p, x: torch.Tensor, *, cfg, mode: Optional[str] = None,
-                    policy=None):
+                    psum_axes=None, policy=None):
     """MoE over a local token block: ``x`` (T, D) (callers flatten B*S).
+
+    ``psum_axes``: the mesh axis (a one-name tuple) the expert hidden axis
+    is tensor-parallel over, under :func:`~repro_torch.distributed.context.
+    current_mesh`; this rank contracts its hidden slice and the
+    down-projection is summed over the axis.  None outside a mesh.
     Returns ``(out (T, D) in x's dtype, aux_loss f32 scalar)``."""
+    mesh = dctx.current_mesh() if psum_axes else None
+    if mesh is not None:
+        (axis,) = psum_axes
+        p = _tp_experts(p, mesh, axis)
     T, D = x.shape
     E, K = cfg.n_experts, cfg.topk
     C = moe_capacity(T, cfg)
@@ -135,6 +168,8 @@ def moe_apply_local(p, x: torch.Tensor, *, cfg, mode: Optional[str] = None,
     buf = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=x.device)
     buf[d["dest"]] = xt[d["st"]]
     eb = buf[:E * C].reshape(E, C, D)
+    if mesh is not None:
+        eb = coll.copy_to(eb, mesh, axis)     # every hidden slice reads it
 
     # ---- batched expert GEMMs (fair-square dispatch over the expert axis)
     gate_h = fs_einsum("ecd,edf->ecf", eb, p["w_gate"]["w"], mode=mode,
@@ -144,6 +179,8 @@ def moe_apply_local(p, x: torch.Tensor, *, cfg, mode: Optional[str] = None,
     h = (F.silu(gate_h.float()) * up_h.float()).to(xt.dtype)
     y = fs_einsum("ecf,efd->ecd", h, p["w_down"]["w"], mode=mode,
                   policy=policy, site="moe_expert").float()
+    if mesh is not None:
+        y = coll.reduce_from(y, mesh, axis)   # the TP combine
 
     # ---- combine: each token's kept contributions, weighted by their
     # gates, added from zero in ascending expert order ----

@@ -41,17 +41,19 @@ def rglru_spec(cfg):
     w = cfg.conv_width
     dt = torch_dtype(cfg.dtype)
 
-    def dn(i, o):
-        return basic.dense_spec(i, o, dt, False)
+    def dn(i, o, ax):
+        return basic.dense_spec(i, o, ax, dt, False)
 
     return {
-        "w_x": dn(d, r),                               # branch 1
-        "w_gate": dn(d, r),                            # branch 2
-        "conv": {"w": ParamSpec((w, r), dtype=dt, fan_in=w)},
-        "w_r": dn(r, r),                               # recurrence gate
-        "w_i": dn(r, r),                               # input gate
-        "lam": {"w": ParamSpec((r,), dtype=torch.float32, init="ones")},
-        "w_out": dn(r, d),
+        "w_x": dn(d, r, ("embed", "rnn")),             # branch 1
+        "w_gate": dn(d, r, ("embed", "rnn")),          # branch 2
+        "conv": {"w": ParamSpec((w, r), (None, "rnn"), dtype=dt,
+                                fan_in=w)},
+        "w_r": dn(r, r, ("rnn", "mlp")),               # recurrence gate
+        "w_i": dn(r, r, ("rnn", "mlp")),               # input gate
+        "lam": {"w": ParamSpec((r,), ("rnn",), dtype=torch.float32,
+                               init="ones")},
+        "w_out": dn(r, d, ("rnn", "embed")),
     }
 
 

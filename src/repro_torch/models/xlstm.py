@@ -46,17 +46,18 @@ def mlstm_spec(cfg):
     di = int(cfg.inner_factor * d)
     dt = torch_dtype(cfg.dtype)
 
-    def dn(i, o):
-        return basic.dense_spec(i, o, dt, False)
+    def dn(i, o, ax):
+        return basic.dense_spec(i, o, ax, dt, False)
 
     return {
-        "w_in": dn(d, 2 * di),                       # up-proj: x branch + gate
-        "wq": dn(di, di),
-        "wk": dn(di, di),
-        "wv": dn(di, di),
-        "w_if": {"w": ParamSpec((di, 2), dtype=torch.float32, fan_in=di)},
+        "w_in": dn(d, 2 * di, ("embed", "mlp")),     # up-proj: x branch + gate
+        "wq": dn(di, di, ("mlp", None)),
+        "wk": dn(di, di, ("mlp", None)),
+        "wv": dn(di, di, ("mlp", None)),
+        "w_if": {"w": ParamSpec((di, 2), ("mlp", None), dtype=torch.float32,
+                                fan_in=di)},
         "norm": basic.rmsnorm_spec(di),
-        "w_out": dn(di, d),
+        "w_out": dn(di, d, ("mlp", "embed")),
     }
 
 
@@ -241,11 +242,11 @@ def slstm_spec(cfg):
     hd = d // h
     dt = torch_dtype(cfg.dtype)
     return {
-        "w_x": basic.dense_spec(d, 4 * d, dt, True),
-        "r": {"w": ParamSpec((h, hd, 4 * hd), dtype=torch.float32,
-                             fan_in=hd)},
+        "w_x": basic.dense_spec(d, 4 * d, ("embed", "mlp"), dt, True),
+        "r": {"w": ParamSpec((h, hd, 4 * hd), ("q_heads", None, None),
+                             dtype=torch.float32, fan_in=hd)},
         "norm": basic.rmsnorm_spec(d),
-        "w_out": basic.dense_spec(d, d, dt, False),
+        "w_out": basic.dense_spec(d, d, ("mlp", "embed"), dt, False),
     }
 
 

@@ -23,11 +23,15 @@ its metrics are the graph's outputs, which the next replay overwrites
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch.core import counting, graphs, guards
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed import sharding as shd
 from repro_torch.core.tree import tree_leaves, tree_map
 from repro_torch.device import Device, resolve_device
 from repro_torch.kernels import routing
@@ -36,9 +40,9 @@ from repro_torch.obs import trace as obs_trace
 from repro_torch.optim import adamw
 from repro_torch.train import loss as loss_mod
 
-__all__ = ["TrainConfig", "make_train_step", "make_prefill_step",
-           "make_decode_step", "make_loss_fn", "value_and_grad", "audit_step",
-           "jit_train_step", "GuardedStep"]
+__all__ = ["TrainConfig", "make_train_step", "make_grad_fn",
+           "make_prefill_step", "make_decode_step", "make_loss_fn",
+           "value_and_grad", "audit_step", "jit_train_step", "GuardedStep"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,10 +75,60 @@ def make_loss_fn(model, tcfg: TrainConfig):
             hidden, labels, params["embed"]["table"], mask=mask,
             chunk=cfg.loss_chunk, mode=cfg.matmul_mode,
             policy=cfg.contraction_policy)
+        loss, metrics = _global_mean(loss, metrics)
         total = loss + tcfg.aux_loss_weight * aux
         return total, dict(metrics, xent=loss, aux=aux)
 
     return loss_fn
+
+
+def _data_size(mesh) -> int:
+    if mesh is None:
+        return 1
+    return math.prod(coll.axis_size(mesh, a) for a in shd.data_axes(mesh))
+
+
+def _global_mean(loss, metrics):
+    """Under a data-parallel mesh, the rank's mean loss as its share of the
+    global mean: ``loss * tokens / sum(tokens)``, summed over the data
+    axes with an identity transpose, so each rank's gradient is its own
+    tokens' share and the gradients' sum over the data axes (the train
+    step's) is the gradient of the global mean, whatever each rank's mask
+    holds.  ``acc`` and ``tokens`` become the global ones."""
+    mesh = dctx.current_mesh()
+    if _data_size(mesh) == 1:
+        return loss, metrics
+    axes = shd.data_axes(mesh)
+    with torch.no_grad():
+        stats = torch.stack([metrics["tokens"],
+                             metrics["acc"] * metrics["tokens"]])
+        for a in axes:
+            coll.all_reduce_(stats, mesh, a)
+    share = loss * (metrics["tokens"].detach() / stats[0])
+    for a in axes:
+        share = coll.reduce_from(share, mesh, a)
+    return share, dict(metrics, acc=stats[1] / stats[0], tokens=stats[0])
+
+
+def _sum_grads(grads):
+    """The gradients summed over the data axes of the current mesh (one
+    all-reduce a leaf, in place)."""
+    mesh = dctx.current_mesh()
+    if _data_size(mesh) > 1:
+        for g in tree_leaves(grads):
+            for a in shd.data_axes(mesh):
+                coll.all_reduce_(g, mesh, a)
+    return grads
+
+
+def _refuse_multi_rank(what: str) -> None:
+    mesh = dctx.current_mesh()
+    if mesh is not None and not isinstance(mesh, shd.AbstractMesh) \
+            and math.prod(shd.mesh_shape(mesh).values()) > 1:
+        raise RuntimeError(
+            f"{what} captures the step into a CUDA graph, and the mesh's "
+            f"collectives (gloo) cannot be captured: run the step eagerly "
+            f"under a mesh of more than one rank")
 
 
 def value_and_grad(loss_fn, params, batch):
@@ -93,22 +147,39 @@ def value_and_grad(loss_fn, params, batch):
     return (loss.detach(), metrics), tree_map(lambda _: next(it), live)
 
 
-def make_train_step(model, tcfg: TrainConfig):
-    """``train_step(params, opt_state, batch)``: forward, the square-routed
-    backward and AdamW.  With ``tcfg.microbatch`` smaller than the batch the
-    gradients are accumulated in f32 over ``B // microbatch`` microbatches
-    (a loop where JAX scans); ``grad_compression`` quantizes them to int8
-    with error feedback kept in ``opt_state["error_feedback"]``."""
+def make_grad_fn(model, tcfg: TrainConfig):
+    """``grad_fn(params, batch) -> ((loss, metrics), grads)``: the train
+    step's loss and gradients before the optimizer.  With
+    ``tcfg.microbatch`` smaller than the batch the gradients are
+    accumulated in f32 over ``B // microbatch`` microbatches (a loop where
+    JAX scans) and ``metrics`` are the last microbatch's, as JAX's.
+
+    Under a mesh whose data axes hold more than one rank
+    (``distributed/context.py``), ``batch`` is the global batch.  Microbatch
+    ``i`` is the global rows ``[i * microbatch, (i + 1) * microbatch)``, of
+    which each rank takes its shard (``sharding.shard_batch``), JAX's
+    microbatch constraint (the batch shard on the microbatch axis).  The
+    loss is each rank's share of the global mean (``_global_mean``), and
+    the gradients are summed over the data axes, so every rank returns the
+    gradients of the global batch.  Parameters stay whole on every
+    rank."""
     loss_fn = make_loss_fn(model, tcfg)
 
-    def train_step(params, opt_state, batch):
+    def grad_fn(params, batch):
+        mesh = dctx.current_mesh()
+        dsize = _data_size(mesh)
         B = batch["tokens"].shape[0]
+
+        def local(b):
+            return shd.shard_batch(mesh, b) if dsize > 1 else b
+
         if tcfg.microbatch and tcfg.microbatch < B:
             mb = tcfg.microbatch
             n = B // mb
             g_acc, l_acc = None, 0.0
             for i in range(n):
-                mbatch = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+                mbatch = local({k: v[i * mb:(i + 1) * mb]
+                                for k, v in batch.items()})
                 (l, metrics), g = value_and_grad(loss_fn, params, mbatch)
                 g32 = tree_map(lambda t: t.float(), g)
                 g_acc = g32 if g_acc is None else tree_map(
@@ -117,7 +188,26 @@ def make_train_step(model, tcfg: TrainConfig):
             grads = tree_map(lambda t: t / n, g_acc)
             loss = l_acc / n
         else:
-            (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
+            (loss, metrics), grads = value_and_grad(loss_fn, params,
+                                                    local(batch))
+        with torch.no_grad():
+            grads = _sum_grads(grads)
+        return (loss, metrics), grads
+
+    return grad_fn
+
+
+def make_train_step(model, tcfg: TrainConfig):
+    """``train_step(params, opt_state, batch)``: forward, the square-routed
+    backward and AdamW, the gradients those of :func:`make_grad_fn`
+    (microbatched, and summed over the data axes under a mesh, so every
+    rank ends the step with the same params); ``grad_compression``
+    quantizes them to int8 with error feedback kept in
+    ``opt_state["error_feedback"]``."""
+    grad_fn = make_grad_fn(model, tcfg)
+
+    def train_step(params, opt_state, batch):
+        (loss, metrics), grads = grad_fn(params, batch)
         with torch.no_grad():
             if tcfg.grad_compression:
                 opt_state = dict(opt_state)
@@ -167,7 +257,9 @@ def jit_train_step(step_fn, device: Device = None
     donated: each call writes the new ones back into the graph's static
     inputs and returns them from there, so a caller that passes them back
     has the next call copy nothing; the metrics are the graph's outputs,
-    overwritten by the next replay."""
+    overwritten by the next replay.  Under a mesh of more than one rank
+    it raises ``RuntimeError``: gloo collectives cannot be captured."""
+    _refuse_multi_rank("jit_train_step")
     return graphs.CapturedFunction(step_fn, device=resolve_device(device),
                                    name="train_step", donate=2)
 
@@ -237,6 +329,8 @@ class GuardedStep:
                              f"or False)")
         self._jit = (device.type == "cuda" if self._jit is None
                      else bool(self._jit))
+        if self._jit:
+            _refuse_multi_rank("GuardedStep")
         self._fn = (graphs.CapturedFunction(self._raw, device=device,
                                             name="guarded_train_step",
                                             epoch_keyed=True)

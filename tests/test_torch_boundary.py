@@ -194,3 +194,27 @@ def test_chip_smoke_refuses_without_cuda_or_checkout(tmp_path, alone):
                               "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def test_device_and_roofline_modules_are_in_the_boundary(no_cuda):
+    """The mesh, sharding, collectives, analyzer, report and dry-run
+    modules are among the files the import checks above walk, and they
+    need no GPU: a single process has no local mesh, the production
+    meshes are abstract, and the dry run prices a cell on ``meta`` (only
+    where the caller asks for it: the model entry points still refuse to
+    carry on on the CPU)."""
+    files = {str(p.relative_to(PORT)) for p in PORT.rglob("*.py")}
+    assert {"distributed/context.py", "distributed/sharding.py",
+            "distributed/collectives.py", "launch/mesh.py",
+            "launch/dryrun.py", "roofline/op_analysis.py",
+            "roofline/report.py", "kernels/meta.py"} <= files
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, mesh
+    assert mesh.make_local_mesh() is None
+    assert mesh.make_production_mesh(multi_pod=True).size == 512
+    cell = dryrun.dryrun_cell("fairsquare-demo",
+                              ShapeConfig("t", 16, 2, "decode"),
+                              overrides={"_reduced": True}, verbose=False)
+    assert cell["dot_flops_per_device"] > 0
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(get_config("fairsquare-demo").reduced())
